@@ -99,13 +99,21 @@ def head_terms(rng: np.random.Generator, n: int, k_max: int = 3
 
 
 def request_mixes(n: int, seed: int = 7) -> dict[str, list[dict]]:
-    """The five request mixes of the main path, `n` requests each:
-    (a) match on message, 1-3 head terms (forward-index scoring);
+    """The seven request mixes of the main path, `n` requests each:
+    (a) match on message, 1-3 head terms (forward-index scoring; the
+        fused bundle engine);
     (b) bool must-match + range filter on size + terms filter on status,
-        with terms(status)->sum(size) and a daily date_histogram;
+        with terms(status)->sum(size) and a daily date_histogram (the
+        keyword terms filter keeps it off the fused engine);
     (c) prefix on message over tail words (posting scatter, many terms);
     (d) term on body (posting scatter on a field without forward index);
-    (e) size 0, a range filter and aggregations only."""
+    (e) size 0, a range filter and aggregations only;
+    (f) match_range_aggs: bool must-match + range filter on size with
+        (b)'s aggs, size 10 (the fused engine with the match mask);
+    (g) count_match: match on message, size 0, terms on status (the
+        fused engine's mask-only grid).
+    (f) and (g) draw from their own generator, so (a)-(e) are the same
+    requests for a seed whatever (f) and (g) hold."""
     rng = np.random.default_rng(seed)
     texts = head_terms(rng, 2 * n)
     body_w = zipf_weights(BODY_VOCAB)
@@ -140,5 +148,21 @@ def request_mixes(n: int, seed: int = 7) -> dict[str, list[dict]]:
                                    "aggs": {"avg_size": {"avg": {
                                        "field": "size"}}}},
                      "per_day": aggs["per_day"]},
+            "size": 0})
+    rng2 = np.random.default_rng([seed, 2])
+    texts2 = head_terms(rng2, 2 * n)
+    mixes["match_range_aggs"] = []
+    mixes["count_match"] = []
+    for i in range(n):
+        lo = int(rng2.integers(100, 60_000))
+        mixes["match_range_aggs"].append({
+            "query": {"bool": {
+                "must": [{"match": {"message": texts2[i]}}],
+                "filter": [{"range": {"size": {"gte": lo,
+                                               "lte": lo + 40_000}}}]}},
+            "aggs": aggs, "size": 10})
+        mixes["count_match"].append({
+            "query": {"match": {"message": texts2[n + i]}},
+            "aggs": {"by_status": {"terms": {"field": "status"}}},
             "size": 0})
     return mixes

@@ -74,6 +74,33 @@ def build_tile_max(fwd_tids: np.ndarray, fwd_imps: np.ndarray,
     return out
 
 
+def build_tile_minmax(values: np.ndarray, exists: np.ndarray, cap: int,
+                      tile: int | None = None
+                      ) -> tuple[np.ndarray, np.ndarray] | None:
+    """Per-tile [lo, hi] extrema of a single-valued numeric column over
+    the SCORE_TILE grid, the summary that lets the fused bool engine
+    prune tiles a range filter cannot match in. Tiles with no existing
+    value get an empty interval (lo > hi), so they always prune; NaN
+    values (which match no range) stay out of the extrema. None when the
+    tile grid would be degenerate for this cap."""
+    if tile is None:
+        tile = score_tile_size(cap)
+    if cap % tile != 0 or (tile < BLOCK and tile < cap):
+        return None
+    n_tiles = cap // tile
+    v = values[:cap].reshape(n_tiles, tile)
+    e = exists[:cap].reshape(n_tiles, tile)
+    if values.dtype == np.float32:
+        lo_pad, hi_pad = np.float32(np.inf), np.float32(-np.inf)
+        e = e & ~np.isnan(v)
+    else:
+        lo_pad = np.iinfo(values.dtype).max
+        hi_pad = np.iinfo(values.dtype).min
+    lo = np.where(e, v, lo_pad).min(axis=1)
+    hi = np.where(e, v, hi_pad).max(axis=1)
+    return lo, hi
+
+
 @dataclass
 class PostingsField:
     """Inverted index for one analyzed text field, in block-CSR layout.

@@ -1,14 +1,22 @@
 """Hand-written Hopper kernels for the BM25 scoring hot loop.
 
-Counterpart of `elasticsearch_tpu/ops/pallas_scoring.py` for the two
-kernels the unfused search path runs:
+Counterpart of `elasticsearch_tpu/ops/pallas_scoring.py`, one kernel per
+Pallas kernel:
 
-* `dense_score` (csrc/dense_score.cu) replaces `_dense_kernel` /
+* K1 `dense_score` (csrc/dense_score.cu) replaces `_dense_kernel` /
   `score_terms_dense_pallas`: the forward-index compare+FMA
   out[b, d] = sum_q wq[b, q] * sum_l [tids[d, l] == qt[b, q]] * imps[d, l].
-* `scatter_add` (csrc/scatter_add.cu) replaces `_scatter_kernel` /
+* K2 `scatter_add` (csrc/scatter_add.cu) replaces `_scatter_kernel` /
   `scatter_add_pallas`: out[b, docs[b, n]] += vals[b, n], docs outside
   [0, cap) dropped, each doc summed in ascending n.
+* K3 `bundle_topk` (csrc/bundle_topk.cu) replaces `_make_bundle_kernel`
+  / `fused_topk_bundle_pallas` / `match_mask_bundle_pallas`: the fused
+  block-max walk over a bool clause bundle (dense text clauses, numeric
+  range masks), per doc tile the exact match count, a prune flag, the ck
+  best candidates (ck > 0) and the match mask (emit_match). Its entries
+  are `fused_topk_bundle`, `match_mask_bundle` (the ck == 0 grid) and
+  `fused_topk_dense`; the walk's positional leaf, stepped form and
+  streaming chaining are not ported yet.
 
 Each kernel sits beside its plain PyTorch version (`*_ref`), which
 repeats the kernel's arithmetic op for op. A wrapper takes the plain
@@ -21,8 +29,7 @@ The kernels build at first use from the `.cu` sources beside this file
 with `nvcc` for `sm_90a` (one compiler process per source, all started
 together) into `_build/`, and load through ctypes with a plain C
 interface; nothing is compiled or imported from a GPU toolchain when the
-module is imported. The fused block-max bundle kernel of the reference
-module (`_make_bundle_kernel`) is not ported yet.
+module is imported.
 """
 
 from __future__ import annotations
@@ -38,11 +45,12 @@ from pathlib import Path
 
 import torch
 
-LAUNCHES = {"dense_score": 0, "scatter_add": 0}
+LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-_SOURCES = {"dense_score": "dense_score.cu", "scatter_add": "scatter_add.cu"}
+_SOURCES = {"dense_score": "dense_score.cu", "scatter_add": "scatter_add.cu",
+            "bundle_topk": "bundle_topk.cu"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _LANES = 128
@@ -73,6 +81,8 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
     fn = getattr(lib, name)
     if name == "dense_score":
         fn.argtypes = [P, P, P, P, P, I, I, I, I, P]
+    elif name == "bundle_topk":
+        fn.argtypes = [ctypes.POINTER(_BundleArgs), P]
     else:
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
     fn.restype = ctypes.c_int
@@ -280,3 +290,408 @@ def scatter_add(docs: torch.Tensor, vals: torch.Tensor,
     _raise_on(err, "scatter_add")
     LAUNCHES["scatter_add"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K3: fused block-max bundle walk
+# ---------------------------------------------------------------------------
+
+BUNDLE_BT = 8            # query rows per block (one warp each in selection)
+BUNDLE_MAX_CLAUSES = 8   # the executor's _FUSED_MAX_CLAUSES
+BUNDLE_MAX_QM = 8        # widest dense clause (_DENSE_GROUP_MAX terms)
+_BUNDLE_TARGET_BLOCKS = 2048   # ~16 blocks per SM on 132 SMs
+_ROLES = {"must": 0, "filter": 1, "must_not": 2, "should": 3}
+_KINDS = {"terms_dense": 0, "term_text": 0, "range_int": 1, "range_f32": 2}
+
+
+def bundle_chunk_tiles(B: int, n_tiles: int) -> int:
+    """Doc tiles walked in order by one block: enough (batch tile x
+    chunk) blocks to fill the card, the longest chunks that do so (a
+    chunk's threshold starts at -inf, so longer chunks prune more)."""
+    n_bt = -(-B // BUNDLE_BT)
+    n_chunks = max(1, min(n_tiles, -(-_BUNDLE_TARGET_BLOCKS // n_bt)))
+    return -(-n_tiles // n_chunks)
+
+
+def _stack_bundle_inputs(clauses: tuple, cl_inputs: tuple):
+    """Clause-stacked walk inputs: every dense clause padded to qm = the
+    widest clause (tid -1 / weight 0 padding adds an exact +0.0); range
+    clauses contribute their (lo, hi) pairs in clause order. Returns
+    (qm, qt [B, Cd*qm] i32, wq f32, msmc [B, Cd] i32, boostc f32,
+    ranges ((lo [B], hi [B]), ...))."""
+    dense = [inp for (_r, kind, _f, _w), inp in zip(clauses, cl_inputs)
+             if kind in _KINDS and _KINDS[kind] == 0]
+    if not dense:
+        raise ValueError("bundle has no dense scoring clause")
+    qm = max(inp[0].shape[1] for inp in dense)
+    qts, wqs, msmcs, boostcs, ranges = [], [], [], [], []
+    for (_r, kind, _f, _w), inp in zip(clauses, cl_inputs):
+        if kind not in _KINDS:
+            raise ValueError(f"clause kind [{kind}] has no bundle form")
+        if _KINDS[kind] == 0:
+            qt, wq, msm_c, boost_c = inp
+            pad = qm - qt.shape[1]
+            qts.append(torch.nn.functional.pad(qt, (0, pad), value=-1))
+            wqs.append(torch.nn.functional.pad(wq, (0, pad)))
+            msmcs.append(msm_c)
+            boostcs.append(boost_c)
+        else:
+            ranges.append(tuple(inp))
+    return (qm, torch.cat(qts, dim=1).to(torch.int32).contiguous(),
+            torch.cat(wqs, dim=1).to(torch.float32).contiguous(),
+            torch.stack(msmcs, dim=1).to(torch.int32).contiguous(),
+            torch.stack(boostcs, dim=1).to(torch.float32).contiguous(),
+            tuple(ranges))
+
+
+def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
+                    cl_inputs: tuple, msm: torch.Tensor, boost: torch.Tensor,
+                    live: torch.Tensor, can: torch.Tensor, ub: torch.Tensor,
+                    *, ck: int, update_thr: bool, emit_match: bool,
+                    bt: int = BUNDLE_BT, chunk_tiles: int | None = None):
+    """Plain version of the K3 walk, on any device. Rows go in batch
+    tiles of `bt`, doc tiles in chunks of `chunk_tiles` consecutive
+    tiles; each (batch tile, chunk) walks its tiles in order with a
+    per-row threshold seeded at -inf. Per (batch tile, doc tile):
+
+      * no row can match -> hard skip: counts 0, flag 2, mask rows 0;
+      * else the exact match count (and mask); with ck > 0, when some
+        row's bound beats its threshold the ck best (score desc, lower
+        doc first; -inf / 0 past the matches) with flag 0, and the
+        threshold rises to the ck-th best when update_thr; otherwise
+        flag 1 and no candidates.
+
+    The chunks run side by side here (step i walks tile i of every
+    chunk), which changes nothing: each chunk's state is its own.
+    Returns (cs [B, J*ck] f32, ci [B, J*ck] i32, cnt [B, J] i32, flags
+    [B, J] i32, match [B, cap] bool or None); cs/ci are None at ck 0."""
+    from .scoring import (bundle_num_fields, bundle_text_fields,
+                          bundle_tile_eval)
+    from .topk import top_k_values
+    B = msm.shape[0]
+    cap = live.shape[0]
+    n_tiles = can.shape[1]
+    tile = cap // n_tiles
+    dev = live.device
+    if chunk_tiles is None:
+        chunk_tiles = bundle_chunk_tiles(B, n_tiles)
+    n_chunks = -(-n_tiles // chunk_tiles)
+    n_bt = -(-B // bt)
+
+    def per_row(x):
+        """[n_bt, ...] batch-tile values -> [B, ...] row values."""
+        return x.repeat_interleave(bt, dim=0)[:B]
+
+    def tile_vote(x):
+        """any over each batch tile's rows: [B, n] -> [B, n]."""
+        pad = torch.zeros((n_bt * bt - B,) + tuple(x.shape[1:]),
+                          dtype=torch.bool, device=dev)
+        return per_row(torch.cat([x, pad]).reshape(
+            (n_bt, bt) + tuple(x.shape[1:])).any(dim=1))
+
+    cnt = torch.zeros((B, n_tiles), dtype=torch.int32, device=dev)
+    flags = torch.zeros((B, n_tiles), dtype=torch.int32, device=dev)
+    match_out = (torch.zeros((B, cap), dtype=torch.bool, device=dev)
+                 if emit_match else None)
+    cs = ci = None
+    if ck > 0:
+        cs = torch.full((B, n_tiles * ck), float("-inf"),
+                        dtype=torch.float32, device=dev)
+        ci = torch.zeros((B, n_tiles * ck), dtype=torch.int32, device=dev)
+    thr = torch.full((B, n_chunks), float("-inf"), dtype=torch.float32,
+                     device=dev)
+    for step in range(chunk_tiles):
+        chunks = torch.arange(n_chunks, device=dev)
+        tiles = chunks * chunk_tiles + step
+        keep = tiles < n_tiles
+        chunks, tiles = chunks[keep], tiles[keep]
+        nc = tiles.numel()
+        docs = (tiles[:, None] * tile
+                + torch.arange(tile, device=dev)[None, :]).reshape(-1)
+        text_tiles = {f: (text_cols[f]["fwd_tids"][docs],
+                          text_cols[f]["fwd_imps"][docs])
+                      for f in bundle_text_fields(clauses)}
+        num_tiles = {f: (num_cols[f]["values"][docs],
+                         num_cols[f]["exists"][docs])
+                     for f in bundle_num_fields(clauses)}
+        score, match = bundle_tile_eval(clauses, cl_inputs, text_tiles,
+                                        num_tiles, msm, boost, live[docs])
+        score = score.reshape(B, nc, tile)
+        can_j = can[:, tiles]                                # [B, nc]
+        any_hit = tile_vote(can_j)
+        match = match.reshape(B, nc, tile) & any_hit[..., None]
+        cnt[:, tiles] = match.sum(dim=-1, dtype=torch.int32)
+        if emit_match:
+            match_out[:, docs] = match.reshape(B, nc * tile)
+        if ck == 0:
+            flags[:, tiles] = torch.where(any_hit, 0, 2).to(torch.int32)
+            continue
+        thr_j = thr[:, chunks]
+        any_top = tile_vote(can_j & (ub[:, tiles] > thr_j))
+        cand = torch.where(match, score, float("-inf"))
+        v, p = top_k_values(cand.reshape(B * nc, tile), ck)
+        v, p = v.reshape(B, nc, ck), p.reshape(B, nc, ck)
+        sel = (any_hit & any_top)[..., None]
+        cols = (tiles[:, None] * ck
+                + torch.arange(ck, device=dev)[None, :]).reshape(-1)
+        v = torch.where(sel, v, float("-inf"))
+        cs[:, cols] = v.reshape(B, nc * ck)
+        gid = p + (tiles * tile).to(torch.int32)[None, :, None]
+        ci[:, cols] = torch.where(v > float("-inf"), gid,
+                                  0).to(torch.int32).reshape(B, nc * ck)
+        flags[:, tiles] = torch.where(
+            ~any_hit, 2, torch.where(any_top, 0, 1)).to(torch.int32)
+        if update_thr:
+            thr[:, chunks] = torch.maximum(thr_j, v[..., ck - 1])
+    return cs, ci, cnt, flags, match_out
+
+
+class _BundleArgs(ctypes.Structure):
+    """Mirror of `struct BundleArgs` in csrc/bundle_topk.cu."""
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    _fields_ = [("tids", _P * 8), ("imps", _P * 8), ("L", _I * 8),
+                ("vals", _P * 8), ("exists", _P * 8), ("live", _P),
+                ("clause", (_I * 4) * 8), ("n_clauses", _I),
+                ("qt", _P), ("wq", _P), ("msmc", _P), ("boostc", _P),
+                ("msm", _P), ("boost", _P), ("lo", _P), ("hi", _P),
+                ("can", _P), ("ub", _P), ("cs", _P), ("ci", _P),
+                ("cnt", _P), ("flags", _P), ("match", _P),
+                ("B", _I), ("cap", _I), ("tile", _I), ("n_tiles", _I),
+                ("qm", _I), ("n_dense", _I), ("n_range", _I), ("ck", _I),
+                ("update_thr", _I), ("chunk_tiles", _I),
+                ("emit_match", _I)]
+
+
+def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
+                cl_inputs: tuple, msm: torch.Tensor, boost: torch.Tensor,
+                live: torch.Tensor, can: torch.Tensor, ub: torch.Tensor, *,
+                ck: int, update_thr: bool, emit_match: bool):
+    """The K3 walk (csrc/bundle_topk.cu) with `bundle_walk_ref`'s
+    outputs, batch tile BUNDLE_BT and chunks of `bundle_chunk_tiles`.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise."""
+    if live.device.type == "cpu":
+        return bundle_walk_ref(text_cols, num_cols, clauses, cl_inputs, msm,
+                               boost, live, can, ub, ck=ck,
+                               update_thr=update_thr, emit_match=emit_match)
+    dev = live.device
+    B = msm.shape[0]
+    cap = live.shape[0]
+    n_tiles = can.shape[1]
+    tile = cap // n_tiles
+    if len(clauses) > BUNDLE_MAX_CLAUSES:
+        raise ValueError(f"K3 takes at most {BUNDLE_MAX_CLAUSES} clauses")
+    if B > 65535 * BUNDLE_BT or n_tiles * tile != cap or tile > 1024:
+        raise ValueError(f"K3 cannot walk B {B}, cap {cap}, "
+                         f"{n_tiles} tiles")
+    qm, qt, wq, msmc, boostc, ranges = _stack_bundle_inputs(clauses,
+                                                            cl_inputs)
+    if qm > BUNDLE_MAX_QM:
+        raise ValueError(f"K3 takes dense clauses of at most "
+                         f"{BUNDLE_MAX_QM} terms, got {qm}")
+    a = _BundleArgs()
+    text_fields, num_fields = [], []
+    dc = ri = 0
+    for c, (role, kind, field, _w) in enumerate(clauses):
+        if _KINDS[kind] == 0:
+            if field not in text_fields:
+                col = text_cols[field]
+                tids, imps = col["fwd_tids"], col["fwd_imps"]
+                L = tids.shape[1]
+                _check(tids, f"{field}.fwd_tids", torch.int32, 2, dev)
+                _check(imps, f"{field}.fwd_imps", torch.float32, 2, dev)
+                if tids.shape[0] != cap or imps.shape != tids.shape:
+                    raise ValueError(f"{field}: forward index "
+                                     f"{tuple(tids.shape)} != cap {cap}")
+                i = len(text_fields)
+                a.tids[i], a.imps[i], a.L[i] = (tids.data_ptr(),
+                                                imps.data_ptr(), L)
+                text_fields.append(field)
+            slot, fidx = dc, text_fields.index(field)
+            dc += 1
+        else:
+            if field not in num_fields:
+                col = num_cols[field]
+                vals = col["values"]
+                want = torch.int32 if kind == "range_int" else torch.float32
+                _check(vals, f"{field}.values", want, 1, dev)
+                _check(col["exists"], f"{field}.exists", torch.bool, 1, dev)
+                if vals.shape[0] != cap or col["exists"].shape[0] != cap:
+                    raise ValueError(f"{field}: column length != cap {cap}")
+                i = len(num_fields)
+                a.vals[i], a.exists[i] = (vals.data_ptr(),
+                                          col["exists"].data_ptr())
+                num_fields.append(field)
+            slot, fidx = ri, num_fields.index(field)
+            ri += 1
+        a.clause[c][0], a.clause[c][1] = _ROLES[role], _KINDS[kind]
+        a.clause[c][2], a.clause[c][3] = fidx, slot
+    _check(live, "live", torch.bool, 1, dev)
+    msm_i = msm.to(torch.int32).contiguous()
+    boost_f = boost.to(torch.float32).contiguous()
+    can_b = can.to(torch.bool).contiguous()
+    ub_f = ub.to(torch.float32).contiguous()
+    for t, what in ((can_b, "can"), (ub_f, "ub")):
+        if t.shape != (B, n_tiles) or t.device != dev:
+            raise ValueError(f"{what} {tuple(t.shape)} != {(B, n_tiles)}")
+    lo = hi = None
+    if ranges:
+        lo = torch.stack([r[0].to(torch.int32) if r[0].dtype == torch.int32
+                          else r[0].to(torch.float32).view(torch.int32)
+                          for r in ranges], dim=1).contiguous()
+        hi = torch.stack([r[1].to(torch.int32) if r[1].dtype == torch.int32
+                          else r[1].to(torch.float32).view(torch.int32)
+                          for r in ranges], dim=1).contiguous()
+    cnt = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
+    flags = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
+    cs = ci = match = None
+    if ck > 0:
+        cs = torch.empty((B, n_tiles * ck), dtype=torch.float32, device=dev)
+        ci = torch.empty((B, n_tiles * ck), dtype=torch.int32, device=dev)
+    if emit_match:
+        match = torch.empty((B, cap), dtype=torch.bool, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    a.live, a.n_clauses = live.data_ptr(), len(clauses)
+    a.qt, a.wq, a.msmc, a.boostc = ptr(qt), ptr(wq), ptr(msmc), ptr(boostc)
+    a.msm, a.boost, a.lo, a.hi = ptr(msm_i), ptr(boost_f), ptr(lo), ptr(hi)
+    a.can, a.ub = ptr(can_b), ptr(ub_f)
+    a.cs, a.ci, a.cnt, a.flags = ptr(cs), ptr(ci), ptr(cnt), ptr(flags)
+    a.match = ptr(match)
+    a.B, a.cap, a.tile, a.n_tiles = B, cap, tile, n_tiles
+    a.qm, a.n_dense, a.n_range, a.ck = qm, dc, ri, ck
+    a.update_thr, a.emit_match = int(update_thr), int(emit_match)
+    a.chunk_tiles = bundle_chunk_tiles(B, n_tiles)
+    fn = _fn("bundle_topk")
+    err = fn(ctypes.byref(a), _stream(dev))
+    _raise_on(err, "bundle_topk")
+    LAUNCHES["bundle_topk"] += 1
+    return cs, ci, cnt, flags, match
+
+
+def normalize_prune(flags: torch.Tensor, bt: int = BUNDLE_BT
+                    ) -> torch.Tensor:
+    """Per-(batch tile, doc tile) prune flags -> f32 [3] (hard skipped,
+    thresholded, examined) in doc-tile units: averaged over batch tiles,
+    so examined == n_tiles."""
+    reps = flags[::bt]
+    return (torch.stack([(reps == 2).sum(), (reps == 1).sum(),
+                         torch.tensor(reps.numel(), device=flags.device)])
+            .to(torch.float32) / reps.shape[0])
+
+
+def _bundle_prep(text_cols, num_cols, clauses, cl_inputs, msm, boost):
+    from .scoring import bundle_tile_bounds
+    if boost is None:
+        boost = torch.ones(msm.shape, dtype=torch.float32, device=msm.device)
+    can, ub = bundle_tile_bounds(clauses, cl_inputs, text_cols, num_cols,
+                                 msm, boost)
+    return boost, can, ub
+
+
+def _fused_topk(walk, text_cols, num_cols, clauses, cl_inputs, msm, boost,
+                live, k, emit_match):
+    from .scoring import bundle_primary_field
+    from .topk import top_k_values
+    cap = live.shape[0]
+    k_sel = min(k, cap)
+    n_tiles = text_cols[bundle_primary_field(clauses)]["tile_max"].shape[1]
+    ck = min(k_sel, cap // n_tiles)
+    boost, can, ub = _bundle_prep(text_cols, num_cols, clauses, cl_inputs,
+                                  msm, boost)
+    cs, ci, cnt, flags, match = walk(
+        text_cols, num_cols, clauses, cl_inputs, msm, boost, live, can, ub,
+        ck=ck, update_thr=(ck == k_sel), emit_match=emit_match)
+    # tile-major strip: ties go to the lower flat index, i.e. the lower
+    # tile and then the lower doc, as one top-k over [B, cap] would
+    top_s, pos = top_k_values(cs, min(k_sel, cs.shape[1]))
+    top_i = ci.gather(1, pos.to(torch.int64))
+    out = (top_s, top_i, cnt.sum(dim=1, dtype=torch.int32),
+           normalize_prune(flags))
+    return out + (match,) if emit_match else out
+
+
+def _match_mask(walk, text_cols, num_cols, clauses, cl_inputs, msm, boost,
+                live, emit_match):
+    boost, can, ub = _bundle_prep(text_cols, num_cols, clauses, cl_inputs,
+                                  msm, boost)
+    _cs, _ci, cnt, flags, match = walk(
+        text_cols, num_cols, clauses, cl_inputs, msm, boost, live, can, ub,
+        ck=0, update_thr=False, emit_match=emit_match)
+    out = (cnt.sum(dim=1, dtype=torch.int32), normalize_prune(flags))
+    return out + (match,) if emit_match else out
+
+
+def fused_topk_bundle_ref(text_cols: dict, num_cols: dict, clauses: tuple,
+                          cl_inputs: tuple, msm: torch.Tensor,
+                          boost: torch.Tensor | None, live: torch.Tensor,
+                          k: int, emit_match: bool = False):
+    """Plain version of `fused_topk_bundle` (the walk in torch)."""
+    return _fused_topk(bundle_walk_ref, text_cols, num_cols, clauses,
+                       cl_inputs, msm, boost, live, k, emit_match)
+
+
+def fused_topk_bundle(text_cols: dict, num_cols: dict, clauses: tuple,
+                      cl_inputs: tuple, msm: torch.Tensor,
+                      boost: torch.Tensor | None, live: torch.Tensor,
+                      k: int, emit_match: bool = False):
+    """Fused block-max score + top-k over a clause bundle (reference
+    `fused_topk_bundle_pallas`). Returns (top_s [B, k], top_i [B, k],
+    total [B] i32, prune_stats f32 [3] = (hard, thresholded, examined)
+    in doc-tile units) plus the match mask [B, cap] bool when
+    emit_match. Entries past a row's total are -inf with undefined ids.
+    CPU tensors take the plain version."""
+    if live.device.type == "cpu":
+        return fused_topk_bundle_ref(text_cols, num_cols, clauses,
+                                     cl_inputs, msm, boost, live, k,
+                                     emit_match)
+    return _fused_topk(bundle_walk, text_cols, num_cols, clauses,
+                       cl_inputs, msm, boost, live, k, emit_match)
+
+
+def match_mask_bundle_ref(text_cols: dict, num_cols: dict, clauses: tuple,
+                          cl_inputs: tuple, msm: torch.Tensor,
+                          boost: torch.Tensor | None, live: torch.Tensor,
+                          emit_match: bool = True):
+    """Plain version of `match_mask_bundle`."""
+    return _match_mask(bundle_walk_ref, text_cols, num_cols, clauses,
+                       cl_inputs, msm, boost, live, emit_match)
+
+
+def match_mask_bundle(text_cols: dict, num_cols: dict, clauses: tuple,
+                      cl_inputs: tuple, msm: torch.Tensor,
+                      boost: torch.Tensor | None, live: torch.Tensor,
+                      emit_match: bool = True):
+    """The mask-only k == 0 grid (reference `match_mask_bundle_pallas`):
+    the ck == 0 build of K3, exact counts and, when emit_match, the
+    match mask, with msm-aware hard skips and no selection. Returns
+    (total [B], prune_stats f32 [3]) (+ match [B, cap] bool). CPU
+    tensors take the plain version."""
+    if live.device.type == "cpu":
+        return match_mask_bundle_ref(text_cols, num_cols, clauses,
+                                     cl_inputs, msm, boost, live,
+                                     emit_match)
+    return _match_mask(bundle_walk, text_cols, num_cols, clauses, cl_inputs,
+                       msm, boost, live, emit_match)
+
+
+def fused_topk_dense(fwd_tids: torch.Tensor, fwd_imps: torch.Tensor,
+                     tile_max: torch.Tensor, qt: torch.Tensor,
+                     wq: torch.Tensor, live: torch.Tensor, k: int,
+                     msm: torch.Tensor | None = None,
+                     boost: torch.Tensor | None = None):
+    """Single-dense-clause entry: one should clause, the enclosing bool's
+    msm/boost as the outer params."""
+    b = qt.shape[0]
+    if msm is None:
+        msm = torch.ones((b,), dtype=torch.int32, device=qt.device)
+    clauses = (("should", "terms_dense", "f", False),)
+    cl_inputs = ((qt, wq, torch.ones((b,), dtype=torch.int32,
+                                     device=qt.device),
+                  torch.ones((b,), dtype=torch.float32, device=qt.device)),)
+    text_cols = {"f": {"fwd_tids": fwd_tids, "fwd_imps": fwd_imps,
+                       "tile_max": tile_max}}
+    return fused_topk_bundle(text_cols, {}, clauses, cl_inputs, msm, boost,
+                             live, k)

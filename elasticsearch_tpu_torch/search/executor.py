@@ -1,7 +1,8 @@
 """Per-segment query execution: bind -> device evaluation -> top-k + aggs.
 
-Counterpart of the unfused half of `elasticsearch_tpu/search/executor.py`.
-Execution has the reference's two steps:
+Counterpart of `elasticsearch_tpu/search/executor.py`, its unfused path
+and the fused block-max bundle engine. Execution has the reference's two
+steps:
 
   * bind (host): resolve terms against the segment dictionary to block
     ranges / ordinals / bounds, producing a hashable static `desc` tree
@@ -9,24 +10,34 @@ Execution has the reference's two steps:
     one evaluation (leading dim B). `QueryBinder`, `finalize` and
     `_finalize_node` are the reference's code, trimmed to this slice's
     queries.
-  * evaluate (device): the `desc` interpreter `eval_node` builds dense
-    [B, cap] scores and match masks on the reader's device, then top-k
-    (`ops/topk`) and the aggregation desc interpreter `eval_aggs`
-    (`ops/aggs`). PyTorch runs eagerly, so the reference's jit, packed
-    wire format and compile caches have no counterpart: dispatch enqueues
-    work on the current CUDA stream and `collect_segment_result`
-    synchronises with one device-to-host copy per dtype.
+  * evaluate (device): a score-sorted plan that `_fused_plan_bundle`
+    admits (a bare match/term, or a bool over dense text clauses with
+    range filter/must_not clauses, with or without aggs, size 0
+    included) runs on the fused bundle engine: `eval_fused_topk` /
+    `eval_fused_match` call `ops/cuda_scoring.fused_topk_bundle` /
+    `match_mask_bundle`, the hand-written kernel K3, which never builds
+    the [B, cap] score matrix. Every other plan runs the `desc`
+    interpreter `eval_node` into dense [B, cap] scores and match masks,
+    then top-k (`ops/topk`); aggregations go through `eval_aggs`
+    (`ops/aggs`) on either path. `ES_TPU_FUSED=0` (the reference's
+    switch, read the same way) sends every plan down the unfused path.
+    PyTorch runs eagerly, so the reference's jit, packed wire format and
+    compile caches have no counterpart: dispatch enqueues work on the
+    current CUDA stream and `collect_segment_result` synchronises with
+    one device-to-host copy per dtype.
 
-Text clauses run on the hand-written kernels of `ops/cuda_scoring`:
-`term_text` / `terms_dense` on `dense_score`, `term_text_sc` /
-`terms_fused` / `docs_w` on `scatter_add`. The fused block-max bundle
-engine, tiering, residency, autotuning and breaker holds are not ported
-yet; this is the reference's unfused configuration (`ES_TPU_FUSED=0`).
+Text clauses of the unfused path run on the hand-written kernels of
+`ops/cuda_scoring`: `term_text` / `terms_dense` on `dense_score`,
+`term_text_sc` / `terms_fused` / `docs_w` on `scatter_add`. The fused
+engine's backend autotuner, stepped/resident form, positional and knn
+clauses, tiering and breaker holds are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import threading
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Sequence
 
@@ -35,10 +46,13 @@ import torch
 
 from ..index.mapping import (MapperService, parse_date_millis, parse_ip,
                              MapperParsingError, DATE, BOOLEAN, IP)
-from ..index.segment import Segment, next_pow2, bm25_idf
+from ..index.segment import (Segment, next_pow2, bm25_idf,
+                             build_tile_minmax)
 from ..ops import aggs as agg_ops
 from ..ops import cuda_scoring
-from ..ops.scoring import score_term, score_terms_fused
+from ..ops.scoring import (DENSE_CLAUSE_KINDS, RANGE_CLAUSE_KINDS,
+                           bundle_num_fields, bundle_primary_field,
+                           bundle_text_fields, score_term, score_terms_fused)
 from ..ops.topk import top_k_hits, top_k_by_field, top_k_values
 from ..utils.errors import QueryParsingError, SearchParseError
 from .query_dsl import (Query, MatchAllQuery, MatchNoneQuery, TermQuery,
@@ -63,7 +77,8 @@ def _up(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def device_arrays(segment: Segment, device: torch.device) -> dict:
     """Upload (once per device) and return the segment's device columns:
     int32 / float32 / bool tensors exactly as the numpy columns hold
-    them. Only the columns the unfused path reads are uploaded."""
+    them: the columns the unfused path reads, plus each forward-indexed
+    field's block-max summary `tile_max` for the fused engine."""
     cached = getattr(segment, "_device", None)
     if cached is not None and cached[0] == device:
         return cached[1]
@@ -76,6 +91,8 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
                 **({"fwd_tids": _up(pf.fwd_tids, device),
                     "fwd_imps": _up(pf.fwd_imps, device)}
                    if pf.fwd_tids is not None else {}),
+                **({"tile_max": _up(pf.tile_max, device)}
+                   if pf.tile_max is not None else {}),
             }
             for name, pf in segment.text.items()
         },
@@ -103,6 +120,42 @@ def _host_perms(segment: Segment) -> dict:
         hp = {}
         segment._host_perms = hp  # type: ignore[attr-defined]
     return hp
+
+
+def _host_extrema(segment: Segment, field: str):
+    """Per-segment host cache of build_tile_minmax; None when the column
+    cannot carry extrema (absent, multi-valued, degenerate tile grid)."""
+    cache = getattr(segment, "_host_tile_minmax", None)
+    if cache is None:
+        cache = {}
+        segment._host_tile_minmax = cache  # type: ignore[attr-defined]
+    if field not in cache:
+        nc = segment.numerics.get(field)
+        cache[field] = (None if nc is None or nc.mv_values is not None
+                        else build_tile_minmax(nc.values, nc.exists,
+                                               segment.capacity))
+    return cache[field]
+
+
+def ensure_num_tiles(segment: Segment, field: str,
+                     device: torch.device) -> bool:
+    """Lazily build + upload the per-tile [lo, hi] extrema of a
+    single-valued numeric column, the prune input of fused range filter
+    clauses. Returns False when the column cannot carry extrema."""
+    nc = segment.numerics.get(field)
+    if nc is None or nc.mv_values is not None:
+        return False
+    entry = device_arrays(segment, device)["num"].get(field)
+    if entry is None:
+        return False
+    if "tile_lo" in entry:
+        return True
+    mm = _host_extrema(segment, field)
+    if mm is None:
+        return False
+    entry["tile_lo"] = _up(mm[0], device)
+    entry["tile_hi"] = _up(mm[1], device)
+    return True
 
 
 def ensure_kw_sorted(segment: Segment, field: str,
@@ -1367,6 +1420,253 @@ def eval_aggs(agg_desc: tuple, agg_params: tuple, seg: dict,
 
 
 # ---------------------------------------------------------------------------
+# Fused block-max bundle engine: admission, inputs, evaluation
+# ---------------------------------------------------------------------------
+
+# the bundle kernel's clause table holds at most this many clauses; plans
+# beyond it take the unfused path
+_FUSED_MAX_CLAUSES = 8
+
+
+def fused_enabled() -> bool:
+    """The reference's switch: `ES_TPU_FUSED` set to 0/false/off sends
+    every plan down the unfused path."""
+    return os.environ.get("ES_TPU_FUSED", "auto").lower() not in (
+        "0", "false", "off")
+
+
+def _fused_leaf_inputs(desc: tuple, params: tuple):
+    if desc[0] == "terms_dense":
+        qt, wq = params
+        return qt, wq
+    tid, weight = params                     # term_text: single-term Q=1
+    return tid[:, None], weight[:, None]
+
+
+def _classify_fused_leaf(desc: tuple):
+    """(kind, field, wrapped) of a scoring clause the bundle engine
+    evaluates per tile: a bare terms_dense / term_text leaf, or one
+    wrapped in a single-should bool that carries its own (msm, boost).
+    None for anything else."""
+    if desc[0] in DENSE_CLAUSE_KINDS:
+        return (desc[0], desc[1], False)
+    if desc[0] == "bool":
+        _, must, should, must_not, filt = desc
+        if not must and not must_not and not filt and len(should) == 1 \
+                and should[0][0] in DENSE_CLAUSE_KINDS:
+            return (should[0][0], should[0][1], True)
+    return None
+
+
+def _fused_plan_bundle(desc: tuple, k: int, agg_desc, sort_spec: tuple,
+                       allow_aggs: bool = True, allow_k0: bool = False):
+    """Plan-level admission -> (bundle, None) with the static clause
+    bundle in eval_node order (must, filter, must_not, should), or
+    (None, reject reason). Needs a pure score sort; k == 0 plans only
+    where the caller runs the mask-only grid (allow_k0). Clause kinds
+    the bundle has no form for (keyword sets, posting-scatter terms,
+    knn, positional) are rejected by reason, never half-run."""
+    if not fused_enabled():
+        return None, "disabled"
+    if k <= 0 and not allow_k0:
+        return None, "k_zero"
+    if tuple(sort_spec) != ("_score",):
+        return None, "sort"
+    if agg_desc and not allow_aggs:
+        return None, "aggs_unsupported"
+    if desc[0] in DENSE_CLAUSE_KINDS:
+        return (("should", desc[0], desc[1], False),), None
+    if desc[0] != "bool":
+        return None, f"clause:{desc[0]}"
+    _, d_must, d_should, d_not, d_filter = desc
+    clauses = []
+    for role, group in (("must", d_must), ("filter", d_filter),
+                        ("must_not", d_not), ("should", d_should)):
+        for c in group:
+            leaf = _classify_fused_leaf(c)
+            if leaf is not None:
+                clauses.append((role,) + leaf)
+            elif role in ("filter", "must_not") \
+                    and c[0] in RANGE_CLAUSE_KINDS:
+                clauses.append((role, c[0], c[1], False))
+            else:
+                return None, f"clause:{c[0]}"
+    if not any(kd in DENSE_CLAUSE_KINDS for _r, kd, _f, _w in clauses):
+        return None, "no_scoring_clause"
+    if len(clauses) > _FUSED_MAX_CLAUSES:
+        return None, "too_many_clauses"
+    return tuple(clauses), None
+
+
+def _bundle_inputs(desc: tuple, params: tuple, bundle: tuple, B: int,
+                   device: torch.device):
+    """Per-clause inputs of an admitted plan -> (cl_inputs, msm [B] i32,
+    boost [B] f32 | None), walking desc/params in the group order the
+    classifier emitted the bundle in."""
+    ones_i = torch.ones((B,), dtype=torch.int32, device=device)
+    ones_f = torch.ones((B,), dtype=torch.float32, device=device)
+    if desc[0] != "bool":
+        qt, wq = _fused_leaf_inputs(desc, params)
+        return ((qt, wq, ones_i, ones_f),), ones_i, None
+    _, d_must, d_should, d_not, d_filter = desc
+    p_must, p_should, p_not, p_filter, msm, boost = params
+    groups = {"must": (d_must, p_must), "should": (d_should, p_should),
+              "must_not": (d_not, p_not), "filter": (d_filter, p_filter)}
+    nxt = {r: 0 for r in groups}
+    out = []
+    for role, kind, _field, wrapped in bundle:
+        dg, pg = groups[role]
+        d, p = dg[nxt[role]], pg[nxt[role]]
+        nxt[role] += 1
+        if kind in RANGE_CLAUSE_KINDS:
+            lo, hi, _boost_r = p
+            out.append((lo, hi))
+        elif wrapped:
+            _, _cm, c_should, _cn, _cf = d
+            _pm, pc_should, _pn, _pf, msm_c, boost_c = p
+            qt, wq = _fused_leaf_inputs(c_should[0], pc_should[0])
+            out.append((qt, wq, msm_c, boost_c))
+        else:
+            qt, wq = _fused_leaf_inputs(d, p)
+            out.append((qt, wq, ones_i, ones_f))
+    return tuple(out), msm, boost
+
+
+def _fused_pack_ok(segment: Segment, bundle: tuple,
+                   device: torch.device) -> str | None:
+    """Pack-level admission: every dense clause field needs a forward
+    index + tile_max summary, every range clause field per-tile extrema.
+    Returns a reject reason or None."""
+    for _role, kind, field, _w in bundle:
+        if kind in DENSE_CLAUSE_KINDS:
+            pf = segment.text.get(field)
+            if pf is None or pf.fwd_tids is None or pf.tile_max is None:
+                return "missing_tile_max"
+        elif not ensure_num_tiles(segment, field, device):
+            return "missing_tile_minmax"
+    return None
+
+
+def _fused_params_ok(desc: tuple, params: tuple, bundle: tuple) -> bool:
+    """The outer bool boost and every wrapped clause's boost must be > 0:
+    boost <= 0 breaks the monotone bound the pruning rests on."""
+    if desc[0] != "bool":
+        return True
+    if not bool((np.asarray(params[5]) > 0).all()):
+        return False
+    p_groups = {"must": params[0], "should": params[1],
+                "must_not": params[2], "filter": params[3]}
+    nxt = {r: 0 for r in p_groups}
+    for role, _kind, _field, wrapped in bundle:
+        p = p_groups[role][nxt[role]]
+        nxt[role] += 1
+        if wrapped and not bool((np.asarray(p[5]) > 0).all()):
+            return False
+    return True
+
+
+def _fused_row_elems(cap: int, n_tiles: int, k: int,
+                     emit_match: bool = False) -> int:
+    """Per-row transient of a fused dispatch in elements: one [*, tile]
+    scoring slab, the [*, n_tiles*ck] candidate strip, and the [*, cap]
+    match mask in emit-match mode. The batch chunking sizes from it."""
+    tile = cap // n_tiles
+    return tile + n_tiles * min(k, tile) + (cap if emit_match else 0)
+
+
+class _FusedScoringStats:
+    """Admission (admitted, rejected by reason) and block-prune counters
+    of the fused engine, in doc-tile units."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._hard = self._thresholded = self._examined = 0.0
+            self._dispatches = 0
+            self._admitted = 0
+            self._rejected: dict[str, int] = {}
+
+    def record_admit(self) -> None:
+        with self._lock:
+            self._admitted += 1
+
+    def record_reject(self, reason: str) -> None:
+        with self._lock:
+            self._rejected[reason] = self._rejected.get(reason, 0) + 1
+
+    def record_prune(self, hard: float, thresholded: float,
+                     examined: float) -> None:
+        with self._lock:
+            self._hard += float(hard)
+            self._thresholded += float(thresholded)
+            self._examined += float(examined)
+            self._dispatches += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            pruned = self._hard + self._thresholded
+            considered = self._admitted + sum(self._rejected.values())
+            return {
+                "dispatches": self._dispatches,
+                "tiles": {"examined": round(self._examined, 3),
+                          "hard_skipped": round(self._hard, 3),
+                          "thresholded": round(self._thresholded, 3)},
+                "prune_rate": (pruned / self._examined
+                               if self._examined else 0.0),
+                "admission": {
+                    "admitted": self._admitted,
+                    "rejected": dict(self._rejected),
+                    "rate": (self._admitted / considered
+                             if considered else 0.0)},
+            }
+
+
+_fused_stats = _FusedScoringStats()
+
+
+def fused_scoring_stats() -> dict:
+    """Snapshot of the fused engine's admission and prune counters."""
+    return _fused_stats.snapshot()
+
+
+def _bundle_cols(seg: dict, bundle: tuple) -> tuple[dict, dict]:
+    return ({f: seg["text"][f] for f in bundle_text_fields(bundle)},
+            {f: seg["num"][f] for f in bundle_num_fields(bundle)})
+
+
+def eval_fused_topk(seg: dict, desc: tuple, params: tuple,
+                    live: torch.Tensor, k: int, bundle: tuple, B: int,
+                    emit_match: bool = False):
+    """Fused score + top-k on K3 -> (top_s [B, k], top_i [B, k], total
+    [B], prune_stats f32 [3]) plus the match mask [B, cap] when
+    emit_match (the fused + aggs mode)."""
+    cl_inputs, msm, boost = _bundle_inputs(desc, params, bundle, B,
+                                           seg["_device"])
+    if boost is None:
+        boost = torch.ones_like(msm, dtype=torch.float32)
+    text_cols, num_cols = _bundle_cols(seg, bundle)
+    return cuda_scoring.fused_topk_bundle(
+        text_cols, num_cols, bundle, cl_inputs, msm, boost, live, k,
+        emit_match=emit_match)
+
+
+def eval_fused_match(seg: dict, desc: tuple, params: tuple,
+                     live: torch.Tensor, bundle: tuple, B: int,
+                     emit_match: bool = True):
+    """Mask-only grid of K3 for k == 0 plans -> (total [B], prune_stats
+    f32 [3]) plus the match mask [B, cap] when emit_match."""
+    cl_inputs, msm, boost = _bundle_inputs(desc, params, bundle, B,
+                                           seg["_device"])
+    text_cols, num_cols = _bundle_cols(seg, bundle)
+    return cuda_scoring.match_mask_bundle(
+        text_cols, num_cols, bundle, cl_inputs, msm, boost, live,
+        emit_match=emit_match)
+
+
+# ---------------------------------------------------------------------------
 # Segment body: eval -> top-k -> aggs, chunked over the batch
 # ---------------------------------------------------------------------------
 
@@ -1400,10 +1700,18 @@ def _cat_rows(trees: list):
 def _segment_body(seg: dict, params: tuple, live: torch.Tensor,
                   live_views: dict, agg_params: tuple, sort_params: tuple,
                   *, B: int, desc: tuple, agg_desc: tuple, cap: int, k: int,
-                  sort_spec: tuple):
-    bc = _chunk_b(B, cap)
+                  sort_spec: tuple, fused: tuple | None = None):
+    if fused is not None:
+        # the fused transient per row, not the dense [*, cap]
+        n_tiles = seg["text"][bundle_primary_field(fused)][
+            "tile_max"].shape[1]
+        row_elems = _fused_row_elems(cap, n_tiles, k,
+                                     emit_match=bool(agg_desc))
+    else:
+        row_elems = cap
+    bc = _chunk_b(B, row_elems)
     kw = dict(desc=desc, agg_desc=agg_desc, cap=cap, k=k,
-              sort_spec=sort_spec)
+              sort_spec=sort_spec, fused=fused)
     if bc >= B:
         return _segment_body_one(seg, params, live, live_views, agg_params,
                                  sort_params, B=B, **kw)
@@ -1414,10 +1722,48 @@ def _segment_body(seg: dict, params: tuple, live: torch.Tensor,
     return _cat_rows(parts)
 
 
+def _segment_body_fused(seg: dict, params: tuple, live: torch.Tensor,
+                        live_views: dict, agg_params: tuple, *, B: int,
+                        desc: tuple, agg_desc: tuple, cap: int, k: int,
+                        bundle: tuple):
+    """The fused branch: K3 never materialises the [B, cap] score
+    matrix; with aggs it emits the exact match mask for the agg pass."""
+    device = seg["_device"]
+    emit = bool(agg_desc)
+    if k == 0:
+        out = eval_fused_match(seg, desc, params, live, bundle, B,
+                               emit_match=emit)
+        total, pruned = out[:2]
+        top_score = torch.zeros((B, 0), dtype=torch.float32, device=device)
+        top_idx = torch.zeros((B, 0), dtype=torch.int32, device=device)
+    else:
+        out = eval_fused_topk(seg, desc, params, live, k, bundle, B,
+                              emit_match=emit)
+        top_score, top_idx, total, pruned = out[:4]
+    agg_out = {}
+    if emit:
+        plan = _agg_view_plan(desc, agg_desc, agg_params, seg, live_views)
+        views = _ViewMasks(desc, params, seg, live_views, cap, B)
+        agg_out = eval_aggs(agg_desc, agg_params, seg, out[-1], views=views,
+                            plan=plan)
+    # each row carries its share of the dispatch's prune stats, so a
+    # row sum at collect time gives the totals of a chunked batch too
+    prune_rows = (pruned / B)[None, :].expand(B, 3)
+    top_missing = torch.zeros_like(top_idx, dtype=torch.bool)
+    return ((top_score, top_score, top_idx, total, top_missing), agg_out,
+            prune_rows)
+
+
 def _segment_body_one(seg: dict, params: tuple, live: torch.Tensor,
                       live_views: dict, agg_params: tuple,
                       sort_params: tuple, *, B: int, desc: tuple,
-                      agg_desc: tuple, cap: int, k: int, sort_spec: tuple):
+                      agg_desc: tuple, cap: int, k: int, sort_spec: tuple,
+                      fused: tuple | None = None):
+    if fused is not None:
+        return _segment_body_fused(seg, params, live, live_views,
+                                   agg_params, B=B, desc=desc,
+                                   agg_desc=agg_desc, cap=cap, k=k,
+                                   bundle=fused)
     device = seg["_device"]
     plan = _agg_view_plan(desc, agg_desc, agg_params, seg, live_views)
     views = _ViewMasks(desc, params, seg, live_views, cap, B)
@@ -1444,7 +1790,8 @@ def _segment_body_one(seg: dict, params: tuple, live: torch.Tensor,
             total = valid.sum(dim=-1, dtype=torch.int32)
         agg_out = eval_aggs(agg_desc, agg_params, seg, valid, views=views,
                             plan=plan)
-        return (top_score, top_score, top_idx, total, top_missing), agg_out
+        return ((top_score, top_score, top_idx, total, top_missing), agg_out,
+                _zeros(B, 3, device))
 
     if sort_spec[0] == "_score":
         top_key, top_idx, total = top_k_hits(score, valid, k)
@@ -1470,7 +1817,8 @@ def _segment_body_one(seg: dict, params: tuple, live: torch.Tensor,
         top_score = score.gather(1, top_idx.to(torch.int64))
     agg_out = eval_aggs(agg_desc, agg_params, seg, valid, views=views,
                         plan=plan)
-    return (top_score, top_key, top_idx, total, top_missing), agg_out
+    return ((top_score, top_key, top_idx, total, top_missing), agg_out,
+            _zeros(B, 3, device))
 
 
 # ---------------------------------------------------------------------------
@@ -1542,6 +1890,20 @@ def execute_segment_async(segment: Segment, live: np.ndarray,
         bounds = list(bounds) + [bounds[-1]] * (b_pad - n_real)
     desc, params = finalize(bounds)
     k_eff = min(k, segment.capacity)
+    # fused admission: the plan classifier accepts the bundle, the pack
+    # carries the tile summaries, and every bool boost is positive
+    bundle, reject = _fused_plan_bundle(desc, k_eff, agg_desc, sort_spec,
+                                        allow_k0=True)
+    if bundle is not None:
+        reject = _fused_pack_ok(segment, bundle, device)
+        if reject is None and not _fused_params_ok(desc, params, bundle):
+            reject = "nonpositive_boost"
+        if reject is not None:
+            bundle = None
+    if bundle is not None:
+        _fused_stats.record_admit()
+    else:
+        _fused_stats.record_reject(reject)
     dev = device_arrays(segment, device)
     live_dev = _device_live(segment, live, device)
     live_views = _live_views_for(segment, live_dev, agg_desc, device)
@@ -1553,10 +1915,10 @@ def execute_segment_async(segment: Segment, live: np.ndarray,
     out = _segment_body(
         dev, params_d, live_dev, live_views, agg_params_d, sort_params_d,
         B=b_pad, desc=desc, agg_desc=agg_desc, cap=segment.capacity, k=k_eff,
-        sort_spec=sort_spec)
+        sort_spec=sort_spec, fused=bundle)
     # the host wire stays referenced until collect: the upload may still
     # be reading it
-    layout = {"k": k_eff, "wire": wire,
+    layout = {"k": k_eff, "wire": wire, "fused": bundle is not None,
               "key_is_float": _sort_key_is_float(segment, sort_spec)}
     return out, layout, n_real
 
@@ -1564,14 +1926,17 @@ def execute_segment_async(segment: Segment, live: np.ndarray,
 def collect_segment_result(out, layout, n_real: int):
     """Sync + copy to host + slice back to the true B. Returns the
     reference's shape: ((top_score, top_key, top_idx, total,
-    top_missing), agg partial tree of float32 numpy arrays)."""
-    (top_score, top_key, top_idx, total, top_missing), agg_out = out
+    top_missing), agg partial tree of float32 numpy arrays). A fused
+    dispatch's prune stats (summed over the real rows) go to
+    fused_scoring_stats()."""
+    (top_score, top_key, top_idx, total, top_missing), agg_out, prune = out
     B = top_score.shape[0]
     k = layout["k"]
     f_parts = [top_score]
     i_parts = [top_idx, total[:, None], top_missing.to(torch.int32)]
     (f_parts if layout["key_is_float"] else i_parts).append(
         top_key.to(torch.float32 if layout["key_is_float"] else torch.int32))
+    f_parts.append(prune.to(torch.float32))
     agg_leaves = _leaves(agg_out, [])
     f_parts += [leaf.reshape(B, -1).to(torch.float32) for leaf in agg_leaves]
     fbuf = torch.cat(f_parts, dim=1).cpu().numpy()[:n_real]
@@ -1586,6 +1951,10 @@ def collect_segment_result(out, layout, n_real: int):
     else:
         top_key_h = ibuf[:, 2 * k + 1: 3 * k + 1]
         f_off = k
+    if layout.get("fused"):
+        hard, thr, examined = fbuf[:, f_off: f_off + 3].sum(axis=0)
+        _fused_stats.record_prune(hard, thr, examined)
+    f_off += 3
     host_leaves = []
     for leaf in agg_leaves:
         shape = tuple(leaf.shape[1:])

@@ -71,3 +71,174 @@ def test_scatter_add_equals_plain(cuda, B, N, sorted_rows):
     assert cs.LAUNCHES["scatter_add"] == before + 1
     assert torch.equal(got, cs.scatter_add_ref(d, v, cap))
     assert torch.equal(got.cpu(), cs.scatter_add_ref(d.cpu(), v.cpu(), cap))
+
+
+# ---------------------------------------------------------------------------
+# K3: the fused bundle walk
+# ---------------------------------------------------------------------------
+
+_BUNDLES = {
+    "single": (("should", "terms_dense", "f", False),),
+    "main": (("must", "terms_dense", "f", True),
+             ("filter", "range_int", "n", False)),
+    "bundle": (("must", "terms_dense", "f", True),
+               ("filter", "range_int", "n", False),
+               ("filter", "range_f32", "x", False),
+               ("must_not", "terms_dense", "g", False),
+               ("must_not", "range_int", "n", False),
+               ("should", "term_text", "g", False),
+               ("should", "terms_dense", "f", True)),
+}
+
+
+def _fwd(rng, cap, L, n_terms, tile):
+    """Skewed forward index with distinct ids per doc (slot l holds ids
+    = l mod L), 20% padding, dyadic impacts with many ties."""
+    from elasticsearch_tpu_torch.index.segment import build_tile_max
+    per = n_terms // L
+    base = (per * rng.random((cap, L)) ** 3).astype(np.int32)
+    tids = (base * L + np.arange(L, dtype=np.int32)[None, :])
+    tids[rng.random((cap, L)) < 0.2] = -1
+    imps = (rng.integers(1, 64, size=(cap, L)) / 16).astype(np.float32)
+    imps[tids < 0] = 0.0
+    return tids, imps, build_tile_max(tids, imps, per * L, cap, tile=tile)
+
+
+def _bundle_case(bundle, cap, tile, B, dev, seed=0):
+    from elasticsearch_tpu_torch.index.segment import build_tile_minmax
+    rng = np.random.default_rng(seed)
+    n_terms = 320
+    text = {}
+    for f, L in (("f", 8), ("g", 6)):
+        tids, imps, tm = _fwd(rng, cap, L, n_terms, tile)
+        text[f] = {"fwd_tids": torch.from_numpy(tids).to(dev),
+                   "fwd_imps": torch.from_numpy(imps).to(dev),
+                   "tile_max": torch.from_numpy(tm).to(dev)}
+    num = {}
+    for f, vals in (("n", rng.integers(0, 5000, size=cap).astype(np.int32)),
+                    ("x", (rng.integers(-400, 400, size=cap) / 8)
+                     .astype(np.float32))):
+        ex = rng.random(cap) > 0.1
+        lo, hi = build_tile_minmax(vals, ex, cap, tile=tile)
+        num[f] = {k: torch.from_numpy(v).to(dev) for k, v in (
+            ("values", vals), ("exists", ex), ("tile_lo", lo),
+            ("tile_hi", hi))}
+    cl = []
+    for role, kind, _f, wrapped in _BUNDLES[bundle]:
+        if kind == "range_int":
+            lo = rng.integers(0, 2500, size=B).astype(np.int32)
+            lo = lo + (2000 if role == "must_not" else 0)
+            hi = (lo + rng.integers(800, 2500, size=B)).astype(np.int32)
+            cl.append((lo.astype(np.int32), hi))
+        elif kind == "range_f32":
+            lo = (rng.integers(-400, 100, size=B) / 8).astype(np.float32)
+            cl.append((lo, (lo + 40).astype(np.float32)))
+        else:
+            q = 1 if kind == "term_text" else 3
+            qt = rng.integers(-1, n_terms // 4, size=(B, q)).astype(np.int32)
+            wq = (rng.integers(1, 8, size=(B, q)) / 4).astype(np.float32)
+            wq[qt < 0] = 0.0
+            msm_c = (rng.integers(0, 3, size=B) if wrapped else np.ones(B))
+            boost_c = ((rng.integers(1, 5, size=B) / 2) if wrapped
+                       else np.ones(B))
+            cl.append((qt, wq, msm_c.astype(np.int32),
+                       boost_c.astype(np.float32)))
+    n_should = sum(r == "should" for r, *_ in _BUNDLES[bundle])
+    msm = rng.integers(0, n_should + 1, size=B).astype(np.int32)
+    if bundle == "single":
+        msm[:] = 1
+    boost = (rng.integers(1, 5, size=B) / 2).astype(np.float32)
+    live = rng.random(cap) > 0.05
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (text, num, _BUNDLES[bundle],
+            tuple(tuple(t(a) for a in inp) for inp in cl), t(msm), t(boost),
+            t(live))
+
+
+_K3_CASES = [("single", 4096, 1024, 16, 10, False),
+             ("main", 4096, 256, 12, 10, True),
+             ("bundle", 4096, 256, 9, 1, True),
+             ("bundle", 4096, 256, 16, 300, False),
+             ("bundle", 4096, 1024, 33, 0, True),
+             ("single", 1 << 20, 1024, 64, 10, False),
+             ("main", 1 << 20, 1024, 64, 100, True),
+             ("main", 1 << 20, 1024, 64, 0, False)]
+
+
+@pytest.mark.parametrize("bundle,cap,tile,B,k,emit", _K3_CASES)
+def test_bundle_walk_equals_plain(cuda, bundle, cap, tile, B, k, emit):
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    args = _bundle_case(bundle, cap, tile, B, cuda, seed=B + k)
+    text, num, clauses, cl, msm, boost, live = args
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    ck = min(k, tile)
+    before = cs.LAUNCHES["bundle_topk"]
+    got = cs.bundle_walk(*args, can, ub, ck=ck, update_thr=True,
+                         emit_match=emit)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["bundle_topk"] == before + 1
+    want = cs.bundle_walk_ref(*args, can, ub, ck=ck, update_thr=True,
+                              emit_match=emit)
+    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match"), got, want):
+        assert (g is None and w is None) or torch.equal(g, w), name
+    assert int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("bundle,cap,tile,B,k,emit", _K3_CASES)
+def test_fused_entries_equal_plain(cuda, bundle, cap, tile, B, k, emit):
+    args = _bundle_case(bundle, cap, tile, B, cuda, seed=3 * B + k)
+    if k == 0:
+        got = cs.match_mask_bundle(*args, emit_match=emit)
+        want = cs.match_mask_bundle_ref(*args, emit_match=emit)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        return
+    got = cs.fused_topk_bundle(*args, k, emit_match=emit)
+    want = cs.fused_topk_bundle_ref(*args, k, emit_match=emit)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])                      # total
+    assert torch.equal(got[3], want[3])                      # prune stats
+    if emit:
+        assert torch.equal(got[4], want[4])
+    for row in range(B):
+        n = min(int(want[2][row]), want[0].shape[1])
+        assert torch.equal(got[0][row, :n], want[0][row, :n])
+        assert torch.equal(got[1][row, :n], want[1][row, :n])
+
+
+def test_bundle_walk_prunes_like_plain(cuda):
+    """Hard skips (tiles without the term) and thresholded tiles (k = 1,
+    a later tile's bound below the best already found in its chunk)
+    show in both walks' flags, equal."""
+    from elasticsearch_tpu_torch.index.segment import build_tile_max
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    cap, tile, B = 1 << 20, 1024, 256
+    tids = np.full((cap, 4), -1, np.int32)
+    imps = np.zeros((cap, 4), np.float32)
+    tids[: 64 * tile: 3, 0] = 0            # term 0 in the first 64 tiles
+    imps[: 64 * tile: 3, 0] = 1.0
+    imps[3 * 5, 0] = 4.0                   # the best doc, in tile 0
+    text = {"f": {"fwd_tids": torch.from_numpy(tids).to(cuda),
+                  "fwd_imps": torch.from_numpy(imps).to(cuda),
+                  "tile_max": torch.from_numpy(
+                      build_tile_max(tids, imps, 1, cap)).to(cuda)}}
+    clauses = (("should", "terms_dense", "f", False),)
+    cl = ((torch.zeros((B, 1), dtype=torch.int32, device=cuda),
+           torch.ones((B, 1), device=cuda),
+           torch.ones(B, dtype=torch.int32, device=cuda),
+           torch.ones(B, device=cuda)),)
+    msm = torch.ones(B, dtype=torch.int32, device=cuda)
+    boost = torch.ones(B, device=cuda)
+    live = torch.ones(cap, dtype=torch.bool, device=cuda)
+    can, ub = bundle_tile_bounds(clauses, cl, text, {}, msm, boost)
+    args = (text, {}, clauses, cl, msm, boost, live, can, ub)
+    got = cs.bundle_walk(*args, ck=1, update_thr=True, emit_match=True)
+    want = cs.bundle_walk_ref(*args, ck=1, update_thr=True, emit_match=True)
+    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match"), got, want):
+        assert torch.equal(g, w), name
+    flags = got[3]
+    assert int((flags == 2).sum()) == B * (1024 - 64)
+    assert int((flags == 1).sum()) > 0
+    top = cs.fused_topk_bundle(text, {}, clauses, cl, msm, boost, live, 1)
+    assert (top[1][:, 0] == 15).all() and (top[0][:, 0] == 4.0).all()

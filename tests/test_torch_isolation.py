@@ -99,6 +99,51 @@ def test_device_tensors_never_reach_the_plain_versions(monkeypatch):
     assert cs.LAUNCHES == before
 
 
+def test_bundle_wrappers_never_take_the_plain_walk_for_device_tensors(
+        monkeypatch):
+    """K3's entries on tensors that are not on the CPU launch the kernel
+    or raise (here: meta tensors, no nvcc); the plain walk is never
+    called and nothing is counted."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+
+    def boom(*a, **k):
+        raise AssertionError("plain walk reached for a device tensor")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    for name in ("bundle_walk_ref", "fused_topk_bundle_ref",
+                 "match_mask_bundle_ref"):
+        monkeypatch.setattr(cs, name, boom)
+    monkeypatch.setattr(cs, "_nvcc", no_nvcc)
+    monkeypatch.setattr(cs, "_LIBS", {})
+    before = dict(cs.LAUNCHES)
+    meta = torch.device("meta")
+    B, cap, n_tiles = 4, 2048, 2
+    text = {"f": {"fwd_tids": torch.empty((cap, 8), dtype=torch.int32,
+                                          device=meta),
+                  "fwd_imps": torch.empty((cap, 8), device=meta),
+                  "tile_max": torch.empty((50, n_tiles), device=meta)}}
+    clauses = (("should", "terms_dense", "f", False),)
+    cl = ((torch.empty((B, 2), dtype=torch.int32, device=meta),
+           torch.empty((B, 2), device=meta),
+           torch.empty((B,), dtype=torch.int32, device=meta),
+           torch.empty((B,), device=meta)),)
+    msm = torch.empty((B,), dtype=torch.int32, device=meta)
+    live = torch.empty((cap,), dtype=torch.bool, device=meta)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cs.fused_topk_bundle(text, {}, clauses, cl, msm, None, live, 10)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cs.match_mask_bundle(text, {}, clauses, cl, msm, None, live)
+    # a column of the wrong dtype raises before any build
+    bad = dict(text["f"], fwd_imps=text["f"]["fwd_imps"].to(torch.float64))
+    can, ub = bundle_tile_bounds(clauses, cl, text, {}, msm, None)
+    with pytest.raises(TypeError):
+        cs.bundle_walk({"f": bad}, {}, clauses, cl, msm, msm, live, can, ub,
+                       ck=10, update_thr=True, emit_match=False)
+    assert cs.LAUNCHES == before
+
+
 @pytest.mark.parametrize("alone", [True, False])
 def test_chip_smoke_refuses_without_cuda(tmp_path, alone):
     """Without a card the smoke exits non-zero and prints no result line;
