@@ -12,17 +12,27 @@ each of which fails the run on any error:
    PyTorch version at the slice's shapes, with kernel / plain / library
    times (CUDA events) and the card's least time for the same work (K3,
    the fused bundle walk: one to three clauses, with and without a range
-   filter, k 10 and 100, the match mask on and off, the mask-only grid);
-4. main path: two shards of 2^20 http_logs-like docs (seed 42) built with
-   the port's SegmentBuilder, seven request mixes of 256 requests through
-   `ShardReader.msearch` + `merge_shard_results`; the kernel launch counts
-   of that run must be non-zero for every kernel, the fused engine must
-   admit exactly the plans of the `match`, `match_range_aggs` and
-   `count_match` mixes, the same requests with the plain versions swapped
-   in must give identical responses, a small index searched on the card
-   must agree with the same search on the CPU, and each kernel must equal
-   its plain version on the inputs the main path handed it; the `match`
-   mix is also timed on the unfused path (`ES_TPU_FUSED=0`);
+   filter, k 10 and 100, the match mask on and off, the mask-only grid;
+   its positional leaf: exact and sloppy phrases, ordered and unordered
+   spans, BM25F over two fields; the unfused positional leaf entry; the
+   positional rows against their plain versions on their first 16 rows);
+4. main paths: two shards of 2^20 http_logs-like docs (seeds 42, 43)
+   built with the port's SegmentBuilder, request mixes of 256 requests
+   through `ShardReader.msearch` + `merge_shard_results`: the earlier
+   slices' seven mixes, then this slice's positional mixes (phrase,
+   sloppy phrase with aggs, span_near, cross_fields, phrase with a
+   keyword filter), each path run with the launch counts zeroed just
+   before it; each path's kernels must have launched, the fused engine
+   must admit exactly the plans of the fused mixes (the positional ones
+   carrying a positional clause, none falling back to the host), the
+   same requests with the plain versions swapped in must give identical
+   responses, a small index searched on the card must agree with the
+   same search on the CPU, and each kernel must equal its plain version
+   on the inputs the main path handed it; the `match` mix is also timed
+   on the unfused path (`ES_TPU_FUSED=0`), and 64 requests of the
+   positional mixes on the host oracle (`ES_TPU_POSITIONAL=0`, the
+   phrase / span / BM25F code of search/phrase.py through K2), whose
+   responses must be identical, with matches in every mix compared;
 5. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -47,9 +57,25 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12    # float32 outside the tensor cores
-MIXES = ("match", "bool_aggs", "prefix", "term_body", "aggs_only",
-         "match_range_aggs", "count_match")
-FUSED_MIXES = ("match", "match_range_aggs", "count_match")
+# the positional sweep holds the kernels against their plain versions on
+# the first two batch tiles of rows: the plain positional leaf takes
+# seconds for all 256 rows over 2^20 docs, and the main path's own calls
+# are held against it in full
+PLAIN_ROWS = 16
+# the main paths, in slice order: each runs with the launch counts
+# zeroed just before it, and every kernel listed must launch in it
+PATHS = {
+    "dense": (("match", "bool_aggs", "prefix", "term_body", "aggs_only",
+               "match_range_aggs", "count_match"),
+              ("dense_score", "scatter_add", "bundle_topk")),
+    "positional": (("phrase", "phrase_slop_aggs", "span_near",
+                    "cross_fields", "phrase_filter"),
+                   ("bundle_topk", "positional_leaf")),
+}
+MIXES = tuple(m for mixes, _k in PATHS.values() for m in mixes)
+POSITIONAL_MIXES = ("phrase", "phrase_slop_aggs", "span_near",
+                    "cross_fields")
+FUSED_MIXES = ("match", "match_range_aggs", "count_match") + POSITIONAL_MIXES
 KERNEL_SOURCES = {
     "dense_score": ("elasticsearch_tpu_torch/ops/csrc/dense_score.cu",
                     "elasticsearch_tpu/ops/pallas_scoring.py:60"),
@@ -57,14 +83,24 @@ KERNEL_SOURCES = {
                     "elasticsearch_tpu/ops/pallas_scoring.py:142"),
     "bundle_topk": ("elasticsearch_tpu_torch/ops/csrc/bundle_topk.cu",
                     "elasticsearch_tpu/ops/pallas_scoring.py:337"),
+    "positional_leaf": (
+        "elasticsearch_tpu_torch/ops/csrc/positional_leaf.cuh",
+        "elasticsearch_tpu/ops/pallas_scoring.py:458"),
 }
 # the wrapper of each kernel that counts its launches
 WRAPPERS = {"dense_score": "dense_score", "scatter_add": "scatter_add",
-            "bundle_topk": "bundle_walk"}
+            "bundle_topk": "bundle_walk", "positional_leaf": "positional_leaf"}
+
+
+_log_file = None     # chip_smoke.log under --out-dir
 
 
 def log(msg: str) -> None:
+    """A line to stdout and, with --out-dir, to its chip_smoke.log."""
     print(msg, flush=True)
+    if _log_file is not None:
+        _log_file.write(msg + "\n")
+        _log_file.flush()
 
 
 def _build_shard(job):
@@ -144,15 +180,33 @@ def assert_close_responses(got, want, path="resp", rtol=1e-6) -> None:
         raise AssertionError(f"{path}: {got!r} != {want!r}")
 
 
-def request_mixes(n: int, readers) -> dict[str, list[dict]]:
-    """The corpus module's mixes, with prefixes that expand on every shard
-    (a prefix with no term binds to match-nothing)."""
+def _message_words(body: dict) -> list[str]:
+    """The message-field words of a positional request."""
+    q = body["query"]
+    if "bool" in q:
+        q = q["bool"]["must"][0]
+    if "match_phrase" in q:
+        spec = q["match_phrase"]["message"]
+        return (spec["query"] if isinstance(spec, dict) else spec).split()
+    if "span_near" in q:
+        return [c["span_term"]["message"] for c in q["span_near"]["clauses"]]
+    return q["multi_match"]["query"].split()
+
+
+def request_mixes(n: int, readers, n_docs: int) -> dict[str, list[dict]]:
+    """The corpus module's mixes (phrases from the paths of n_docs-doc
+    shards), with prefixes that expand and positional requests whose
+    words are in the dictionary on every shard (either binds to
+    match-nothing otherwise)."""
     from elasticsearch_tpu_torch import corpus
-    mixes = corpus.request_mixes(4 * n, seed=7)
+    mixes = corpus.request_mixes(max(4 * n, 96), seed=7, n_docs=n_docs)
     vocab = [set(r.segments[0].text["message"].terms) for r in readers]
     mixes["prefix"] = [b for b in mixes["prefix"] if all(
         any(t.startswith(b["query"]["prefix"]["message"]) for t in v)
         for v in vocab)]
+    for name in PATHS["positional"][0]:
+        mixes[name] = [b for b in mixes[name] if all(
+            set(_message_words(b)) <= v for v in vocab)]
     return {k: v[:n] for k, v in mixes.items()}
 
 
@@ -177,7 +231,8 @@ def plain_versions() -> dict:
     return {"dense_score": cs.dense_score_ref,
             "scatter_add": cs.scatter_add_ref,
             "fused_topk_bundle": cs.fused_topk_bundle_ref,
-            "match_mask_bundle": cs.match_mask_bundle_ref}
+            "match_mask_bundle": cs.match_mask_bundle_ref,
+            "positional_leaf": cs.positional_leaf_ref}
 
 
 def check_plain_swap(readers, mixes, last) -> None:
@@ -191,14 +246,21 @@ def check_plain_swap(readers, mixes, last) -> None:
 
 def check_admission(stats) -> None:
     """The fused engine admits the plans of the fused mixes and no other
-    (bool_aggs' keyword terms filter, prefix / term_body's posting
-    scatter and aggs_only's range-only query have no bundle form)."""
+    (bool_aggs' and phrase_filter's keyword terms filter, prefix /
+    term_body's posting scatter and aggs_only's range-only query have no
+    bundle form); every plan of a positional mix carries a positional
+    clause, and no positional query falls back to the host path."""
     for name, st in stats.items():
         adm = st["fused"]["admission"]
         if name in FUSED_MIXES and (adm["admitted"] == 0 or adm["rejected"]):
             raise AssertionError(f"{name}: fused admission {adm}")
         if name not in FUSED_MIXES and adm["admitted"]:
             raise AssertionError(f"{name}: admitted to the fused engine")
+        if adm["positional_fallbacks"]:
+            raise AssertionError(f"{name}: positional fallbacks {adm}")
+        want = adm["admitted"] if name in POSITIONAL_MIXES else 0
+        if adm["positional_admitted"] != want:
+            raise AssertionError(f"{name}: positional admission {adm}")
 
 
 def time_mix(readers, bodies, reps, sync) -> tuple[dict, list[dict]]:
@@ -218,26 +280,115 @@ def time_mix(readers, bodies, reps, sync) -> tuple[dict, list[dict]]:
 
 
 def run_main_path(readers, mixes, reps, sync):
-    """Phase 4 core: returns per-mix stats (fused engine admission and
-    prune counters included), the last responses per mix and the kernel
-    launch counts of the run (counts zeroed just before)."""
+    """Phase 4 core: each path of PATHS with the launch counts zeroed
+    just before it and read just after. Returns per-mix stats (fused
+    engine admission and prune counters included), the last responses
+    per mix, and per path the kernel launch counts of its run."""
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     from elasticsearch_tpu_torch.search import executor
-    for k in cs.LAUNCHES:
-        cs.LAUNCHES[k] = 0
-    stats, last = {}, {}
-    for name in MIXES:
-        bodies = mixes[name]
-        before = dict(cs.LAUNCHES)
-        executor._fused_stats.reset()
-        st, last[name] = time_mix(readers, bodies, reps, sync)
-        stats[name] = {
-            **st,
-            "launches": {k: cs.LAUNCHES[k] - before[k] for k in cs.LAUNCHES},
-            "hits": sum(r["hits"]["total"] for r in last[name]),
-            "fused": executor.fused_scoring_stats(),
-        }
-    return stats, last, dict(cs.LAUNCHES)
+    stats, last, launches = {}, {}, {}
+    for path, (names, _kernels) in PATHS.items():
+        for k in cs.LAUNCHES:
+            cs.LAUNCHES[k] = 0
+        for name in names:
+            bodies = mixes[name]
+            before = dict(cs.LAUNCHES)
+            executor._fused_stats.reset()
+            st, last[name] = time_mix(readers, bodies, reps, sync)
+            stats[name] = {
+                **st,
+                "launches": {k: cs.LAUNCHES[k] - before[k]
+                             for k in cs.LAUNCHES},
+                "hits": sum(r["hits"]["total"] for r in last[name]),
+                "fused": executor.fused_scoring_stats(),
+            }
+        launches[path] = dict(cs.LAUNCHES)
+    return stats, last, launches
+
+
+def check_launches(launches) -> dict:
+    """Every kernel of each path launched in that path's run. Returns the
+    launch count of each kernel summed over the paths that run it."""
+    total: dict = {}
+    for path, (_names, kernels) in PATHS.items():
+        missing = [k for k in kernels if launches[path][k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"path: {missing}")
+        for k in kernels:
+            total[k] = total.get(k, 0) + launches[path][k]
+    return total
+
+
+# the host oracle sweeps sloppy phrases and spans doc by doc in Python
+# (about 20-30 us per candidate doc), so the A/B takes those requests
+# only where their words co-occur in at most this many docs per shard
+HOST_SWEEP_MAX_CANDS = 20_000
+
+
+def host_affordable(readers, bodies, n: int,
+                    max_cands: int = HOST_SWEEP_MAX_CANDS) -> list[dict]:
+    """Up to n requests, in the mix's order, whose message words
+    co-occur in some doc and in at most max_cands docs on every shard."""
+    def cands(body) -> int:
+        """0 if no shard has a doc with all the words, else the most
+        docs with all of them on one shard."""
+        worst = 0
+        for r in readers:
+            seg = r.segments[0]
+            pf = seg.text["message"]
+            tids = [pf.lookup(w) for w in set(_message_words(body))]
+            lists = sorted((pf.doc_ids[pf.indptr[t]:pf.indptr[t + 1]]
+                            for t in tids), key=len)
+            docs = lists[0]
+            for other in lists[1:]:           # mark, then keep the marked
+                seen = np.zeros(seg.capacity, dtype=bool)
+                seen[other] = True
+                docs = docs[seen[docs]]
+            worst = max(worst, len(docs))
+        return worst
+
+    return [b for b in bodies if 0 < cands(b) <= max_cands][:n]
+
+
+def positional_ab(readers, subset: dict[str, list[dict]], sync) -> dict:
+    """The subset ({mix: requests}) on the fused engine, then with
+    ES_TPU_POSITIONAL=0 (the host oracle through docs_w on K2), one rep
+    each: identical responses, and every mix of the subset has requests
+    that match."""
+    bodies = [b for name in subset for b in subset[name]]
+    fused, fused_resps = time_mix(readers, bodies, 1, sync)
+    os.environ["ES_TPU_POSITIONAL"] = "0"
+    try:
+        host, host_resps = time_mix(readers, bodies, 1, sync)
+    finally:
+        del os.environ["ES_TPU_POSITIONAL"]
+    if _strip(host_resps) != _strip(fused_resps):
+        raise AssertionError("positional A/B: host-oracle responses differ "
+                             "from the fused engine's")
+    out = {"requests": {}, "matching_requests": {}, "hits": {}}
+    resps = iter(fused_resps)
+    for name, reqs in subset.items():
+        totals = [next(resps)["hits"]["total"] for _ in reqs]
+        out["requests"][name] = len(reqs)
+        out["matching_requests"][name] = sum(t > 0 for t in totals)
+        out["hits"][name] = sum(totals)
+        if not any(totals):
+            raise AssertionError(f"positional A/B: no {name} request of the "
+                                 f"subset matched anything")
+    return {**out, "fused_ms": fused["p50_ms"], "host_ms": host["p50_ms"]}
+
+
+def positional_ab_subset(readers, mixes, n: int = 64) -> dict:
+    """n requests of the positional mixes for the host A/B: the sloppy
+    phrase and span_near requests the host can afford (up to n/4 each),
+    the rest split between exact phrases and cross_fields."""
+    sub = {name: host_affordable(readers, mixes[name], n // 4)
+           for name in ("phrase_slop_aggs", "span_near")}
+    rest = n - sum(len(v) for v in sub.values())
+    sub["phrase"] = mixes["phrase"][:rest - rest // 2]
+    sub["cross_fields"] = mixes["cross_fields"][:rest // 2]
+    return {k: v for k, v in sub.items() if v}
 
 
 def check_responses(last) -> None:
@@ -256,16 +407,18 @@ def rehearse(n_docs: int, batch: int) -> int:
     torch.set_num_threads(2)
     segs = build_shards(n_docs, 2, 200, workers=1)
     readers = make_readers(segs, "cpu")
-    mixes = request_mixes(batch, readers)
-    stats, last, launches = run_main_path(readers, mixes, 1, lambda: None)
+    mixes = request_mixes(batch, readers, n_docs)
+    stats, last, _launches = run_main_path(readers, mixes, 1, lambda: None)
     check_responses(last)
     check_admission(stats)
     check_plain_swap(readers, mixes, last)
-    log("rehearse: " + json.dumps({k: {"requests": v["requests"],
-                                        "hits": v["hits"],
-                                        "fused_admitted": v["fused"][
-                                            "admission"]["admitted"]}
-                                    for k, v in stats.items()}))
+    ab = positional_ab(readers, positional_ab_subset(readers, mixes, 12),
+                       lambda: None)
+    log("rehearse: " + json.dumps({
+        **{k: {"requests": v["requests"], "hits": v["hits"],
+               "fused_admitted": v["fused"]["admission"]["admitted"]}
+           for k, v in stats.items()},
+        "positional_ab": ab["matching_requests"]}))
     return 0
 
 
@@ -289,6 +442,13 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def plain_run(fn):
+    """(result, ms) of a plain version: the result of a first call, the
+    time of a second one (a first call also pays one-off allocations)."""
+    out = fn()
+    return out, cuda_ms(fn, 1, warmup=0)
+
+
 def dense_bound(tids, qt):
     cap, L = tids.shape
     B, Q = qt.shape
@@ -308,29 +468,26 @@ def scatter_bound(docs, cap):
                                        else "operations")
 
 
-def measure_dense(args, reps, plain_reps=1):
+def measure_dense(args, reps):
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     got = cs.dense_score(*args)
-    want = cs.dense_score_ref(*args)
-    torch.cuda.synchronize()
+    want, plain_ms = plain_run(lambda: cs.dense_score_ref(*args))
     if not torch.equal(got, want):
         raise AssertionError(f"dense_score != plain at {args[2].shape}")
     err = float((got - want).abs().max())
     bound_ms, bound_by = dense_bound(args[0], args[2])
     return {"ms": cuda_ms(lambda: cs.dense_score(*args), reps),
-            "plain_ms": cuda_ms(lambda: cs.dense_score_ref(*args),
-                                plain_reps, warmup=0),
+            "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err}
 
 
-def measure_scatter(docs, vals, cap, reps, plain_reps=1):
+def measure_scatter(docs, vals, cap, reps):
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     got = cs.scatter_add(docs, vals, cap)
-    want = cs.scatter_add_ref(docs, vals, cap)
-    torch.cuda.synchronize()
+    want, plain_ms = plain_run(lambda: cs.scatter_add_ref(docs, vals, cap))
     if not torch.equal(got, want):
         raise AssertionError(f"scatter_add != plain at {tuple(docs.shape)}")
     err = float((got - want).abs().max())
@@ -343,20 +500,77 @@ def measure_scatter(docs, vals, cap, reps, plain_reps=1):
 
     bound_ms, bound_by = scatter_bound(docs, cap)
     return {"ms": cuda_ms(lambda: cs.scatter_add(docs, vals, cap), reps),
-            "plain_ms": cuda_ms(lambda: cs.scatter_add_ref(docs, vals, cap),
-                                plain_reps, warmup=0),
+            "plain_ms": plain_ms,
             "library_ms": cuda_ms(library, reps),
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
 
 
+def _doc_bytes(clauses, text_cols, num_cols) -> int:
+    """Bytes per doc of the doc-major columns a bundle's clauses read,
+    each (field, column) once: a dense clause its slot ids and impacts,
+    a range clause the values and exists flags, a positional clause per
+    field the slot ids, the int16 pack and the one norm its leaf reads
+    (k1ln for phrase / span, lnorm for BM25F)."""
+    from elasticsearch_tpu_torch.ops.scoring import (
+        DENSE_CLAUSE_KINDS, RANGE_CLAUSE_KINDS, clause_fields,
+        positional_prefix)
+    cols = set()
+    for _r, kd, f, _w in clauses:
+        head = positional_prefix(kd)
+        if kd in DENSE_CLAUSE_KINDS:
+            cols |= {(f, "fwd_tids"), (f, "fwd_imps")}
+        elif kd in RANGE_CLAUSE_KINDS:
+            cols |= {(f, "values"), (f, "exists")}
+        elif head:
+            norm = "lnorm" if head == "bm25f" else "k1ln"
+            cols |= {(g, c) for g in clause_fields(f)
+                     for c in ("fwd_tids", "fwd_pos", norm)}
+    nbytes = 0
+    for f, c in cols:
+        t = (num_cols if c in ("values", "exists") else text_cols)[f][c]
+        nbytes += t.element_size() * (t.numel() // t.shape[0])
+    return nbytes
+
+
+def _pos_ops(kind, field, inp, text_cols) -> int:
+    """Operations per (row, doc) of a positional clause, counting only
+    the decode every algorithm needs (a compare per slot to find each
+    term, a compare and an add per position entry of its slot) and the
+    f32 impact chain; the sweeps' own steps come on top, so the bound
+    stays a lower bound."""
+    from elasticsearch_tpu_torch.ops.scoring import (clause_fields,
+                                                     positional_prefix)
+    def lp(f):
+        c = text_cols[f]
+        L = c["fwd_tids"].shape[1]
+        return L, c["fwd_pos"].shape[1] // L
+    if positional_prefix(kind) == "bm25f":
+        nt = inp[0].shape[2]
+        return sum(nt * (L + 2 * P + 4) for L, P in
+                   (lp(f) for f in clause_fields(field))) + 3 * nt
+    L, P = lp(field)
+    return inp[0].shape[1] * (L + 2 * P) + 5
+
+
+def _bound(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def bundle_bound(args, kw):
     """Least time of one K3 walk: the larger of (a) the bytes it must
-    move, the forward rows and columns of the tiles some row can match
-    (each read once), the per-row inputs, and the outputs, over the HBM
-    rate, and (b) its work, a compare and an add per slot and term plus
-    a multiply and add per term of each dense clause, 3 ops per range
-    clause, 2 for the combine and 1 for the selection, for every doc of
-    every (row, tile) that can match, over the f32 rate."""
+    move, the live flags and the columns of _doc_bytes for the tiles
+    some row can match (each read once), the per-row inputs, and the
+    outputs, over the HBM rate,
+    and (b) its work, a compare and an add per slot and term plus a
+    multiply and add per term of each dense clause, 3 ops per range
+    clause, a positional clause's decode (_pos_ops), 2 for the combine
+    and 1 for the selection, for every doc of every (row, tile) that can
+    match, over the f32 rate (integer ops counted at the same rate: the
+    data sheet lists no int32 rate)."""
+    from elasticsearch_tpu_torch.ops.scoring import (
+        DENSE_CLAUSE_KINDS, RANGE_CLAUSE_KINDS, positional_prefix)
     text_cols, num_cols, clauses, cl_inputs, msm, boost, live, can, ub = args
     ck, emit = kw["ck"], kw["emit_match"]
     B, J = can.shape
@@ -364,68 +578,122 @@ def bundle_bound(args, kw):
     tile = cap // J
     dense = [(inp[0].shape[1], text_cols[f]["fwd_tids"].shape[1])
              for (_r, kd, f, _w), inp in zip(clauses, cl_inputs)
-             if kd in ("terms_dense", "term_text")]
-    n_range = len(clauses) - len(dense)
-    doc_bytes = 1 + sum(text_cols[f]["fwd_tids"].shape[1] * 8
-                        for f in {f for _r, kd, f, _w in clauses
-                                  if kd in ("terms_dense", "term_text")})
-    doc_bytes += 5 * len({f for _r, kd, f, _w in clauses
-                          if kd in ("range_int", "range_f32")})
+             if kd in DENSE_CLAUSE_KINDS]
+    n_range = sum(kd in RANGE_CLAUSE_KINDS for _r, kd, _f, _w in clauses)
+    doc_bytes = 1 + _doc_bytes(clauses, text_cols, num_cols)
     in_row = sum(t.numel() * 4 for inp in cl_inputs for t in inp) + B * 8
     nbytes = (int(can.any(dim=0).sum()) * tile * doc_bytes + in_row
               + B * J * 5 + B * J * (8 + 8 * ck) + (B * cap if emit else 0))
     per_doc = (sum(q * (2 * L + 2) for q, L in dense) + 3 * n_range + 2
-               + (1 if ck else 0))
-    ops = int(can.sum()) * tile * per_doc
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+               + (1 if ck else 0)
+               + sum(_pos_ops(kd, f, inp, text_cols)
+                     for (_r, kd, f, _w), inp in zip(clauses, cl_inputs)
+                     if positional_prefix(kd)))
+    return _bound(nbytes, int(can.sum()) * tile * per_doc)
 
 
-def measure_bundle(args, kw, reps, plain_reps=1):
-    """K3 (`bundle_walk`) vs its plain version on every output."""
+def leaf_bound(kind, field, inp, cols):
+    """Least time of the unfused positional leaf: every doc's columns of
+    _doc_bytes read once, the parameters, the [B, cap] score and mask
+    written; the decode work of _pos_ops for every (row, doc)."""
+    from elasticsearch_tpu_torch.ops.scoring import clause_fields
+    B = inp[0].shape[0]
+    cap = cols[clause_fields(field)[0]]["fwd_tids"].shape[0]
+    nbytes = (cap * _doc_bytes((("should", kind, field, False),), cols, {})
+              + sum(t.numel() * 4 for t in inp) + B * cap * 5)
+    return _bound(nbytes, B * cap * _pos_ops(kind, field, inp, cols))
+
+
+def _first_rows(inp: tuple, rows: int | None) -> tuple:
+    """A clause's per-row inputs cut to their first `rows` rows."""
+    return inp if rows is None else tuple(t[:rows] for t in inp)
+
+
+def measure_leaf(args, reps, rows=None):
+    """The unfused positional leaf vs its plain version; with `rows`, the
+    plain version computes (and is timed on) only the first rows, which
+    the kernel's rows are held against (each (row, doc) is computed on
+    its own, so the cut changes no number)."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
-    got = cs.bundle_walk(*args, **kw)
-    want = cs.bundle_walk_ref(*args, **kw)
-    torch.cuda.synchronize()
-    err = 0.0
-    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match"), got, want):
-        if (g is None) != (w is None) or (g is not None
-                                          and not torch.equal(g, w)):
-            raise AssertionError(f"bundle_topk != plain on {name} at B "
-                                 f"{args[4].shape[0]}, kw {kw}")
-    if got[0] is not None:
-        fin = torch.isfinite(want[0])
-        if bool(fin.any()):
-            err = float((got[0][fin] - want[0][fin]).abs().max())
-    bound_ms, bound_by = bundle_bound(args, kw)
-    return {"ms": cuda_ms(lambda: cs.bundle_walk(*args, **kw), reps),
-            "plain_ms": cuda_ms(lambda: cs.bundle_walk_ref(*args, **kw),
-                                plain_reps, warmup=0),
+    kind, field, inp, cols = args
+    got = cs.positional_leaf(*args)
+    want, plain_ms = plain_run(lambda: cs.positional_leaf_ref(
+        kind, field, _first_rows(inp, rows), cols))
+    n = want[0].shape[0]
+    if not (torch.equal(got[0][:n], want[0])
+            and torch.equal(got[1][:n], want[1])):
+        raise AssertionError(f"positional_leaf != plain for {kind}")
+    err = float((got[0][:n] - want[0]).abs().max())
+    bound_ms, bound_by = leaf_bound(*args)
+    return {"ms": cuda_ms(lambda: cs.positional_leaf(*args), reps),
+            "plain_ms": plain_ms, "plain_rows": n,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err}
 
 
-def bundle_sweep(dev, rng) -> tuple[list[dict], float]:
+def measure_bundle(args, kw, reps, rows=None):
+    """K3 (`bundle_walk`) vs its plain version on every output. With
+    `rows` (whole batch tiles of BUNDLE_BT), the plain walk computes (and
+    is timed on) only the first rows, at the kernel's chunking for the
+    full batch; a batch tile's outputs depend on its own rows only."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    text, num, clauses, cl_inputs, msm, boost, live, can, ub = args
+    got = cs.bundle_walk(*args, **kw)
+    if rows is not None and rows % cs.BUNDLE_BT:
+        raise ValueError(f"rows {rows} cut a batch tile")
+    sub = (text, num, clauses,
+           tuple(_first_rows(inp, rows) for inp in cl_inputs),
+           *_first_rows((msm, boost), rows), live,
+           *_first_rows((can, ub), rows))
+    want, plain_ms = plain_run(lambda: cs.bundle_walk_ref(
+        *sub, **kw, chunk_tiles=cs.bundle_chunk_tiles(*can.shape)))
+    n = sub[4].shape[0]
+    err = 0.0
+    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match"), got, want):
+        if (g is None) != (w is None) or (g is not None
+                                          and not torch.equal(g[:n], w)):
+            raise AssertionError(f"bundle_topk != plain on {name} at B "
+                                 f"{msm.shape[0]}, kw {kw}")
+    if got[0] is not None:
+        fin = torch.isfinite(want[0])
+        if bool(fin.any()):
+            err = float((got[0][:n][fin] - want[0][fin]).abs().max())
+    bound_ms, bound_by = bundle_bound(args, kw)
+    return {"hits": int(got[2].sum()),
+            "ms": cuda_ms(lambda: cs.bundle_walk(*args, **kw), reps),
+            "plain_ms": plain_ms, "plain_rows": n,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err}
+
+
+def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20
+                 ) -> tuple[list[dict], float]:
     """K3 at B 256, cap 2^20 (two text fields of 8 slots and a numeric
     column drawn like the main path's), one to three clauses."""
     import torch
     from elasticsearch_tpu_torch.index.segment import (build_tile_max,
                                                        build_tile_minmax)
     from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
-    B, cap, L, per = 256, 1 << 20, 8, 500
-    text = {}
+    from elasticsearch_tpu_torch import corpus
+    L, per = 8, 500
+    text, tids_np = {}, {}
     for f in ("f", "g"):
         base = (per * rng.random((cap, L)) ** 3).astype(np.int32)
         tids = base * L + np.arange(L, dtype=np.int32)[None, :]
         tids[rng.random((cap, L)) < 0.3] = -1
         imps = rng.random((cap, L), dtype=np.float32) * 4 + 0.1
         imps[tids < 0] = 0.0
+        pos, k1ln, lnorm = corpus.synthetic_positions(rng, tids, 4)
+        tids_np[f] = tids
         text[f] = {"fwd_tids": torch.from_numpy(tids).to(dev),
                    "fwd_imps": torch.from_numpy(imps).to(dev),
                    "tile_max": torch.from_numpy(build_tile_max(
-                       tids, imps, per * L, cap)).to(dev)}
+                       tids, imps, per * L, cap)).to(dev),
+                   "fwd_pos": torch.from_numpy(pos).to(dev),
+                   "k1ln": torch.from_numpy(k1ln).to(dev),
+                   "lnorm": torch.from_numpy(lnorm).to(dev)}
     vals = rng.integers(100, 100_001, size=cap).astype(np.int32)
     exists = np.ones(cap, bool)
     lo_t, hi_t = build_tile_minmax(vals, exists, cap)
@@ -445,6 +713,26 @@ def bundle_sweep(dev, rng) -> tuple[list[dict], float]:
     def rng_in():
         lo = rng.integers(100, 60_000, size=B).astype(np.int32)
         return (t(lo), t((lo + 40_000).astype(np.int32)))
+
+    def positional(kind, field):
+        """Terms that co-occur: each row's terms are slots of one doc."""
+        from elasticsearch_tpu_torch.ops.scoring import parse_positional_kind
+        head, n, _v = parse_positional_kind(kind)
+        tail = (t(np.ones(B, np.float32)), t(np.ones(B, np.int32)),
+                t(np.ones(B, np.float32)))
+        if head == "bm25f":
+            nt = int(kind.split(":")[2])
+            qt = np.stack([tids_np[f][rng.integers(0, cap, size=B), :nt]
+                           for f in field], axis=1)
+            return (t(qt.astype(np.int32)),
+                    t(rng.random((B, nt), dtype=np.float32) * 4 + 0.5),
+                    t(np.ones((B, len(field)), np.float32))) + tail
+        docs = tids_np[field][rng.integers(0, cap, size=B)]
+        cols = np.stack([rng.permutation(L)[:n] for _ in range(B)])
+        qt = np.take_along_axis(docs, cols, axis=1).astype(np.int32)
+        return (t(qt), t(np.ones((B, n), np.float32)),
+                t(rng.random(B, dtype=np.float32) * 6 + 1),
+                t(rng.integers(0, 3, size=B).astype(np.int32))) + tail
 
     configs = [
         ("1 clause", (("should", "terms_dense", "f", False),), 10, False),
@@ -467,10 +755,23 @@ def bundle_sweep(dev, rng) -> tuple[list[dict], float]:
                        ("must_not", "terms_dense", "g", False),
                        ("should", "terms_dense", "g", False)), 10, False),
     ]
+    pos_kinds = [("phrase exact n 2", "phrase_pos:2:e", "f"),
+                 ("phrase exact n 3", "phrase_pos:3:e", "f"),
+                 ("phrase sloppy n 2", "phrase_pos:2:s", "f"),
+                 ("phrase sloppy n 3", "phrase_pos:3:s", "f"),
+                 ("span ordered n 3", "span_pos:3:o", "f"),
+                 ("span unordered n 3", "span_pos:3:u", "f"),
+                 ("bm25f f+g, 3 terms", "bm25f:2:3", ("f", "g"))]
+    configs += [(label, (("should", kind, f, False),), 10, False)
+                for label, kind, f in pos_kinds]
+    configs.append(("phrase sloppy n 3 + filter range", (
+        ("must", "phrase_pos:3:s", "f", False),
+        ("filter", "range_int", "n", False)), 10, True))
     rows, worst = [], 0.0
     for label, clauses, k, emit in configs:
-        cl = tuple(rng_in() if kd == "range_int" else dense(3, w)
-                   for _r, kd, _f, w in clauses)
+        cl = tuple(rng_in() if kd == "range_int"
+                   else positional(kd, f) if ":" in kd else dense(3, w)
+                   for _r, kd, f, w in clauses)
         n_should = sum(r == "should" for r, *_ in clauses)
         msm = t(np.full(B, 1 if n_should and not any(
             r == "must" for r, *_ in clauses) else 0, np.int32))
@@ -479,11 +780,20 @@ def bundle_sweep(dev, rng) -> tuple[list[dict], float]:
         ck = min(k, 1024)
         args = (text, num, clauses, cl, msm, boost, live, can, ub)
         kw = {"ck": ck, "update_thr": True, "emit_match": emit}
-        m = measure_bundle(args, kw, reps=10)
+        m = measure_bundle(args, kw, reps=10, rows=(
+            PLAIN_ROWS if any(":" in kd for _r, kd, _f, _w in clauses)
+            else None))
         worst = max(worst, m["max_abs_err"])
         rows.append({"kernel": "bundle_topk", "bundle": label, "B": B,
                      "cap": cap, "k": k, "emit_match": emit,
                      "can_match_share": float(can.float().mean()), **m})
+        log("kernel_sweep " + json.dumps(rows[-1]))
+    for label, kind, f in (pos_kinds[3], pos_kinds[4], pos_kinds[6]):
+        inp = positional(kind, f)
+        m = measure_leaf((kind, f, inp, text), reps=5, rows=PLAIN_ROWS)
+        worst = max(worst, m["max_abs_err"])
+        rows.append({"kernel": "positional_leaf", "clause": label, "B": B,
+                     "cap": cap, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
     return rows, worst
 
@@ -657,10 +967,13 @@ def on_card(args) -> int:
     log(f"index: 2 shards x {args.docs} docs built in "
         f"{time.perf_counter() - t0:.1f} s; capacity "
         f"{[s.capacity for s in segs]}; message L "
-        f"{[s.text['message'].fwd_tids.shape[1] for s in segs]}; body "
+        f"{[s.text['message'].fwd_tids.shape[1] for s in segs]}, P "
+        f"{[s.text['message'].pos_width for s in segs]}; body "
         f"forward index {[s.text['body'].fwd_tids is not None for s in segs]}")
     if any(s.text["body"].fwd_tids is not None for s in segs):
         raise AssertionError("body must have no forward index")
+    if any(s.text["message"].fwd_pos is None for s in segs):
+        raise AssertionError("message must carry a positions pack")
     # the index's host side (ids, sources, id maps: millions of Python
     # objects) lives as long as the run; freezing it keeps the cyclic
     # collector from re-walking it on every batch, as a long-lived server
@@ -672,9 +985,9 @@ def on_card(args) -> int:
     rng = np.random.default_rng(42)
     sweep, worst = kernel_sweep(dev, rng)
 
-    # phase 4: main path
+    # phase 4: main paths
     readers = make_readers(segs, dev)
-    mixes = request_mixes(args.batch, readers)
+    mixes = request_mixes(args.batch, readers, args.docs)
     log("mixes: " + json.dumps({k: len(v) for k, v in mixes.items()}))
     seen, current, shims = capture_first_calls()
     with swapped_kernels(**shims):
@@ -683,14 +996,12 @@ def on_card(args) -> int:
             search_merged(readers, mixes[name])
     torch.cuda.synchronize()
     sync = torch.cuda.synchronize
-    stats, last, launches = run_main_path(readers, mixes, args.reps, sync)
-    log("launches: " + json.dumps(launches))
+    stats, last, path_launches = run_main_path(readers, mixes, args.reps,
+                                               sync)
+    log("launches: " + json.dumps(path_launches))
     for name in MIXES:
         log("mix " + json.dumps({"mix": name, **stats[name]}))
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    launches = check_launches(path_launches)
     check_responses(last)
     check_admission(stats)
     check_plain_swap(readers, mixes, last)
@@ -714,6 +1025,13 @@ def on_card(args) -> int:
                     "p50_ms": float(np.mean([r["p50_ms"] for r in v])),
                     "turns": v} for k, v in match_ab.items()}
     log("match fused vs unfused: " + json.dumps(match_ab))
+    # 64 positional requests on the host oracle (ES_TPU_POSITIONAL=0):
+    # the sloppy phrase and span_near ones it can afford, exact phrases
+    # and cross_fields for the rest; every sloppy / span_near request of
+    # the small index below as well
+    pos_ab = {"main": positional_ab(
+        readers, positional_ab_subset(readers, mixes), sync)}
+    log("positional fused vs host oracle: " + json.dumps(pos_ab))
     out_dir = args.out_dir
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -724,7 +1042,7 @@ def on_card(args) -> int:
     # separate segment objects: each caches its own device columns
     on_gpu = make_readers(small, dev)
     on_cpu = make_readers([copy.copy(s) for s in small], "cpu")
-    small_mix = request_mixes(48, on_cpu)
+    small_mix = request_mixes(48, on_cpu, args.small_docs)
     # agg sums are differences of f32 prefix sums over the whole row
     # (ops/aggs.sorted_group_reduce); the card's parallel scan and the
     # CPU's sequential one round those prefixes differently, by an error
@@ -736,9 +1054,15 @@ def on_card(args) -> int:
             _strip(search_merged(on_cpu, small_mix[name])), rtol=1e-5)
     log(f"cpu check: {args.small_docs}-doc shards agree on the card and "
         f"the CPU")
+    pos_ab["small"] = positional_ab(
+        on_gpu, {name: host_affordable(on_gpu, small_mix[name], 48)
+                 for name in ("phrase_slop_aggs", "span_near")}, sync)
+    log("positional fused vs host oracle, small index: "
+        + json.dumps(pos_ab["small"]))
 
     # kernels on the main path's own inputs: K1 and K2 on the first call
-    # of the run, K3 on the first call of each fused mix
+    # of the run, K3 on the first call of each fused mix (the kernels
+    # line takes the first positional one), the unfused leaf on its first
     first = {}
     for name in MIXES:
         for kern, call in seen.get(name, {}).items():
@@ -748,7 +1072,9 @@ def on_card(args) -> int:
     meas = {"dense_score": measure_dense(first["dense_score"][1][0],
                                          reps=20),
             "scatter_add": measure_scatter(*first["scatter_add"][1][0],
-                                           reps=20)}
+                                           reps=20),
+            "positional_leaf": measure_leaf(first["positional_leaf"][1][0],
+                                            reps=10)}
     k3_err = 0.0
     for name in FUSED_MIXES:
         a, kw = seen[name]["bundle_topk"]
@@ -757,25 +1083,33 @@ def on_card(args) -> int:
         log(f"main-path inputs bundle_topk ({name}): " + json.dumps({
             "B": a[4].shape[0], "cap": a[6].shape[0],
             "clauses": [list(c) for c in a[2]], **kw, **m}))
-        if name == "match":
+        if name == POSITIONAL_MIXES[0]:
             meas["bundle_topk"] = dict(m)
+            first["bundle_topk"] = (name, (a, kw))
     meas["bundle_topk"]["max_abs_err"] = k3_err
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         m = meas[name]
-        mix, (a, _kw) = first[name]
-        if name != "bundle_topk":
-            shape = {k: list(v.shape) for k, v in zip(
-                ("a0", "a1", "a2", "a3"), a) if hasattr(v, "shape")}
-            log(f"main-path inputs {name} ({mix}): " + json.dumps(shape))
+        mix, (a, kw) = first[name]
+        # the main-path call that ms, plain_ms and bound_ms were taken on
+        if name in ("dense_score", "scatter_add"):
+            call = {"mix": mix, "shapes": [list(v.shape) for v in a
+                                           if hasattr(v, "shape")]}
+        elif name == "bundle_topk":
+            call = {"mix": mix, "B": a[4].shape[0], "ck": kw["ck"],
+                    "clauses": [[r, kd] for r, kd, _f, _w in a[2]]}
+        else:
+            call = {"mix": mix, "kind": a[0], "B": a[2][0].shape[0]}
+        log(f"main-path inputs {name}: " + json.dumps({**call, **m}))
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": max(worst, m["max_abs_err"]),
                         "ms": m["ms"], "plain_ms": m["plain_ms"],
                         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                        "library_ms": m["library_ms"]})
+                        "library_ms": m["library_ms"], "call": call})
     report = {"gpu": gpu_line(), "build_s": build_s, "sweep": sweep,
               "mixes": stats, "match_fused_vs_unfused": match_ab,
+              "positional_fused_vs_host": pos_ab,
               "profiles": profiles, "kernels": kernels,
               "seconds": time.perf_counter() - t_run}
     if out_dir:
@@ -817,6 +1151,10 @@ def main(argv=None) -> int:
         return 1
     if args.rehearse:
         return rehearse(min(args.docs, 1500), min(args.batch, 8))
+    if args.out_dir:
+        global _log_file
+        os.makedirs(args.out_dir, exist_ok=True)
+        _log_file = open(os.path.join(args.out_dir, "chip_smoke.log"), "w")
     if not torch.cuda.is_available():
         print("chip_smoke: needs a CUDA device "
               "(torch.cuda.is_available() is False)", file=sys.stderr)

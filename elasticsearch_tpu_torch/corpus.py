@@ -7,7 +7,8 @@ made in seconds. Documents carry `message` (text), `status` (keyword),
 `size` (long), `@timestamp` (date, epoch millis) and `body` (text); one
 document in `long_every` has a `body` of more than 256 distinct terms, so
 the `body` field gets no forward index and its term queries take the
-posting-scatter path.
+posting-scatter path. `message` carries positions, so its phrase, span
+and cross_fields queries score on the positional pack.
 """
 
 from __future__ import annotations
@@ -46,18 +47,30 @@ def zipf_weights(n: int) -> np.ndarray:
     return w / w.sum()
 
 
-def make_docs(n: int, seed: int = 42, start: int = 0,
-              long_every: int = 1000) -> list[tuple[str, dict]]:
-    """`n` documents with ids start..start+n-1."""
-    rng = np.random.default_rng(seed)
+def _paths(rng: np.random.Generator, n: int) -> list[list[str]]:
+    """The URL paths of an `n`-doc corpus, as token lists: 2-5 Zipf path
+    words and an extension. The first draws of make_docs' generator."""
     words = np.asarray(vocab())
     n_paths = max(n // 25, 400)
     path_len = rng.integers(2, 6, size=n_paths)
     path_words = rng.choice(len(words), size=(n_paths, 5),
                             p=zipf_weights(len(words)))
     path_ext = rng.integers(0, len(EXTS), size=n_paths)
-    paths = [" ".join(list(words[path_words[i, :path_len[i]]])
-                      + [EXTS[path_ext[i]]]) for i in range(n_paths)]
+    return [[str(w) for w in words[path_words[i, :path_len[i]]]]
+            + [EXTS[path_ext[i]]] for i in range(n_paths)]
+
+
+def corpus_paths(n: int, seed: int = 42) -> list[list[str]]:
+    """The paths make_docs(n, seed) draws its messages from."""
+    return _paths(np.random.default_rng(seed), n)
+
+
+def make_docs(n: int, seed: int = 42, start: int = 0,
+              long_every: int = 1000) -> list[tuple[str, dict]]:
+    """`n` documents with ids start..start+n-1."""
+    rng = np.random.default_rng(seed)
+    paths = [" ".join(p) for p in _paths(rng, n)]
+    n_paths = len(paths)
     pick = np.minimum((rng.pareto(1.2, size=n) + 1.0).astype(np.int64) - 1,
                       n_paths - 1)
     method = rng.integers(0, len(METHODS), size=n)
@@ -98,8 +111,24 @@ def head_terms(rng: np.random.Generator, n: int, k_max: int = 3
             for _ in range(n)]
 
 
-def request_mixes(n: int, seed: int = 7) -> dict[str, list[dict]]:
-    """The seven request mixes of the main path, `n` requests each:
+def phrase_texts(rng: np.random.Generator, paths: list[list[str]], n: int
+                 ) -> list[list[str]]:
+    """`n` runs of 2-3 consecutive tokens of Pareto-picked (popular)
+    paths, so most phrases match."""
+    pick = np.minimum((rng.pareto(1.2, size=n) + 1.0).astype(np.int64) - 1,
+                      len(paths) - 1)
+    out = []
+    for i in range(n):
+        toks = paths[pick[i]]
+        m = int(rng.integers(2, 4))
+        s0 = int(rng.integers(0, len(toks) - m + 1))
+        out.append(toks[s0:s0 + m])
+    return out
+
+
+def request_mixes(n: int, seed: int = 7, n_docs: int = 1 << 20,
+                  doc_seed: int = 42) -> dict[str, list[dict]]:
+    """The request mixes of the main path, `n` requests each:
     (a) match on message, 1-3 head terms (forward-index scoring; the
         fused bundle engine);
     (b) bool must-match + range filter on size + terms filter on status,
@@ -112,8 +141,22 @@ def request_mixes(n: int, seed: int = 7) -> dict[str, list[dict]]:
         (b)'s aggs, size 10 (the fused engine with the match mask);
     (g) count_match: match on message, size 0, terms on status (the
         fused engine's mask-only grid).
-    (f) and (g) draw from their own generator, so (a)-(e) are the same
-    requests for a seed whatever (f) and (g) hold."""
+    (h) phrase: match_phrase on message, slop 0 (the fused engine's
+        exact-phrase leaf);
+    (i) phrase_slop_aggs: bool must match_phrase with slop 1-2 (every
+        other one with two words swapped) + range filter on size, with
+        (b)'s aggs (the fused engine with the match mask, sloppy leaf);
+    (j) span_near: span_near of 2-3 span_terms on message, in_order
+        alternating, slop 0-2 (the ordered and unordered span leaves);
+    (k) cross_fields: multi_match type cross_fields over message, 1-3
+        head terms (the BM25F leaf);
+    (l) phrase_filter: bool must match_phrase + terms filter on status
+        (the keyword terms filter keeps it off the fused engine: the
+        unfused positional leaf).
+    Phrases are 2-3 consecutive tokens of the paths of make_docs(n_docs,
+    doc_seed). (f)-(g) and (h)-(l) each draw from a generator of their
+    own, so earlier mixes are the same requests for a seed whatever the
+    later ones hold."""
     rng = np.random.default_rng(seed)
     texts = head_terms(rng, 2 * n)
     body_w = zipf_weights(BODY_VOCAB)
@@ -165,4 +208,66 @@ def request_mixes(n: int, seed: int = 7) -> dict[str, list[dict]]:
             "query": {"match": {"message": texts2[n + i]}},
             "aggs": {"by_status": {"terms": {"field": "status"}}},
             "size": 0})
+    rng3 = np.random.default_rng([seed, 3])
+    paths = corpus_paths(n_docs, doc_seed)
+    phrases = phrase_texts(rng3, paths, 4 * n)
+    heads = head_terms(rng3, n)
+    for k in ("phrase", "phrase_slop_aggs", "span_near", "cross_fields",
+              "phrase_filter"):
+        mixes[k] = []
+    for i in range(n):
+        mixes["phrase"].append({
+            "query": {"match_phrase": {"message": " ".join(phrases[i])}},
+            "size": 10})
+        words = list(phrases[n + i])
+        if i % 2:
+            words[0], words[1] = words[1], words[0]
+        lo = int(rng3.integers(100, 60_000))
+        mixes["phrase_slop_aggs"].append({
+            "query": {"bool": {
+                "must": [{"match_phrase": {"message": {
+                    "query": " ".join(words),
+                    "slop": int(rng3.integers(1, 3))}}}],
+                "filter": [{"range": {"size": {"gte": lo,
+                                               "lte": lo + 40_000}}}]}},
+            "aggs": aggs, "size": 10})
+        mixes["span_near"].append({
+            "query": {"span_near": {
+                "clauses": [{"span_term": {"message": w}}
+                            for w in phrases[2 * n + i]],
+                "slop": int(rng3.integers(0, 3)),
+                "in_order": i % 2 == 0}},
+            "size": 10})
+        mixes["cross_fields"].append({
+            "query": {"multi_match": {"query": heads[i],
+                                      "type": "cross_fields",
+                                      "fields": ["message"]}},
+            "size": 10})
+        mixes["phrase_filter"].append({
+            "query": {"bool": {
+                "must": [{"match_phrase": {
+                    "message": " ".join(phrases[3 * n + i])}}],
+                "filter": [{"terms": {"status": ["200", "404"]}}]}},
+            "size": 10})
     return mixes
+
+
+def synthetic_positions(rng: np.random.Generator, tids: np.ndarray, P: int
+                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A positions pack for a synthetic forward index `tids` [cap, L]:
+    every filled slot gets 1..P ascending positions below about 3 * L,
+    delta-encoded as index/segment.pack_positions stores them (first
+    absolute, then gaps, pad -1), plus k1ln / lnorm from random doc
+    lengths. Returns (fwd_pos [cap, L*P] int16, k1ln, lnorm)."""
+    from .index.segment import bm25_norms
+    cap, L = tids.shape
+    tf = rng.integers(1, P + 1, size=(cap, L))
+    deltas = np.concatenate([rng.integers(0, 2 * L, size=(cap, L, 1)),
+                             rng.integers(1, 3, size=(cap, L, P - 1))],
+                            axis=2)
+    keep = (np.arange(P)[None, None, :] < tf[..., None]) \
+        & (tids[..., None] >= 0)
+    fwd_pos = np.where(keep, deltas, -1).astype(np.int16).reshape(cap, L * P)
+    doc_len = rng.integers(1, 4 * L, size=cap).astype(np.float32)
+    lnorm, k1ln = bm25_norms(doc_len, float(doc_len.mean()))
+    return fwd_pos, k1ln, lnorm

@@ -6,19 +6,23 @@ columns this slice of the port searches:
   * text fields   -> block-CSR postings: 128-lane blocks of
                      (doc_id, bm25_impact) pairs, term -> block range,
                      plus the doc-major forward index [cap, L] and its
-                     per-(term, doc-tile) block-max summary;
+                     per-(term, doc-tile) block-max summary, and the
+                     positions sidecar (`pos_data` / `pos_indptr`) with
+                     its forward-aligned pack (`fwd_pos`, `lnorm`,
+                     `k1ln`) for phrase, span and BM25F scoring;
   * keyword field -> int32 ordinal column + sorted term dictionary;
   * numeric/date  -> int32/float32 doc-value columns + exists mask;
   * _id/_source   -> host-side.
 
-The layout pass is the host one (`_pack_layout_host`); positional packs,
-vectors, geo, nested rows and the device-side build are not ported yet.
+The layout pass is the host one (`_pack_layout_host`); vectors, geo,
+nested rows and the device-side build are not ported yet.
 `segment_from_arrays` rebuilds a Segment from another builder's columns,
 so two implementations can search the very same index.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass, field as dc_field
 
@@ -35,7 +39,31 @@ TILE_SUMMARY_BUDGET = 1 << 24  # max T * n_tiles summary elements
 BM25_K1 = 1.2
 BM25_B = 0.75
 
+# positional pack: per-(doc, slot) position lists, delta-encoded int16,
+# P positions per slot (pow2). A field whose max per-posting tf exceeds
+# POS_CAP, whose positions overflow int16, or whose pack would exceed
+# POS_PACK_BUDGET elements gets no pack; its phrase/span/BM25F queries
+# take the host path.
+POS_CAP = 64                   # max positions kept per (doc, term)
+POS_MAX_ENC = 32767            # int16 ceiling for absolute positions
+POS_PACK_BUDGET = 1 << 27      # max cap * L * P int16 elements
+
 _INT_KINDS = (LONG, INTEGER, SHORT, BYTE, DATE, BOOLEAN, IP)
+
+
+def bm25_norms(doc_len: np.ndarray, avg_len: float,
+               k1: float = BM25_K1, b: float = BM25_B
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """The positional pack's two per-doc BM25 length-norm columns:
+
+      lnorm[d] = (1 - b) + b * doc_len[d] / avg_len   (BM25F field norm)
+      k1ln[d]  = k1 * lnorm[d]                        (phrase/span k_d)
+
+    computed in f64 and rounded once to f32. The kernels, the unfused
+    leaf and the host oracles (search/phrase.py) all read these values,
+    which keeps their scores bit-identical."""
+    ln = (1.0 - b) + b * (doc_len.astype(np.float64) / float(avg_len))
+    return ln.astype(np.float32), (k1 * ln).astype(np.float32)
 
 
 def next_pow2(n: int, floor: int = 1) -> int:
@@ -119,15 +147,41 @@ class PostingsField:
     doc_len: np.ndarray                    # float32 [cap]
     doc_count: int
     avg_len: float
+    # positions of posting j (CSR order): pos_data[pos_indptr[j]:
+    # pos_indptr[j+1]], token indices in the field's concatenated token
+    # stream (multi-values join with no position gap)
+    pos_data: np.ndarray = dc_field(default=None, repr=False)    # int32 [sum tf]
+    pos_indptr: np.ndarray = dc_field(default=None, repr=False)  # int64 [nnz+1]
     block_docs: np.ndarray = dc_field(default=None, repr=False)  # int32 [NB,128]
     block_imps: np.ndarray = dc_field(default=None, repr=False)  # f32 [NB,128]
     block_start: np.ndarray = dc_field(default=None, repr=False)  # int32 [T+1]
     fwd_tids: np.ndarray = dc_field(default=None, repr=False)    # int32 [cap, L]
     fwd_imps: np.ndarray = dc_field(default=None, repr=False)    # f32 [cap, L]
     tile_max: np.ndarray = dc_field(default=None, repr=False)    # f32 [T, J]
+    # positional pack, forward-aligned with fwd_tids: the positions of
+    # the term in slot l of doc d are fwd_pos[d, l*P:(l+1)*P], the first
+    # absolute and the rest gaps, pad -1; P = pos_width. None when the
+    # field has no forward index or exceeds a positional cap.
+    fwd_pos: np.ndarray = dc_field(default=None, repr=False)     # i16 [cap, L*P]
+    pos_width: int = 0
+    lnorm: np.ndarray = dc_field(default=None, repr=False)       # f32 [cap]
+    k1ln: np.ndarray = dc_field(default=None, repr=False)        # f32 [cap]
 
     def lookup(self, term: str) -> int:
         return self.term_index.get(term, -1)
+
+    def enc_positions(self, tid: int, stride: int) -> np.ndarray:
+        """All (doc, position) pairs of a term encoded as
+        doc * stride + pos, ascending (search/phrase.py's working set)."""
+        if self.pos_data is None or tid < 0:
+            return np.empty(0, dtype=np.int64)
+        s, e = int(self.indptr[tid]), int(self.indptr[tid + 1])
+        if s == e:
+            return np.empty(0, dtype=np.int64)
+        ps, pe = int(self.pos_indptr[s]), int(self.pos_indptr[e])
+        docs = np.repeat(self.doc_ids[s:e].astype(np.int64),
+                         np.diff(self.pos_indptr[s:e + 1]).astype(np.int64))
+        return docs * stride + self.pos_data[ps:pe]
 
     def nbytes(self) -> int:
         n = (self.block_docs.nbytes + self.block_imps.nbytes
@@ -135,6 +189,8 @@ class PostingsField:
         for a in (self.fwd_tids, self.fwd_imps, self.tile_max):
             if a is not None:
                 n += a.nbytes
+        if self.fwd_pos is not None:
+            n += self.fwd_pos.nbytes + self.lnorm.nbytes + self.k1ln.nbytes
         return n
 
 
@@ -254,8 +310,9 @@ class SegmentBuilder:
         ids: list[str] = []
         id_map: dict[str, int] = {}
         sources: list[bytes] = []
-        # text field -> term -> ([docs], [tfs]) in doc order
-        text_postings: dict[str, dict[str, tuple[list[int], list[int]]]] = {}
+        # text field -> term -> ([docs], [tfs], [positions, flat]) in
+        # doc order
+        text_postings: dict[str, dict[str, tuple[list, list, list]]] = {}
         text_doclen: dict[str, np.ndarray] = {}
         kw_values: dict[str, dict[int, list[str]]] = {}
         num_values: dict[str, tuple[str, dict[int, list]]] = {}
@@ -278,15 +335,16 @@ class SegmentBuilder:
                 if fname not in text_doclen:
                     text_doclen[fname] = np.zeros(cap, dtype=np.float32)
                 text_doclen[fname][d] += float(len(toks))
-                tf: dict[str, int] = {}
-                for tok in toks:
-                    tf[tok] = tf.get(tok, 0) + 1
-                for term, c in tf.items():
+                pos_local: dict[str, list[int]] = {}
+                for i, tok in enumerate(toks):
+                    pos_local.setdefault(tok, []).append(i)
+                for term, positions in pos_local.items():
                     entry = postings.get(term)
                     if entry is None:
-                        entry = postings[term] = ([], [])
+                        entry = postings[term] = ([], [], [])
                     entry[0].append(d)
-                    entry[1].append(c)
+                    entry[1].append(len(positions))
+                    entry[2].extend(positions)
         text = {name: _build_postings(name, postings, text_doclen[name], n,
                                       cap, self._sim_for(name))
                 for name, postings in text_postings.items()}
@@ -317,13 +375,19 @@ def _build_postings(name: str, postings: dict, doc_len: np.ndarray,
     tfs = np.concatenate([np.asarray(postings[t][1], dtype=np.float32)
                           for t in terms]) if terms \
         else np.empty(0, dtype=np.float32)
+    pos_indptr = np.zeros(len(doc_ids) + 1, dtype=np.int64)
+    np.cumsum(tfs.astype(np.int64), out=pos_indptr[1:])
+    pos_data = np.fromiter(
+        itertools.chain.from_iterable(postings[t][2] for t in terms),
+        dtype=np.int32, count=int(pos_indptr[-1]))
     doc_count = int(np.count_nonzero(doc_len[:n_docs])) or n_docs
     total_len = float(doc_len.sum())
     avg_len = (total_len / doc_count) if doc_count else 1.0
     pf = PostingsField(
         name=name, terms=terms, term_index={t: i for i, t in enumerate(terms)},
         df=df, indptr=indptr, doc_ids=doc_ids, tfs=tfs, doc_len=doc_len,
-        doc_count=doc_count, avg_len=max(avg_len, 1e-9))
+        doc_count=doc_count, avg_len=max(avg_len, 1e-9), pos_data=pos_data,
+        pos_indptr=pos_indptr)
     _pack_layout_host(pf, cap, _flat_impacts(pf, sim))
     return pf
 
@@ -409,8 +473,9 @@ def _flat_impacts(pf: PostingsField, sim=None) -> np.ndarray:
 
 
 def _pack_layout_host(pf: PostingsField, cap: int, imps: np.ndarray) -> None:
-    """Block-CSR posting blocks, forward index and block-max summary from
-    CSR postings + per-posting impacts (host loops)."""
+    """Block-CSR posting blocks, forward index, block-max summary and
+    positional pack from CSR postings + per-posting impacts (host
+    loops)."""
     T = len(pf.terms)
     n_blocks_per_term = (np.diff(pf.indptr) + BLOCK - 1) // BLOCK
     block_start = np.zeros(T + 1, dtype=np.int32)
@@ -460,6 +525,83 @@ def _pack_layout_host(pf: PostingsField, cap: int, imps: np.ndarray) -> None:
     pf.fwd_tids = fwd_tids
     pf.fwd_imps = fwd_imps
     pf.tile_max = build_tile_max(fwd_tids, fwd_imps, T, cap)
+    pack_positions(pf, cap)
+
+
+def forward_slot_ranks(doc_ids: np.ndarray) -> np.ndarray:
+    """Per-posting forward-index slot, CSR order: the rank of each
+    posting among its doc's postings in term-major order, which is the
+    slot _pack_layout_host's forward fill assigns."""
+    nnz = len(doc_ids)
+    order = np.argsort(doc_ids, kind="stable")
+    sorted_docs = doc_ids[order]
+    first = np.searchsorted(sorted_docs, sorted_docs, side="left")
+    out = np.empty(nnz, dtype=np.int64)
+    out[order] = np.arange(nnz, dtype=np.int64) - first
+    return out
+
+
+def position_deltas(pf: PostingsField) -> np.ndarray:
+    """[sum tf] int16 delta stream of the positions sidecar: per posting
+    the first entry is the absolute position, the rest are gaps."""
+    pd = pf.pos_data.astype(np.int64)
+    d = pd.copy()
+    d[1:] -= pd[:-1]
+    counts = np.diff(pf.pos_indptr)
+    starts = pf.pos_indptr[:-1][counts > 0]
+    d[starts] = pd[starts]
+    return d.astype(np.int16)
+
+
+def pos_pack_width(pf: PostingsField, cap: int, L: int) -> int | None:
+    """P (pow2 positions per slot) of a field's pack, or None when the
+    field stays host-served: no sidecar, tf over POS_CAP, positions past
+    the int16 ceiling, or a pack over POS_PACK_BUDGET elements."""
+    if pf.pos_data is None or pf.pos_indptr is None:
+        return None
+    max_tf = int(np.diff(pf.pos_indptr).max(initial=0))
+    if max_tf <= 0 or max_tf > POS_CAP:
+        return None
+    if pf.pos_data.size and int(pf.pos_data.max(initial=0)) > POS_MAX_ENC:
+        return None
+    P = next_pow2(max_tf, floor=2)
+    if cap * L * P > POS_PACK_BUDGET:
+        return None
+    return P
+
+
+def pack_positions(pf: PostingsField, cap: int) -> None:
+    """The positional column family (fwd_pos + the BM25 length-norm
+    columns) from the positions sidecar, forward-aligned with fwd_tids."""
+    pf.fwd_pos = None
+    pf.pos_width = 0
+    pf.lnorm = None
+    pf.k1ln = None
+    if pf.fwd_tids is None:
+        return
+    L = pf.fwd_tids.shape[1]
+    P = pos_pack_width(pf, cap, L)
+    if P is None:
+        return
+    deltas = position_deltas(pf)
+    doc_pp, flat_pp = _position_targets(pf, P)
+    fwd_pos = np.full((cap, L * P), -1, dtype=np.int16)
+    fwd_pos[doc_pp, flat_pp] = deltas
+    pf.fwd_pos = fwd_pos
+    pf.pos_width = P
+    pf.lnorm, pf.k1ln = bm25_norms(pf.doc_len, pf.avg_len)
+
+
+def _position_targets(pf: PostingsField, P: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-position (doc row, slot * P + k) scatter targets."""
+    counts = np.diff(pf.pos_indptr).astype(np.int64)
+    slots = forward_slot_ranks(pf.doc_ids)
+    doc_pp = np.repeat(pf.doc_ids.astype(np.int64), counts)
+    slot_pp = np.repeat(slots, counts)
+    k_pp = (np.arange(int(counts.sum()), dtype=np.int64)
+            - np.repeat(pf.pos_indptr[:-1].astype(np.int64), counts))
+    return doc_pp, slot_pp * P + k_pp
 
 
 def _device_vals(raw: np.ndarray, kind: str, bias: int,
@@ -518,7 +660,8 @@ def build_columnar(seg_id: str, n: int, *,
 
 
 _TEXT_COLS = ("df", "indptr", "doc_ids", "tfs", "doc_len", "block_docs",
-              "block_imps", "block_start", "fwd_tids", "fwd_imps", "tile_max")
+              "block_imps", "block_start", "fwd_tids", "fwd_imps", "tile_max",
+              "pos_data", "pos_indptr", "fwd_pos", "lnorm", "k1ln")
 _KW_COLS = ("ords", "df", "mv_ords")
 _NUM_COLS = ("values", "exists", "raw", "mv_values", "mv_raw", "mv_exists")
 
@@ -528,7 +671,8 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
 
     `arrays` holds numpy columns keyed `text.<field>.<col>` (df, indptr,
     doc_ids, tfs, doc_len, block_docs, block_imps, block_start, and the
-    optional fwd_tids, fwd_imps, tile_max), `kw.<field>.<col>` (ords, df,
+    optional fwd_tids, fwd_imps, tile_max, pos_data, pos_indptr, fwd_pos,
+    lnorm, k1ln), `kw.<field>.<col>` (ords, df,
     optional mv_ords), `num.<field>.<col>` (values, exists, raw, optional
     mv_values, mv_raw, mv_exists) and `versions`. `meta` holds seg_id,
     num_docs, capacity, ids, optional sources, and per field:
@@ -542,9 +686,12 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
     for f, m in meta.get("text", {}).items():
         c = cols(f"text.{f}", _TEXT_COLS)
         terms = list(m["terms"])
+        p_width = (c["fwd_pos"].shape[1] // c["fwd_tids"].shape[1]
+                   if c["fwd_pos"] is not None else 0)
         text[f] = PostingsField(
             name=f, terms=terms, term_index={t: i for i, t in enumerate(terms)},
-            doc_count=int(m["doc_count"]), avg_len=float(m["avg_len"]), **c)
+            doc_count=int(m["doc_count"]), avg_len=float(m["avg_len"]),
+            pos_width=p_width, **c)
     keywords = {}
     for f, m in meta.get("keywords", {}).items():
         terms = list(m["terms"])

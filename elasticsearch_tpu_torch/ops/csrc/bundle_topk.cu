@@ -3,7 +3,11 @@
 // Replaces: elasticsearch_tpu/ops/pallas_scoring.py:_make_bundle_kernel
 //           (launched by _bundle_chunk_call from fused_topk_bundle_pallas,
 //           match_mask_bundle_pallas and fused_topk_dense_pallas), for
-//           dense text clauses and numeric range masks.
+//           dense text clauses, numeric range masks and the positional
+//           clauses (phrase, span_near, BM25F; the leaf is in
+//           positional_leaf.cuh). A second entry, `positional_leaf`,
+//           evaluates one positional clause over the whole capacity for
+//           the unfused path (executor.eval_node).
 //
 // Per (batch tile of kBT query rows, doc tile of `tile` docs) it
 // evaluates a bool clause bundle exactly as ops/scoring.bundle_tile_eval
@@ -29,9 +33,15 @@
 //
 // Clause bundle at run time. One compiled kernel serves every bundle: the
 // wrapper passes a descriptor table (role, kind, field index, slot of the
-// clause's per-row parameters), at most 8 clauses, and the kernel
-// interprets it in a loop. Per-row parameters of the block's rows (qt/wq,
-// msm_c/boost_c, range lo/hi, msm, boost) are staged in shared memory.
+// clause's per-row parameters, term / field counts and the positional
+// fields), at most 8 clauses, and the kernel interprets it in a loop.
+// Per-row parameters of the block's rows (qt/wq, msm_c/boost_c, range
+// lo/hi, the positional clauses' parameter rows, msm, boost) are staged in
+// shared memory. A positional clause reads, per field, the doc-major
+// fwd_tids [cap, L], fwd_pos [cap, L*P] int16 and k1ln / lnorm [cap]; the
+// rows of a block evaluate it one after another (a thread owns a doc),
+// each row's leaf score parked in a per-thread shared slot. Rows past B
+// read the wrapper's inert parameter rows (qt -1: zero frequency).
 //
 // Bit-exactness. Every add and multiply is an explicit round-to-nearest
 // intrinsic in the plain walk's op order (hit += select per slot,
@@ -59,14 +69,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "positional_leaf.cuh"
+
 struct BundleArgs {
   const int* tids[8];
   const float* imps[8];
   int L[8];
   const void* vals[8];
   const unsigned char* exists[8];
+  posleaf::PosField pfields[8];
   const unsigned char* live;
-  int clause[8][4];  // role, kind, field index, parameter slot
+  // role, kind, field index, parameter slot (positional: offset in the
+  // parameter row), n (terms; bm25f fields), nt (bm25f terms), and the
+  // positional field indices (pfields) of the clause's fields
+  int clause[8][10];
   int n_clauses;
   const int* qt;        // [B, n_dense * qm]
   const float* wq;      // [B, n_dense * qm]
@@ -76,6 +92,8 @@ struct BundleArgs {
   const float* boost;   // [B]
   const int* lo;        // [B, n_range], int32 or float32 bits
   const int* hi;
+  const int* pp;        // [ceil(B / 8) * 8, pw] positional parameter rows
+  int pw;
   const unsigned char* can;  // [B, n_tiles]
   const float* ub;           // [B, n_tiles]
   float* cs;                 // [B, n_tiles * ck]
@@ -87,12 +105,28 @@ struct BundleArgs {
       chunk_tiles, emit_match;
 };
 
+// The unfused path's positional clause over the whole capacity (entry
+// `positional_leaf`): one thread per (row, doc), the same leaf as the
+// walk. Writes s_leaf (clause boost applied) and m_leaf; eval_node masks
+// the score with m_leaf.
+struct PosLeafArgs {
+  posleaf::PosField pfields[posleaf::kMaxFields];
+  int fidx[posleaf::kMaxFields];
+  int kind, n, nt;
+  const int* pp;  // [B, pw] parameter rows
+  int pw;
+  float* s_out;            // [B, cap]
+  unsigned char* m_out;    // [B, cap]
+  int B, cap;
+};
+
 namespace {
 
 constexpr int kBT = 8;            // query rows per block
 constexpr int kThreads = 256;     // 8 warps: one per row in selection
 constexpr int kMaxClauses = 8;
 constexpr int kMaxQ = 8;
+constexpr int kMaxPW = 512;       // positional parameter ints per row
 constexpr int kMust = 0, kFilter = 1, kMustNot = 2;  // else should (3)
 constexpr int kDense = 0, kRangeInt = 1;
 
@@ -112,8 +146,10 @@ __device__ __forceinline__ void lane_best(const float* row, int tile, int lane,
 }
 
 __global__ void __launch_bounds__(kThreads)
-bundle_topk_kernel(const BundleArgs a) {
+bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
   extern __shared__ float s_cand[];  // [kBT][tile]
+  __shared__ int s_pp[kBT][kMaxPW];
+  __shared__ float s_ps[kBT][kThreads];  // a thread's positional leaf scores
   __shared__ int s_qt[kBT][kMaxClauses * kMaxQ];
   __shared__ float s_wq[kBT][kMaxClauses * kMaxQ];
   __shared__ int s_msmc[kBT][kMaxClauses];
@@ -160,6 +196,10 @@ bundle_topk_kernel(const BundleArgs a) {
     const size_t b = row0 + min(r, n_rows - 1);
     s_lo[r][c] = a.lo[b * a.n_range + c];
     s_hi[r][c] = a.hi[b * a.n_range + c];
+  }
+  for (int i = tid; i < kBT * a.pw; i += kThreads) {
+    const int r = i / a.pw, c = i - r * a.pw;
+    s_pp[r][c] = a.pp[static_cast<size_t>(row0 + r) * a.pw + c];
   }
   if (tid < kBT) {
     const int b = row0 + min(tid, n_rows - 1);
@@ -273,6 +313,29 @@ bundle_topk_kernel(const BundleArgs a) {
             if ((m_leaf || mc <= 0) && mc <= 1) m |= 1u << r;
             s[r] = __fmul_rn(sel(m_leaf, s_leaf[r]), s_boostc[r][slot]);
           }
+        } else if (kind >= posleaf::kPhraseExact) {
+          const int n = a.clause[c][4], nt = a.clause[c][5];
+          const int tail = slot + posleaf::param_tail(kind, n, nt);
+#pragma unroll 1
+          for (int r = 0; r < kBT; ++r) {
+            // a row that cannot match in this tile matches no doc of it
+            // (its can_match is exact), so its leaf is never read
+            if (!s_can[r]) {
+              s_ps[r][tid] = 0.0f;
+              continue;
+            }
+            float sl;
+            bool ml;
+            posleaf::leaf(kind, n, nt, &a.clause[c][6], &s_pp[r][slot],
+                          a.pfields, doc, sl, ml);
+            // single-should wrapper semantics, as for dense clauses
+            const int mc = s_pp[r][tail + 1];
+            if ((ml || mc <= 0) && mc <= 1) m |= 1u << r;
+            s_ps[r][tid] = __fmul_rn(sel(ml, sl),
+                                     __int_as_float(s_pp[r][tail + 2]));
+          }
+#pragma unroll
+          for (int r = 0; r < kBT; ++r) s[r] = s_ps[r][tid];
         } else {
           const bool ex = a.exists[f][doc] != 0;
           if (kind == kRangeInt) {
@@ -289,8 +352,9 @@ bundle_topk_kernel(const BundleArgs a) {
                 m |= 1u << r;
           }
         }
+        const bool scoring = kind == kDense || kind >= posleaf::kPhraseExact;
         if (role == kMust) {
-          if (kind == kDense) {
+          if (scoring) {
 #pragma unroll
             for (int r = 0; r < kBT; ++r)
               acc[r] = __fadd_rn(acc[r], sel((m >> r) & 1u, s[r]));
@@ -303,7 +367,7 @@ bundle_topk_kernel(const BundleArgs a) {
         } else {  // should
 #pragma unroll
           for (int r = 0; r < kBT; ++r) {
-            if (kind == kDense)
+            if (scoring)
               acc[r] = __fadd_rn(acc[r], sel((m >> r) & 1u, s[r]));
             scnt[r] += (m >> r) & 1u;
           }
@@ -399,13 +463,43 @@ bundle_topk_kernel(const BundleArgs a) {
   }
 }
 
+// one thread per (row, doc) of the unfused leaf (struct PosLeafArgs)
+__global__ void __launch_bounds__(kThreads)
+positional_leaf_kernel(const __grid_constant__ PosLeafArgs a) {
+  const int b = blockIdx.y;
+  const size_t doc = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (doc >= static_cast<size_t>(a.cap)) return;
+  float s;
+  bool m;
+  posleaf::leaf(a.kind, a.n, a.nt, a.fidx, a.pp + static_cast<size_t>(b) * a.pw,
+                a.pfields, doc, s, m);
+  const size_t o = static_cast<size_t>(b) * a.cap + doc;
+  a.s_out[o] = s;
+  a.m_out[o] = m ? 1 : 0;
+}
+
 }  // namespace
+
+extern "C" int positional_leaf(const PosLeafArgs* args, void* stream) {
+  const PosLeafArgs a = *args;
+  if (a.B <= 0 || a.cap <= 0) return 0;
+  if (a.B > 65535 || a.kind < posleaf::kPhraseExact ||
+      a.kind > posleaf::kBm25f || a.n < 1 || a.n > posleaf::kMaxTerms ||
+      (a.kind == posleaf::kBm25f &&
+       (a.n > posleaf::kMaxFields || a.nt < 1 || a.nt > posleaf::kMaxTerms)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.cap + kThreads - 1) / kThreads, a.B);
+  positional_leaf_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int bundle_topk(const BundleArgs* args, void* stream) {
   const BundleArgs a = *args;
   if (a.B <= 0 || a.n_tiles <= 0) return 0;
   if (a.n_clauses > kMaxClauses || a.qm > kMaxQ || a.n_dense > kMaxClauses ||
-      a.n_range > kMaxClauses || a.tile > 1024 || a.chunk_tiles <= 0)
+      a.n_range > kMaxClauses || a.tile > 1024 || a.chunk_tiles <= 0 ||
+      a.pw < 0 || a.pw > kMaxPW)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(kBT) * a.tile * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(

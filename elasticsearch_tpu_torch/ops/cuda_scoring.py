@@ -12,11 +12,15 @@ Pallas kernel:
 * K3 `bundle_topk` (csrc/bundle_topk.cu) replaces `_make_bundle_kernel`
   / `fused_topk_bundle_pallas` / `match_mask_bundle_pallas`: the fused
   block-max walk over a bool clause bundle (dense text clauses, numeric
-  range masks), per doc tile the exact match count, a prune flag, the ck
-  best candidates (ck > 0) and the match mask (emit_match). Its entries
-  are `fused_topk_bundle`, `match_mask_bundle` (the ck == 0 grid) and
-  `fused_topk_dense`; the walk's positional leaf, stepped form and
-  streaming chaining are not ported yet.
+  range masks, positional phrase / span / BM25F clauses), per doc tile
+  the exact match count, a prune flag, the ck best candidates (ck > 0)
+  and the match mask (emit_match). Its entries are `fused_topk_bundle`,
+  `match_mask_bundle` (the ck == 0 grid) and `fused_topk_dense`; the
+  walk's stepped form and streaming chaining are not ported yet.
+* `positional_leaf` (csrc/bundle_topk.cu, leaf in
+  csrc/positional_leaf.cuh): K3's positional leaf as its own entry, one
+  positional clause over the whole capacity for the unfused path (the
+  reference runs `ops/scoring.positional_tile_scores` there in XLA).
 
 Each kernel sits beside its plain PyTorch version (`*_ref`), which
 repeats the kernel's arithmetic op for op. A wrapper takes the plain
@@ -45,12 +49,16 @@ from pathlib import Path
 
 import torch
 
-LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0}
+LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0,
+            "positional_leaf": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _SOURCES = {"dense_score": "dense_score.cu", "scatter_add": "scatter_add.cu",
             "bundle_topk": "bundle_topk.cu"}
+# entry point -> the library (source) that defines it
+_ENTRIES = {"dense_score": "dense_score", "scatter_add": "scatter_add",
+            "bundle_topk": "bundle_topk", "positional_leaf": "bundle_topk"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _LANES = 128
@@ -70,8 +78,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """Build output of a source, keyed by the source, every header of
+    csrc/ and the flags."""
     src = (_CSRC / _SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()
     return _BUILD / f"{name}-{digest[:16]}.so"
 
 
@@ -83,6 +95,9 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
         fn.argtypes = [P, P, P, P, P, I, I, I, I, P]
     elif name == "bundle_topk":
         fn.argtypes = [ctypes.POINTER(_BundleArgs), P]
+        leaf = lib.positional_leaf
+        leaf.argtypes = [ctypes.POINTER(_PosLeafArgs), P]
+        leaf.restype = ctypes.c_int
     else:
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
     fn.restype = ctypes.c_int
@@ -107,7 +122,8 @@ def build(verbose: bool = False) -> float:
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *_NVCC_FLAGS, *(("-Xptxas", "-v") if verbose
                                             else ()),
-                   "-o", str(tmp), str(_CSRC / _SOURCES[name])]
+                   "-I", str(_CSRC), "-o", str(tmp),
+                   str(_CSRC / _SOURCES[name])]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp, path)
@@ -127,9 +143,11 @@ def build(verbose: bool = False) -> float:
 
 
 def _fn(name: str):
-    if name not in _LIBS:
+    """The C entry point `name`, building its library at first use."""
+    lib = _ENTRIES[name]
+    if lib not in _LIBS:
         build()
-    return getattr(_LIBS[name], name)
+    return getattr(_LIBS[lib], name)
 
 
 def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int,
@@ -299,9 +317,32 @@ def scatter_add(docs: torch.Tensor, vals: torch.Tensor,
 BUNDLE_BT = 8            # query rows per block (one warp each in selection)
 BUNDLE_MAX_CLAUSES = 8   # the executor's _FUSED_MAX_CLAUSES
 BUNDLE_MAX_QM = 8        # widest dense clause (_DENSE_GROUP_MAX terms)
+# the positional clause caps (terms of a phrase / span, fields and terms
+# of a BM25F clause): the executor admits no wider clause; mirrored by
+# kMaxTerms / kMaxFields in csrc/positional_leaf.cuh
+POS_MAX_TERMS = 8
+POS_MAX_FIELDS = 4
+POS_MAX_PARAMS = 512     # positional parameter ints per row (kMaxPW)
+POS_MAX_PFIELDS = 8      # distinct positional fields of one bundle
 _BUNDLE_TARGET_BLOCKS = 2048   # ~16 blocks per SM on 132 SMs
 _ROLES = {"must": 0, "filter": 1, "must_not": 2, "should": 3}
 _KINDS = {"terms_dense": 0, "term_text": 0, "range_int": 1, "range_f32": 2}
+# positional kinds of the descriptor table (posleaf::kPhraseExact ...)
+_POS_KINDS = {("phrase_pos", "e"): 3, ("phrase_pos", "s"): 4,
+              ("span_pos", "o"): 5, ("span_pos", "u"): 6}
+_BM25F_KIND = 7
+
+
+def _kind_code(kind: str) -> int:
+    from .scoring import parse_positional_kind, positional_prefix
+    if kind in _KINDS:
+        return _KINDS[kind]
+    head = positional_prefix(kind)
+    if head is None:
+        raise ValueError(f"clause kind [{kind}] has no bundle form")
+    if head == "bm25f":
+        return _BM25F_KIND
+    return _POS_KINDS[(head, parse_positional_kind(kind)[2])]
 
 
 def bundle_chunk_tiles(B: int, n_tiles: int) -> int:
@@ -316,16 +357,20 @@ def bundle_chunk_tiles(B: int, n_tiles: int) -> int:
 def _stack_bundle_inputs(clauses: tuple, cl_inputs: tuple):
     """Clause-stacked walk inputs: every dense clause padded to qm = the
     widest clause (tid -1 / weight 0 padding adds an exact +0.0); range
-    clauses contribute their (lo, hi) pairs in clause order. Returns
+    clauses contribute their (lo, hi) pairs in clause order; positional
+    clauses ride their own parameter rows (_pos_param_rows). Returns
     (qm, qt [B, Cd*qm] i32, wq f32, msmc [B, Cd] i32, boostc f32,
-    ranges ((lo [B], hi [B]), ...))."""
+    ranges ((lo [B], hi [B]), ...)); Cd may be 0."""
+    from .scoring import positional_prefix
+    b = cl_inputs[0][0].shape[0]
+    dev = cl_inputs[0][0].device
     dense = [inp for (_r, kind, _f, _w), inp in zip(clauses, cl_inputs)
              if kind in _KINDS and _KINDS[kind] == 0]
-    if not dense:
-        raise ValueError("bundle has no dense scoring clause")
-    qm = max(inp[0].shape[1] for inp in dense)
+    qm = max((inp[0].shape[1] for inp in dense), default=1)
     qts, wqs, msmcs, boostcs, ranges = [], [], [], [], []
     for (_r, kind, _f, _w), inp in zip(clauses, cl_inputs):
+        if positional_prefix(kind):
+            continue
         if kind not in _KINDS:
             raise ValueError(f"clause kind [{kind}] has no bundle form")
         if _KINDS[kind] == 0:
@@ -337,11 +382,88 @@ def _stack_bundle_inputs(clauses: tuple, cl_inputs: tuple):
             boostcs.append(boost_c)
         else:
             ranges.append(tuple(inp))
+    if not dense:
+        return (qm, torch.empty((b, 0), dtype=torch.int32, device=dev),
+                torch.empty((b, 0), dtype=torch.float32, device=dev),
+                torch.empty((b, 0), dtype=torch.int32, device=dev),
+                torch.empty((b, 0), dtype=torch.float32, device=dev),
+                tuple(ranges))
     return (qm, torch.cat(qts, dim=1).to(torch.int32).contiguous(),
             torch.cat(wqs, dim=1).to(torch.float32).contiguous(),
             torch.stack(msmcs, dim=1).to(torch.int32).contiguous(),
             torch.stack(boostcs, dim=1).to(torch.float32).contiguous(),
             tuple(ranges))
+
+
+def _pos_param_arrays(clauses: tuple, cl_inputs: tuple
+                      ) -> tuple[list, tuple]:
+    """Positional clause parameters as [B, x] columns, in clause order,
+    with each column's pad value (qt pads -1, so an inert row decodes
+    zero frequency; the rest pad 0). Per phrase / span clause: qt [B, n],
+    wb [B, n], then idf_sum, slop, pboost, msm_c, boost_c as [B, 1]; per
+    bm25f clause: qt [B, nf*nt] (field-major), idf [B, nt], wf [B, nf],
+    then pboost, msm_c, boost_c."""
+    from .scoring import positional_prefix
+    flat: list = []
+    pads: list = []
+
+    def put(a, pad=0):
+        flat.append(a)
+        pads.append(pad)
+
+    for (_r, kind, _f, _w), inp in zip(clauses, cl_inputs):
+        head = positional_prefix(kind)
+        if head is None:
+            continue
+        if head == "bm25f":
+            qt, idf, wf, pb, mc, bc = inp
+            put(qt.reshape(qt.shape[0], -1), -1)
+            put(idf)
+            put(wf)
+        else:
+            qt, wb, idf_sum, slop, pb, mc, bc = inp
+            put(qt, -1)
+            put(wb)
+            put(idf_sum[:, None])
+            put(slop[:, None].to(torch.int32))
+        put(pb[:, None].to(torch.float32))
+        put(mc[:, None].to(torch.int32))
+        put(bc[:, None].to(torch.float32))
+    return flat, tuple(pads)
+
+
+def _pos_param_rows(clauses: tuple, cl_inputs: tuple, rows: int
+                    ) -> tuple[torch.Tensor | None, list]:
+    """The kernel's positional parameter rows: every column of
+    _pos_param_arrays as int32 (f32 as its bits), side by side, padded to
+    `rows` rows with the pad values. Returns (pp [rows, W] or None,
+    per-clause column offset or None)."""
+    from .scoring import positional_prefix
+    flat, pads = _pos_param_arrays(clauses, cl_inputs)
+    offsets, col = [], 0
+    it = iter(flat)
+    for _r, kind, _f, _w in clauses:
+        head = positional_prefix(kind)
+        if head is None:
+            offsets.append(None)
+            continue
+        offsets.append(col)
+        for _ in range(6 if head == "bm25f" else 7):
+            col += next(it).shape[1]
+    if not flat:
+        return None, offsets
+    cols = []
+    for a, pad in zip(flat, pads):
+        bits = (a.to(torch.float32).contiguous().view(torch.int32)
+                if a.is_floating_point() else a.to(torch.int32))
+        extra = rows - bits.shape[0]
+        cols.append(torch.nn.functional.pad(bits, (0, 0, 0, extra),
+                                            value=pad))
+    return torch.cat(cols, dim=1).contiguous(), offsets
+
+
+def _walk_tiles(cols: dict, fields: tuple, names: tuple, docs):
+    return {f: tuple(cols[f][c][docs] for c in names) for f in fields}
 
 
 def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
@@ -365,8 +487,8 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
     chunk), which changes nothing: each chunk's state is its own.
     Returns (cs [B, J*ck] f32, ci [B, J*ck] i32, cnt [B, J] i32, flags
     [B, J] i32, match [B, cap] bool or None); cs/ci are None at ck 0."""
-    from .scoring import (bundle_num_fields, bundle_text_fields,
-                          bundle_tile_eval)
+    from .scoring import (bundle_num_fields, bundle_pos_fields,
+                          bundle_text_fields, bundle_tile_eval)
     from .topk import top_k_values
     B = msm.shape[0]
     cap = live.shape[0]
@@ -408,14 +530,15 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
         nc = tiles.numel()
         docs = (tiles[:, None] * tile
                 + torch.arange(tile, device=dev)[None, :]).reshape(-1)
-        text_tiles = {f: (text_cols[f]["fwd_tids"][docs],
-                          text_cols[f]["fwd_imps"][docs])
-                      for f in bundle_text_fields(clauses)}
-        num_tiles = {f: (num_cols[f]["values"][docs],
-                         num_cols[f]["exists"][docs])
-                     for f in bundle_num_fields(clauses)}
-        score, match = bundle_tile_eval(clauses, cl_inputs, text_tiles,
-                                        num_tiles, msm, boost, live[docs])
+        score, match = bundle_tile_eval(
+            clauses, cl_inputs,
+            _walk_tiles(text_cols, bundle_text_fields(clauses),
+                        ("fwd_tids", "fwd_imps"), docs),
+            _walk_tiles(num_cols, bundle_num_fields(clauses),
+                        ("values", "exists"), docs),
+            msm, boost, live[docs],
+            pos_tiles=_walk_tiles(text_cols, bundle_pos_fields(clauses),
+                                  ("fwd_pos", "k1ln", "lnorm"), docs))
         score = score.reshape(B, nc, tile)
         can_j = can[:, tiles]                                # [B, nc]
         any_hit = tile_vote(can_j)
@@ -446,20 +569,73 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
     return cs, ci, cnt, flags, match_out
 
 
+class _PosField(ctypes.Structure):
+    """Mirror of `posleaf::PosField` in csrc/positional_leaf.cuh."""
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    _fields_ = [("tids", _P), ("pos", _P), ("k1ln", _P), ("lnorm", _P),
+                ("L", _I), ("P", _I)]
+
+
 class _BundleArgs(ctypes.Structure):
     """Mirror of `struct BundleArgs` in csrc/bundle_topk.cu."""
     _P, _I = ctypes.c_void_p, ctypes.c_int
     _fields_ = [("tids", _P * 8), ("imps", _P * 8), ("L", _I * 8),
-                ("vals", _P * 8), ("exists", _P * 8), ("live", _P),
-                ("clause", (_I * 4) * 8), ("n_clauses", _I),
+                ("vals", _P * 8), ("exists", _P * 8),
+                ("pfields", _PosField * POS_MAX_PFIELDS), ("live", _P),
+                ("clause", (_I * 10) * 8), ("n_clauses", _I),
                 ("qt", _P), ("wq", _P), ("msmc", _P), ("boostc", _P),
                 ("msm", _P), ("boost", _P), ("lo", _P), ("hi", _P),
+                ("pp", _P), ("pw", _I),
                 ("can", _P), ("ub", _P), ("cs", _P), ("ci", _P),
                 ("cnt", _P), ("flags", _P), ("match", _P),
                 ("B", _I), ("cap", _I), ("tile", _I), ("n_tiles", _I),
                 ("qm", _I), ("n_dense", _I), ("n_range", _I), ("ck", _I),
                 ("update_thr", _I), ("chunk_tiles", _I),
                 ("emit_match", _I)]
+
+
+class _PosLeafArgs(ctypes.Structure):
+    """Mirror of `struct PosLeafArgs` in csrc/bundle_topk.cu."""
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    _fields_ = [("pfields", _PosField * POS_MAX_FIELDS),
+                ("fidx", _I * POS_MAX_FIELDS), ("kind", _I), ("n", _I),
+                ("nt", _I), ("pp", _P), ("pw", _I), ("s_out", _P),
+                ("m_out", _P), ("B", _I), ("cap", _I)]
+
+
+def _pos_field(col: dict, field: str, cap: int,
+               dev: torch.device) -> _PosField:
+    """Checked descriptor of a field's positional columns."""
+    tids, pos = col["fwd_tids"], col.get("fwd_pos")
+    if pos is None:
+        raise ValueError(f"{field}: no positions pack")
+    _check(tids, f"{field}.fwd_tids", torch.int32, 2, dev)
+    _check(pos, f"{field}.fwd_pos", torch.int16, 2, dev)
+    _check(col["k1ln"], f"{field}.k1ln", torch.float32, 1, dev)
+    _check(col["lnorm"], f"{field}.lnorm", torch.float32, 1, dev)
+    L = tids.shape[1]
+    if (tids.shape[0] != cap or pos.shape[0] != cap or pos.shape[1] % L
+            or col["k1ln"].shape[0] != cap or col["lnorm"].shape[0] != cap):
+        raise ValueError(f"{field}: positional columns do not fit cap {cap}")
+    return _PosField(tids.data_ptr(), pos.data_ptr(), col["k1ln"].data_ptr(),
+                     col["lnorm"].data_ptr(), L, pos.shape[1] // L)
+
+
+def _check_pos_shape(kind: str, field, inp: tuple) -> tuple[int, int]:
+    """(n, nt) of a positional clause (n: terms, bm25f: fields) within
+    the kernel's caps."""
+    from .scoring import clause_fields, positional_prefix
+    if positional_prefix(kind) == "bm25f":
+        n, nt = inp[0].shape[1], inp[0].shape[2]
+        if n != len(clause_fields(field)) or n > POS_MAX_FIELDS \
+                or nt > POS_MAX_TERMS:
+            raise ValueError(f"{kind}: takes at most {POS_MAX_FIELDS} "
+                             f"fields and {POS_MAX_TERMS} terms")
+        return n, nt
+    n = inp[0].shape[1]
+    if n > POS_MAX_TERMS:
+        raise ValueError(f"{kind}: takes at most {POS_MAX_TERMS} terms")
+    return n, 0
 
 
 def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
@@ -470,6 +646,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     outputs, batch tile BUNDLE_BT and chunks of `bundle_chunk_tiles`.
     CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise."""
+    from .scoring import clause_fields
     if live.device.type == "cpu":
         return bundle_walk_ref(text_cols, num_cols, clauses, cl_inputs, msm,
                                boost, live, can, ub, ck=ck,
@@ -489,11 +666,20 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     if qm > BUNDLE_MAX_QM:
         raise ValueError(f"K3 takes dense clauses of at most "
                          f"{BUNDLE_MAX_QM} terms, got {qm}")
+    rows = -(-B // BUNDLE_BT) * BUNDLE_BT
+    pp, offsets = _pos_param_rows(clauses, cl_inputs, rows)
+    pw = 0 if pp is None else pp.shape[1]
+    if pw > POS_MAX_PARAMS:
+        raise ValueError(f"K3 takes at most {POS_MAX_PARAMS} positional "
+                         f"parameters per row, got {pw}")
     a = _BundleArgs()
-    text_fields, num_fields = [], []
+    text_fields, num_fields, pos_fields = [], [], []
     dc = ri = 0
-    for c, (role, kind, field, _w) in enumerate(clauses):
-        if _KINDS[kind] == 0:
+    for c, ((role, kind, field, _w), inp) in enumerate(zip(clauses,
+                                                           cl_inputs)):
+        code = _kind_code(kind)
+        n = nt = 0
+        if code == 0:
             if field not in text_fields:
                 col = text_cols[field]
                 tids, imps = col["fwd_tids"], col["fwd_imps"]
@@ -509,7 +695,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
                 text_fields.append(field)
             slot, fidx = dc, text_fields.index(field)
             dc += 1
-        else:
+        elif code in (1, 2):
             if field not in num_fields:
                 col = num_cols[field]
                 vals = col["values"]
@@ -524,8 +710,22 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
                 num_fields.append(field)
             slot, fidx = ri, num_fields.index(field)
             ri += 1
-        a.clause[c][0], a.clause[c][1] = _ROLES[role], _KINDS[kind]
+        else:
+            n, nt = _check_pos_shape(kind, field, inp)
+            for j, f in enumerate(clause_fields(field)):
+                if f not in pos_fields:
+                    if len(pos_fields) == POS_MAX_PFIELDS:
+                        raise ValueError(f"K3 takes at most "
+                                         f"{POS_MAX_PFIELDS} positional "
+                                         f"fields")
+                    a.pfields[len(pos_fields)] = _pos_field(
+                        text_cols[f], f, cap, dev)
+                    pos_fields.append(f)
+                a.clause[c][6 + j] = pos_fields.index(f)
+            slot, fidx = offsets[c], a.clause[c][6]
+        a.clause[c][0], a.clause[c][1] = _ROLES[role], code
         a.clause[c][2], a.clause[c][3] = fidx, slot
+        a.clause[c][4], a.clause[c][5] = n, nt
     _check(live, "live", torch.bool, 1, dev)
     msm_i = msm.to(torch.int32).contiguous()
     boost_f = boost.to(torch.float32).contiguous()
@@ -557,6 +757,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     a.live, a.n_clauses = live.data_ptr(), len(clauses)
     a.qt, a.wq, a.msmc, a.boostc = ptr(qt), ptr(wq), ptr(msmc), ptr(boostc)
     a.msm, a.boost, a.lo, a.hi = ptr(msm_i), ptr(boost_f), ptr(lo), ptr(hi)
+    a.pp, a.pw = ptr(pp), pw
     a.can, a.ub = ptr(can_b), ptr(ub_f)
     a.cs, a.ci, a.cnt, a.flags = ptr(cs), ptr(ci), ptr(cnt), ptr(flags)
     a.match = ptr(match)
@@ -569,6 +770,78 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     _raise_on(err, "bundle_topk")
     LAUNCHES["bundle_topk"] += 1
     return cs, ci, cnt, flags, match
+
+
+# ---------------------------------------------------------------------------
+# K3's positional leaf over the whole capacity (the unfused path)
+# ---------------------------------------------------------------------------
+
+# docs per pass of the plain version: its decode holds [B, docs, n, P]
+# int32 cubes, so it walks the capacity in slices of about 2^22 (row, doc)
+# pairs
+_LEAF_REF_PAIRS = 1 << 22
+
+
+def positional_leaf_ref(kind: str, field, inp: tuple, cols: dict
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `positional_leaf`: ops/scoring
+    .positional_tile_scores over the capacity in doc slices (per doc, so
+    slicing changes no number)."""
+    from .scoring import clause_fields, positional_tile_scores
+    fields = clause_fields(field)
+    B = inp[0].shape[0]
+    cap = cols[fields[0]]["fwd_tids"].shape[0]
+    step = max(1024, _LEAF_REF_PAIRS // max(B, 1))
+    s_parts, m_parts = [], []
+    for d0 in range(0, cap, step):
+        sl = slice(d0, min(cap, d0 + step))
+        text = {f: (cols[f]["fwd_tids"][sl], cols[f]["fwd_imps"][sl])
+                for f in fields}
+        pos = {f: (cols[f]["fwd_pos"][sl], cols[f]["k1ln"][sl],
+                   cols[f]["lnorm"][sl]) for f in fields}
+        s, m = positional_tile_scores(kind, field, inp, text, pos)
+        s_parts.append(s)
+        m_parts.append(m)
+    return torch.cat(s_parts, dim=1), torch.cat(m_parts, dim=1)
+
+
+def positional_leaf(kind: str, field, inp: tuple, cols: dict
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One positional clause over the whole capacity -> (s_leaf [B, cap]
+    f32 with the clause boost applied, m_leaf [B, cap] bool), the
+    unfused path's leaf (reference eval_node's positional branch).
+    `cols[f]` holds fwd_tids / fwd_imps / fwd_pos / k1ln / lnorm of each
+    of the clause's fields; `inp` is the clause's bundle input tuple.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise."""
+    from .scoring import clause_fields
+    fields = clause_fields(field)
+    tids0 = cols[fields[0]]["fwd_tids"]
+    if tids0.device.type == "cpu":
+        return positional_leaf_ref(kind, field, inp, cols)
+    dev = tids0.device
+    cap = tids0.shape[0]
+    B = inp[0].shape[0]
+    if B > 65535:
+        raise ValueError(f"positional_leaf takes at most 65535 rows, got {B}")
+    n, nt = _check_pos_shape(kind, field, inp)
+    clause = (("should", kind, field, False),)
+    pp, _off = _pos_param_rows(clause, (inp,), B)
+    a = _PosLeafArgs()
+    for j, f in enumerate(fields):
+        a.pfields[j] = _pos_field(cols[f], f, cap, dev)
+        a.fidx[j] = j
+    s_out = torch.empty((B, cap), dtype=torch.float32, device=dev)
+    m_out = torch.empty((B, cap), dtype=torch.bool, device=dev)
+    a.kind, a.n, a.nt = _kind_code(kind), n, nt
+    a.pp, a.pw = pp.data_ptr(), pp.shape[1]
+    a.s_out, a.m_out = s_out.data_ptr(), m_out.data_ptr()
+    a.B, a.cap = B, cap
+    fn = _fn("positional_leaf")
+    err = fn(ctypes.byref(a), _stream(dev))
+    _raise_on(err, "positional_leaf")
+    LAUNCHES["positional_leaf"] += 1
+    return s_out, m_out
 
 
 def normalize_prune(flags: torch.Tensor, bt: int = BUNDLE_BT

@@ -11,9 +11,10 @@ steps:
     `_finalize_node` are the reference's code, trimmed to this slice's
     queries.
   * evaluate (device): a score-sorted plan that `_fused_plan_bundle`
-    admits (a bare match/term, or a bool over dense text clauses with
-    range filter/must_not clauses, with or without aggs, size 0
-    included) runs on the fused bundle engine: `eval_fused_topk` /
+    admits (a bare match/term/phrase/span/cross_fields leaf, or a bool
+    over dense text and positional clauses with range filter/must_not
+    clauses, with or without aggs, size 0 included) runs on the fused
+    bundle engine: `eval_fused_topk` /
     `eval_fused_match` call `ops/cuda_scoring.fused_topk_bundle` /
     `match_mask_bundle`, the hand-written kernel K3, which never builds
     the [B, cap] score matrix. Every other plan runs the `desc`
@@ -28,9 +29,15 @@ steps:
 
 Text clauses of the unfused path run on the hand-written kernels of
 `ops/cuda_scoring`: `term_text` / `terms_dense` on `dense_score`,
-`term_text_sc` / `terms_fused` / `docs_w` on `scatter_add`. The fused
-engine's backend autotuner, stepped/resident form, positional and knn
-clauses, tiering and breaker holds are not ported yet.
+`term_text_sc` / `terms_fused` / `docs_w` on `scatter_add`, and the
+positional kinds (phrase / span / BM25F) on `positional_leaf`, the
+unfused entry of K3's positional leaf. Positional queries the fused
+kinds do not cover (phrase prefix, span_or / span_first / span_not,
+nested span trees, fields without a positions pack, other similarities,
+`ES_TPU_POSITIONAL=0`) bind on the host oracle `search/phrase.py` to a
+`docs_w` posting list, counted by reason. The fused engine's backend
+autotuner, stepped/resident form, knn clauses, tiering and breaker holds
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,12 +54,20 @@ import torch
 from ..index.mapping import (MapperService, parse_date_millis, parse_ip,
                              MapperParsingError, DATE, BOOLEAN, IP)
 from ..index.segment import (Segment, next_pow2, bm25_idf,
-                             build_tile_minmax)
+                             build_tile_minmax, BM25_B, BM25_K1,
+                             POS_MAX_ENC)
 from ..ops import aggs as agg_ops
 from ..ops import cuda_scoring
+# fused positional clause caps: n rides in the clause kind string
+# (phrase_pos:{n}:..., bm25f:{nf}:{nt}); wider shapes take the host path
+from ..ops.cuda_scoring import (POS_MAX_FIELDS as _POS_FIELDS_MAX,
+                                POS_MAX_TERMS as _POS_CLAUSE_TERMS_MAX)
 from ..ops.scoring import (DENSE_CLAUSE_KINDS, RANGE_CLAUSE_KINDS,
-                           bundle_num_fields, bundle_primary_field,
-                           bundle_text_fields, score_term, score_terms_fused)
+                           bm25f_kind, bundle_num_fields,
+                           bundle_primary_field, bundle_text_fields,
+                           clause_fields, parse_positional_kind,
+                           phrase_kind, positional_prefix, score_term,
+                           score_terms_fused, span_kind)
 from ..ops.topk import top_k_hits, top_k_by_field, top_k_values
 from ..utils.errors import QueryParsingError, SearchParseError
 from .query_dsl import (Query, MatchAllQuery, MatchNoneQuery, TermQuery,
@@ -78,7 +93,9 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
     """Upload (once per device) and return the segment's device columns:
     int32 / float32 / bool tensors exactly as the numpy columns hold
     them: the columns the unfused path reads, plus each forward-indexed
-    field's block-max summary `tile_max` for the fused engine."""
+    field's block-max summary `tile_max` for the fused engine and the
+    positional pack (`fwd_pos` int16, `k1ln` / `lnorm` f32) where the
+    field has one."""
     cached = getattr(segment, "_device", None)
     if cached is not None and cached[0] == device:
         return cached[1]
@@ -93,6 +110,10 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
                    if pf.fwd_tids is not None else {}),
                 **({"tile_max": _up(pf.tile_max, device)}
                    if pf.tile_max is not None else {}),
+                **({"fwd_pos": _up(pf.fwd_pos, device),
+                    "k1ln": _up(pf.k1ln, device),
+                    "lnorm": _up(pf.lnorm, device)}
+                   if pf.fwd_pos is not None else {}),
             }
             for name, pf in segment.text.items()
         },
@@ -579,6 +600,277 @@ class QueryBinder:
         return self._expand_terms(q.field, lambda t: t.startswith(q.value),
                                   q.boost, q.max_expansions)
 
+    # -- positional: fused clause kinds, else host match -> docs_w --------
+
+    def _docs_w(self, docs: np.ndarray, imps: np.ndarray) -> Bound:
+        if docs.size == 0:
+            return self._no_match()
+        return Bound("docs_w",
+                     arrays={"docs": docs.astype(np.int32),
+                             "imps": imps.astype(np.float32)})
+
+    def _positional_fallback(self, why: str) -> None:
+        """Count one positional query taking the host path, by reason
+        (fused_scoring_stats()["admission"]["positional_fallbacks"])."""
+        _fused_stats.record_positional(why)
+
+    def _default_bm25(self, field: str) -> bool:
+        """The packed k1ln / lnorm columns bake the default BM25
+        parameters; any other similarity keeps the host path."""
+        from ..index.similarity import BM25Similarity
+        sim = self.mappers.similarity_for(field)
+        return sim is None or (isinstance(sim, BM25Similarity)
+                               and sim.k1 == BM25_K1 and sim.b == BM25_B)
+
+    def _positional_field_ok(self, pf) -> bool:
+        return (pf.fwd_pos is not None and pf.tile_max is not None
+                and pf.fwd_tids is not None)
+
+    def _phrase_fused(self, q, pf, tid_groups) -> Bound | None:
+        """The fused-kind Bound of an eligible match_phrase, or None for
+        the host phrase_match -> docs_w path (reason counted)."""
+        from .phrase import terms_idf_sum
+        if not _positional_enabled():
+            return None
+        if q.prefix_last:
+            self._positional_fallback("phrase_prefix")
+            return None
+        if not self._positional_field_ok(pf):
+            self._positional_fallback("missing_positions_pack")
+            return None
+        if not self._default_bm25(q.field):
+            self._positional_fallback("similarity")
+            return None
+        n = len(tid_groups)
+        if n > _POS_CLAUSE_TERMS_MAX:
+            self._positional_fallback("too_many_terms")
+            return None
+        if q.slop > POS_MAX_ENC:
+            self._positional_fallback("slop_cap")
+            return None
+        if not q.boost > 0.0:
+            # host docs_w at boost <= 0 scores 0, i.e. no match, while
+            # the fused leaf matches on freq > 0; and the tile bound needs
+            # a positive boost
+            self._positional_fallback("nonpositive_boost")
+            return None
+        tids = [g[0] for g in tid_groups]
+        idf_sum = terms_idf_sum(pf, tid_groups)
+        wb = [idf_sum / float(bm25_idf(float(pf.df[t]), pf.doc_count))
+              for t in tids]
+        return Bound(phrase_kind(n, q.slop > 0), q.field,
+                     scalars={"idf_sum": float(idf_sum),
+                              "slop": int(q.slop),
+                              "boost": float(q.boost)},
+                     arrays={"qt": np.asarray(tids, np.int32),
+                             "wb": np.asarray(wb, np.float32)})
+
+    def _span_fused(self, q) -> Bound | None:
+        """The fused-kind Bound of an eligible span tree (a bare
+        span_term or a depth-1 span_near of same-field span_terms), or
+        None for the host Spans path. span_or / span_first / span_not
+        and nested trees stay on the host, counted; child boosts are
+        ignored as the host's span algebra ignores them."""
+        from .query_dsl import SpanTermQuery, SpanNearQuery
+        if not _positional_enabled():
+            return None
+        if isinstance(q, SpanTermQuery):
+            field, terms = q.field, [str(q.value)]
+            in_order, slop = False, 0
+        elif isinstance(q, SpanNearQuery) and q.clauses and all(
+                isinstance(c, SpanTermQuery) for c in q.clauses):
+            if len({c.field for c in q.clauses}) > 1:
+                return None          # the host raises the same-field error
+            field = q.clauses[0].field
+            terms = [str(c.value) for c in q.clauses]
+            in_order, slop = q.in_order, q.slop
+        else:
+            self._positional_fallback(f"span_{type(q).__name__}")
+            return None
+        pf = self.seg.text.get(field)
+        if pf is None or pf.pos_data is None:
+            return None              # host: no match / positions error
+        if not self._positional_field_ok(pf):
+            self._positional_fallback("missing_positions_pack")
+            return None
+        if not self._default_bm25(field):
+            self._positional_fallback("similarity")
+            return None
+        n = len(terms)
+        if n > _POS_CLAUSE_TERMS_MAX:
+            self._positional_fallback("too_many_terms")
+            return None
+        if slop > POS_MAX_ENC:
+            self._positional_fallback("slop_cap")
+            return None
+        if not q.boost > 0.0:
+            self._positional_fallback("nonpositive_boost")
+            return None
+        tids = [pf.lookup(t) for t in terms]
+        if any(t < 0 for t in tids):
+            return self._no_match()  # host: empty spans -> no match
+        idf = [float(bm25_idf(float(pf.df[t]), pf.doc_count))
+               for t in tids]
+        idf_sum = sum(idf)
+        # n == 1 counts occurrences either way; unordered keeps the
+        # tighter per-term bound
+        kind = span_kind(n, in_order if n > 1 else False)
+        return Bound(kind, field,
+                     scalars={"idf_sum": float(idf_sum), "slop": int(slop),
+                              "boost": float(q.boost)},
+                     arrays={"qt": np.asarray(tids, np.int32),
+                             "wb": np.asarray([idf_sum / v for v in idf],
+                                              np.float32)})
+
+    def _bind_BM25FQuery(self, q) -> Bound:
+        """multi_match type=cross_fields as BM25F: shared max-df IDF per
+        term, per-field weighted tf and length norm, one saturation. The
+        same statistics feed the fused bm25f kind or the host oracle
+        (search/phrase.bm25f_scores) through docs_w."""
+        from .phrase import bm25f_scores
+        pairs = [(f, w) for f, w in q.fields
+                 if self.seg.text.get(f) is not None]
+        if not pairs or not q.terms:
+            return self._no_match()
+        pfs = [self.seg.text[f] for f, _w in pairs]
+        nf, nt = len(pairs), len(q.terms)
+        tids = np.full((nf, nt), -1, np.int32)
+        for fi, pf in enumerate(pfs):
+            for ti, term in enumerate(q.terms):
+                tids[fi, ti] = pf.lookup(term)
+        if (tids < 0).all():
+            return self._no_match()
+        # one virtual document: per term the max df across the fields,
+        # N the widest field's doc count
+        n_docs = max(pf.doc_count for pf in pfs)
+        idf = [float(bm25_idf(float(max(
+                   (pf.df[t] for pf, t in zip(pfs, tids[:, ti]) if t >= 0),
+                   default=0.0)), n_docs)) for ti in range(nt)]
+        weights = np.asarray([max(w, _F32_MIN_WEIGHT) for _f, w in pairs],
+                             np.float32)
+        fused_ok = (_positional_enabled() and q.boost > 0.0
+                    and nf <= _POS_FIELDS_MAX
+                    and nt <= _POS_CLAUSE_TERMS_MAX
+                    and all(self._positional_field_ok(pf)
+                            and self._default_bm25(f)
+                            for (f, _w), pf in zip(pairs, pfs)))
+        if fused_ok:
+            return Bound(bm25f_kind(nf, nt), tuple(f for f, _w in pairs),
+                         scalars={"boost": float(q.boost)},
+                         arrays={"qt": tids,
+                                 "idf": np.asarray(idf, np.float32),
+                                 "wf": weights})
+        if _positional_enabled():
+            self._positional_fallback(
+                "bm25f_boost" if not q.boost > 0.0 else
+                "bm25f_shape" if (nf > _POS_FIELDS_MAX
+                                  or nt > _POS_CLAUSE_TERMS_MAX) else
+                "missing_positions_pack")
+        col = bm25f_scores(pfs, tids, idf, weights, self.seg.capacity)
+        docs = np.nonzero(col > 0.0)[0].astype(np.int32)
+        return self._docs_w(docs, col[docs] * np.float32(q.boost))
+
+    def _bind_PhraseQuery(self, q) -> Bound:
+        from .phrase import phrase_match, phrase_impacts, terms_idf_sum
+        pf = self.seg.text.get(q.field)
+        if pf is None:
+            return self._no_match()
+        if pf.pos_data is None:
+            # a segment without the positions sidecar: the conjunctive
+            # approximation (all terms must match)
+            from .query_dsl import BoolQuery, TermQuery
+            return self.bind(BoolQuery(
+                must=tuple(TermQuery(q.field, t) for t in q.terms),
+                boost=q.boost))
+        tid_groups: list[list[int]] = []
+        for i, term in enumerate(q.terms):
+            if q.prefix_last and i == len(q.terms) - 1:
+                tids = [j for j, t in enumerate(pf.terms)
+                        if t.startswith(term)][: q.max_expansions]
+                tid_groups.append(tids)
+            else:
+                t = pf.lookup(term)
+                if t < 0:
+                    return self._no_match()
+                tid_groups.append([t])
+        fused = self._phrase_fused(q, pf, tid_groups)
+        if fused is not None:
+            return fused
+        docs, freqs = phrase_match(pf, tid_groups, q.slop)
+        imps = phrase_impacts(
+            pf, docs, freqs, terms_idf_sum(pf, tid_groups),
+            sim=self.mappers.similarity_for(q.field),
+            tids=[t for g in tid_groups for t in g]) * q.boost
+        return self._docs_w(docs, imps)
+
+    def _span_tree(self, q):
+        """Query AST -> (phrase.Spans, field, [tids]) on the host."""
+        from . import phrase as ph
+        from .query_dsl import (SpanTermQuery, SpanNearQuery, SpanOrQuery,
+                                SpanFirstQuery, SpanNotQuery)
+        if isinstance(q, SpanTermQuery):
+            pf = self.seg.text.get(q.field)
+            if pf is not None and pf.pos_data is None:
+                raise QueryParsingError(
+                    f"field [{q.field}] was indexed without position data; "
+                    f"cannot run span queries")
+            if pf is None:
+                return ph.Spans.empty(), q.field, []
+            tid = pf.lookup(str(q.value))
+            return ph.span_term(pf, tid), q.field, [tid] if tid >= 0 else []
+        if isinstance(q, SpanNearQuery):
+            parts = [self._span_tree(c) for c in q.clauses]
+            field = self._span_same_field(parts, "span_near")
+            tids = [t for _, _, ts in parts for t in ts]
+            return (ph.span_near([p for p, _, _ in parts], q.slop,
+                                 q.in_order), field, tids)
+        if isinstance(q, SpanOrQuery):
+            parts = [self._span_tree(c) for c in q.clauses]
+            field = self._span_same_field(parts, "span_or")
+            tids = [t for _, _, ts in parts for t in ts]
+            return ph.span_or([p for p, _, _ in parts]), field, tids
+        if isinstance(q, SpanFirstQuery):
+            spans, field, tids = self._span_tree(q.match)
+            return ph.span_first(spans, q.end), field, tids
+        if isinstance(q, SpanNotQuery):
+            inc, field, tids = self._span_tree(q.include)
+            exc, _, _ = self._span_tree(q.exclude)
+            return ph.span_not(inc, exc, q.pre, q.post), field, tids
+        raise QueryParsingError(
+            f"unsupported span clause [{type(q).__name__}]")
+
+    @staticmethod
+    def _span_same_field(parts, ctx: str) -> str:
+        # span_near / span_or clauses must all be on one field
+        fields = {f for _, f, _ in parts}
+        if len(fields) > 1:
+            raise QueryParsingError(
+                f"[{ctx}] clauses must have same field, got {sorted(fields)}")
+        return parts[0][1]
+
+    def _bind_span(self, q) -> Bound:
+        from .phrase import phrase_impacts
+        fused = self._span_fused(q)
+        if fused is not None:
+            return fused
+        spans, field, tids = self._span_tree(q)
+        pf = self.seg.text.get(field)
+        if pf is None or spans.size == 0:
+            return self._no_match()
+        docs, freqs = spans.doc_freqs()
+        idf_sum = sum(float(bm25_idf(float(pf.df[t]), pf.doc_count))
+                      for t in tids)
+        imps = phrase_impacts(
+            pf, docs, freqs, idf_sum,
+            sim=self.mappers.similarity_for(field), tids=tids) * q.boost
+        return self._docs_w(docs, imps)
+
+    _bind_SpanTermQuery = _bind_span
+    _bind_SpanNearQuery = _bind_span
+    _bind_SpanOrQuery = _bind_span
+    _bind_SpanFirstQuery = _bind_span
+    _bind_SpanNotQuery = _bind_span
+
     # -- compound ----------------------------------------------------------
 
     def _bind_BoolQuery(self, q: BoolQuery) -> Bound:
@@ -763,6 +1055,22 @@ def _finalize_node(bounds: Sequence[Bound]) -> tuple[tuple, tuple]:
             docs[i, : d.size] = d
             imps[i, : d.size] = b.arrays["imps"]
         return ("docs_w", n_pad), (docs, imps)
+    head = positional_prefix(kind)
+    if head in ("phrase_pos", "span_pos"):
+        # n rides in the kind string, so the batch shares qt / wb width;
+        # the slop value is a param (only sloppiness is in the kind)
+        return ((kind, b0.field),
+                (np.stack([b.arrays["qt"] for b in bounds]),
+                 np.stack([b.arrays["wb"] for b in bounds]),
+                 stack_scalar("idf_sum", np.float32),
+                 stack_scalar("slop", np.int32),
+                 stack_scalar("boost", np.float32)))
+    if head == "bm25f":
+        return ((kind, b0.field),
+                (np.stack([b.arrays["qt"] for b in bounds]),
+                 np.stack([b.arrays["idf"] for b in bounds]),
+                 np.stack([b.arrays["wf"] for b in bounds]),
+                 stack_scalar("boost", np.float32)))
     if kind == "bool":
         descs = {}
         params = {}
@@ -899,6 +1207,16 @@ def eval_node(desc: tuple, params: tuple, seg: dict, cap: int, B: int
         docs, imps = params                         # [B, n] each
         score = cuda_scoring.scatter_add(docs, imps, cap)
         return score, score > 0
+    if positional_prefix(kind):
+        # the fused walk's leaf over the whole capacity (per doc, so it
+        # equals the walk tile by tile): the positional_leaf kernel
+        _, field = desc
+        ones_i = torch.ones((B,), dtype=torch.int32, device=device)
+        ones_f = torch.ones((B,), dtype=torch.float32, device=device)
+        s_leaf, m_leaf = cuda_scoring.positional_leaf(
+            kind, field, tuple(params) + (ones_i, ones_f),
+            {f: seg["text"][f] for f in clause_fields(field)})
+        return torch.where(m_leaf, s_leaf, 0.0), m_leaf
     if kind == "term_kw":
         _, field = desc
         ordv, scorev = params
@@ -1435,6 +1753,19 @@ def fused_enabled() -> bool:
         "0", "false", "off")
 
 
+def _positional_enabled() -> bool:
+    """The reference's lever for the fused positional kinds:
+    `ES_TPU_POSITIONAL` set to 0/false/off binds every phrase / span /
+    cross_fields query on the host oracle (responses are identical)."""
+    return os.environ.get("ES_TPU_POSITIONAL", "1").lower() not in (
+        "0", "false", "off")
+
+
+def _leaf_scoring_kind(kind: str) -> bool:
+    """A clause kind the bundle engine scores per tile."""
+    return kind in DENSE_CLAUSE_KINDS or positional_prefix(kind) is not None
+
+
 def _fused_leaf_inputs(desc: tuple, params: tuple):
     if desc[0] == "terms_dense":
         qt, wq = params
@@ -1445,15 +1776,15 @@ def _fused_leaf_inputs(desc: tuple, params: tuple):
 
 def _classify_fused_leaf(desc: tuple):
     """(kind, field, wrapped) of a scoring clause the bundle engine
-    evaluates per tile: a bare terms_dense / term_text leaf, or one
-    wrapped in a single-should bool that carries its own (msm, boost).
-    None for anything else."""
-    if desc[0] in DENSE_CLAUSE_KINDS:
+    evaluates per tile: a bare terms_dense / term_text or positional
+    leaf, or one wrapped in a single-should bool that carries its own
+    (msm, boost). None for anything else."""
+    if _leaf_scoring_kind(desc[0]):
         return (desc[0], desc[1], False)
     if desc[0] == "bool":
         _, must, should, must_not, filt = desc
         if not must and not must_not and not filt and len(should) == 1 \
-                and should[0][0] in DENSE_CLAUSE_KINDS:
+                and _leaf_scoring_kind(should[0][0]):
             return (should[0][0], should[0][1], True)
     return None
 
@@ -1474,7 +1805,7 @@ def _fused_plan_bundle(desc: tuple, k: int, agg_desc, sort_spec: tuple,
         return None, "sort"
     if agg_desc and not allow_aggs:
         return None, "aggs_unsupported"
-    if desc[0] in DENSE_CLAUSE_KINDS:
+    if _leaf_scoring_kind(desc[0]):
         return (("should", desc[0], desc[1], False),), None
     if desc[0] != "bool":
         return None, f"clause:{desc[0]}"
@@ -1491,7 +1822,7 @@ def _fused_plan_bundle(desc: tuple, k: int, agg_desc, sort_spec: tuple,
                 clauses.append((role, c[0], c[1], False))
             else:
                 return None, f"clause:{c[0]}"
-    if not any(kd in DENSE_CLAUSE_KINDS for _r, kd, _f, _w in clauses):
+    if not any(_leaf_scoring_kind(kd) for _r, kd, _f, _w in clauses):
         return None, "no_scoring_clause"
     if len(clauses) > _FUSED_MAX_CLAUSES:
         return None, "too_many_clauses"
@@ -1506,6 +1837,8 @@ def _bundle_inputs(desc: tuple, params: tuple, bundle: tuple, B: int,
     ones_i = torch.ones((B,), dtype=torch.int32, device=device)
     ones_f = torch.ones((B,), dtype=torch.float32, device=device)
     if desc[0] != "bool":
+        if positional_prefix(desc[0]):
+            return (tuple(params) + (ones_i, ones_f),), ones_i, None
         qt, wq = _fused_leaf_inputs(desc, params)
         return ((qt, wq, ones_i, ones_f),), ones_i, None
     _, d_must, d_should, d_not, d_filter = desc
@@ -1524,8 +1857,15 @@ def _bundle_inputs(desc: tuple, params: tuple, bundle: tuple, B: int,
         elif wrapped:
             _, _cm, c_should, _cn, _cf = d
             _pm, pc_should, _pn, _pf, msm_c, boost_c = p
-            qt, wq = _fused_leaf_inputs(c_should[0], pc_should[0])
-            out.append((qt, wq, msm_c, boost_c))
+            if positional_prefix(kind):
+                # positional params ride whole, the wrapper's (msm,
+                # boost) last
+                out.append(tuple(pc_should[0]) + (msm_c, boost_c))
+            else:
+                qt, wq = _fused_leaf_inputs(c_should[0], pc_should[0])
+                out.append((qt, wq, msm_c, boost_c))
+        elif positional_prefix(kind):
+            out.append(tuple(p) + (ones_i, ones_f))
         else:
             qt, wq = _fused_leaf_inputs(d, p)
             out.append((qt, wq, ones_i, ones_f))
@@ -1535,13 +1875,20 @@ def _bundle_inputs(desc: tuple, params: tuple, bundle: tuple, B: int,
 def _fused_pack_ok(segment: Segment, bundle: tuple,
                    device: torch.device) -> str | None:
     """Pack-level admission: every dense clause field needs a forward
-    index + tile_max summary, every range clause field per-tile extrema.
-    Returns a reject reason or None."""
+    index + tile_max summary, every positional clause field also the
+    positions pack, every range clause field per-tile extrema. Returns a
+    reject reason or None."""
     for _role, kind, field, _w in bundle:
         if kind in DENSE_CLAUSE_KINDS:
             pf = segment.text.get(field)
             if pf is None or pf.fwd_tids is None or pf.tile_max is None:
                 return "missing_tile_max"
+        elif positional_prefix(kind):
+            for f in clause_fields(field):
+                pf = segment.text.get(f)
+                if pf is None or pf.fwd_tids is None \
+                        or pf.fwd_pos is None or pf.tile_max is None:
+                    return "missing_positions_pack"
         elif not ensure_num_tiles(segment, field, device):
             return "missing_tile_minmax"
     return None
@@ -1566,17 +1913,45 @@ def _fused_params_ok(desc: tuple, params: tuple, bundle: tuple) -> bool:
 
 
 def _fused_row_elems(cap: int, n_tiles: int, k: int,
-                     emit_match: bool = False) -> int:
+                     emit_match: bool = False, pos_width: int = 0) -> int:
     """Per-row transient of a fused dispatch in elements: one [*, tile]
-    scoring slab, the [*, n_tiles*ck] candidate strip, and the [*, cap]
-    match mask in emit-match mode. The batch chunking sizes from it."""
+    scoring slab, the [*, n_tiles*ck] candidate strip, the [*, cap]
+    match mask in emit-match mode, and the decoded [*, tile, n*P]
+    position slab of the widest positional clause (pos_width = n * P)
+    that the plain walk builds. The batch chunking sizes from it, as the
+    reference's does."""
     tile = cap // n_tiles
-    return tile + n_tiles * min(k, tile) + (cap if emit_match else 0)
+    return tile + n_tiles * min(k, tile) + (cap if emit_match else 0) \
+        + pos_width * tile
+
+
+def _bundle_pos_width(bundle: tuple, text_cols: dict) -> int:
+    """Widest positional clause's decoded position slab in elements per
+    doc: n * P for phrase / span, P for bm25f (its per-(field, term)
+    decodes are sequential). text_cols is a device seg["text"] dict."""
+    w = 0
+    for _r, kd, fld, _w2 in bundle:
+        if not positional_prefix(kd):
+            continue
+        head, n, _v = parse_positional_kind(kd)
+        for f in clause_fields(fld):
+            c = text_cols[f]
+            if c.get("fwd_pos") is None or c.get("fwd_tids") is None:
+                continue
+            p = c["fwd_pos"].shape[-1] // c["fwd_tids"].shape[-1]
+            w = max(w, (1 if head == "bm25f" else n) * p)
+    return w
+
+
+def _bundle_positional(bundle: tuple) -> bool:
+    return any(positional_prefix(kd) for _r, kd, _f, _w in bundle)
 
 
 class _FusedScoringStats:
-    """Admission (admitted, rejected by reason) and block-prune counters
-    of the fused engine, in doc-tile units."""
+    """Admission (admitted, rejected by reason), positional admission
+    (plans carrying positional clauses, queries bound on the host path
+    by reason) and block-prune counters of the fused engine, in doc-tile
+    units."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -1588,14 +1963,24 @@ class _FusedScoringStats:
             self._dispatches = 0
             self._admitted = 0
             self._rejected: dict[str, int] = {}
+            self._positional: dict[str, int] = {}
+            self._positional_admitted = 0
 
-    def record_admit(self) -> None:
+    def record_admit(self, positional: bool = False) -> None:
         with self._lock:
             self._admitted += 1
+            if positional:
+                self._positional_admitted += 1
 
     def record_reject(self, reason: str) -> None:
         with self._lock:
             self._rejected[reason] = self._rejected.get(reason, 0) + 1
+
+    def record_positional(self, reason: str) -> None:
+        """One positional query bound to the host phrase / span / BM25F
+        path, by reason."""
+        with self._lock:
+            self._positional[reason] = self._positional.get(reason, 0) + 1
 
     def record_prune(self, hard: float, thresholded: float,
                      examined: float) -> None:
@@ -1619,6 +2004,8 @@ class _FusedScoringStats:
                 "admission": {
                     "admitted": self._admitted,
                     "rejected": dict(self._rejected),
+                    "positional_fallbacks": dict(self._positional),
+                    "positional_admitted": self._positional_admitted,
                     "rate": (self._admitted / considered
                              if considered else 0.0)},
             }
@@ -1705,8 +2092,9 @@ def _segment_body(seg: dict, params: tuple, live: torch.Tensor,
         # the fused transient per row, not the dense [*, cap]
         n_tiles = seg["text"][bundle_primary_field(fused)][
             "tile_max"].shape[1]
-        row_elems = _fused_row_elems(cap, n_tiles, k,
-                                     emit_match=bool(agg_desc))
+        row_elems = _fused_row_elems(
+            cap, n_tiles, k, emit_match=bool(agg_desc),
+            pos_width=_bundle_pos_width(fused, seg["text"]))
     else:
         row_elems = cap
     bc = _chunk_b(B, row_elems)
@@ -1901,7 +2289,7 @@ def execute_segment_async(segment: Segment, live: np.ndarray,
         if reject is not None:
             bundle = None
     if bundle is not None:
-        _fused_stats.record_admit()
+        _fused_stats.record_admit(positional=_bundle_positional(bundle))
     else:
         _fused_stats.record_reject(reject)
     dev = device_arrays(segment, device)

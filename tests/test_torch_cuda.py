@@ -5,8 +5,10 @@ imports no jax, so on the GPU machine it runs without the reference:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Every comparison is bit-exact (`torch.equal`): both kernels use explicit
-round-to-nearest adds and multiplies in the plain versions' op order.
+Every comparison is bit-exact (`torch.equal`): the kernels use explicit
+round-to-nearest adds, multiplies and divides in the plain versions' op
+order, and the positional frequencies are integers. `-s` prints each
+kernel's register / spill report (ptxas).
 """
 
 import numpy as np
@@ -242,3 +244,169 @@ def test_bundle_walk_prunes_like_plain(cuda):
     assert int((flags == 1).sum()) > 0
     top = cs.fused_topk_bundle(text, {}, clauses, cl, msm, boost, live, 1)
     assert (top[1][:, 0] == 15).all() and (top[0][:, 0] == 4.0).all()
+
+
+# ---------------------------------------------------------------------------
+# K3's positional leaf (phrase / span / BM25F) and its unfused entry
+# ---------------------------------------------------------------------------
+
+_POS_BUNDLES = {
+    "phrase_e2": (("should", "phrase_pos:2:e", "f", False),),
+    "phrase_e3": (("should", "phrase_pos:3:e", "f", False),),
+    "phrase_s3": (("should", "phrase_pos:3:s", "f", False),),
+    "span_o3": (("should", "span_pos:3:o", "f", False),),
+    "span_u2": (("should", "span_pos:2:u", "f", False),),
+    "bm25f": (("should", "bm25f:2:3", ("f", "g"), False),),
+    "mixed": (("must", "terms_dense", "f", True),
+              ("filter", "range_int", "n", False),
+              ("must_not", "span_pos:2:u", "g", False),
+              ("should", "phrase_pos:2:s", "f", True),
+              ("should", "bm25f:1:2", ("g",), False)),
+}
+
+
+def _pos_inputs(rng, kind, field, text, B, wrapped):
+    """Positional clause inputs whose terms co-occur in some doc: the
+    terms of a row are slots of one random doc, repeats and -1 mixed in."""
+    from elasticsearch_tpu_torch.ops.scoring import parse_positional_kind
+    head, a, _v = parse_positional_kind(kind)
+    msm_c = (rng.integers(0, 3, size=B) if wrapped else np.ones(B))
+    boost_c = (rng.integers(1, 5, size=B) / 2) if wrapped else np.ones(B)
+    tail = ((rng.integers(1, 5, size=B) / 4).astype(np.float32),
+            msm_c.astype(np.int32), boost_c.astype(np.float32))
+    if head == "bm25f":
+        nt = int(kind.split(":")[2])
+        qt = np.stack([text[f]["tids_np"][rng.integers(
+            0, text[f]["tids_np"].shape[0], size=B)][:, :nt]
+            for f in field], axis=1).astype(np.int32)
+        qt[rng.random(qt.shape) < 0.15] = -1
+        idf = (rng.integers(1, 40, size=(B, nt)) / 8).astype(np.float32)
+        wf = (rng.integers(1, 9, size=(B, len(field))) / 4).astype(
+            np.float32)
+        return (qt, idf, wf) + tail
+    tids = text[field]["tids_np"]
+    docs = tids[rng.integers(0, tids.shape[0], size=B)]
+    cols = np.stack([rng.permutation(tids.shape[1])[:a] for _ in range(B)])
+    qt = np.take_along_axis(docs, cols, axis=1).astype(np.int32)
+    if a > 2:
+        qt[::4, -1] = qt[::4, 0]                 # a repeated term
+    qt[rng.random(qt.shape) < 0.05] = -1
+    wb = (rng.integers(1, 9, size=(B, a)) / 4).astype(np.float32)
+    idf_sum = (rng.integers(1, 40, size=B) / 8).astype(np.float32)
+    slop = rng.integers(0, 4, size=B).astype(np.int32)
+    return (qt, wb, idf_sum, slop) + tail
+
+
+def _pos_case(bundle, cap, tile, B, dev, seed=0, P=4):
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index.segment import build_tile_minmax
+    rng = np.random.default_rng(seed)
+    text = {}
+    for f, L in (("f", 8), ("g", 6)):
+        tids, imps, tm = _fwd(rng, cap, L, 96, tile)
+        pos, k1ln, lnorm = corpus.synthetic_positions(rng, tids, P)
+        text[f] = {"fwd_tids": torch.from_numpy(tids).to(dev),
+                   "fwd_imps": torch.from_numpy(imps).to(dev),
+                   "tile_max": torch.from_numpy(tm).to(dev),
+                   "fwd_pos": torch.from_numpy(pos).to(dev),
+                   "k1ln": torch.from_numpy(k1ln).to(dev),
+                   "lnorm": torch.from_numpy(lnorm).to(dev), "tids_np": tids}
+    vals = rng.integers(0, 5000, size=cap).astype(np.int32)
+    ex = rng.random(cap) > 0.1
+    lo, hi = build_tile_minmax(vals, ex, cap, tile=tile)
+    num = {"n": {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("values", vals), ("exists", ex), ("tile_lo", lo), ("tile_hi", hi))}}
+    cl = []
+    for role, kind, f, wrapped in _POS_BUNDLES[bundle]:
+        if kind == "range_int":
+            lo_r = rng.integers(0, 2500, size=B).astype(np.int32)
+            cl.append((lo_r, (lo_r + 2000).astype(np.int32)))
+        elif kind == "terms_dense":
+            qt = rng.integers(-1, 24, size=(B, 3)).astype(np.int32)
+            wq = (rng.integers(1, 8, size=(B, 3)) / 4).astype(np.float32)
+            wq[qt < 0] = 0.0
+            cl.append((qt, wq, np.ones(B, np.int32),
+                       (rng.integers(1, 5, size=B) / 2).astype(np.float32)))
+        else:
+            cl.append(_pos_inputs(rng, kind, f, text, B, wrapped))
+    n_should = sum(r == "should" for r, *_ in _POS_BUNDLES[bundle])
+    msm = rng.integers(0, n_should + 1, size=B).astype(np.int32)
+    if n_should == 1 and len(_POS_BUNDLES[bundle]) == 1:
+        msm[:] = 1
+    boost = (rng.integers(1, 5, size=B) / 2).astype(np.float32)
+    live = rng.random(cap) > 0.05
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    for col in text.values():
+        del col["tids_np"]
+    return (text, num, _POS_BUNDLES[bundle],
+            tuple(tuple(t(a) for a in inp) for inp in cl), t(msm), t(boost),
+            t(live))
+
+
+_POS_CASES = [("phrase_e2", 4096, 256, 12, 10, False),
+              ("phrase_e3", 4096, 1024, 9, 1, True),
+              ("phrase_s3", 4096, 256, 16, 10, True),
+              ("span_o3", 4096, 256, 12, 5, False),
+              ("span_u2", 4096, 256, 12, 0, True),
+              ("bm25f", 4096, 256, 10, 10, False),
+              ("mixed", 4096, 256, 17, 10, True),
+              ("mixed", 4096, 256, 17, 0, False),
+              ("phrase_s3", 1 << 20, 1024, 64, 10, False),
+              ("span_o3", 1 << 20, 1024, 64, 10, True),
+              ("bm25f", 1 << 20, 1024, 64, 100, False)]
+
+
+@pytest.mark.parametrize("bundle,cap,tile,B,k,emit", _POS_CASES)
+def test_positional_walk_equals_plain(cuda, bundle, cap, tile, B, k, emit):
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    args = _pos_case(bundle, cap, tile, B, cuda, seed=B + k)
+    text, num, clauses, cl, msm, boost, live = args
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    ck = min(k, tile)
+    before = cs.LAUNCHES["bundle_topk"]
+    got = cs.bundle_walk(*args, can, ub, ck=ck, update_thr=True,
+                         emit_match=emit)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["bundle_topk"] == before + 1
+    want = cs.bundle_walk_ref(*args, can, ub, ck=ck, update_thr=True,
+                              emit_match=emit)
+    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match"), got, want):
+        assert (g is None and w is None) or torch.equal(g, w), name
+    assert int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("bundle,cap,B", [("phrase_e2", 5000, 7),
+                                          ("phrase_s3", 5000, 9),
+                                          ("span_o3", 5000, 5),
+                                          ("span_u2", 5000, 3),
+                                          ("bm25f", 5000, 4),
+                                          ("phrase_s3", 1 << 20, 64)])
+def test_positional_leaf_equals_plain(cuda, bundle, cap, B):
+    """The unfused entry over the whole capacity (cap need not be a
+    multiple of the block), s_leaf and m_leaf."""
+    args = _pos_case(bundle, cap, cap, B, cuda, seed=cap + B)
+    text, _num, clauses, cl, *_ = args
+    (_role, kind, field, _w), inp = clauses[0], cl[0]
+    before = cs.LAUNCHES["positional_leaf"]
+    got = cs.positional_leaf(kind, field, inp, text)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["positional_leaf"] == before + 1
+    want = cs.positional_leaf_ref(kind, field, inp, text)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
+
+
+def test_register_and_spill_report(cuda, tmp_path):
+    """ptxas' report of every kernel of the CUDA sources (printed with
+    -s): each kernel builds and reports its registers."""
+    import subprocess
+    for name, src in cs._SOURCES.items():
+        out = subprocess.run(
+            [cs._nvcc(), *cs._NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             str(cs._CSRC), "-o", str(tmp_path / f"{name}.so"),
+             str(cs._CSRC / src)], capture_output=True, text=True,
+            check=True)
+        report = [ln.strip() for ln in (out.stdout + out.stderr).splitlines()
+                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        print("\n".join([f"{name}:"] + report))
+        assert any("registers" in ln for ln in report), name

@@ -144,6 +144,83 @@ def test_bundle_wrappers_never_take_the_plain_walk_for_device_tensors(
     assert cs.LAUNCHES == before
 
 
+def test_positional_leaf_never_takes_the_plain_version_for_device_tensors(
+        monkeypatch):
+    """The unfused positional leaf on tensors that are not on the CPU
+    launches its kernel or raises; a shape past the kernel's caps raises
+    before any build."""
+    def boom(*a, **k):
+        raise AssertionError("plain leaf reached for a device tensor")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cs, "positional_leaf_ref", boom)
+    monkeypatch.setattr(cs, "_nvcc", no_nvcc)
+    monkeypatch.setattr(cs, "_LIBS", {})
+    before = dict(cs.LAUNCHES)
+    meta = torch.device("meta")
+    B, cap, L, P = 3, 512, 8, 2
+    cols = {"f": {"fwd_tids": torch.empty((cap, L), dtype=torch.int32,
+                                          device=meta),
+                  "fwd_imps": torch.empty((cap, L), device=meta),
+                  "fwd_pos": torch.empty((cap, L * P), dtype=torch.int16,
+                                         device=meta),
+                  "k1ln": torch.empty((cap,), device=meta),
+                  "lnorm": torch.empty((cap,), device=meta)}}
+
+    def inp(n):
+        return (torch.empty((B, n), dtype=torch.int32, device=meta),
+                torch.empty((B, n), device=meta),
+                torch.empty((B,), device=meta),
+                torch.empty((B,), dtype=torch.int32, device=meta),
+                torch.empty((B,), device=meta),
+                torch.ones((B,), dtype=torch.int32, device=meta),
+                torch.ones((B,), device=meta))
+
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cs.positional_leaf("phrase_pos:2:s", "f", inp(2), cols)
+    with pytest.raises(ValueError, match="terms"):
+        cs.positional_leaf("phrase_pos:9:e", "f", inp(9), cols)
+    bad = dict(cols["f"], fwd_pos=cols["f"]["fwd_pos"].to(torch.int32))
+    with pytest.raises(TypeError):
+        cs.positional_leaf("span_pos:2:o", "f", inp(2), {"f": bad})
+    assert cs.LAUNCHES == before
+
+
+def test_kernel_build_covers_the_shared_header(tmp_path, monkeypatch):
+    """K3 and its unfused entry share csrc/positional_leaf.cuh: the
+    source includes it, and a change to it changes the build output the
+    wrapper loads (so a stale library is never reused)."""
+    import shutil
+    src = (cs._CSRC / "bundle_topk.cu").read_text()
+    assert '#include "positional_leaf.cuh"' in src
+    assert (cs._CSRC / "positional_leaf.cuh").exists()
+    assert cs._ENTRIES["positional_leaf"] == "bundle_topk"
+    copy_dir = tmp_path / "csrc"
+    shutil.copytree(cs._CSRC, copy_dir)
+    monkeypatch.setattr(cs, "_CSRC", copy_dir)
+    before = cs._lib_path("bundle_topk")
+    with open(copy_dir / "positional_leaf.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert cs._lib_path("bundle_topk") != before
+    assert "--use_fast_math" not in cs._NVCC_FLAGS
+
+
+def test_positional_caps_have_one_definition():
+    """The executor admits positional clauses up to the caps of
+    ops/cuda_scoring, and the kernel's header mirrors the same numbers."""
+    from elasticsearch_tpu_torch.search import executor
+    assert executor._POS_CLAUSE_TERMS_MAX is cs.POS_MAX_TERMS
+    assert executor._POS_FIELDS_MAX is cs.POS_MAX_FIELDS
+    head = (cs._CSRC / "positional_leaf.cuh").read_text()
+    found = dict(re.findall(r"constexpr int (kMax\w+) = (\d+);", head))
+    assert int(found["kMaxTerms"]) == cs.POS_MAX_TERMS
+    assert int(found["kMaxFields"]) == cs.POS_MAX_FIELDS
+    src = (PORT / "search" / "executor.py").read_text()
+    assert not re.search(r"^_POS_\w+_MAX\s*=", src, re.M)
+
+
 @pytest.mark.parametrize("alone", [True, False])
 def test_chip_smoke_refuses_without_cuda(tmp_path, alone):
     """Without a card the smoke exits non-zero and prints no result line;

@@ -2,9 +2,9 @@
 
 The port keeps its own copies of mapping, analysis, similarity and the
 segment builder; on the same documents they must produce byte-identical
-columns (`np.array_equal`), and `segment_from_arrays` must rebuild a
-reference segment that the port then searches exactly like one it built
-itself.
+columns (`np.array_equal`), the positions sidecar and the positional pack
+included, and `segment_from_arrays` must rebuild a reference segment that
+the port then searches exactly like one it built itself.
 """
 
 import numpy as np
@@ -34,7 +34,8 @@ MIXED_MAPPING = {"properties": {
 }}
 
 _TEXT_COLS = ("df", "indptr", "doc_ids", "tfs", "doc_len", "block_docs",
-              "block_imps", "block_start", "fwd_tids", "fwd_imps", "tile_max")
+              "block_imps", "block_start", "fwd_tids", "fwd_imps", "tile_max",
+              "pos_data", "pos_indptr", "fwd_pos", "lnorm", "k1ln")
 _KW_COLS = ("ords", "df", "mv_ords")
 _NUM_COLS = ("values", "exists", "raw", "mv_values", "mv_raw", "mv_exists")
 
@@ -90,6 +91,7 @@ def _assert_same_segment(port, ref):
         rf = ref.text[f]
         assert pf.terms == rf.terms
         assert pf.doc_count == rf.doc_count and pf.avg_len == rf.avg_len
+        assert pf.pos_width == rf.pos_width, f
         for c in _TEXT_COLS:
             a, b = getattr(pf, c), getattr(rf, c)
             assert (a is None) == (b is None), (f, c)
@@ -152,6 +154,46 @@ def test_builder_matches_reference(which):
     if which == "http_logs":
         assert port.text["body"].fwd_tids is None        # scatter-only field
         assert port.text["message"].fwd_tids is not None
+        assert port.text["message"].fwd_pos is not None
+        assert port.text["body"].fwd_pos is None         # no forward index
+        assert port.text["body"].pos_data is not None    # host positions
+
+
+def test_positions_pack_matches_reference():
+    """Positions of concatenated multi-values (no position gap), repeated
+    terms, a field past POS_CAP (a term 70 times: no pack, positions kept
+    for the host path), and the pack in nbytes."""
+    from elasticsearch_tpu.index.segment import POS_CAP as REF_POS_CAP
+    from elasticsearch_tpu_torch.index.segment import POS_CAP
+    assert POS_CAP == REF_POS_CAP == 64
+    mapping = {"properties": {"t": {"type": "text"},
+                              "many": {"type": "text"}}}
+    rng = np.random.default_rng(4)
+    words = ["a", "b", "c", "d"]
+    docs = []
+    for i in range(300):
+        doc = {"t": [" ".join(rng.choice(words, size=int(rng.integers(1, 6))))
+                     for _ in range(int(rng.integers(1, 3)))]}
+        if i % 7 == 0:
+            doc["many"] = "x " * (70 if i == 14 else 3) + "y"
+        docs.append((f"d{i}", doc))
+    _, port = _build(docs, mapping, MapperService, SegmentBuilder)
+    _, ref = _build(docs, mapping, RefMapper, RefBuilder)
+    _assert_same_segment(port, ref)
+    t, many = port.text["t"], port.text["many"]
+    assert t.fwd_pos is not None and t.pos_width == ref.text["t"].pos_width
+    assert many.fwd_pos is None and many.pos_width == 0
+    assert many.pos_data is not None and many.fwd_tids is not None
+    # both count the pack; the port also counts its forward index
+    for pf, rf in ((t, ref.text["t"]), (many, ref.text["many"])):
+        assert pf.nbytes() - rf.nbytes() \
+            == pf.fwd_tids.nbytes + pf.fwd_imps.nbytes
+    # the positions of a posting, through enc_positions, as the reference
+    stride = 40
+    for tid in range(len(t.terms)):
+        np.testing.assert_array_equal(t.enc_positions(tid, stride),
+                                      ref.text["t"].enc_positions(tid,
+                                                                  stride))
 
 
 def test_analyzer_matches_reference():
