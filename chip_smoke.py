@@ -16,6 +16,11 @@ each of which fails the run on any error:
    its positional leaf: exact and sloppy phrases, ordered and unordered
    spans, BM25F over two fields; the unfused positional leaf entry; the
    positional rows against their plain versions on their first 16 rows);
+   then K3's launch forms on `match` and `phrase_pos:2:e` bundles: the
+   stepped walk (8 launches, the threshold carried) equal to the single
+   launch and to the plain stepped walk, the seeded walk (a 2^17-doc
+   delta opened at a base walk's k-th best) equal to its plain version,
+   and a stepped walk whose check flips at chunk 4 launching K3 4 times;
 4. main paths: two shards of 2^20 http_logs-like docs (seeds 42, 43)
    built with the port's SegmentBuilder, request mixes of 256 requests
    through `ShardReader.msearch` + `merge_shard_results`: the earlier
@@ -33,11 +38,24 @@ each of which fails the run on any error:
    positional mixes on the host oracle (`ES_TPU_POSITIONAL=0`, the
    phrase / span / BM25F code of search/phrase.py through K2), whose
    responses must be identical, with matches in every mix compared;
-5. a `kernels` JSON line, then the result line
+5. the delta path: per shard a delta segment of 2^17 docs (seeds 142,
+   143) beside the shard's segment as its base, `match`,
+   `match_range_aggs`, `count_match` and `phrase` through the base+delta
+   pack dispatch (the agg mixes 64 requests per msearch, DELTA_BATCH;
+   every fused group must go as one pack, K3's seeded form must launch),
+   then with `ES_TPU_PACK_DISPATCH=0` in turns, responses identical;
+6. the resident path: `match` and `phrase` on the main index with
+   `ES_TPU_RESIDENT_LOOP=1` and a far deadline (K3's stepped form must
+   launch, responses identical to the cold path's, resident hits > 0),
+   timed in turns with the cold path; then a batch whose deadline has
+   passed and one whose poll flips at chunk 4 must each raise
+   SearchTimeoutError and count as preempted;
+7. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--rehearse` runs phases 4's checks on the CPU at a toy size (no build,
-no timings, no result line), to exercise this script without a card.
+`--rehearse` runs the main, delta and resident paths' checks on the CPU
+at a toy size (no build, no timings, no result line), to exercise this
+script without a card.
 """
 
 from __future__ import annotations
@@ -87,6 +105,28 @@ KERNEL_SOURCES = {
         "elasticsearch_tpu_torch/ops/csrc/positional_leaf.cuh",
         "elasticsearch_tpu/ops/pallas_scoring.py:458"),
 }
+# K3's other launch forms, entries of the kernels line of their own: the
+# stepped walk (`_bundle_pallas_walk`'s step branch) and the seeded walk
+# (its thr_init seed, the delta walk of a base+delta pack)
+FORM_SOURCES = {
+    "bundle_topk_stepped": ("elasticsearch_tpu_torch/ops/csrc/bundle_topk.cu",
+                            "elasticsearch_tpu/ops/pallas_scoring.py:848"),
+    "bundle_topk_seeded": ("elasticsearch_tpu_torch/ops/csrc/bundle_topk.cu",
+                           "elasticsearch_tpu/ops/pallas_scoring.py:825"),
+}
+# the delta path's mixes (fused: each group must go as one pack) and the
+# resident path's
+DELTA_MIXES = ("match", "match_range_aggs", "count_match", "phrase")
+RESIDENT_MIXES = ("match", "phrase")
+DELTA_DOCS = 1 << 17      # per shard; the reference compacts at half the base
+# requests per msearch on the delta path: a pack runs one un-chunked walk
+# over both segments, so the reference's transient budget
+# (executor._chunk_b, 2^27 elements) sends a group per segment once its
+# padded batch times the per-row transient (the [cap_b + cap_d] match
+# mask of an agg plan) exceeds it: 64 rows of an agg plan fit at 2^20 +
+# 2^17 docs, 128 do not
+DELTA_BATCH = {"match_range_aggs": 64, "count_match": 64}
+FORM_CHUNKS = 8           # launches of the kernel phase's stepped walk
 # the wrapper of each kernel that counts its launches
 WRAPPERS = {"dense_score": "dense_score", "scatter_add": "scatter_add",
             "bundle_topk": "bundle_walk", "positional_leaf": "positional_leaf"}
@@ -137,12 +177,13 @@ def make_readers(segments, device):
             for s, seg in enumerate(segments)]
 
 
-def search_merged(readers, bodies) -> list[dict]:
+def search_merged(readers, bodies, deadline=None) -> list[dict]:
     """Every shard answers the batch, then the cross-shard reduce merges
     each request's shard responses."""
     from elasticsearch_tpu_torch.search.aggregations import parse_aggs
     from elasticsearch_tpu_torch.search.controller import merge_shard_results
-    per_shard = [r.msearch(bodies, with_partials=True) for r in readers]
+    per_shard = [r.msearch(bodies, with_partials=True, deadline=deadline)
+                 for r in readers]
     out = []
     for i, body in enumerate(bodies):
         resps = [shard[i] for shard in per_shard]
@@ -263,13 +304,18 @@ def check_admission(stats) -> None:
             raise AssertionError(f"{name}: positional admission {adm}")
 
 
-def time_mix(readers, bodies, reps, sync) -> tuple[dict, list[dict]]:
-    """`reps` timed batches of `bodies` -> (stats, last responses)."""
+def time_mix(readers, bodies, reps, sync, deadline=None,
+             batch=None) -> tuple[dict, list[dict]]:
+    """`reps` timed batches of `bodies` -> (stats, last responses); with
+    `batch`, each rep sends the bodies `batch` at a time."""
     lat = []
+    step = batch or len(bodies)
     t_all = time.perf_counter()
     for _ in range(reps):
         t0 = time.perf_counter()
-        resps = search_merged(readers, bodies)
+        resps = [r for i in range(0, len(bodies), step)
+                 for r in search_merged(readers, bodies[i:i + step],
+                                        deadline)]
         sync()
         lat.append((time.perf_counter() - t0) * 1e3)
     wall = time.perf_counter() - t_all
@@ -401,6 +447,299 @@ def check_responses(last) -> None:
             raise AssertionError(f"{name}: no request matched anything")
 
 
+# ---------------------------------------------------------------------------
+# the delta path (base + delta packs) and the resident path
+# ---------------------------------------------------------------------------
+
+
+def _zero_counts() -> None:
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    for counts in (cs.LAUNCHES, cs.BUNDLE_FORMS):
+        for k in counts:
+            counts[k] = 0
+
+
+def _read_counts() -> dict:
+    """The kernels' launch counts, K3's also by launch form."""
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    return {**cs.LAUNCHES, **{f"bundle_topk_{k}": v
+                              for k, v in cs.BUNDLE_FORMS.items()}}
+
+
+def _build_delta(job):
+    """Worker: one shard's delta segment, docs after every base doc."""
+    shard, n_docs, start, long_every = job
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    svc = MapperService(mapping=corpus.MAPPING)
+    builder = SegmentBuilder()
+    for did, doc in corpus.make_docs(n_docs, seed=142 + shard, start=start,
+                                     long_every=long_every):
+        builder.add(svc.parse(did, doc))
+    return builder.build(f"delta{shard}")
+
+
+def build_deltas(bases: list, n_base: int, n_docs: int, long_every: int,
+                 workers: int) -> list:
+    """A delta segment per base, `delta_parent` set to the base's
+    generation and its term dimension bucketed (pad_delta_shapes)."""
+    from elasticsearch_tpu_torch.index.segment import pad_delta_shapes
+    start = len(bases) * n_base
+    jobs = [(s, n_docs, start + s * n_docs, long_every)
+            for s in range(len(bases))]
+    if workers <= 1:
+        deltas = [_build_delta(j) for j in jobs]
+    else:
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(min(workers, len(jobs))) as pool:
+            deltas = pool.map(_build_delta, jobs)
+    for base, delta in zip(bases, deltas):
+        delta.delta_parent = base.cache_key()
+        pad_delta_shapes(delta)
+    return deltas
+
+
+def make_pack_readers(bases, deltas, device):
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.search.shard_searcher import ShardReader
+    svc = MapperService(mapping=corpus.MAPPING)
+    return [ShardReader("logs", [b, d], {}, svc, shard_id=s, device=device)
+            for s, (b, d) in enumerate(zip(bases, deltas))]
+
+
+def _query_words(body: dict) -> list[str]:
+    """The message-field words of a request of the delta path's mixes."""
+    q = body["query"]
+    if "bool" in q:
+        q = q["bool"]["must"][0]
+    if "match" in q:
+        return q["match"]["message"].split()
+    return _message_words(body)
+
+
+def delta_mixes(n: int, readers_d, n_docs: int) -> dict[str, list[dict]]:
+    """n requests of each delta mix whose message words every segment
+    holds: a word one segment lacks binds its side of the pair to
+    another plan, and the pair then goes per segment."""
+    from elasticsearch_tpu_torch import corpus
+    mixes = corpus.request_mixes(max(8 * n, 96), seed=7, n_docs=n_docs)
+    vocab = [set(seg.text["message"].terms) for r in readers_d
+             for seg in r.segments]
+    out = {name: [b for b in mixes[name]
+                  if all(set(_query_words(b)) <= v for v in vocab)][:n]
+           for name in DELTA_MIXES}
+    for name, bodies in out.items():
+        if not bodies:
+            raise AssertionError(f"delta path: no {name} request binds on "
+                                 f"every segment")
+    return out
+
+
+@contextlib.contextmanager
+def counted_dispatches():
+    """Count the shard reader's dispatches: packs, pack refusals (the
+    pair went per segment) and per-segment dispatches."""
+    from elasticsearch_tpu_torch.search import shard_searcher as ss
+    counts = {"pack": 0, "refused": 0, "segment": 0}
+    pack_fn, seg_fn = ss.execute_pack_async, ss.execute_segment_async
+
+    def pack(*a, **kw):
+        out = pack_fn(*a, **kw)
+        counts["pack" if out is not None else "refused"] += 1
+        return out
+
+    def seg(*a, **kw):
+        counts["segment"] += 1
+        return seg_fn(*a, **kw)
+
+    ss.execute_pack_async, ss.execute_segment_async = pack, seg
+    try:
+        yield counts
+    finally:
+        ss.execute_pack_async, ss.execute_segment_async = pack_fn, seg_fn
+
+
+def run_delta_path(readers_d, mixes, reps, sync):
+    """The delta path with the launch counts zeroed just before it and
+    read just after: each mix through the base+delta pack dispatch, every
+    fused group one pack (no refusal, no per-segment dispatch). Returns
+    per-mix stats, the last responses and the launch counts."""
+    from elasticsearch_tpu_torch.search import executor
+    stats, last = {}, {}
+    _zero_counts()
+    with counted_dispatches() as counts:
+        for name in DELTA_MIXES:
+            before = dict(counts)
+            executor._fused_stats.reset()
+            st, last[name] = time_mix(readers_d, mixes[name], reps, sync,
+                                      batch=DELTA_BATCH.get(name))
+            d = {k: counts[k] - before[k] for k in counts}
+            stats[name] = {**st, "dispatches": d,
+                           "hits": sum(r["hits"]["total"]
+                                       for r in last[name]),
+                           "fused": executor.fused_scoring_stats()}
+            if d["refused"] or d["segment"] or not d["pack"]:
+                raise AssertionError(f"delta path, {name}: a fused group "
+                                     f"did not go as one pack: {d}")
+    return stats, last, _read_counts()
+
+
+def delta_ab(readers_d, mixes, last, reps, sync) -> dict:
+    """The delta mixes through the pack dispatch and per segment
+    (`ES_TPU_PACK_DISPATCH=0`), in turns (pack, segments, segments,
+    pack); responses identical."""
+    turns = {"pack": {n: [] for n in DELTA_MIXES},
+             "segments": {n: [] for n in DELTA_MIXES}}
+    for turn in ("pack", "segments", "segments", "pack"):
+        if turn == "segments":
+            os.environ["ES_TPU_PACK_DISPATCH"] = "0"
+        try:
+            for name in DELTA_MIXES:
+                st, resps = time_mix(readers_d, mixes[name], reps, sync,
+                                     batch=DELTA_BATCH.get(name))
+                if _strip(resps) != _strip(last[name]):
+                    raise AssertionError(f"delta path, {name}: {turn} "
+                                         f"responses differ")
+                turns[turn][name].append(st)
+        finally:
+            os.environ.pop("ES_TPU_PACK_DISPATCH", None)
+    return {turn: {name: {"qps": float(np.mean([r["qps"] for r in v])),
+                          "p50_ms": float(np.mean([r["p50_ms"] for r in v])),
+                          "turns": [{"qps": r["qps"], "p50_ms": r["p50_ms"]}
+                                    for r in v]}
+                   for name, v in per.items()}
+            for turn, per in turns.items()}
+
+
+def _resident_chunks(reader) -> int:
+    """Chunks of a resident stepped walk over the reader's segment."""
+    from elasticsearch_tpu_torch.search import executor
+    n_tiles = reader.segments[0].text["message"].tile_max.shape[1]
+    chunk = max(1, -(-n_tiles // executor._RESIDENT_CHUNKS))
+    return -(-n_tiles // chunk)
+
+
+def run_resident_path(readers, mixes, cold_last, reps, sync,
+                      on_card: bool = True) -> dict:
+    """The resident path on the main index: `match` and `phrase` with
+    ES_TPU_RESIDENT_LOOP=1 and a far deadline, the launch counts zeroed
+    just before the timed run and read just after (K3's stepped form
+    must launch), responses identical to the cold path's, resident hits
+    > 0; timed in turns with the cold path (resident, cold, cold,
+    resident). Then a batch whose deadline has passed and one whose poll
+    flips at chunk 4 (or the last chunk of a smaller index) must raise
+    SearchTimeoutError, each counted as preempted; the second launches
+    K3 exactly that many times."""
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.search import executor, resident
+    from elasticsearch_tpu_torch.utils.errors import SearchTimeoutError
+    far = time.monotonic() + 24 * 3600
+    out = {}
+    os.environ["ES_TPU_RESIDENT_LOOP"] = "1"
+    resident.reset()
+    try:
+        for name in RESIDENT_MIXES:          # pin the entries
+            search_merged(readers, mixes[name], far)
+        sync()
+        _zero_counts()
+        for name in RESIDENT_MIXES:
+            st, resps = time_mix(readers, mixes[name], reps, sync, far)
+            if _strip(resps) != _strip(cold_last[name]):
+                raise AssertionError(f"resident {name}: responses differ "
+                                     f"from the cold path's")
+            out[name] = st
+        out["launches"] = _read_counts()
+        if on_card and out["launches"]["bundle_topk_stepped"] <= 0:
+            raise AssertionError("resident path: K3's stepped form never "
+                                 "launched")
+        out["stats"] = resident.resident_stats()
+        out["stats"].pop("entries")
+        if out["stats"]["resident_hits"] <= 0:
+            raise AssertionError(f"resident path: no hit {out['stats']}")
+        turns = {"resident": {n: [] for n in RESIDENT_MIXES},
+                 "cold": {n: [] for n in RESIDENT_MIXES}}
+        for turn in ("resident", "cold", "cold", "resident"):
+            if turn == "cold":
+                del os.environ["ES_TPU_RESIDENT_LOOP"]
+            try:
+                for name in RESIDENT_MIXES:
+                    turns[turn][name].append(time_mix(
+                        readers, mixes[name], reps, sync, far)[0])
+            finally:
+                os.environ["ES_TPU_RESIDENT_LOOP"] = "1"
+        out["turns"] = {
+            turn: {n: {"qps": float(np.mean([r["qps"] for r in v])),
+                       "p50_ms": float(np.mean([r["p50_ms"] for r in v])),
+                       "turns": [{"qps": r["qps"], "p50_ms": r["p50_ms"]}
+                                 for r in v]}
+                   for n, v in per.items()} for turn, per in turns.items()}
+        # preemption: a deadline already past
+        try:
+            search_merged(readers, mixes["match"], time.monotonic() - 1.0)
+        except SearchTimeoutError:
+            pass
+        else:
+            raise AssertionError("a deadline already past did not raise")
+        if resident.stats.preempted_by_deadline.count != 1:
+            raise AssertionError("the past deadline was not preempted")
+        # preemption: the poll reports late from chunk `flip`
+        flip = min(4, _resident_chunks(readers[0]) - 1)
+        polls = []
+
+        def late_from_flip(hi, lo, timed):
+            polls.append(timed)
+            return bool(timed) or len(polls) > flip
+
+        poll = executor._step_poll
+        executor._step_poll = late_from_flip
+        before = cs.LAUNCHES["bundle_topk"]
+        try:
+            search_merged(readers, mixes["match"], far)
+        except SearchTimeoutError:
+            pass
+        else:
+            raise AssertionError("a poll late from chunk "
+                                 f"{flip} did not raise")
+        finally:
+            executor._step_poll = poll
+        sync()
+        flipped = cs.LAUNCHES["bundle_topk"] - before
+        if on_card and flipped != flip:
+            raise AssertionError(f"a walk late from chunk {flip} launched "
+                                 f"K3 {flipped} times")
+        if resident.stats.preempted_by_deadline.count != 2:
+            raise AssertionError("the late poll was not preempted")
+        out["preemption"] = {"batches_raised": 2, "flip_chunk": flip,
+                             "flip_launches": flipped,
+                             "preempted_by_deadline":
+                                 resident.stats.preempted_by_deadline.count}
+    finally:
+        os.environ.pop("ES_TPU_RESIDENT_LOOP", None)
+        resident.reset()
+    return out
+
+
+def capture_forms(delta_cap: int):
+    """A shim of `bundle_walk_steps` that remembers the first stepped
+    walk (the resident path's) and the first seeded walk over a delta of
+    `delta_cap` docs (the delta path's): seen[form] = (args, kw)."""
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    seen: dict = {}
+    orig = cs.bundle_walk_steps
+
+    def shim(walk, *args, **kw):
+        if kw.get("step") is not None:
+            seen.setdefault("stepped", (args, kw))
+        elif kw.get("thr_init") is not None \
+                and args[6].shape[0] == delta_cap:
+            seen.setdefault("seeded", (args, kw))
+        return orig(walk, *args, **kw)
+
+    return seen, shim
+
+
 def rehearse(n_docs: int, batch: int) -> int:
     """The main path's checks on the CPU at a toy size."""
     import torch
@@ -414,11 +753,24 @@ def rehearse(n_docs: int, batch: int) -> int:
     check_plain_swap(readers, mixes, last)
     ab = positional_ab(readers, positional_ab_subset(readers, mixes, 12),
                        lambda: None)
+    deltas = build_deltas(segs, n_docs, n_docs // 4, 200, workers=1)
+    readers_d = make_pack_readers(segs, deltas, "cpu")
+    dmix = delta_mixes(batch, readers_d, n_docs)
+    d_stats, d_last, _counts = run_delta_path(readers_d, dmix, 1,
+                                              lambda: None)
+    delta_ab(readers_d, dmix, d_last, 1, lambda: None)
+    res = run_resident_path(readers, mixes, last, 1, lambda: None,
+                            on_card=False)
     log("rehearse: " + json.dumps({
         **{k: {"requests": v["requests"], "hits": v["hits"],
                "fused_admitted": v["fused"]["admission"]["admitted"]}
            for k, v in stats.items()},
-        "positional_ab": ab["matching_requests"]}))
+        "positional_ab": ab["matching_requests"],
+        "delta": {k: {"requests": v["requests"], "hits": v["hits"],
+                      "packs": v["dispatches"]["pack"]}
+                  for k, v in d_stats.items()},
+        "resident": {"hits": res["stats"]["resident_hits"],
+                     "preemption": res["preemption"]}}))
     return 0
 
 
@@ -633,106 +985,148 @@ def measure_leaf(args, reps, rows=None):
 
 
 def measure_bundle(args, kw, reps, rows=None):
-    """K3 (`bundle_walk`) vs its plain version on every output. With
-    `rows` (whole batch tiles of BUNDLE_BT), the plain walk computes (and
-    is timed on) only the first rows, at the kernel's chunking for the
-    full batch; a batch tile's outputs depend on its own rows only."""
+    """K3 vs its plain version on every output, in any launch form: kw
+    holds the walk's ck / update_thr / emit_match, and may hold `step`
+    (the stepped walk of `bundle_walk_steps`, one launch per chunk) and
+    `thr_init` (the seeded walk). With `rows` (whole batch tiles of
+    BUNDLE_BT), the plain walk computes (and is timed on) only the first
+    rows, at the kernel's sub-chunking for the full batch; a batch
+    tile's outputs depend on its own rows only. Also counts the K3
+    launches of one walk."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     text, num, clauses, cl_inputs, msm, boost, live, can, ub = args
-    got = cs.bundle_walk(*args, **kw)
+    kw = dict(kw)
+    step, thr = kw.pop("step", None), kw.pop("thr_init", None)
+    kw = {k: kw[k] for k in ("ck", "update_thr", "emit_match")}
+    B, n_tiles = can.shape
+
+    def run(walk, a, thr_init, **extra):
+        return cs.bundle_walk_steps(walk, *a, step=step, thr_init=thr_init,
+                                    **kw, **extra)
+
+    before = cs.LAUNCHES["bundle_topk"]
+    got = run(cs.bundle_walk, args, thr)
+    torch.cuda.synchronize()
+    launches = cs.LAUNCHES["bundle_topk"] - before
     if rows is not None and rows % cs.BUNDLE_BT:
         raise ValueError(f"rows {rows} cut a batch tile")
     sub = (text, num, clauses,
            tuple(_first_rows(inp, rows) for inp in cl_inputs),
            *_first_rows((msm, boost), rows), live,
            *_first_rows((can, ub), rows))
-    want, plain_ms = plain_run(lambda: cs.bundle_walk_ref(
-        *sub, **kw, chunk_tiles=cs.bundle_chunk_tiles(*can.shape)))
     n = sub[4].shape[0]
+    chunk = cs.bundle_chunk_tiles(B, n_tiles if step is None else step[0])
+    want, plain_ms = plain_run(lambda: run(
+        cs.bundle_walk_ref, sub, None if thr is None else thr[:n],
+        chunk_tiles=chunk))
     err = 0.0
-    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match"), got, want):
-        if (g is None) != (w is None) or (g is not None
-                                          and not torch.equal(g[:n], w)):
+    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr",
+                           "timed"), got, want):
+        same = (g is None and w is None) if (g is None or w is None) \
+            else (g == w if name == "timed" else torch.equal(g[:n], w))
+        if not same:
             raise AssertionError(f"bundle_topk != plain on {name} at B "
-                                 f"{msm.shape[0]}, kw {kw}")
+                                 f"{msm.shape[0]}, kw {kw}, step "
+                                 f"{step is not None}, seeded "
+                                 f"{thr is not None}")
     if got[0] is not None:
         fin = torch.isfinite(want[0])
         if bool(fin.any()):
             err = float((got[0][:n][fin] - want[0][fin]).abs().max())
     bound_ms, bound_by = bundle_bound(args, kw)
-    return {"hits": int(got[2].sum()),
-            "ms": cuda_ms(lambda: cs.bundle_walk(*args, **kw), reps),
+    return {"hits": int(got[2].sum()), "launches_per_walk": launches,
+            "ms": cuda_ms(lambda: run(cs.bundle_walk, args, thr), reps),
             "plain_ms": plain_ms, "plain_rows": n,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err}
 
 
-def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20
-                 ) -> tuple[list[dict], float]:
-    """K3 at B 256, cap 2^20 (two text fields of 8 slots and a numeric
-    column drawn like the main path's), one to three clauses."""
-    import torch
-    from elasticsearch_tpu_torch.index.segment import (build_tile_max,
-                                                       build_tile_minmax)
-    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
-    from elasticsearch_tpu_torch import corpus
-    L, per = 8, 500
-    text, tids_np = {}, {}
-    for f in ("f", "g"):
-        base = (per * rng.random((cap, L)) ** 3).astype(np.int32)
-        tids = base * L + np.arange(L, dtype=np.int32)[None, :]
-        tids[rng.random((cap, L)) < 0.3] = -1
-        imps = rng.random((cap, L), dtype=np.float32) * 4 + 0.1
-        imps[tids < 0] = 0.0
-        pos, k1ln, lnorm = corpus.synthetic_positions(rng, tids, 4)
-        tids_np[f] = tids
-        text[f] = {"fwd_tids": torch.from_numpy(tids).to(dev),
-                   "fwd_imps": torch.from_numpy(imps).to(dev),
-                   "tile_max": torch.from_numpy(build_tile_max(
-                       tids, imps, per * L, cap)).to(dev),
-                   "fwd_pos": torch.from_numpy(pos).to(dev),
-                   "k1ln": torch.from_numpy(k1ln).to(dev),
-                   "lnorm": torch.from_numpy(lnorm).to(dev)}
-    vals = rng.integers(100, 100_001, size=cap).astype(np.int32)
-    exists = np.ones(cap, bool)
-    lo_t, hi_t = build_tile_minmax(vals, exists, cap)
-    num = {"n": {k: torch.from_numpy(v).to(dev) for k, v in (
-        ("values", vals), ("exists", exists), ("tile_lo", lo_t),
-        ("tile_hi", hi_t))}}
-    live = torch.ones(cap, dtype=torch.bool, device=dev)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+class SweepInputs:
+    """Synthetic K3 inputs at B rows over cap docs: two text fields of 8
+    slots (Zipf ids, 30% padding, a P 4 positions pack) and a numeric
+    column, drawn like the main path's, with per-row clause inputs drawn
+    on demand (`dense`, `rng_in`, `positional`)."""
 
-    def dense(q, wrapped=False):
+    def __init__(self, dev, rng, B: int, cap: int):
+        import torch
+        from elasticsearch_tpu_torch import corpus
+        from elasticsearch_tpu_torch.index.segment import (build_tile_max,
+                                                           build_tile_minmax)
+        self.rng, self.B, self.cap, self.L, self.per = rng, B, cap, 8, 500
+        L, per = self.L, self.per
+        self.text, self.tids_np = {}, {}
+        for f in ("f", "g"):
+            base = (per * rng.random((cap, L)) ** 3).astype(np.int32)
+            tids = base * L + np.arange(L, dtype=np.int32)[None, :]
+            tids[rng.random((cap, L)) < 0.3] = -1
+            imps = rng.random((cap, L), dtype=np.float32) * 4 + 0.1
+            imps[tids < 0] = 0.0
+            pos, k1ln, lnorm = corpus.synthetic_positions(rng, tids, 4)
+            self.tids_np[f] = tids
+            self.text[f] = {"fwd_tids": torch.from_numpy(tids).to(dev),
+                            "fwd_imps": torch.from_numpy(imps).to(dev),
+                            "tile_max": torch.from_numpy(build_tile_max(
+                                tids, imps, per * L, cap)).to(dev),
+                            "fwd_pos": torch.from_numpy(pos).to(dev),
+                            "k1ln": torch.from_numpy(k1ln).to(dev),
+                            "lnorm": torch.from_numpy(lnorm).to(dev)}
+        vals = rng.integers(100, 100_001, size=cap).astype(np.int32)
+        exists = np.ones(cap, bool)
+        lo_t, hi_t = build_tile_minmax(vals, exists, cap)
+        self.num = {"n": {k: torch.from_numpy(v).to(dev) for k, v in (
+            ("values", vals), ("exists", exists), ("tile_lo", lo_t),
+            ("tile_hi", hi_t))}}
+        self.live = torch.ones(cap, dtype=torch.bool, device=dev)
+        self.dev = dev
+
+    def t(self, a):
+        import torch
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+
+    def dense(self, q, wrapped=False):
+        rng, B, L, per, t = self.rng, self.B, self.L, self.per, self.t
         qt = ((per * rng.random((B, q)) ** 3).astype(np.int32) * L
               + rng.integers(0, L, size=(B, q)).astype(np.int32))
         wq = rng.random((B, q), dtype=np.float32) * 3 + 0.1
         return (t(qt), t(wq), t(np.ones(B, np.int32)),
                 t(np.full(B, 1.5 if wrapped else 1.0, np.float32)))
 
-    def rng_in():
-        lo = rng.integers(100, 60_000, size=B).astype(np.int32)
-        return (t(lo), t((lo + 40_000).astype(np.int32)))
+    def rng_in(self):
+        lo = self.rng.integers(100, 60_000, size=self.B).astype(np.int32)
+        return (self.t(lo), self.t((lo + 40_000).astype(np.int32)))
 
-    def positional(kind, field):
+    def positional(self, kind, field):
         """Terms that co-occur: each row's terms are slots of one doc."""
         from elasticsearch_tpu_torch.ops.scoring import parse_positional_kind
+        rng, B, L, cap, t = self.rng, self.B, self.L, self.cap, self.t
         head, n, _v = parse_positional_kind(kind)
         tail = (t(np.ones(B, np.float32)), t(np.ones(B, np.int32)),
                 t(np.ones(B, np.float32)))
         if head == "bm25f":
             nt = int(kind.split(":")[2])
-            qt = np.stack([tids_np[f][rng.integers(0, cap, size=B), :nt]
+            qt = np.stack([self.tids_np[f][rng.integers(0, cap, size=B), :nt]
                            for f in field], axis=1)
             return (t(qt.astype(np.int32)),
                     t(rng.random((B, nt), dtype=np.float32) * 4 + 0.5),
                     t(np.ones((B, len(field)), np.float32))) + tail
-        docs = tids_np[field][rng.integers(0, cap, size=B)]
+        docs = self.tids_np[field][rng.integers(0, cap, size=B)]
         cols = np.stack([rng.permutation(L)[:n] for _ in range(B)])
         qt = np.take_along_axis(docs, cols, axis=1).astype(np.int32)
         return (t(qt), t(np.ones((B, n), np.float32)),
                 t(rng.random(B, dtype=np.float32) * 6 + 1),
                 t(rng.integers(0, 3, size=B).astype(np.int32))) + tail
+
+
+def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20
+                 ) -> tuple[list[dict], float, SweepInputs]:
+    """K3 at B 256, cap 2^20 (two text fields of 8 slots and a numeric
+    column drawn like the main path's), one to three clauses. Returns
+    the rows, the worst error and the inputs (for the launch forms)."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    sw = SweepInputs(dev, rng, B, cap)
+    text, num, live, t = sw.text, sw.num, sw.live, sw.t
+    dense, rng_in, positional = sw.dense, sw.rng_in, sw.positional
 
     configs = [
         ("1 clause", (("should", "terms_dense", "f", False),), 10, False),
@@ -795,6 +1189,112 @@ def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20
         rows.append({"kernel": "positional_leaf", "clause": label, "B": B,
                      "cap": cap, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
+    return rows, worst, sw
+
+
+def _never_late(_c, st):
+    """A step check that never reports late (an infinite deadline): the
+    stepped walk's chunks go back to back."""
+    return False, st
+
+
+_never_late.sync = False
+
+
+def form_sweep(dev, rng, base: SweepInputs, k: int = 10
+               ) -> tuple[list[dict], float]:
+    """K3's launch forms at B 256 over the sweep's 2^20-doc columns, on a
+    `match` bundle (one dense clause) and a `phrase_pos:2:e` one, k 10,
+    the match mask on:
+      * stepped: FORM_CHUNKS launches, the threshold carried, equal to
+        the single launch (top-k, totals, mask) and, on every output, to
+        the plain stepped walk (the first 16 rows for the phrase), timed
+        back to back and with the resident loop's per-chunk poll (a far
+        deadline: the host waits on each chunk before the next);
+      * seeded: a 2^17-doc delta (columns of its own) opened at the base
+        walk's k-th best, equal to its plain version on every output,
+        and the chained top-k (init_topk / idx_offset) equal to the
+        plain chain;
+      * a stepped walk whose check flips at chunk 4 launches K3 4 times
+        and reports timed."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    from elasticsearch_tpu_torch.search import executor
+    delta = SweepInputs(dev, rng, base.B, 1 << 17)
+    B, cap = base.B, base.cap
+    chunk = (cap // 1024) // FORM_CHUNKS
+    rows, worst = [], 0.0
+    for label, clauses in (
+            ("match", (("should", "terms_dense", "f", False),)),
+            ("phrase_pos:2:e", (("should", "phrase_pos:2:e", "f", False),))):
+        pos = ":" in clauses[0][1]
+        cl = (base.positional("phrase_pos:2:e", "f") if pos
+              else base.dense(3),)
+        msm = base.t(np.ones(B, np.int32))
+        boost = base.t(np.ones(B, np.float32))
+        args = (base.text, base.num, clauses, cl, msm, boost, base.live)
+        rows_cut = PLAIN_ROWS if pos else None
+        step = (chunk, None, _never_late)
+        one = cs.fused_topk_bundle(*args, k, emit_match=True)
+        st = cs.fused_topk_bundle(*args, k, emit_match=True, step=step)
+        for i, name in ((0, "top_s"), (1, "top_i"), (2, "total"),
+                        (4, "match")):
+            if not torch.equal(st[i], one[i]):
+                raise AssertionError(f"stepped K3 != single launch on "
+                                     f"{name} ({label})")
+        if st[5] is not False:
+            raise AssertionError("a stepped walk with no deadline timed out")
+        can, ub = bundle_tile_bounds(clauses, cl, *args[:2], msm, boost)
+        kw = {"ck": k, "update_thr": True, "emit_match": True}
+        single = measure_bundle(args + (can, ub), kw, reps=10,
+                                rows=rows_cut)
+        stepped = measure_bundle(args + (can, ub), {**kw, "step": step},
+                                 reps=10, rows=rows_cut)
+        if stepped["launches_per_walk"] != FORM_CHUNKS:
+            raise AssertionError(f"stepped walk launched "
+                                 f"{stepped['launches_per_walk']} times")
+        poll = executor._resident_step(time.monotonic() + 3600, chunk)
+        stepped["polled_ms"] = cuda_ms(lambda: cs.bundle_walk_steps(
+            cs.bundle_walk, *args, can, ub, step=poll, **kw), 10)
+        # seeded: the delta's rows are the base's queries
+        d_args = (delta.text, delta.num, clauses, cl, msm, boost,
+                  delta.live)
+        d_can, d_ub = bundle_tile_bounds(clauses, cl, *d_args[:2], msm,
+                                         boost)
+        seeded = measure_bundle(d_args + (d_can, d_ub),
+                                {**kw, "thr_init": one[0][:, -1]}, reps=10,
+                                rows=rows_cut)
+        chained = cs.fused_topk_bundle(*d_args, k, init_topk=one[:2],
+                                       idx_offset=cap)
+        plain = cs.fused_topk_bundle_ref(*d_args, k, init_topk=one[:2],
+                                         idx_offset=cap)
+        for i in range(3):
+            if not torch.equal(chained[i], plain[i]):
+                raise AssertionError(f"chained K3 != plain chain ({label})")
+        # a check that flips at chunk 4
+        before = cs.LAUNCHES["bundle_topk"]
+        out = cs.bundle_walk_steps(cs.bundle_walk, *args, can, ub,
+                                   step=(chunk, None,
+                                         lambda c, s: (c >= 4, s)), **kw)
+        torch.cuda.synchronize()
+        flipped = cs.LAUNCHES["bundle_topk"] - before
+        if flipped != 4 or out[6] is not True:
+            raise AssertionError(f"a walk timed out at chunk 4 launched K3 "
+                                 f"{flipped} times, timed {out[6]}")
+        for form, m, c in (("single", single, cap),
+                           ("stepped", stepped, cap),
+                           ("seeded", seeded, delta.cap)):
+            worst = max(worst, m["max_abs_err"])
+            rows.append({"kernel": f"bundle_topk {form}", "bundle": label,
+                         "B": B, "cap": c, "k": k, "emit_match": True,
+                         **({"chunks": FORM_CHUNKS} if form == "stepped"
+                            else {}),
+                         **m})
+            log("kernel_forms " + json.dumps(rows[-1]))
+        log("kernel_forms " + json.dumps({
+            "bundle": label, "flip_at_chunk_4_launches": flipped,
+            "timed": out[6]}))
     return rows, worst
 
 
@@ -854,8 +1354,9 @@ def kernel_sweep(dev, rng) -> tuple[list[dict], float]:
     worst = max(worst, m["max_abs_err"])
     log("kernel_sweep " + json.dumps({"kernel": "scatter_add",
                                       "unsorted": True, **m}))
-    b_rows, b_worst = bundle_sweep(dev, rng)
-    return rows + b_rows, max(worst, b_worst)
+    b_rows, b_worst, inputs = bundle_sweep(dev, rng)
+    f_rows, f_worst = form_sweep(dev, rng, inputs)
+    return rows + b_rows + f_rows, max(worst, b_worst, f_worst)
 
 
 def capture_first_calls():
@@ -1060,6 +1561,45 @@ def on_card(args) -> int:
     log("positional fused vs host oracle, small index: "
         + json.dumps(pos_ab["small"]))
 
+    # phase 5: the delta path (a 2^17-doc delta beside each shard)
+    t0 = time.perf_counter()
+    deltas = build_deltas(segs, args.docs, args.delta_docs, 1000, workers=2)
+    log(f"delta: 2 deltas x {args.delta_docs} docs built in "
+        f"{time.perf_counter() - t0:.1f} s; capacity "
+        f"{[d.capacity for d in deltas]}, delta_parent "
+        f"{[d.delta_parent for d in deltas]}")
+    readers_d = make_pack_readers(segs, deltas, dev)
+    dmix = delta_mixes(args.batch, readers_d, args.docs)
+    log("delta mixes: " + json.dumps({k: len(v) for k, v in dmix.items()}))
+    form_seen, form_shim = capture_forms(deltas[0].capacity)
+    with swapped_kernels(bundle_walk_steps=form_shim):
+        for name in DELTA_MIXES:                 # warm-up: uploads
+            time_mix(readers_d, dmix[name], 1, sync,
+                     batch=DELTA_BATCH.get(name))
+    sync()
+    d_stats, d_last, d_launches = run_delta_path(readers_d, dmix, args.reps,
+                                                 sync)
+    log("delta launches: " + json.dumps(d_launches))
+    for name in DELTA_MIXES:
+        log("delta mix " + json.dumps({"mix": name, **d_stats[name]}))
+    if d_launches["bundle_topk_seeded"] <= 0:
+        raise AssertionError("delta path: K3's seeded form never launched")
+    check_responses(d_last)
+    d_ab = delta_ab(readers_d, dmix, d_last, args.reps, sync)
+    log("delta pack vs per-segment: " + json.dumps(d_ab))
+
+    # phase 6: the resident path on the main index
+    os.environ["ES_TPU_RESIDENT_LOOP"] = "1"
+    try:
+        with swapped_kernels(bundle_walk_steps=form_shim):
+            search_merged(readers, mixes["match"],
+                          time.monotonic() + 3600)
+        sync()
+    finally:
+        del os.environ["ES_TPU_RESIDENT_LOOP"]
+    res = run_resident_path(readers, mixes, last, args.reps, sync)
+    log("resident: " + json.dumps(res))
+
     # kernels on the main path's own inputs: K1 and K2 on the first call
     # of the run, K3 on the first call of each fused mix (the kernels
     # line takes the first positional one), the unfused leaf on its first
@@ -1087,17 +1627,33 @@ def on_card(args) -> int:
             meas["bundle_topk"] = dict(m)
             first["bundle_topk"] = (name, (a, kw))
     meas["bundle_topk"]["max_abs_err"] = k3_err
+    # K3's stepped form on the resident path's first walk, its seeded
+    # form on the delta path's first delta walk
+    for form, path, path_launches in (("stepped", "resident",
+                                       res["launches"]),
+                                      ("seeded", "delta", d_launches)):
+        a, kw = form_seen[form]
+        pos = any(":" in kd for _r, kd, _f, _w in a[2])
+        m = measure_bundle(a, kw, reps=10, rows=PLAIN_ROWS if pos else None)
+        name = f"bundle_topk_{form}"
+        meas[name] = m
+        first[name] = (path, (a, kw))
+        launches[name] = path_launches[name]
     kernels = []
-    for name, (source, replaces) in KERNEL_SOURCES.items():
+    for name, (source, replaces) in {**KERNEL_SOURCES,
+                                     **FORM_SOURCES}.items():
         m = meas[name]
         mix, (a, kw) = first[name]
         # the main-path call that ms, plain_ms and bound_ms were taken on
         if name in ("dense_score", "scatter_add"):
             call = {"mix": mix, "shapes": [list(v.shape) for v in a
                                            if hasattr(v, "shape")]}
-        elif name == "bundle_topk":
+        elif name.startswith("bundle_topk"):
             call = {"mix": mix, "B": a[4].shape[0], "ck": kw["ck"],
+                    "cap": a[6].shape[0],
                     "clauses": [[r, kd] for r, kd, _f, _w in a[2]]}
+            if kw.get("step") is not None:
+                call["chunk_tiles"] = kw["step"][0]
         else:
             call = {"mix": mix, "kind": a[0], "B": a[2][0].shape[0]}
         log(f"main-path inputs {name}: " + json.dumps({**call, **m}))
@@ -1110,6 +1666,9 @@ def on_card(args) -> int:
     report = {"gpu": gpu_line(), "build_s": build_s, "sweep": sweep,
               "mixes": stats, "match_fused_vs_unfused": match_ab,
               "positional_fused_vs_host": pos_ab,
+              "delta": {"mixes": d_stats, "launches": d_launches,
+                        "pack_vs_segments": d_ab},
+              "resident": res,
               "profiles": profiles, "kernels": kernels,
               "seconds": time.perf_counter() - t_run}
     if out_dir:
@@ -1133,6 +1692,8 @@ def main(argv=None) -> int:
                    help="timed repetitions of each mix")
     p.add_argument("--small-docs", type=int, default=20_000,
                    help="docs per shard of the card-vs-CPU check")
+    p.add_argument("--delta-docs", type=int, default=DELTA_DOCS,
+                   help="docs per shard's delta segment on the delta path")
     p.add_argument("--out-dir", default=None,
                    help="directory for the JSON report and profile tables")
     p.add_argument("--rehearse", action="store_true",

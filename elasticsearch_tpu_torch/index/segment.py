@@ -15,7 +15,10 @@ columns this slice of the port searches:
   * _id/_source   -> host-side.
 
 The layout pass is the host one (`_pack_layout_host`); vectors, geo,
-nested rows and the device-side build are not ported yet.
+nested rows and the device-side build are not ported yet. A delta
+segment of the streaming write path (`delta_parent` set, shapes bucketed
+by `pad_delta_shapes`) keys its caches on its base generation
+(`cache_key`).
 `segment_from_arrays` rebuilds a Segment from another builder's columns,
 so two implementations can search the very same index.
 """
@@ -257,11 +260,61 @@ class Segment:
     text: dict[str, PostingsField]
     keywords: dict[str, KeywordColumn]
     numerics: dict[str, NumericColumn]
+    # streaming write path: a DELTA segment is the small append-only pack
+    # rebuilt at every refresh on top of an immutable base generation.
+    # `delta_parent` is the base generation key it rides on;
+    # `delta_epoch` counts rebuilds since the last compaction. Base
+    # segments leave both at their defaults.
+    delta_parent: str | None = None
+    delta_epoch: int = 0
 
     def primary_mask(self) -> np.ndarray:
         m = np.zeros(self.capacity, dtype=bool)
         m[: self.num_docs] = True
         return m
+
+    def fingerprint(self) -> str:
+        """Content fingerprint for restart-stable caches: the pack's
+        shape-and-statistics signature, different whenever a refresh or
+        merge rebuilds the segment with other contents, never seg_id."""
+        cached = getattr(self, "_fingerprint", None)
+        if cached is not None:
+            return cached
+        import hashlib
+        h = hashlib.blake2b(digest_size=12)
+        h.update(f"{self.capacity}|{self.num_docs}".encode())
+        for f in sorted(self.text):
+            pf = self.text[f]
+            h.update(f"|t:{f}:{len(pf.terms)}:{int(pf.df.sum())}:"
+                     f"{float(pf.doc_len.sum()):.3f}".encode())
+        for f in sorted(self.keywords):
+            kc = self.keywords[f]
+            h.update(f"|k:{f}:{kc.cardinality}:{int(kc.df.sum())}".encode())
+        for f in sorted(self.numerics):
+            nc = self.numerics[f]
+            # value-sensitive, not just count-sensitive: a refresh that
+            # rewrites values but not doc counts must still re-key
+            vsum = float(np.where(nc.exists,
+                                  np.nan_to_num(
+                                      nc.values.astype(np.float64)),
+                                  0.0).sum())
+            h.update(f"|n:{f}:{nc.kind}:{int(nc.exists.sum())}:"
+                     f"{vsum:.6g}".encode())
+        fp = h.hexdigest()
+        self._fingerprint = fp  # type: ignore[attr-defined]
+        return fp
+
+    def cache_key(self) -> str:
+        """Key of fingerprint-keyed caches (resident entries). Base
+        segments key on content (`fingerprint()`), so a compaction
+        re-keys; DELTA segments key on the base generation plus the pow2
+        capacity bucket, so a refresh that rebuilds the delta within its
+        bucket keeps every cache keyed here: an epoch bump, not an
+        eviction."""
+        if self.delta_parent is None:
+            return self.fingerprint()
+        return (f"delta({self.delta_parent}):"
+                f"c{next_pow2(self.capacity, floor=BLOCK)}")
 
     def nbytes(self) -> int:
         return sum(f.nbytes() for group in (self.text, self.keywords,
@@ -602,6 +655,30 @@ def _position_targets(pf: PostingsField, P: int
     k_pp = (np.arange(int(counts.sum()), dtype=np.int64)
             - np.repeat(pf.pos_indptr[:-1].astype(np.int64), counts))
     return doc_pp, slot_pp * P + k_pp
+
+
+def pad_delta_shapes(seg: Segment) -> Segment:
+    """Bucket every term-count-derived array of a delta segment to the
+    next power of two, so the pack's shape signature (and with it every
+    resident entry keyed on it) stays constant while the delta grows
+    within a bucket. Capacity, forward width L and block counts are
+    already pow2; the term count T was the one content-proportional
+    shape left. Padded tile_max rows carry zero impact (an absent term
+    bounds to 0 and never un-prunes a tile); padded block_start entries
+    repeat the final block (zero postings). Mutates and returns `seg`."""
+    for pf in seg.text.values():
+        T = len(pf.terms)
+        t_pad = next_pow2(max(T, 1), floor=8)
+        if pf.tile_max is not None and pf.tile_max.shape[0] < t_pad:
+            pad = np.zeros((t_pad - pf.tile_max.shape[0],
+                            pf.tile_max.shape[1]), np.float32)
+            pf.tile_max = np.concatenate([pf.tile_max, pad], axis=0)
+        if pf.block_start is not None and len(pf.block_start) < t_pad + 1:
+            pf.block_start = np.concatenate(
+                [pf.block_start,
+                 np.full(t_pad + 1 - len(pf.block_start),
+                         pf.block_start[-1], dtype=pf.block_start.dtype)])
+    return seg
 
 
 def _device_vals(raw: np.ndarray, kind: str, bias: int,

@@ -21,16 +21,35 @@
 //
 // Grid. The TPU runs the doc-tile axis in order on one core and carries
 // each row's running top-k threshold across it in scratch. Hopper runs
-// blocks in parallel, so a block owns (kBT rows) x (a chunk of
-// consecutive doc tiles) and walks its chunk in order, the threshold in
-// shared memory seeded at -inf per chunk. A tile is skipped only when
-// every row's bound is <= a ck-th best that ck candidates with lower doc
-// ids in the same chunk witness, so the hits equal one walk over all
-// tiles; only the thresholded counts (diagnostics) differ. The threshold
-// is raised only when ck == k (update_thr). The chunk length comes from
-// the wrapper (cuda_scoring.bundle_chunk_tiles): about 2048 blocks, i.e.
-// at B = 256 (32 batch tiles) and 1024 tiles, chunks of 16 tiles.
+// blocks in parallel, so a block owns (kBT rows) x (a sub-chunk of
+// consecutive doc tiles) and walks its sub-chunk in order, the threshold
+// in shared memory. The chunk length comes from the wrapper
+// (cuda_scoring.bundle_chunk_tiles): about 2048 blocks, i.e. at B = 256
+// (32 batch tiles) and 1024 tiles, sub-chunks of 16 tiles. The
+// threshold is raised only when ck == k (update_thr).
 //
+// Launch forms. One launch walks the tile span [t0, t0 + nt) (the whole
+// grid, or one chunk of the stepped walk, pallas_scoring.py:848-890);
+// its outputs land at their global tile columns (row stride n_tiles),
+// so the chunks of a stepped walk fill one set of full-width buffers.
+// Each block seeds its threshold from thr_in[row] (null: -inf, the
+// single launch) and writes its final threshold to thr_out[row, sub];
+// the wrapper folds thr_out with a row max into the thr_in of the next
+// launch. A delta walk (streaming write path, pallas_scoring.py:825-832)
+// seeds thr_in with the base walk's k-th best.
+//
+// Exactness (pallas_scoring.py:257-266). A tile is skipped only when
+// every row's bound is <= its threshold, and every threshold a block
+// holds is a k-th best witnessed by k candidates with LOWER doc ids than
+// any tile it has yet to walk: its own earlier tiles, the sub-chunks of
+// earlier launches (the row max over one launch's sub-chunks is still
+// such a value: each sub-chunk precedes every tile of a later launch),
+// or the base segment, whose ids sit below the delta's (offset cap_b)
+// and whose candidates go first in the merge. A doc of a skipped tile
+// scores <= the threshold and loses to those k candidates, ties
+// included, so the hits equal one walk over all tiles bit for bit; only
+// the prune flags (diagnostics) depend on the schedule.
+
 // Clause bundle at run time. One compiled kernel serves every bundle: the
 // wrapper passes a descriptor table (role, kind, field index, slot of the
 // clause's per-row parameters, term / field counts and the positional
@@ -103,6 +122,9 @@ struct BundleArgs {
   unsigned char* match;      // [B, cap]
   int B, cap, tile, n_tiles, qm, n_dense, n_range, ck, update_thr,
       chunk_tiles, emit_match;
+  const float* thr_in;  // [B] seed threshold; null = -inf
+  float* thr_out;       // [B, n_sub] final threshold per sub-chunk, or null
+  int t0, nt;           // the launch walks tiles [t0, t0 + nt)
 };
 
 // The unfused path's positional clause over the whole capacity (entry
@@ -168,8 +190,8 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
   const int warp = tid >> 5;
   const int row0 = blockIdx.y * kBT;
   const int n_rows = min(kBT, a.B - row0);
-  const int t_begin = blockIdx.x * a.chunk_tiles;
-  const int t_end = min(a.n_tiles, t_begin + a.chunk_tiles);
+  const int t_begin = a.t0 + blockIdx.x * a.chunk_tiles;
+  const int t_end = min(a.t0 + a.nt, t_begin + a.chunk_tiles);
   const int tile = a.tile;
   const int qm = a.qm;
   const int qw = a.n_dense * qm;
@@ -205,7 +227,7 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
     const int b = row0 + min(tid, n_rows - 1);
     s_msm[tid] = a.msm[b];
     s_boost[tid] = a.boost[b];
-    s_thr[tid] = -INFINITY;
+    s_thr[tid] = a.thr_in != nullptr ? a.thr_in[b] : -INFINITY;
   }
 
   for (int j = t_begin; j < t_end; ++j) {
@@ -461,6 +483,10 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
     }
     __syncthreads();
   }
+  __syncthreads();
+  if (a.thr_out != nullptr && tid < n_rows)
+    a.thr_out[static_cast<size_t>(row0 + tid) * gridDim.x + blockIdx.x] =
+        s_thr[tid];
 }
 
 // one thread per (row, doc) of the unfused leaf (struct PosLeafArgs)
@@ -496,17 +522,17 @@ extern "C" int positional_leaf(const PosLeafArgs* args, void* stream) {
 
 extern "C" int bundle_topk(const BundleArgs* args, void* stream) {
   const BundleArgs a = *args;
-  if (a.B <= 0 || a.n_tiles <= 0) return 0;
+  if (a.B <= 0 || a.n_tiles <= 0 || a.nt <= 0) return 0;
   if (a.n_clauses > kMaxClauses || a.qm > kMaxQ || a.n_dense > kMaxClauses ||
       a.n_range > kMaxClauses || a.tile > 1024 || a.chunk_tiles <= 0 ||
-      a.pw < 0 || a.pw > kMaxPW)
+      a.pw < 0 || a.pw > kMaxPW || a.t0 < 0 || a.t0 + a.nt > a.n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(kBT) * a.tile * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       bundle_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.n_tiles + a.chunk_tiles - 1) / a.chunk_tiles,
+  const dim3 grid((a.nt + a.chunk_tiles - 1) / a.chunk_tiles,
                   (a.B + kBT - 1) / kBT);
   bundle_topk_kernel<<<grid, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(a);

@@ -15,8 +15,12 @@ Pallas kernel:
   range masks, positional phrase / span / BM25F clauses), per doc tile
   the exact match count, a prune flag, the ck best candidates (ck > 0)
   and the match mask (emit_match). Its entries are `fused_topk_bundle`,
-  `match_mask_bundle` (the ck == 0 grid) and `fused_topk_dense`; the
-  walk's stepped form and streaming chaining are not ported yet.
+  `match_mask_bundle` (the ck == 0 grid) and `fused_topk_dense`. A
+  launch walks a span of tiles from a seeded threshold and returns its
+  final one, which gives the walk's other two forms: the stepped walk
+  (`bundle_walk_steps`, one launch per chunk with a host check between
+  chunks, for the resident loop) and the chained walk (`init_topk` /
+  `idx_offset`, a delta segment's walk seeded from its base's top-k).
 * `positional_leaf` (csrc/bundle_topk.cu, leaf in
   csrc/positional_leaf.cuh): K3's positional leaf as its own entry, one
   positional clause over the whole capacity for the unfused path (the
@@ -27,7 +31,7 @@ repeats the kernel's arithmetic op for op. A wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it checks device,
 dtype, shape and contiguity and launches the kernel or raises. `LAUNCHES`
 counts kernel launches, one per launch, so a run can show that its path
-went through the kernels.
+went through the kernels (`BUNDLE_FORMS` splits K3's by launch form).
 
 The kernels build at first use from the `.cu` sources beside this file
 with `nvcc` for `sm_90a` (one compiler process per source, all started
@@ -51,6 +55,10 @@ import torch
 
 LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0,
             "positional_leaf": 0}
+# K3's launches by launch form: one chunk of a stepped walk (a span short
+# of the whole grid), a seeded single launch (thr_init given: a delta
+# walk chained onto its base), the plain single launch
+BUNDLE_FORMS = {"single": 0, "stepped": 0, "seeded": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -466,15 +474,36 @@ def _walk_tiles(cols: dict, fields: tuple, names: tuple, docs):
     return {f: tuple(cols[f][c][docs] for c in names) for f in fields}
 
 
+def _walk_buffers(B: int, n_tiles: int, tile: int, ck: int,
+                  emit_match: bool, dev: torch.device) -> tuple:
+    """Full-width walk outputs at the values a tile no launch has walked
+    reports: (cs -inf, ci 0) x ck, cnt 0, flags 0, match False."""
+    cs = ci = match = None
+    if ck > 0:
+        cs = torch.full((B, n_tiles * ck), float("-inf"),
+                        dtype=torch.float32, device=dev)
+        ci = torch.zeros((B, n_tiles * ck), dtype=torch.int32, device=dev)
+    if emit_match:
+        match = torch.zeros((B, n_tiles * tile), dtype=torch.bool,
+                            device=dev)
+    return (cs, ci, torch.zeros((B, n_tiles), dtype=torch.int32, device=dev),
+            torch.zeros((B, n_tiles), dtype=torch.int32, device=dev), match)
+
+
 def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
                     cl_inputs: tuple, msm: torch.Tensor, boost: torch.Tensor,
                     live: torch.Tensor, can: torch.Tensor, ub: torch.Tensor,
                     *, ck: int, update_thr: bool, emit_match: bool,
-                    bt: int = BUNDLE_BT, chunk_tiles: int | None = None):
-    """Plain version of the K3 walk, on any device. Rows go in batch
-    tiles of `bt`, doc tiles in chunks of `chunk_tiles` consecutive
-    tiles; each (batch tile, chunk) walks its tiles in order with a
-    per-row threshold seeded at -inf. Per (batch tile, doc tile):
+                    bt: int = BUNDLE_BT, chunk_tiles: int | None = None,
+                    thr_init: torch.Tensor | None = None, t0: int = 0,
+                    nt: int | None = None, out: tuple | None = None):
+    """Plain version of the K3 walk, on any device. One launch walks the
+    doc tiles [t0, t0 + nt) (default: all). Rows go in batch tiles of
+    `bt`, the span's tiles in sub-chunks of `chunk_tiles` consecutive
+    tiles (default `bundle_chunk_tiles(B, nt)`, the kernel's); each
+    (batch tile, sub-chunk) walks its tiles in order with a per-row
+    threshold seeded from `thr_init` [B] (None: -inf). Per (batch tile,
+    doc tile):
 
       * no row can match -> hard skip: counts 0, flag 2, mask rows 0;
       * else the exact match count (and mask); with ck > 0, when some
@@ -483,10 +512,14 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
         threshold rises to the ck-th best when update_thr; otherwise
         flag 1 and no candidates.
 
-    The chunks run side by side here (step i walks tile i of every
-    chunk), which changes nothing: each chunk's state is its own.
+    The sub-chunks run side by side here (step i walks tile i of every
+    sub-chunk), which changes nothing: each one's state is its own.
+    Outputs are full width, at their global tile columns: `out` (the
+    first five outputs of an earlier launch) is written in place, else
+    fresh buffers hold `_walk_buffers`' values outside the span.
     Returns (cs [B, J*ck] f32, ci [B, J*ck] i32, cnt [B, J] i32, flags
-    [B, J] i32, match [B, cap] bool or None); cs/ci are None at ck 0."""
+    [B, J] i32, match [B, cap] bool or None, thr [B] f32: the row max of
+    the sub-chunks' final thresholds); cs/ci/thr are None at ck 0."""
     from .scoring import (bundle_num_fields, bundle_pos_fields,
                           bundle_text_fields, bundle_tile_eval)
     from .topk import top_k_values
@@ -495,9 +528,11 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
     n_tiles = can.shape[1]
     tile = cap // n_tiles
     dev = live.device
+    if nt is None:
+        nt = n_tiles - t0
     if chunk_tiles is None:
-        chunk_tiles = bundle_chunk_tiles(B, n_tiles)
-    n_chunks = -(-n_tiles // chunk_tiles)
+        chunk_tiles = bundle_chunk_tiles(B, nt)
+    n_chunks = -(-nt // chunk_tiles)
     n_bt = -(-B // bt)
 
     def per_row(x):
@@ -511,21 +546,18 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
         return per_row(torch.cat([x, pad]).reshape(
             (n_bt, bt) + tuple(x.shape[1:])).any(dim=1))
 
-    cnt = torch.zeros((B, n_tiles), dtype=torch.int32, device=dev)
-    flags = torch.zeros((B, n_tiles), dtype=torch.int32, device=dev)
-    match_out = (torch.zeros((B, cap), dtype=torch.bool, device=dev)
-                 if emit_match else None)
-    cs = ci = None
+    cs, ci, cnt, flags, match_out = (
+        out if out is not None
+        else _walk_buffers(B, n_tiles, tile, ck, emit_match, dev))
+    thr = None
     if ck > 0:
-        cs = torch.full((B, n_tiles * ck), float("-inf"),
-                        dtype=torch.float32, device=dev)
-        ci = torch.zeros((B, n_tiles * ck), dtype=torch.int32, device=dev)
-    thr = torch.full((B, n_chunks), float("-inf"), dtype=torch.float32,
-                     device=dev)
+        thr = (torch.full((B, n_chunks), float("-inf"), dtype=torch.float32,
+                          device=dev) if thr_init is None
+               else thr_init.to(torch.float32)[:, None].repeat(1, n_chunks))
     for step in range(chunk_tiles):
         chunks = torch.arange(n_chunks, device=dev)
-        tiles = chunks * chunk_tiles + step
-        keep = tiles < n_tiles
+        tiles = t0 + chunks * chunk_tiles + step
+        keep = tiles < t0 + nt
         chunks, tiles = chunks[keep], tiles[keep]
         nc = tiles.numel()
         docs = (tiles[:, None] * tile
@@ -566,7 +598,8 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
             ~any_hit, 2, torch.where(any_top, 0, 1)).to(torch.int32)
         if update_thr:
             thr[:, chunks] = torch.maximum(thr_j, v[..., ck - 1])
-    return cs, ci, cnt, flags, match_out
+    thr_row = None if thr is None else thr.max(dim=1).values
+    return cs, ci, cnt, flags, match_out, thr_row
 
 
 class _PosField(ctypes.Structure):
@@ -591,7 +624,8 @@ class _BundleArgs(ctypes.Structure):
                 ("B", _I), ("cap", _I), ("tile", _I), ("n_tiles", _I),
                 ("qm", _I), ("n_dense", _I), ("n_range", _I), ("ck", _I),
                 ("update_thr", _I), ("chunk_tiles", _I),
-                ("emit_match", _I)]
+                ("emit_match", _I), ("thr_in", _P), ("thr_out", _P),
+                ("t0", _I), ("nt", _I)]
 
 
 class _PosLeafArgs(ctypes.Structure):
@@ -641,21 +675,32 @@ def _check_pos_shape(kind: str, field, inp: tuple) -> tuple[int, int]:
 def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
                 cl_inputs: tuple, msm: torch.Tensor, boost: torch.Tensor,
                 live: torch.Tensor, can: torch.Tensor, ub: torch.Tensor, *,
-                ck: int, update_thr: bool, emit_match: bool):
-    """The K3 walk (csrc/bundle_topk.cu) with `bundle_walk_ref`'s
-    outputs, batch tile BUNDLE_BT and chunks of `bundle_chunk_tiles`.
+                ck: int, update_thr: bool, emit_match: bool,
+                thr_init: torch.Tensor | None = None, t0: int = 0,
+                nt: int | None = None, out: tuple | None = None):
+    """One launch of the K3 walk (csrc/bundle_topk.cu) over the doc
+    tiles [t0, t0 + nt), seeded from `thr_init` [B], with
+    `bundle_walk_ref`'s outputs: batch tile BUNDLE_BT, sub-chunks of
+    `bundle_chunk_tiles(B, nt)`, the per-sub-chunk final thresholds
+    folded with a row max into thr [B] (the next launch's thr_init).
     CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise."""
     from .scoring import clause_fields
     if live.device.type == "cpu":
         return bundle_walk_ref(text_cols, num_cols, clauses, cl_inputs, msm,
                                boost, live, can, ub, ck=ck,
-                               update_thr=update_thr, emit_match=emit_match)
+                               update_thr=update_thr, emit_match=emit_match,
+                               thr_init=thr_init, t0=t0, nt=nt, out=out)
     dev = live.device
     B = msm.shape[0]
     cap = live.shape[0]
     n_tiles = can.shape[1]
     tile = cap // n_tiles
+    if nt is None:
+        nt = n_tiles - t0
+    if t0 < 0 or nt <= 0 or t0 + nt > n_tiles:
+        raise ValueError(f"K3 cannot walk tiles [{t0}, {t0 + nt}) of "
+                         f"{n_tiles}")
     if len(clauses) > BUNDLE_MAX_CLAUSES:
         raise ValueError(f"K3 takes at most {BUNDLE_MAX_CLAUSES} clauses")
     if B > 65535 * BUNDLE_BT or n_tiles * tile != cap or tile > 1024:
@@ -678,7 +723,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     for c, ((role, kind, field, _w), inp) in enumerate(zip(clauses,
                                                            cl_inputs)):
         code = _kind_code(kind)
-        n = nt = 0
+        n_pos = nt_pos = 0
         if code == 0:
             if field not in text_fields:
                 col = text_cols[field]
@@ -711,7 +756,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
             slot, fidx = ri, num_fields.index(field)
             ri += 1
         else:
-            n, nt = _check_pos_shape(kind, field, inp)
+            n_pos, nt_pos = _check_pos_shape(kind, field, inp)
             for j, f in enumerate(clause_fields(field)):
                 if f not in pos_fields:
                     if len(pos_fields) == POS_MAX_PFIELDS:
@@ -725,7 +770,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
             slot, fidx = offsets[c], a.clause[c][6]
         a.clause[c][0], a.clause[c][1] = _ROLES[role], code
         a.clause[c][2], a.clause[c][3] = fidx, slot
-        a.clause[c][4], a.clause[c][5] = n, nt
+        a.clause[c][4], a.clause[c][5] = n_pos, nt_pos
     _check(live, "live", torch.bool, 1, dev)
     msm_i = msm.to(torch.int32).contiguous()
     boost_f = boost.to(torch.float32).contiguous()
@@ -742,14 +787,42 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
         hi = torch.stack([r[1].to(torch.int32) if r[1].dtype == torch.int32
                           else r[1].to(torch.float32).view(torch.int32)
                           for r in ranges], dim=1).contiguous()
-    cnt = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
-    flags = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
-    cs = ci = match = None
+    if out is not None:
+        cs, ci, cnt, flags, match = out
+        for t, what, want in ((cnt, "cnt", (B, n_tiles)),
+                              (flags, "flags", (B, n_tiles)),
+                              (cs, "cs", (B, n_tiles * ck) if ck else None),
+                              (ci, "ci", (B, n_tiles * ck) if ck else None),
+                              (match, "match",
+                               (B, cap) if emit_match else None)):
+            if (t is None) != (want is None) or (
+                    t is not None and (tuple(t.shape) != want
+                                       or t.device != dev
+                                       or not t.is_contiguous())):
+                raise ValueError(f"out {what} does not fit the walk")
+    elif t0 == 0 and nt == n_tiles:
+        cnt = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
+        flags = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
+        cs = ci = match = None
+        if ck > 0:
+            cs = torch.empty((B, n_tiles * ck), dtype=torch.float32,
+                             device=dev)
+            ci = torch.empty((B, n_tiles * ck), dtype=torch.int32,
+                             device=dev)
+        if emit_match:
+            match = torch.empty((B, cap), dtype=torch.bool, device=dev)
+    else:
+        cs, ci, cnt, flags, match = _walk_buffers(B, n_tiles, tile, ck,
+                                                  emit_match, dev)
+    chunk_tiles = bundle_chunk_tiles(B, nt)
+    thr_in = thr_out = None
     if ck > 0:
-        cs = torch.empty((B, n_tiles * ck), dtype=torch.float32, device=dev)
-        ci = torch.empty((B, n_tiles * ck), dtype=torch.int32, device=dev)
-    if emit_match:
-        match = torch.empty((B, cap), dtype=torch.bool, device=dev)
+        if thr_init is not None:
+            thr_in = thr_init.to(torch.float32).contiguous()
+            if thr_in.shape != (B,) or thr_in.device != dev:
+                raise ValueError(f"thr_init {tuple(thr_in.shape)} != {(B,)}")
+        thr_out = torch.empty((B, -(-nt // chunk_tiles)),
+                              dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -764,12 +837,17 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     a.B, a.cap, a.tile, a.n_tiles = B, cap, tile, n_tiles
     a.qm, a.n_dense, a.n_range, a.ck = qm, dc, ri, ck
     a.update_thr, a.emit_match = int(update_thr), int(emit_match)
-    a.chunk_tiles = bundle_chunk_tiles(B, n_tiles)
+    a.chunk_tiles = chunk_tiles
+    a.thr_in, a.thr_out = ptr(thr_in), ptr(thr_out)
+    a.t0, a.nt = t0, nt
     fn = _fn("bundle_topk")
     err = fn(ctypes.byref(a), _stream(dev))
     _raise_on(err, "bundle_topk")
     LAUNCHES["bundle_topk"] += 1
-    return cs, ci, cnt, flags, match
+    BUNDLE_FORMS["stepped" if nt < n_tiles else
+                 "seeded" if thr_in is not None else "single"] += 1
+    thr = None if thr_out is None else thr_out.max(dim=1).values
+    return cs, ci, cnt, flags, match, thr
 
 
 # ---------------------------------------------------------------------------
@@ -864,90 +942,193 @@ def _bundle_prep(text_cols, num_cols, clauses, cl_inputs, msm, boost):
     return boost, can, ub
 
 
+def _skip_span(out: tuple | None, B: int, n_tiles: int, tile: int, ck: int,
+               emit_match: bool, dev: torch.device, t0: int, nt: int
+               ) -> tuple:
+    """A preempted chunk's tiles report as thresholded, with no
+    candidates, counts or matches (pallas_scoring.py:863-876); the
+    caller discards the whole result on timed_out anyway."""
+    if out is None:
+        out = _walk_buffers(B, n_tiles, tile, ck, emit_match, dev)
+    cs, ci, cnt, flags, match = out
+    if ck > 0:
+        cs[:, t0 * ck:(t0 + nt) * ck] = float("-inf")
+        ci[:, t0 * ck:(t0 + nt) * ck] = 0
+    cnt[:, t0:t0 + nt] = 0
+    flags[:, t0:t0 + nt] = 1
+    if emit_match:
+        match[:, t0 * tile:(t0 + nt) * tile] = False
+    return out
+
+
+def bundle_walk_steps(walk, text_cols: dict, num_cols: dict, clauses: tuple,
+                      cl_inputs: tuple, msm: torch.Tensor,
+                      boost: torch.Tensor, live: torch.Tensor,
+                      can: torch.Tensor, ub: torch.Tensor, *, ck: int,
+                      update_thr: bool, emit_match: bool, step=None,
+                      thr_init: torch.Tensor | None = None, **walk_kw):
+    """The driver of both launch forms (`_bundle_pallas_walk`): one
+    launch of `walk` (`bundle_walk` or `bundle_walk_ref`) over every
+    tile, or with `step = (chunk_tiles, st0, check)` the stepped walk
+    (pallas_scoring.py:848-890): one launch per chunk of chunk_tiles
+    tiles, the threshold carried from each launch into the next, all
+    chunks writing one set of full-width outputs. `timed, st =
+    check(c, st)` runs before chunk c, which is skipped when timed
+    (`_skip_span`), and once more after the last chunk, so a deadline
+    that passes during the last chunk still reports. The reference
+    polls after the previous chunk's device work (io_callback), so on
+    the card the driver waits on an event recorded after chunk c-1
+    before it calls check(c); a check whose `sync` attribute is False
+    (an infinite deadline, which can never report late) is called
+    without that wait and the chunks go back to back. `walk_kw` reaches
+    the plain walk (bt, chunk_tiles). Returns (cs, ci, cnt, flags,
+    match, thr [B] or None, timed: None unstepped, else a bool)."""
+    kw = dict(ck=ck, update_thr=update_thr, emit_match=emit_match,
+              **walk_kw)
+    args = (text_cols, num_cols, clauses, cl_inputs, msm, boost, live, can,
+            ub)
+    if ck == 0:
+        thr_init = None              # the mask-only grid has no threshold
+    if step is None:
+        return tuple(walk(*args, thr_init=thr_init, **kw)) + (None,)
+    chunk_tiles, st, check = step
+    B, n_tiles = can.shape
+    tile = live.shape[0] // n_tiles
+    dev = live.device
+    poll = dev.type == "cuda" and getattr(check, "sync", True)
+    out, thr, done, timed = None, thr_init, None, False
+    for c in range(-(-n_tiles // chunk_tiles)):
+        t0 = c * chunk_tiles
+        nt = min(chunk_tiles, n_tiles - t0)
+        if done is not None:
+            done.synchronize()
+        timed, st = check(c, st)
+        if timed:
+            out = _skip_span(out, B, n_tiles, tile, ck, emit_match, dev, t0,
+                             nt)
+            continue
+        res = walk(*args, thr_init=thr, t0=t0, nt=nt, out=out, **kw)
+        out, thr = tuple(res[:5]), res[5]
+        if poll:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+    if done is not None:
+        done.synchronize()
+    final, _st = check(-(-n_tiles // chunk_tiles), st)
+    if ck > 0 and thr is None:
+        thr = torch.full((B,), float("-inf"), dtype=torch.float32,
+                         device=dev)
+    return out + (thr, bool(timed) or bool(final))
+
+
 def _fused_topk(walk, text_cols, num_cols, clauses, cl_inputs, msm, boost,
-                live, k, emit_match):
+                live, k, emit_match, step=None, init_topk=None,
+                idx_offset=0):
     from .scoring import bundle_primary_field
-    from .topk import top_k_values
+    from .topk import running_topk_merge, top_k_values
     cap = live.shape[0]
+    k = min(k, cap) if init_topk is None else init_topk[0].shape[1]
     k_sel = min(k, cap)
     n_tiles = text_cols[bundle_primary_field(clauses)]["tile_max"].shape[1]
     ck = min(k_sel, cap // n_tiles)
     boost, can, ub = _bundle_prep(text_cols, num_cols, clauses, cl_inputs,
                                   msm, boost)
-    cs, ci, cnt, flags, match = walk(
-        text_cols, num_cols, clauses, cl_inputs, msm, boost, live, can, ub,
-        ck=ck, update_thr=(ck == k_sel), emit_match=emit_match)
+    cs, ci, cnt, flags, match, _thr, timed = bundle_walk_steps(
+        walk, text_cols, num_cols, clauses, cl_inputs, msm, boost, live,
+        can, ub, ck=ck, update_thr=(ck == k_sel), emit_match=emit_match,
+        step=step,
+        thr_init=None if init_topk is None else init_topk[0][:, -1])
     # tile-major strip: ties go to the lower flat index, i.e. the lower
     # tile and then the lower doc, as one top-k over [B, cap] would
     top_s, pos = top_k_values(cs, min(k_sel, cs.shape[1]))
-    top_i = ci.gather(1, pos.to(torch.int64))
+    top_i = ci.gather(1, pos.to(torch.int64)) + idx_offset
+    if init_topk is not None:
+        # chain onto the earlier (base) walk's selection, its state
+        # first, so base docs win ties
+        top_s, top_i = running_topk_merge(init_topk[0], init_topk[1],
+                                          top_s, top_i)
     out = (top_s, top_i, cnt.sum(dim=1, dtype=torch.int32),
            normalize_prune(flags))
-    return out + (match,) if emit_match else out
+    if emit_match:
+        out = out + (match,)
+    return out if timed is None else out + (timed,)
 
 
 def _match_mask(walk, text_cols, num_cols, clauses, cl_inputs, msm, boost,
-                live, emit_match):
+                live, emit_match, step=None):
     boost, can, ub = _bundle_prep(text_cols, num_cols, clauses, cl_inputs,
                                   msm, boost)
-    _cs, _ci, cnt, flags, match = walk(
-        text_cols, num_cols, clauses, cl_inputs, msm, boost, live, can, ub,
-        ck=0, update_thr=False, emit_match=emit_match)
+    _cs, _ci, cnt, flags, match, _thr, timed = bundle_walk_steps(
+        walk, text_cols, num_cols, clauses, cl_inputs, msm, boost, live,
+        can, ub, ck=0, update_thr=False, emit_match=emit_match, step=step)
     out = (cnt.sum(dim=1, dtype=torch.int32), normalize_prune(flags))
-    return out + (match,) if emit_match else out
+    if emit_match:
+        out = out + (match,)
+    return out if timed is None else out + (timed,)
 
 
 def fused_topk_bundle_ref(text_cols: dict, num_cols: dict, clauses: tuple,
                           cl_inputs: tuple, msm: torch.Tensor,
                           boost: torch.Tensor | None, live: torch.Tensor,
-                          k: int, emit_match: bool = False):
+                          k: int, emit_match: bool = False, step=None,
+                          init_topk: tuple | None = None,
+                          idx_offset: int = 0):
     """Plain version of `fused_topk_bundle` (the walk in torch)."""
     return _fused_topk(bundle_walk_ref, text_cols, num_cols, clauses,
-                       cl_inputs, msm, boost, live, k, emit_match)
+                       cl_inputs, msm, boost, live, k, emit_match, step,
+                       init_topk, idx_offset)
 
 
 def fused_topk_bundle(text_cols: dict, num_cols: dict, clauses: tuple,
                       cl_inputs: tuple, msm: torch.Tensor,
                       boost: torch.Tensor | None, live: torch.Tensor,
-                      k: int, emit_match: bool = False):
+                      k: int, emit_match: bool = False, step=None,
+                      init_topk: tuple | None = None, idx_offset: int = 0):
     """Fused block-max score + top-k over a clause bundle (reference
     `fused_topk_bundle_pallas`). Returns (top_s [B, k], top_i [B, k],
     total [B] i32, prune_stats f32 [3] = (hard, thresholded, examined)
     in doc-tile units) plus the match mask [B, cap] bool when
-    emit_match. Entries past a row's total are -inf with undefined ids.
-    CPU tensors take the plain version."""
+    emit_match, plus timed_out (bool) when a `step` is given (the
+    stepped walk of `bundle_walk_steps`). Entries past a row's total are
+    -inf with undefined ids. `init_topk` = (scores [B, k], ids [B, k])
+    chains this walk onto an earlier one (the base of a base + delta
+    pair): k is its width, its k-th best seeds the threshold, this
+    walk's ids are offset by `idx_offset` and merged after it. CPU
+    tensors take the plain version."""
     if live.device.type == "cpu":
         return fused_topk_bundle_ref(text_cols, num_cols, clauses,
                                      cl_inputs, msm, boost, live, k,
-                                     emit_match)
+                                     emit_match, step, init_topk,
+                                     idx_offset)
     return _fused_topk(bundle_walk, text_cols, num_cols, clauses,
-                       cl_inputs, msm, boost, live, k, emit_match)
+                       cl_inputs, msm, boost, live, k, emit_match, step,
+                       init_topk, idx_offset)
 
 
 def match_mask_bundle_ref(text_cols: dict, num_cols: dict, clauses: tuple,
                           cl_inputs: tuple, msm: torch.Tensor,
                           boost: torch.Tensor | None, live: torch.Tensor,
-                          emit_match: bool = True):
+                          emit_match: bool = True, step=None):
     """Plain version of `match_mask_bundle`."""
     return _match_mask(bundle_walk_ref, text_cols, num_cols, clauses,
-                       cl_inputs, msm, boost, live, emit_match)
+                       cl_inputs, msm, boost, live, emit_match, step)
 
 
 def match_mask_bundle(text_cols: dict, num_cols: dict, clauses: tuple,
                       cl_inputs: tuple, msm: torch.Tensor,
                       boost: torch.Tensor | None, live: torch.Tensor,
-                      emit_match: bool = True):
+                      emit_match: bool = True, step=None):
     """The mask-only k == 0 grid (reference `match_mask_bundle_pallas`):
     the ck == 0 build of K3, exact counts and, when emit_match, the
     match mask, with msm-aware hard skips and no selection. Returns
-    (total [B], prune_stats f32 [3]) (+ match [B, cap] bool). CPU
-    tensors take the plain version."""
+    (total [B], prune_stats f32 [3]) (+ match [B, cap] bool) (+
+    timed_out when stepped). CPU tensors take the plain version."""
     if live.device.type == "cpu":
         return match_mask_bundle_ref(text_cols, num_cols, clauses,
                                      cl_inputs, msm, boost, live,
-                                     emit_match)
+                                     emit_match, step)
     return _match_mask(bundle_walk, text_cols, num_cols, clauses, cl_inputs,
-                       msm, boost, live, emit_match)
+                       msm, boost, live, emit_match, step)
 
 
 def fused_topk_dense(fwd_tids: torch.Tensor, fwd_imps: torch.Tensor,

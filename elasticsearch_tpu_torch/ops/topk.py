@@ -43,6 +43,31 @@ def top_k_values(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return x.gather(-1, idx), idx.to(torch.int32)
 
 
+def running_topk_init(b: int, k: int, device=None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Empty running top-k state: (-inf scores, index 0 placeholders).
+    Entries beyond a query's total hit count stay -inf with undefined
+    indices, the contract top_k_hits callers already honour."""
+    return (torch.full((b, k), NEG_INF, dtype=torch.float32, device=device),
+            torch.zeros((b, k), dtype=torch.int32, device=device))
+
+
+def running_topk_merge(top_s: torch.Tensor, top_i: torch.Tensor,
+                       cand_s: torch.Tensor, cand_i: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold candidates [B, ck] into the running top-k [B, k]. The
+    existing state goes FIRST: equal scores go to the lower position, so
+    docs already in the state (earlier tiles or segments, lower doc ids)
+    win ties against new candidates, and each side keeps its own
+    ascending-doc-id tie order, as one top-k over the whole score array
+    would."""
+    k = top_s.shape[1]
+    all_s = torch.cat([top_s, cand_s], dim=1)
+    all_i = torch.cat([top_i, cand_i.to(top_i.dtype)], dim=1)
+    m_s, m_pos = top_k_values(all_s, k)
+    return m_s, all_i.gather(1, m_pos.to(torch.int64))
+
+
 def top_k_hits(scores: torch.Tensor, valid: torch.Tensor, k: int
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(scores [B,cap], valid [B,cap]) -> (top_scores [B,k], top_idx [B,k],

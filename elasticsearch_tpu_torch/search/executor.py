@@ -35,9 +35,16 @@ unfused entry of K3's positional leaf. Positional queries the fused
 kinds do not cover (phrase prefix, span_or / span_first / span_not,
 nested span trees, fields without a positions pack, other similarities,
 `ES_TPU_POSITIONAL=0`) bind on the host oracle `search/phrase.py` to a
-`docs_w` posting list, counted by reason. The fused engine's backend
-autotuner, stepped/resident form, knn clauses, tiering and breaker holds
-are not ported yet.
+`docs_w` posting list, counted by reason.
+
+Two more dispatch forms serve fused plans. A reader over a (base, delta)
+pair of the streaming write path searches both in one dispatch
+(`execute_pack_async`: the delta walk chained onto the base's top-k,
+collected back into per-segment lists). With `ES_TPU_RESIDENT_LOOP` set,
+fused plans go through pinned resident entries (`search/resident.py`)
+that run the stepped K3 walk with a per-chunk deadline check. The fused
+engine's backend autotuner, knn clauses, tiering and breaker holds are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from __future__ import annotations
 import math
 import os
 import threading
+import time
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Sequence
 
@@ -68,8 +76,11 @@ from ..ops.scoring import (DENSE_CLAUSE_KINDS, RANGE_CLAUSE_KINDS,
                            clause_fields, parse_positional_kind,
                            phrase_kind, positional_prefix, score_term,
                            score_terms_fused, span_kind)
-from ..ops.topk import top_k_hits, top_k_by_field, top_k_values
-from ..utils.errors import QueryParsingError, SearchParseError
+from ..ops.topk import (running_topk_init, top_k_hits, top_k_by_field,
+                        top_k_values)
+from ..utils.errors import (QueryParsingError, SearchParseError,
+                            SearchTimeoutError)
+from . import resident as _resident
 from .query_dsl import (Query, MatchAllQuery, MatchNoneQuery, TermQuery,
                         RangeQuery, PrefixQuery, BoolQuery,
                         ConstantScoreQuery)
@@ -2026,10 +2037,14 @@ def _bundle_cols(seg: dict, bundle: tuple) -> tuple[dict, dict]:
 
 def eval_fused_topk(seg: dict, desc: tuple, params: tuple,
                     live: torch.Tensor, k: int, bundle: tuple, B: int,
-                    emit_match: bool = False):
+                    emit_match: bool = False, step=None,
+                    init_topk: tuple | None = None, idx_offset: int = 0):
     """Fused score + top-k on K3 -> (top_s [B, k], top_i [B, k], total
     [B], prune_stats f32 [3]) plus the match mask [B, cap] when
-    emit_match (the fused + aggs mode)."""
+    emit_match (the fused + aggs mode), plus timed_out when a `step` is
+    given (the stepped walk). `init_topk` / `idx_offset` chain the walk
+    onto an earlier segment's selection (the base of a base + delta
+    pack)."""
     cl_inputs, msm, boost = _bundle_inputs(desc, params, bundle, B,
                                            seg["_device"])
     if boost is None:
@@ -2037,20 +2052,22 @@ def eval_fused_topk(seg: dict, desc: tuple, params: tuple,
     text_cols, num_cols = _bundle_cols(seg, bundle)
     return cuda_scoring.fused_topk_bundle(
         text_cols, num_cols, bundle, cl_inputs, msm, boost, live, k,
-        emit_match=emit_match)
+        emit_match=emit_match, step=step, init_topk=init_topk,
+        idx_offset=idx_offset)
 
 
 def eval_fused_match(seg: dict, desc: tuple, params: tuple,
                      live: torch.Tensor, bundle: tuple, B: int,
-                     emit_match: bool = True):
+                     emit_match: bool = True, step=None):
     """Mask-only grid of K3 for k == 0 plans -> (total [B], prune_stats
-    f32 [3]) plus the match mask [B, cap] when emit_match."""
+    f32 [3]) plus the match mask [B, cap] when emit_match, plus
+    timed_out when stepped."""
     cl_inputs, msm, boost = _bundle_inputs(desc, params, bundle, B,
                                            seg["_device"])
     text_cols, num_cols = _bundle_cols(seg, bundle)
     return cuda_scoring.match_mask_bundle(
         text_cols, num_cols, bundle, cl_inputs, msm, boost, live,
-        emit_match=emit_match)
+        emit_match=emit_match, step=step)
 
 
 # ---------------------------------------------------------------------------
@@ -2087,7 +2104,9 @@ def _cat_rows(trees: list):
 def _segment_body(seg: dict, params: tuple, live: torch.Tensor,
                   live_views: dict, agg_params: tuple, sort_params: tuple,
                   *, B: int, desc: tuple, agg_desc: tuple, cap: int, k: int,
-                  sort_spec: tuple, fused: tuple | None = None):
+                  sort_spec: tuple, fused: tuple | None = None, step=None):
+    """The segment evaluation; a `step` (the resident loop's stepped
+    walk, fused plans only) appends the walk's timed_out verdict."""
     if fused is not None:
         # the fused transient per row, not the dense [*, cap]
         n_tiles = seg["text"][bundle_primary_field(fused)][
@@ -2097,12 +2116,13 @@ def _segment_body(seg: dict, params: tuple, live: torch.Tensor,
             pos_width=_bundle_pos_width(fused, seg["text"]))
     else:
         row_elems = cap
-    bc = _chunk_b(B, row_elems)
+    # a stepped body never B-chunks: its deadline verdict covers one walk
+    bc = B if step is not None else _chunk_b(B, row_elems)
     kw = dict(desc=desc, agg_desc=agg_desc, cap=cap, k=k,
               sort_spec=sort_spec, fused=fused)
     if bc >= B:
         return _segment_body_one(seg, params, live, live_views, agg_params,
-                                 sort_params, B=B, **kw)
+                                 sort_params, B=B, step=step, **kw)
     parts = [_segment_body_one(seg, _slice_rows(params, lo, lo + bc), live,
                                live_views, agg_params, sort_params, B=bc,
                                **kw)
@@ -2113,21 +2133,25 @@ def _segment_body(seg: dict, params: tuple, live: torch.Tensor,
 def _segment_body_fused(seg: dict, params: tuple, live: torch.Tensor,
                         live_views: dict, agg_params: tuple, *, B: int,
                         desc: tuple, agg_desc: tuple, cap: int, k: int,
-                        bundle: tuple):
+                        bundle: tuple, step=None):
     """The fused branch: K3 never materialises the [B, cap] score
-    matrix; with aggs it emits the exact match mask for the agg pass."""
+    matrix; with aggs it emits the exact match mask for the agg pass.
+    A `step` appends the stepped walk's timed_out verdict."""
     device = seg["_device"]
     emit = bool(agg_desc)
+    step_tail = ()
     if k == 0:
         out = eval_fused_match(seg, desc, params, live, bundle, B,
-                               emit_match=emit)
+                               emit_match=emit, step=step)
         total, pruned = out[:2]
         top_score = torch.zeros((B, 0), dtype=torch.float32, device=device)
         top_idx = torch.zeros((B, 0), dtype=torch.int32, device=device)
     else:
         out = eval_fused_topk(seg, desc, params, live, k, bundle, B,
-                              emit_match=emit)
+                              emit_match=emit, step=step)
         top_score, top_idx, total, pruned = out[:4]
+    if step is not None:
+        step_tail, out = (out[-1],), out[:-1]
     agg_out = {}
     if emit:
         plan = _agg_view_plan(desc, agg_desc, agg_params, seg, live_views)
@@ -2139,19 +2163,19 @@ def _segment_body_fused(seg: dict, params: tuple, live: torch.Tensor,
     prune_rows = (pruned / B)[None, :].expand(B, 3)
     top_missing = torch.zeros_like(top_idx, dtype=torch.bool)
     return ((top_score, top_score, top_idx, total, top_missing), agg_out,
-            prune_rows)
+            prune_rows) + step_tail
 
 
 def _segment_body_one(seg: dict, params: tuple, live: torch.Tensor,
                       live_views: dict, agg_params: tuple,
                       sort_params: tuple, *, B: int, desc: tuple,
                       agg_desc: tuple, cap: int, k: int, sort_spec: tuple,
-                      fused: tuple | None = None):
+                      fused: tuple | None = None, step=None):
     if fused is not None:
         return _segment_body_fused(seg, params, live, live_views,
                                    agg_params, B=B, desc=desc,
                                    agg_desc=agg_desc, cap=cap, k=k,
-                                   bundle=fused)
+                                   bundle=fused, step=step)
     device = seg["_device"]
     plan = _agg_view_plan(desc, agg_desc, agg_params, seg, live_views)
     views = _ViewMasks(desc, params, seg, live_views, cap, B)
@@ -2262,12 +2286,20 @@ def execute_segment_async(segment: Segment, live: np.ndarray,
                           agg_desc: tuple = (), agg_params: tuple = (),
                           sort_spec: tuple = ("_score",),
                           sort_params: tuple = (),
-                          device: torch.device | None = None):
+                          device: torch.device | None = None,
+                          deadline: float | None = None,
+                          shard_key: tuple | None = None):
     """Enqueue one batched query against one segment WITHOUT syncing.
 
     Returns (device outputs, layout, n_real) for collect_segment_result.
     The batch is padded to a power of two (repeating the last bound), as
-    in the reference."""
+    in the reference. With ES_TPU_RESIDENT_LOOP set, fused-admitted
+    plans go through a pinned resident entry (`_execute_resident`):
+    `deadline` (absolute monotonic seconds) then arms the per-chunk
+    deadline check of the stepped walk, and collect raises
+    SearchTimeoutError (labelled with `shard_key` = (index, shard)) when
+    the walk reports timed_out. The cold path ignores both; its deadline
+    stays cooperative at the caller's collect boundary."""
     if device is None:
         raise ValueError("execute_segment_async needs the reader's device")
     n_real = len(bounds)
@@ -2292,6 +2324,15 @@ def execute_segment_async(segment: Segment, live: np.ndarray,
         _fused_stats.record_admit(positional=_bundle_positional(bundle))
     else:
         _fused_stats.record_reject(reject)
+    if _resident.enabled():
+        if bundle is not None and _resident_admit(segment, bundle):
+            return _execute_resident(
+                segment, live, desc, params, agg_desc, agg_params,
+                sort_spec, sort_params, bundle, _resident_backend(),
+                k_eff, b_pad, deadline, shard_key, n_real, device)
+        # resident mode on, but the plan fell outside residency
+        # admission (unfused): cold dispatch
+        _resident.stats.cold_dispatches.inc()
     dev = device_arrays(segment, device)
     live_dev = _device_live(segment, live, device)
     live_views = _live_views_for(segment, live_dev, agg_desc, device)
@@ -2311,12 +2352,27 @@ def execute_segment_async(segment: Segment, live: np.ndarray,
     return out, layout, n_real
 
 
+def _agg_host_leaves(f: np.ndarray, f_off: int, shapes: list,
+                     n_real: int) -> list:
+    """The agg leaves' columns of a host f32 buffer, reshaped."""
+    out = []
+    for shape in shapes:
+        size = int(np.prod(shape)) if shape else 1
+        out.append(f[:, f_off: f_off + size].reshape(n_real, *shape))
+        f_off += size
+    return out
+
+
 def collect_segment_result(out, layout, n_real: int):
     """Sync + copy to host + slice back to the true B. Returns the
     reference's shape: ((top_score, top_key, top_idx, total,
     top_missing), agg partial tree of float32 numpy arrays). A fused
     dispatch's prune stats (summed over the real rows) go to
-    fused_scoring_stats()."""
+    fused_scoring_stats(). A resident dispatch's wire carries the
+    stepped walk's timed_out verdict as a trailing i32 column: set, it
+    raises SearchTimeoutError and counts preempted_by_deadline."""
+    if layout.get("resident"):
+        return _collect_resident(out, layout, n_real)
     (top_score, top_key, top_idx, total, top_missing), agg_out, prune = out
     B = top_score.shape[0]
     k = layout["k"]
@@ -2343,13 +2399,635 @@ def collect_segment_result(out, layout, n_real: int):
         hard, thr, examined = fbuf[:, f_off: f_off + 3].sum(axis=0)
         _fused_stats.record_prune(hard, thr, examined)
     f_off += 3
-    host_leaves = []
-    for leaf in agg_leaves:
-        shape = tuple(leaf.shape[1:])
-        size = int(np.prod(shape)) if shape else 1
-        host_leaves.append(fbuf[:, f_off: f_off + size].reshape(n_real,
-                                                                *shape))
-        f_off += size
+    host_leaves = _agg_host_leaves(
+        fbuf, f_off, [tuple(leaf.shape[1:]) for leaf in agg_leaves], n_real)
     agg_host = _rebuild(agg_out, iter(host_leaves))
     return (top_score_h, top_key_h, top_idx_h, total_h, top_missing_h), \
         agg_host
+
+
+# ---------------------------------------------------------------------------
+# Base+delta pack dispatch (streaming write path)
+#
+# In delta mode the reader holds ONE immutable base segment and ONE small
+# delta segment. A fused-admitted plan searches both in one dispatch: the
+# base walk runs first, its running top-k (threshold included) carries
+# into the delta walk through the init_topk / idx_offset chaining of
+# `fused_topk_bundle`, and the aggregation passes run per sub-segment
+# (ordinal spaces stay segment-local, so the partials meet in the same
+# host reduce two dispatches would feed). The collect splits the merged
+# top-k back into per-segment candidate lists, so responses are
+# identical to the per-segment path's.
+# ---------------------------------------------------------------------------
+
+
+def _wire_out(i_parts: list, f_parts: list) -> torch.Tensor:
+    """One int32 [B, W] result buffer: the i32 columns, then the f32
+    columns as their bits (the reference's packed output wire)."""
+    ibuf = torch.cat([p.to(torch.int32) for p in i_parts], dim=1)
+    fbuf = torch.cat([p.to(torch.float32) for p in f_parts], dim=1)
+    return torch.cat([ibuf, fbuf.contiguous().view(torch.int32)], dim=1)
+
+
+def _pack_body(seg_b: dict, seg_d: dict, params_b: tuple, params_d: tuple,
+               live_b: torch.Tensor, live_d: torch.Tensor,
+               live_views_b: dict, live_views_d: dict, agg_params_b: tuple,
+               agg_params_d: tuple, *, B: int, desc: tuple, agg_desc: tuple,
+               cap_b: int, cap_d: int, k: int, bundle: tuple, step=None):
+    """Fused base+delta evaluation: ONE selection over both packs plus
+    per-sub-segment aggregation passes. Returns the _segment_body shape
+    with `totals` widened to [B, 2] (per-sub-segment exact hit counts,
+    which the host split needs) and the agg tree replaced by the (base,
+    delta) PAIR of trees. With a `step`, the per-chunk deadline check
+    rides the BASE walk (the dominant cost; the delta walk is bounded by
+    the compaction threshold) and its verdict is appended."""
+    device = seg_b["_device"]
+    emit = bool(agg_desc)
+    step_tail = ()
+
+    def aggs_for(seg, params, live_views, agg_params, match, cap):
+        plan = _agg_view_plan(desc, agg_desc, agg_params, seg, live_views)
+        views = _ViewMasks(desc, params, seg, live_views, cap, B)
+        return eval_aggs(agg_desc, agg_params, seg, match, views=views,
+                         plan=plan)
+
+    if k == 0:
+        out_b = eval_fused_match(seg_b, desc, params_b, live_b, bundle, B,
+                                 emit_match=emit, step=step)
+        if step is not None:
+            step_tail, out_b = (out_b[-1],), out_b[:-1]
+        out_d = eval_fused_match(seg_d, desc, params_d, live_d, bundle, B,
+                                 emit_match=emit)
+        top_s = torch.zeros((B, 0), dtype=torch.float32, device=device)
+        top_i = torch.zeros((B, 0), dtype=torch.int32, device=device)
+    else:
+        # the base walk opens at the PACK's k width (not min'd against
+        # the base capacity alone) and the delta walk chains onto its
+        # state with ids offset past the base capacity
+        k_pack = min(k, cap_b + cap_d)
+        out_b = eval_fused_topk(seg_b, desc, params_b, live_b, k_pack,
+                                bundle, B, emit_match=emit, step=step,
+                                init_topk=running_topk_init(B, k_pack,
+                                                            device))
+        if step is not None:
+            step_tail, out_b = (out_b[-1],), out_b[:-1]
+        top_s, top_i = out_b[0], out_b[1]
+        out_d = eval_fused_topk(seg_d, desc, params_d, live_d, k_pack,
+                                bundle, B, emit_match=emit,
+                                init_topk=(top_s, top_i), idx_offset=cap_b)
+        top_s, top_i = out_d[0], out_d[1]
+        out_b, out_d = out_b[2:], out_d[2:]
+    agg_pair = ({}, {})
+    if emit:
+        agg_pair = (aggs_for(seg_b, params_b, live_views_b, agg_params_b,
+                             out_b[2], cap_b),
+                    aggs_for(seg_d, params_d, live_views_d, agg_params_d,
+                             out_d[2], cap_d))
+    totals = torch.stack([out_b[0], out_d[0]], dim=1)
+    prune = (out_b[1] + out_d[1]).to(torch.float32)
+    top_missing = torch.zeros_like(top_i, dtype=torch.bool)
+    return ((top_s, top_s, top_i, totals, top_missing), agg_pair,
+            (prune / B)[None, :].expand(B, 3)) + step_tail
+
+
+def _pack_wire(body_out, timed=None) -> torch.Tensor:
+    """A pack body's outputs as the reference's pack wire: [top_idx |
+    totals (2) | top_missing | (timed_out) | top_score | prune | agg
+    leaves of the (base, delta) pair]."""
+    (top_s, _tk, top_i, totals, top_missing), agg_pair, prune = body_out
+    B = top_s.shape[0]
+    i_parts = [top_i, totals, top_missing.to(torch.int32)]
+    if timed is not None:
+        i_parts.append(torch.full((B, 1), int(timed), dtype=torch.int32,
+                                  device=top_s.device))
+    f_parts = [top_s, prune] + [leaf.reshape(B, -1)
+                                for leaf in _leaves(agg_pair, [])]
+    return _wire_out(i_parts, f_parts)
+
+
+def _agg_skeleton(tree):
+    """`tree`'s structure with None leaves (a layout holds no tensors)."""
+    return _rebuild(tree, iter([None] * len(_leaves(tree, []))))
+
+
+def _pack_output_layout(body_out, cap_b: int) -> dict:
+    """Host-side layout of a pack dispatch's wire: k, the agg pair's
+    structure and leaf shapes."""
+    (top_s, *_rest), agg_pair, _prune = body_out
+    return {
+        "k": int(top_s.shape[1]),
+        "key_is_float": True,
+        "agg_skel": _agg_skeleton(agg_pair),
+        "agg_shapes": [tuple(leaf.shape[1:])
+                       for leaf in _leaves(agg_pair, [])],
+        "fused": True,
+        "pack": True,
+        "cap_b": cap_b,
+    }
+
+
+def _pack_admit(base: Segment, delta: Segment, bounds_b, bounds_d, k: int,
+                agg_desc: tuple, sort_spec: tuple, device: torch.device):
+    """Pack admission (the reference's tests, in its order) -> (desc,
+    params_b, params_d, bundle, k_eff, b_pad, n_real), or None when the
+    pair takes the per-segment path."""
+    n_real = len(bounds_b)
+    if n_real == 0 or len(bounds_d) != n_real:
+        return None
+    if tuple(sort_spec) != ("_score",):
+        return None
+    b_pad = next_pow2(n_real, floor=1)
+    if b_pad != n_real:
+        bounds_b = list(bounds_b) + [bounds_b[-1]] * (b_pad - n_real)
+        bounds_d = list(bounds_d) + [bounds_d[-1]] * (b_pad - n_real)
+    desc, params_b = finalize(bounds_b)
+    desc_d, params_d = finalize(bounds_d)
+    if desc != desc_d:
+        return None  # segment-local binds diverged structurally
+    cap_b, cap_d = base.capacity, delta.capacity
+    k_eff = min(k, cap_b + cap_d)
+    bundle, _reject = _fused_plan_bundle(desc, k_eff, agg_desc, sort_spec,
+                                         allow_k0=True)
+    if bundle is None:
+        return None
+    if _fused_pack_ok(base, bundle, device) is not None \
+            or _fused_pack_ok(delta, bundle, device) is not None:
+        return None
+    if not _fused_params_ok(desc, params_b, bundle) \
+            or not _fused_params_ok(desc, params_d, bundle):
+        return None
+    f0 = bundle_primary_field(bundle)
+    row_elems = 0
+    for seg in (base, delta):
+        text = device_arrays(seg, device)["text"]
+        row_elems += _fused_row_elems(
+            seg.capacity, seg.text[f0].tile_max.shape[1], k_eff,
+            emit_match=bool(agg_desc),
+            pos_width=_bundle_pos_width(bundle, text))
+    if _chunk_b(b_pad, row_elems) < b_pad:
+        # a batch this wide needs the per-segment path's B-chunked body
+        # (the pack body runs one un-chunked walk so its carried top-k
+        # spans the whole batch)
+        return None
+    return desc, params_b, params_d, bundle, k_eff, b_pad, n_real
+
+
+def execute_pack_async(base: Segment, delta: Segment, live_b: np.ndarray,
+                       live_d: np.ndarray, bounds_b: Sequence[Bound],
+                       bounds_d: Sequence[Bound], k: int,
+                       agg_desc: tuple = (), agg_params_b: tuple = (),
+                       agg_params_d: tuple = (),
+                       sort_spec: tuple = ("_score",),
+                       device: torch.device | None = None,
+                       deadline: float | None = None,
+                       shard_key: tuple | None = None):
+    """Dispatch one batched query against a (base, delta) generation pair
+    as ONE dispatch (see _pack_body), without syncing. Returns (out,
+    layout, n_real) for collect_pack_result, or None when the plan/pack
+    pair is not pack-admissible (the caller falls back to per-segment
+    dispatches; responses are identical either way). With
+    ES_TPU_RESIDENT_LOOP set the pair goes through a pinned resident
+    entry (`_execute_pack_resident`), whose stepped base walk checks
+    `deadline` per chunk."""
+    if device is None:
+        raise ValueError("execute_pack_async needs the reader's device")
+    adm = _pack_admit(base, delta, bounds_b, bounds_d, k, agg_desc,
+                      sort_spec, device)
+    if adm is None:
+        return None
+    desc, params_b, params_d, bundle, k_eff, b_pad, n_real = adm
+    _fused_stats.record_admit(positional=_bundle_positional(bundle))
+    if _resident.enabled():
+        return _execute_pack_resident(
+            base, delta, live_b, live_d, desc, params_b, params_d,
+            agg_desc, agg_params_b, agg_params_d, bundle,
+            _resident_backend(), k_eff, b_pad, deadline, shard_key, n_real,
+            device)
+    dev_b, dev_d = device_arrays(base, device), device_arrays(delta, device)
+    live_dev_b = _device_live(base, live_b, device)
+    live_dev_d = _device_live(delta, live_d, device)
+    views_b = _live_views_for(base, live_dev_b, agg_desc, device)
+    views_d = _live_views_for(delta, live_dev_d, agg_desc, device)
+    wire, pack_static = _pack_trees(params_b, params_d, tuple(agg_params_b),
+                                    tuple(agg_params_d))
+    wire_dev = torch.from_numpy(wire).to(device, non_blocking=True)
+    p_b, p_d, a_b, a_d = _unpack_trees(wire_dev, pack_static)
+    body = _pack_body(dev_b, dev_d, p_b, p_d, live_dev_b, live_dev_d,
+                      views_b, views_d, a_b, a_d, B=b_pad, desc=desc,
+                      agg_desc=agg_desc, cap_b=base.capacity,
+                      cap_d=delta.capacity, k=k_eff, bundle=bundle)
+    layout = {**_pack_output_layout(body, base.capacity),
+              "wire": wire}
+    return _pack_wire(body), layout, n_real
+
+
+def _collect_wire(out, layout: dict) -> np.ndarray:
+    """A dispatch's int32 result wire on the host: a resident one from
+    its pinned fetch buffer (the copy started at enqueue), a cold one
+    copied now."""
+    if layout.get("resident"):
+        return _finish_fetch(out)
+    return out.cpu().numpy()
+
+
+def _raise_if_timed(wire: np.ndarray, col: int, layout: dict) -> None:
+    """The stepped walk's timed_out column: set, the dispatch raises
+    SearchTimeoutError and counts as preempted."""
+    if bool(wire[:, col].any()):
+        _resident.stats.preempted_by_deadline.inc()
+        sk = layout.get("shard_key") or (None, None)
+        raise SearchTimeoutError(sk[0], sk[1])
+
+
+def collect_pack_result(out, layout, n_real: int):
+    """Collect a pack dispatch and split the merged selection back into
+    PER-SEGMENT candidate lists (scores stay sorted; ids below cap_b are
+    base rows, the rest delta rows offset by cap_b), so the ordinary
+    cross-segment response merge consumes them unchanged. Returns
+    ([base_top, delta_top], [base_aggs, delta_aggs]); the top tuples
+    carry a 6th element, the per-row VALID count (a split list can hold
+    fewer than min(total, k) entries when the other side won the
+    window)."""
+    wire = _collect_wire(out, layout)[:n_real]
+    k = layout["k"]
+    n_i = 2 * k + 2
+    n_i_total = n_i
+    if layout.get("resident"):
+        n_i_total += 1
+        _raise_if_timed(wire, n_i, layout)
+    ibuf = wire[:, :n_i_total]
+    fbuf = np.ascontiguousarray(wire[:, n_i_total:]).view(np.float32)
+    top_idx = ibuf[:, :k]
+    totals = ibuf[:, k: k + 2]
+    top_score = fbuf[:, :k]
+    hard, thr, examined = fbuf[:, k: k + 3].sum(axis=0)
+    _fused_stats.record_prune(hard, thr, examined)
+    agg_b, agg_d = _rebuild(layout["agg_skel"], iter(_agg_host_leaves(
+        fbuf, k + 3, layout["agg_shapes"], n_real)))
+    cap_b = layout["cap_b"]
+    B = n_real
+    sb = np.full((B, k), -np.inf, np.float32)
+    sd = np.full((B, k), -np.inf, np.float32)
+    ib = np.zeros((B, k), np.int32)
+    idd = np.zeros((B, k), np.int32)
+    vb = np.zeros(B, np.int32)
+    vd = np.zeros(B, np.int32)
+    for r in range(B):
+        valid = top_score[r] > -np.inf
+        idxs = top_idx[r][valid]
+        scs = top_score[r][valid]
+        mb = idxs < cap_b
+        nb = int(mb.sum())
+        nd = int(valid.sum()) - nb
+        sb[r, :nb] = scs[mb]
+        ib[r, :nb] = idxs[mb]
+        vb[r] = nb
+        sd[r, :nd] = scs[~mb]
+        idd[r, :nd] = idxs[~mb] - cap_b
+        vd[r] = nd
+    miss = np.zeros((B, k), bool)
+    top_b = (sb, sb, ib, totals[:, 0], miss, vb)
+    top_d = (sd, sd, idd, totals[:, 1], miss, vd)
+    return [top_b, top_d], [agg_b, agg_d]
+
+
+# ---------------------------------------------------------------------------
+# Resident query loop (search/resident.py): pinned stepped dispatches
+# ---------------------------------------------------------------------------
+
+# tile-walk chunks of a resident dispatch: the host checks the deadline
+# before each chunk launch (and once after the last), so a laggard walk
+# exits within one chunk of the cutoff instead of finishing
+_RESIDENT_CHUNKS = max(1, int(os.environ.get("ES_TPU_RESIDENT_CHUNKS",
+                                             "8")))
+
+
+def _step_poll(hi: float, lo: float, timed: bool) -> bool:
+    """Host half of the per-chunk deadline check: `hi + lo` is the
+    absolute monotonic deadline (`_split_deadline`); once a chunk
+    reports late the verdict sticks."""
+    if timed:
+        return True
+    deadline = float(hi) + float(lo)
+    return math.isfinite(deadline) and time.monotonic() > deadline
+
+
+def _resident_step(deadline: float | None, chunk_tiles: int) -> tuple:
+    """The ops-layer step tuple (chunk_tiles, init_state, check) of a
+    resident dispatch. The check chains the timed verdict through the
+    walk's state and polls `_step_poll`; without a finite deadline it
+    can never report late, so it polls nothing and tells the walk not
+    to wait on the device between chunks (`sync` False)."""
+    hi, lo = _split_deadline(deadline)
+    if not math.isfinite(hi):
+        def check(_c, timed):
+            return timed, timed
+        check.sync = False
+    else:
+        def check(_c, timed):
+            timed = _step_poll(hi, lo, timed)
+            return timed, timed
+    return (chunk_tiles, False, check)
+
+
+def _split_deadline(deadline: float | None) -> tuple[float, float]:
+    """f64 monotonic deadline -> (f32-representable hi, remainder lo),
+    the reference's two-half form (hi + lo reconstructs it); +inf
+    disables."""
+    if deadline is None:
+        return float("inf"), 0.0
+    hi = float(np.float32(deadline))
+    return hi, deadline - hi
+
+
+def _resident_backend() -> str:
+    """The engine a resident entry pins. The reference resolves XLA or
+    Pallas without timing (forced env, the tuner's cached choice); the
+    port has one engine, K3, so every admitted bundle pins it."""
+    return "cuda"
+
+
+def _resident_admit(segment: Segment, bundle: tuple) -> bool:
+    """Residency admission on top of fused admission: with one engine
+    and no tuning wait, every fused-admitted plan is resident-able."""
+    return bundle is not None
+
+
+def _dev_leaves(tree, path: tuple = ()):
+    """(key path, tensor) of every column of an uploaded tree, in key
+    order (lazy uploads add keys in the order queries need them)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            if k != "_device":
+                yield from _dev_leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _dev_struct(dev) -> tuple:
+    """The key structure of an uploaded column tree: lazy uploads
+    (sorted agg views, tile extrema) change it, and with it an entry's
+    key, as the reference's tree structure does."""
+    return tuple(p for p, _t in _dev_leaves(dev))
+
+
+def _dev_shape_sig(dev) -> tuple:
+    """Shape/dtype signature of an uploaded pack tree. Part of the
+    resident entry key of a delta segment, which keys by generation
+    (not content): within a pow2 bucket it is constant across epoch
+    bumps (what pad_delta_shapes buys)."""
+    return tuple((tuple(t.shape), str(t.dtype)) for _p, t in _dev_leaves(dev))
+
+
+def _resident_entry_key(segment: Segment, desc, agg_desc, sort_spec,
+                        k_res: int, b_pad: int, pack_sig, dev_struct,
+                        view_keys, bundle, backend: str,
+                        shape_sig: tuple = ()):
+    return (seg_cache_key(segment), segment.capacity, desc, agg_desc,
+            sort_spec, k_res, b_pad, pack_sig, dev_struct, view_keys,
+            bundle, backend, shape_sig)
+
+
+def seg_cache_key(segment: Segment) -> str:
+    """The key every fingerprint-keyed cache (resident entries) indexes a
+    pack under: base segments key on content, DELTA segments on their
+    (base generation, pow2 capacity bucket), so a refresh's delta
+    rebuild lands on the same key (Segment.cache_key)."""
+    return segment.cache_key()
+
+
+def _new_plan(wire: np.ndarray, device: torch.device, chunk_tiles: int,
+              n_chunks: int) -> dict:
+    """A resident entry's pinned dispatch state: the chunk plan, the
+    staged feed (a pinned host buffer and its device twin), the fetch
+    buffer (pinned at the first fetch, when its width is known) and the
+    output layout (set by the first dispatch)."""
+    cuda = device.type == "cuda"
+    return {"chunk_tiles": chunk_tiles, "n_chunks": n_chunks,
+            "feed_host": (torch.empty(wire.shape, dtype=torch.int32,
+                                      pin_memory=True) if cuda else None),
+            "feed_dev": torch.empty(wire.shape, dtype=torch.int32,
+                                    device=device),
+            "feed_done": None, "fetch_host": None, "fetch_busy": False,
+            "layout": None}
+
+
+def _plan_bytes(plan: dict) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (plan["feed_host"], plan["feed_dev"],
+                         plan["fetch_host"]) if t is not None)
+
+
+def _stage_feed(plan: dict, wire: np.ndarray,
+                device: torch.device) -> torch.Tensor:
+    """The feed stage: the param wire into the pinned host buffer (once
+    the previous feed's upload has finished reading it), then a
+    non-blocking upload into the entry's device buffer, ordered on the
+    stream after every earlier dispatch that reads it."""
+    feed_dev = plan["feed_dev"]
+    if device.type != "cuda":
+        feed_dev.copy_(torch.from_numpy(wire))
+        return feed_dev
+    if plan["feed_done"] is not None:
+        plan["feed_done"].synchronize()
+    plan["feed_host"].numpy()[:] = wire
+    feed_dev.copy_(plan["feed_host"], non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    plan["feed_done"] = done
+    return feed_dev
+
+
+def _start_fetch(plan: dict, buf: torch.Tensor) -> dict:
+    """The fetch stage: the result wire's device-to-host copy into the
+    entry's pinned buffer, started now, with an event collect waits on.
+    A dispatch whose entry buffer still holds an uncollected result gets
+    a pinned buffer of its own."""
+    if buf.device.type != "cuda":
+        return {"host": buf, "event": None, "plan": None}
+    host, owner = None, None
+    if not plan["fetch_busy"]:
+        if plan["fetch_host"] is None \
+                or tuple(plan["fetch_host"].shape) != tuple(buf.shape):
+            plan["fetch_host"] = torch.empty(buf.shape, dtype=buf.dtype,
+                                             pin_memory=True)
+        host, owner = plan["fetch_host"], plan
+        plan["fetch_busy"] = True
+    else:
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(buf.device))
+    return {"host": host, "event": event, "plan": owner}
+
+
+def _finish_fetch(handle: dict) -> np.ndarray:
+    """Wait for a fetch and take its bytes off the pinned buffer."""
+    if handle["event"] is not None:
+        handle["event"].synchronize()
+    out = handle["host"].numpy().copy()
+    if handle["plan"] is not None:
+        handle["plan"]["fetch_busy"] = False
+    return out
+
+
+def _resident_entry(key, segment: Segment, label: str, wire: np.ndarray,
+                    device: torch.device, n_tiles: int, generation: str,
+                    delta: Segment | None = None):
+    """The pinned entry of `key` (a hit, counted), or a new one (a cold
+    dispatch, counted) pinned under `generation`. A delta segment (or a
+    pack, keyed by its delta) passes its epoch, so a hit after a refresh
+    counts as a refresh reuse; its entry holds no segment weakref (the
+    epoch's segment dies at every refresh, the entry must not)."""
+    d = delta if delta is not None else segment
+    is_delta = d.delta_parent is not None
+    entry = _resident.cache.get(
+        key, delta_epoch=d.delta_epoch if is_delta else None)
+    if entry is not None:
+        return entry
+    _resident.stats.cold_dispatches.inc()
+    chunk_tiles = max(1, -(-n_tiles // _RESIDENT_CHUNKS))
+    entry = _resident.ResidentEntry(
+        key, label=label,
+        plan=_new_plan(wire, device, chunk_tiles, -(-n_tiles // chunk_tiles)),
+        seg_id=segment.seg_id, fingerprint=segment.fingerprint(),
+        seg_ref=None if is_delta else _resident.make_ref(segment),
+        backend=_resident_backend(), generation=generation,
+        delta_epoch=d.delta_epoch)
+    _resident.cache.put(entry)
+    return entry
+
+
+def _execute_resident(segment: Segment, live, desc: tuple, params: tuple,
+                      agg_desc: tuple, agg_params: tuple, sort_spec: tuple,
+                      sort_params: tuple, bundle: tuple, backend: str,
+                      k_eff: int, b_pad: int, deadline: float | None,
+                      shard_key: tuple | None, n_real: int,
+                      device: torch.device):
+    """Serve one dispatch through a pinned resident entry: stage the
+    param feed through its pinned buffer, run the stepped K3 walk of its
+    chunk plan (the deadline checked before each chunk), start the
+    result's fetch into its pinned buffer. k is bucketed to its next
+    power of two so nearby request sizes share one entry; the response
+    window is a prefix of the larger top-k, so responses are
+    unchanged."""
+    cap = segment.capacity
+    k_res = min(next_pow2(max(k_eff, 1), floor=1), cap) if k_eff > 0 else 0
+    n_tiles = segment.text[bundle_primary_field(bundle)].tile_max.shape[1]
+    dev = device_arrays(segment, device)
+    live_dev = _device_live(segment, live, device)
+    live_views = _live_views_for(segment, live_dev, agg_desc, device)
+    wire, pack_static = _pack_trees(params, tuple(agg_params),
+                                    tuple(sort_params))
+    is_delta = segment.delta_parent is not None
+    key = _resident_entry_key(
+        segment, desc, agg_desc, sort_spec, k_res, b_pad, pack_static[1],
+        _dev_struct(dev), tuple(sorted(live_views)), bundle, backend,
+        shape_sig=_dev_shape_sig(dev) if is_delta else ())
+    entry = _resident_entry(key, segment, repr((desc, k_res, b_pad,
+                                                bool(agg_desc), backend)),
+                            wire, device, n_tiles, seg_cache_key(segment))
+    plan = entry.plan
+    t_stage = time.perf_counter()
+    wire_dev = _stage_feed(plan, wire, device)
+    params_d, agg_params_d, sort_params_d = _unpack_trees(wire_dev,
+                                                          pack_static)
+    (top_score, top_key, top_idx, total, top_missing), agg_out, prune, \
+        timed = _segment_body(
+            dev, params_d, live_dev, live_views, agg_params_d,
+            sort_params_d, B=b_pad, desc=desc, agg_desc=agg_desc, cap=cap,
+            k=k_res, sort_spec=sort_spec, fused=bundle,
+            step=_resident_step(deadline, plan["chunk_tiles"]))
+    _resident.stats.staged_feed_overlap_ms.record(
+        (time.perf_counter() - t_stage) * 1000.0)
+    # the reference's stepped wire: timed_out rides LAST in the i32
+    # section (fused plans sort by score, so the key is the f32 score)
+    agg_leaves = _leaves(agg_out, [])
+    buf = _wire_out(
+        [top_idx, total[:, None], top_missing,
+         torch.full((b_pad, 1), int(timed), dtype=torch.int32,
+                    device=device)],
+        [top_score, top_key, prune]
+        + [leaf.reshape(b_pad, -1) for leaf in agg_leaves])
+    if plan["layout"] is None:
+        plan["layout"] = {
+            "k": k_res, "key_is_float": True, "fused": True,
+            "agg_skel": _agg_skeleton(agg_out),
+            "agg_shapes": [tuple(leaf.shape[1:]) for leaf in agg_leaves]}
+    handle = _start_fetch(plan, buf)
+    entry.nbytes = _plan_bytes(plan)
+    return handle, {**plan["layout"], "resident": True,
+                    "shard_key": shard_key}, n_real
+
+
+def _collect_resident(out, layout: dict, n_real: int):
+    """collect_segment_result's resident branch: the wire of
+    `_execute_resident`, its timed_out column checked first."""
+    wire = _collect_wire(out, layout)[:n_real]
+    k = layout["k"]
+    n_i = 2 * k + 1
+    _raise_if_timed(wire, n_i, layout)
+    ibuf = wire[:, :n_i]
+    fbuf = np.ascontiguousarray(wire[:, n_i + 1:]).view(np.float32)
+    top_score = fbuf[:, 0:k]
+    top_key = fbuf[:, k: 2 * k]
+    hard, thr, examined = fbuf[:, 2 * k: 2 * k + 3].sum(axis=0)
+    _fused_stats.record_prune(hard, thr, examined)
+    agg_host = _rebuild(layout["agg_skel"], iter(_agg_host_leaves(
+        fbuf, 2 * k + 3, layout["agg_shapes"], n_real)))
+    return (top_score, top_key, ibuf[:, 0:k], ibuf[:, k],
+            ibuf[:, k + 1: 2 * k + 1].astype(bool)), agg_host
+
+
+def _execute_pack_resident(base: Segment, delta: Segment, live_b, live_d,
+                           desc: tuple, params_b: tuple, params_d: tuple,
+                           agg_desc: tuple, agg_params_b: tuple,
+                           agg_params_d: tuple, bundle: tuple,
+                           backend: str, k_eff: int, b_pad: int,
+                           deadline: float | None,
+                           shard_key: tuple | None, n_real: int,
+                           device: torch.device):
+    """Serve a base+delta dispatch through a pinned resident entry. The
+    key embeds BOTH generations' cache keys and the pack's shape
+    signatures: a refresh's delta rebuild within its pow2 buckets lands
+    on the SAME entry and feeds it the new epoch's columns (counted as
+    refresh_reuses). The stepped walk's deadline check rides the base
+    walk."""
+    cap_b, cap_d = base.capacity, delta.capacity
+    k_res = (min(next_pow2(max(k_eff, 1), floor=1), cap_b + cap_d)
+             if k_eff > 0 else 0)
+    n_tiles_b = base.text[bundle_primary_field(bundle)].tile_max.shape[1]
+    dev_b, dev_d = device_arrays(base, device), device_arrays(delta, device)
+    live_dev_b = _device_live(base, live_b, device)
+    live_dev_d = _device_live(delta, live_d, device)
+    views_b = _live_views_for(base, live_dev_b, agg_desc, device)
+    views_d = _live_views_for(delta, live_dev_d, agg_desc, device)
+    wire, pack_static = _pack_trees(params_b, params_d, tuple(agg_params_b),
+                                    tuple(agg_params_d))
+    key = ("pack", seg_cache_key(base), seg_cache_key(delta), cap_b, cap_d,
+           desc, agg_desc, k_res, b_pad, pack_static[1], _dev_struct(dev_b),
+           _dev_struct(dev_d), tuple(sorted(views_b)),
+           tuple(sorted(views_d)), bundle, backend, _dev_shape_sig(dev_b),
+           _dev_shape_sig(dev_d))
+    entry = _resident_entry(key, base, repr((desc, k_res, b_pad,
+                                             bool(agg_desc), backend,
+                                             "pack")),
+                            wire, device, n_tiles_b, seg_cache_key(delta),
+                            delta=delta)
+    plan = entry.plan
+    t_stage = time.perf_counter()
+    wire_dev = _stage_feed(plan, wire, device)
+    p_b, p_d, a_b, a_d = _unpack_trees(wire_dev, pack_static)
+    *body, timed = _pack_body(
+        dev_b, dev_d, p_b, p_d, live_dev_b, live_dev_d, views_b, views_d,
+        a_b, a_d, B=b_pad, desc=desc, agg_desc=agg_desc, cap_b=cap_b,
+        cap_d=cap_d, k=k_res, bundle=bundle,
+        step=_resident_step(deadline, plan["chunk_tiles"]))
+    _resident.stats.staged_feed_overlap_ms.record(
+        (time.perf_counter() - t_stage) * 1000.0)
+    if plan["layout"] is None:
+        plan["layout"] = _pack_output_layout(body, cap_b)
+    handle = _start_fetch(plan, _pack_wire(body, timed))
+    entry.nbytes = _plan_bytes(plan)
+    return handle, {**plan["layout"], "resident": True,
+                    "shard_key": shard_key}, n_real

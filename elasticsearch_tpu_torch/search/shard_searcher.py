@@ -8,6 +8,16 @@ structure: parse every request, bind it per segment, group requests by
 evaluation per (group, segment) on the device, then collect in
 submission order and build the same response dicts.
 
+`msearch` is the reference's submit/finish split: `msearch_submit`
+enqueues every group's evaluation without collecting and returns a
+`_PendingMsearch`, whose `finish()` collects in submission order. A
+reader over a (base, delta) pair of the streaming write path (the second
+segment has `delta_parent` set) serves each fused-admitted group in one
+pack dispatch (`executor.execute_pack_async`), unless
+`ES_TPU_PACK_DISPATCH=0`. `deadline` (absolute monotonic seconds) is the
+cooperative search deadline, checked before each group's collect, and
+arms the per-chunk check of resident dispatches (`ES_TPU_RESIDENT_LOOP`).
+
 Trimmed to this slice: request keys outside `query`, `aggs` /
 `aggregations`, `size`, `from`, `sort` (one key: `_score`, a keyword or
 a numeric field), `_source` and `version` raise NotImplementedError, as
@@ -17,6 +27,7 @@ do knn, multi-key sorts, rescore, highlight, suggest and derived aggs.
 from __future__ import annotations
 
 import json
+import os
 import time
 
 import numpy as np
@@ -25,15 +36,51 @@ import torch
 from .. import resolve_device
 from ..index.mapping import MapperService
 from ..index.segment import Segment
-from ..utils.errors import SearchParseError
+from ..utils.errors import SearchParseError, SearchTimeoutError
 from .aggregations import (AggSpec, ShardAggContext, finalize_partials,
                            parse_aggs, reduce_aggs, shard_partials)
-from .executor import (QueryBinder, collect_segment_result,
-                       ensure_agg_views, execute_segment_async)
+from .executor import (QueryBinder, collect_pack_result,
+                       collect_segment_result, ensure_agg_views,
+                       execute_pack_async, execute_segment_async)
 from .query_dsl import QueryParser
 
 _REQUEST_KEYS = frozenset(("query", "aggs", "aggregations", "size", "from",
                            "sort", "_source", "version"))
+
+
+def _pack_dispatch_enabled() -> bool:
+    """Base+delta one-dispatch kill switch (`ES_TPU_PACK_DISPATCH=0`):
+    with it off, delta-mode readers fall back to per-segment dispatches,
+    an A/B and bisection tool; responses are identical either way."""
+    return os.environ.get("ES_TPU_PACK_DISPATCH", "1").lower() not in (
+        "0", "false", "off")
+
+
+class _PendingMsearch:
+    """In-flight half of a split msearch (see ShardReader.msearch_submit):
+    the evaluations are enqueued; finish() collects in submission order
+    and builds the responses. `group_sizes` (queries per signature group)
+    and `dispatch_count` (dispatches enqueued) describe the submit."""
+
+    __slots__ = ("reader", "bodies", "with_partials", "started", "parsed",
+                 "groups", "no_segments", "group_sizes", "dispatch_count",
+                 "deadline")
+
+    def __init__(self, reader: "ShardReader", bodies: list[dict],
+                 with_partials: bool, started: float, parsed: list[dict]):
+        self.reader = reader
+        self.bodies = bodies
+        self.with_partials = with_partials
+        self.started = started
+        self.parsed = parsed
+        self.groups: list[dict] = []
+        self.no_segments = False
+        self.group_sizes: list[int] = []
+        self.dispatch_count = 0
+        self.deadline: float | None = None
+
+    def finish(self) -> list[dict]:
+        return self.reader._msearch_finish(self)
 
 
 class ShardReader:
@@ -91,18 +138,32 @@ class ShardReader:
         res = self.search({"query": (body or {}).get("query"), "size": 0})
         return res["hits"]["total"]
 
-    def msearch(self, bodies: list[dict],
-                with_partials: bool = False) -> list[dict]:
+    def msearch(self, bodies: list[dict], with_partials: bool = False,
+                deadline: float | None = None) -> list[dict]:
         """Execute a batch of requests; structurally-identical requests are
         batched into one device evaluation (leading dim B).
 
         with_partials=True attaches "_agg_partials" (keyed shard partials
-        for the cross-shard reduce) instead of finalized "aggregations"."""
+        for the cross-shard reduce) instead of finalized "aggregations".
+        `deadline` (absolute monotonic seconds): past it, the shard
+        fails whole with SearchTimeoutError."""
+        return self.msearch_submit(bodies, with_partials,
+                                   deadline=deadline).finish()
+
+    def msearch_submit(self, bodies: list[dict],
+                       with_partials: bool = False,
+                       deadline: float | None = None) -> _PendingMsearch:
+        """Dispatch half of msearch: parse, group structurally-identical
+        requests, and enqueue every group's evaluations without
+        collecting. `.finish()` collects in submission order and builds
+        the responses."""
         started = time.monotonic()
         parsed = [self._parse_request(b) for b in bodies]
+        pend = _PendingMsearch(self, bodies, with_partials, started, parsed)
+        pend.deadline = deadline
         if not self.segments:
-            return [self._empty_response(p, started, with_partials)
-                    for p in parsed]
+            pend.no_segments = True
+            return pend
         # group request indices by (plan signature per segment, agg/sort/k sig)
         groups: dict[tuple, list[int]] = {}
         bound_per_req: dict[int, list] = {}
@@ -116,7 +177,7 @@ class ShardReader:
                    p["static_sig"])
             groups.setdefault(sig, []).append(i)
 
-        pending_groups = []
+        shard_key = (self.index_name, self.shard_id)
         for idxs in groups.values():
             p0 = parsed[idxs[0]]
             agg_ctx = ShardAggContext(self.segments,
@@ -137,24 +198,82 @@ class ShardReader:
                 sort_terms, seg_maps = self.global_ords(sort_spec[1])
                 sort_maps = [(m,) for m in seg_maps]
             pending = []
-            for si, seg in enumerate(self.segments):
-                bounds = [bound_per_req[i][si] for i in idxs]
-                pending.append(execute_segment_async(
-                    seg, self.live[seg.seg_id], bounds, k,
-                    agg_desc=agg_desc, agg_params=agg_params[si],
-                    sort_spec=sort_spec, sort_params=sort_maps[si],
-                    device=self.device))
-            pending_groups.append((idxs, p0, agg_ctx, pending, sort_terms))
+            # streaming write path: a (base, delta) pair serves a
+            # fused-admitted plan in ONE dispatch (the delta walk chains
+            # onto the base's running top-k); inadmissible plans fall
+            # back to the per-segment dispatches below
+            if len(self.segments) == 2 \
+                    and self.segments[1].delta_parent is not None \
+                    and _pack_dispatch_enabled():
+                b_seg, d_seg = self.segments
+                pack = execute_pack_async(
+                    b_seg, d_seg, self.live[b_seg.seg_id],
+                    self.live[d_seg.seg_id],
+                    [bound_per_req[i][0] for i in idxs],
+                    [bound_per_req[i][1] for i in idxs], k,
+                    agg_desc=agg_desc,
+                    agg_params_b=agg_params[0] if agg_params else (),
+                    agg_params_d=agg_params[1] if agg_params else (),
+                    sort_spec=sort_spec, device=self.device,
+                    deadline=deadline, shard_key=shard_key)
+                if pack is not None:
+                    pending.append(pack)
+            if not pending:
+                for si, seg in enumerate(self.segments):
+                    bounds = [bound_per_req[i][si] for i in idxs]
+                    pending.append(execute_segment_async(
+                        seg, self.live[seg.seg_id], bounds, k,
+                        agg_desc=agg_desc, agg_params=agg_params[si],
+                        sort_spec=sort_spec, sort_params=sort_maps[si],
+                        device=self.device, deadline=deadline,
+                        shard_key=shard_key))
+            pend.groups.append({"idxs": idxs, "p0": p0, "agg_ctx": agg_ctx,
+                                "pending": pending,
+                                "sort_terms": sort_terms})
+        pend.group_sizes = [len(g["idxs"]) for g in pend.groups]
+        pend.dispatch_count = sum(len(g["pending"]) for g in pend.groups)
+        return pend
 
-        responses: list[dict | None] = [None] * len(bodies)
-        for idxs, p0, agg_ctx, pending, sort_terms in pending_groups:
+    def _deadline_check(self, pend: _PendingMsearch) -> None:
+        if pend.deadline is not None \
+                and time.monotonic() > pend.deadline:
+            raise SearchTimeoutError(self.index_name, self.shard_id)
+
+    def _msearch_finish(self, pend: _PendingMsearch) -> list[dict]:
+        parsed = pend.parsed
+        responses: list[dict | None] = [None] * len(pend.bodies)
+        if pend.no_segments:
+            return [self._empty_response(p, pend.started, pend.with_partials)
+                    for p in parsed]
+        for g in pend.groups:
+            # deadline passed before this group's collect: the shard
+            # fails whole by timeout. Fully-resident groups skip this
+            # cooperative check: every dispatch of theirs carries the
+            # stepped walk's own verdict (a final check after the last
+            # chunk included), which the collect raises as the same
+            # SearchTimeoutError; a group with any cold dispatch keeps
+            # the check, that dispatch having no verdict of its own
+            if not all(layout.get("resident")
+                       for _o, layout, _n in g["pending"]):
+                self._deadline_check(pend)
+            idxs = g["idxs"]
+            p0 = g["p0"]
+            agg_ctx = g["agg_ctx"]
             partials = []
             seg_tops = []
-            for out, layout, n_real in pending:
+            for out, layout, n_real in g["pending"]:
+                if layout.get("pack"):
+                    # one pack dispatch covered (base, delta): the
+                    # collect splits back into per-segment candidate
+                    # lists + agg partials
+                    tops2, aggs2 = collect_pack_result(out, layout, n_real)
+                    seg_tops.extend(tops2)
+                    partials.extend(aggs2)
+                    continue
                 top, aggs = collect_segment_result(out, layout, n_real)
                 seg_tops.append(top)
                 partials.append(aggs)
-            if p0["agg_specs"] and with_partials:
+            if p0["agg_specs"] and pend.with_partials:
                 part_json = shard_partials(p0["agg_specs"], agg_ctx,
                                            partials, len(idxs))
                 agg_json = [{} for _ in idxs]
@@ -167,8 +286,8 @@ class ShardReader:
                 agg_json = [{} for _ in idxs]
             for bi, i in enumerate(idxs):
                 responses[i] = self._build_response(
-                    parsed[i], seg_tops, bi, agg_json[bi], started,
-                    sort_terms=sort_terms)
+                    parsed[i], seg_tops, bi, agg_json[bi], pend.started,
+                    sort_terms=g["sort_terms"])
                 if part_json is not None:
                     responses[i]["_agg_partials"] = part_json[bi]
         return responses  # type: ignore[return-value]
@@ -269,7 +388,12 @@ class ShardReader:
         for seg_ord, entry in enumerate(seg_tops):
             top_score, top_key, top_idx, tot, top_miss = entry[:5]
             total += int(tot[b])
-            n_valid = min(int(tot[b]), top_score.shape[1])
+            # pack-split entries (streaming delta path) carry a 6th
+            # element: the per-row count of candidates that landed in
+            # this segment's split of the merged top-k (its total alone
+            # would over-read into the pad)
+            n_valid = (int(entry[5][b]) if len(entry) > 5
+                       else min(int(tot[b]), top_score.shape[1]))
             for j in range(n_valid):
                 missing = bool(top_miss[b, j])
                 cands.append((missing, float(top_key[b, j]), seg_ord,

@@ -181,7 +181,8 @@ def test_bundle_walk_equals_plain(cuda, bundle, cap, tile, B, k, emit):
     assert cs.LAUNCHES["bundle_topk"] == before + 1
     want = cs.bundle_walk_ref(*args, can, ub, ck=ck, update_thr=True,
                               emit_match=emit)
-    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match"), got, want):
+    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
         assert (g is None and w is None) or torch.equal(g, w), name
     assert int(got[2].sum()) > 0
 
@@ -410,3 +411,107 @@ def test_register_and_spill_report(cuda, tmp_path):
                   if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print("\n".join([f"{name}:"] + report))
         assert any("registers" in ln for ln in report), name
+
+
+# ---------------------------------------------------------------------------
+# K3's stepped and seeded launch forms
+# ---------------------------------------------------------------------------
+
+
+def _never(c, st):
+    return False, st
+
+
+_STEP_CASES = [("main", 4096, 256, 12, 10, True, 5),
+               ("bundle", 4096, 256, 16, 300, False, 3),
+               ("bundle", 4096, 1024, 33, 0, True, 1),
+               ("main", 1 << 20, 1024, 64, 10, True, 128)]
+
+
+@pytest.mark.parametrize("bundle,cap,tile,B,k,emit,chunk", _STEP_CASES)
+def test_stepped_walk_equals_single_launch_and_plain(cuda, bundle, cap,
+                                                     tile, B, k, emit,
+                                                     chunk):
+    """K3 stepped (one launch per chunk, threshold carried) against the
+    plain stepped walk on every output, and against K3 single-launch on
+    the hits, totals and mask."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    args = _bundle_case(bundle, cap, tile, B, cuda, seed=5 * B + k)
+    text, num, clauses, cl, msm, boost, live = args
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    ck = min(k, tile)
+    step = (chunk, None, _never)
+    n_chunks = -(-(cap // tile) // chunk)
+    before = cs.LAUNCHES["bundle_topk"]
+    got = cs.bundle_walk_steps(cs.bundle_walk, *args, can, ub, ck=ck,
+                               update_thr=True, emit_match=emit, step=step)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["bundle_topk"] == before + n_chunks
+    want = cs.bundle_walk_steps(cs.bundle_walk_ref, *args, can, ub, ck=ck,
+                                update_thr=True, emit_match=emit, step=step)
+    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert (g is None and w is None) or torch.equal(g, w), name
+    assert got[6] is False and want[6] is False
+    if k:
+        one = cs.fused_topk_bundle(*args, k, emit_match=emit)
+        st = cs.fused_topk_bundle(*args, k, emit_match=emit, step=step)
+        for i in (0, 1, 2):
+            assert torch.equal(st[i], one[i]), i
+    else:
+        one = cs.match_mask_bundle(*args, emit_match=emit)
+        st = cs.match_mask_bundle(*args, emit_match=emit, step=step)
+        assert torch.equal(st[0], one[0])
+    if emit:
+        assert torch.equal(st[-2], one[-1])
+    assert st[-1] is False
+
+
+@pytest.mark.parametrize("bundle,k", [("main", 10), ("single", 100)])
+def test_seeded_walk_equals_plain(cuda, bundle, k):
+    """A delta walk seeded with a base walk's top-k (init_topk,
+    idx_offset) against its plain version: every output of the seeded
+    launch, and the chained top-k."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    base = _bundle_case(bundle, 1 << 18, 1024, 32, cuda, seed=k)
+    delta = _bundle_case(bundle, 1 << 17, 1024, 32, cuda, seed=k + 1)
+    # the delta's rows are the base's queries
+    delta = delta[:3] + (base[3], base[4], base[5], delta[6])
+    init = cs.fused_topk_bundle(*base, k)[:2]
+    text, num, clauses, cl, msm, boost, live = delta
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    ck = min(k, 1024)
+    before = cs.LAUNCHES["bundle_topk"]
+    got = cs.bundle_walk(*delta, can, ub, ck=ck, update_thr=True,
+                         emit_match=True, thr_init=init[0][:, -1])
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["bundle_topk"] == before + 1
+    want = cs.bundle_walk_ref(*delta, can, ub, ck=ck, update_thr=True,
+                              emit_match=True, thr_init=init[0][:, -1])
+    for name, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert torch.equal(g, w), name
+    # the chained entry on K3 against the same entry on the plain walk
+    chained = cs.fused_topk_bundle(*delta, k, init_topk=init,
+                                   idx_offset=1 << 18)
+    want_c = cs.fused_topk_bundle_ref(*delta, k, init_topk=init,
+                                      idx_offset=1 << 18)
+    for i in range(4):
+        assert torch.equal(chained[i], want_c[i]), i
+
+
+def test_timed_out_walk_launches_only_its_chunks(cuda):
+    """A check that flips at chunk 4 of 8: K3 launches 4 times, the walk
+    reports timed, the skipped tiles report as thresholded."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    args = _bundle_case("main", 1 << 20, 1024, 64, cuda, seed=9)
+    text, num, clauses, cl, msm, boost, live = args
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    before = cs.LAUNCHES["bundle_topk"]
+    out = cs.bundle_walk_steps(cs.bundle_walk, *args, can, ub, ck=10,
+                               update_thr=True, emit_match=False,
+                               step=(128, None, lambda c, st: (c >= 4, st)))
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["bundle_topk"] == before + 4
+    assert out[6] is True
+    assert (out[3][:, 512:] == 1).all() and (out[2][:, 512:] == 0).all()

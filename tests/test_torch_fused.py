@@ -263,7 +263,7 @@ def test_walk_at_reference_schedule_equals_pallas(bundle, tile, k, emit):
     out = cs.bundle_walk_ref(*p_args, can, ub, ck=ck,
                              update_thr=(ck == k_sel), emit_match=emit,
                              bt=btile, chunk_tiles=CAP // tile)
-    p_cs, p_ci, p_cnt, p_flags, p_match = out
+    p_cs, p_ci, p_cnt, p_flags, p_match, _thr = out
     _same(p_cs, np.asarray(r_cs)[:b], "cs")
     _same(p_ci, np.asarray(r_ci)[:b], "ci")
     _same(p_cnt, np.asarray(r_cnt)[:b], "cnt")
@@ -314,7 +314,7 @@ def test_mask_only_grid_equals_pallas(bundle, tile, emit):
     p_args = _args(c, True)
     text, num, clauses, cl, msm, boost, live = p_args
     can, ub = sc.bundle_tile_bounds(clauses, cl, text, num, msm, boost)
-    _cs, _ci, cnt, flags, _m = cs.bundle_walk_ref(
+    _cs, _ci, cnt, flags, _m, _thr = cs.bundle_walk_ref(
         *p_args, can, ub, ck=0, update_thr=False, emit_match=False,
         bt=10, chunk_tiles=CAP // tile)
     r = _bundle_pallas_walk(*_args(c, False), ck=0, update_thr=False,
@@ -360,7 +360,7 @@ def test_threshold_prunes_and_chunking_changes_only_flags():
                                can, ub, ck=1, update_thr=True,
                                emit_match=False, bt=B, chunk_tiles=ct)
             for ct in (CAP // tile, 1)]
-    (cs_a, ci_a, cnt_a, fl_a, _), (cs_b, ci_b, cnt_b, fl_b, _) = outs
+    (cs_a, ci_a, cnt_a, fl_a, _, _), (cs_b, ci_b, cnt_b, fl_b, _, _) = outs
     assert torch.equal(cnt_a, cnt_b)
     assert int((fl_a == 1).sum()) == B * (CAP // tile - 1)
     assert int((fl_b == 1).sum()) == 0

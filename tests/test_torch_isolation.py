@@ -144,6 +144,89 @@ def test_bundle_wrappers_never_take_the_plain_walk_for_device_tensors(
     assert cs.LAUNCHES == before
 
 
+def test_stepped_and_seeded_walks_never_take_the_plain_walk(monkeypatch):
+    """The stepped and the chained (seeded) K3 entries on tensors that
+    are not on the CPU launch the kernel or raise (meta tensors, no
+    nvcc): the check runs before the first chunk, the plain walk is
+    never called, nothing is counted; a tile span past the grid raises
+    before any build."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+
+    def boom(*a, **k):
+        raise AssertionError("plain walk reached for a device tensor")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    for name in ("bundle_walk_ref", "fused_topk_bundle_ref",
+                 "match_mask_bundle_ref"):
+        monkeypatch.setattr(cs, name, boom)
+    monkeypatch.setattr(cs, "_nvcc", no_nvcc)
+    monkeypatch.setattr(cs, "_LIBS", {})
+    before = dict(cs.LAUNCHES)
+    meta = torch.device("meta")
+    B, cap, n_tiles = 4, 2048, 2
+    text = {"f": {"fwd_tids": torch.empty((cap, 8), dtype=torch.int32,
+                                          device=meta),
+                  "fwd_imps": torch.empty((cap, 8), device=meta),
+                  "tile_max": torch.empty((50, n_tiles), device=meta)}}
+    clauses = (("should", "terms_dense", "f", False),)
+    cl = ((torch.empty((B, 2), dtype=torch.int32, device=meta),
+           torch.empty((B, 2), device=meta),
+           torch.empty((B,), dtype=torch.int32, device=meta),
+           torch.empty((B,), device=meta)),)
+    msm = torch.empty((B,), dtype=torch.int32, device=meta)
+    live = torch.empty((cap,), dtype=torch.bool, device=meta)
+    checked = []
+
+    def check(c, st):
+        checked.append(c)
+        return False, st
+
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cs.fused_topk_bundle(text, {}, clauses, cl, msm, None, live, 10,
+                             step=(1, None, check))
+    assert checked == [0]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cs.match_mask_bundle(text, {}, clauses, cl, msm, None, live,
+                             step=(1, None, check))
+    init = (torch.empty((B, 10), device=meta),
+            torch.empty((B, 10), dtype=torch.int32, device=meta))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cs.fused_topk_bundle(text, {}, clauses, cl, msm, None, live, 10,
+                             init_topk=init, idx_offset=cap)
+    can, ub = bundle_tile_bounds(clauses, cl, text, {}, msm, None)
+    with pytest.raises(ValueError, match="tiles"):
+        cs.bundle_walk(text, {}, clauses, cl, msm, msm, live, can, ub,
+                       ck=10, update_thr=True, emit_match=False, t0=1, nt=2)
+    assert cs.LAUNCHES == before
+
+
+@pytest.mark.parametrize("module", ["elasticsearch_tpu_torch.search.resident",
+                                    "elasticsearch_tpu_torch.utils.metrics",
+                                    "elasticsearch_tpu_torch.search.executor"])
+def test_streaming_and_resident_modules_stand_alone(module):
+    """The modules of the streaming read path and the resident loop
+    import with jax blocked and load nothing of the reference package."""
+    assert module in _MODULES
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['jaxlib'] = None\n"
+            f"import {module} as m\n"
+            "bad = [n for n in sys.modules\n"
+            "       if n == 'elasticsearch_tpu'\n"
+            "       or n.startswith('elasticsearch_tpu.')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    src = (ROOT / (module.replace(".", "/") + ".py")).read_text()
+    assert "jax" not in src.replace("elasticsearch_tpu_torch", "")
+
+
 def test_positional_leaf_never_takes_the_plain_version_for_device_tensors(
         monkeypatch):
     """The unfused positional leaf on tensors that are not on the CPU

@@ -348,7 +348,7 @@ def test_walk_at_reference_schedule_equals_pallas(seg, bundle, k, emit):
     out = cs.bundle_walk_ref(*p_args, can, ub, ck=ck, update_thr=True,
                              emit_match=emit, bt=btile,
                              chunk_tiles=seg.capacity // TILE)
-    p_cs, p_ci, p_cnt, p_flags, p_match = out
+    p_cs, p_ci, p_cnt, p_flags, p_match, _thr = out
     if ck:
         _same(p_cs, np.asarray(r_cs)[:b], "cs")
         _same(p_ci, np.asarray(r_ci)[:b], "ci")

@@ -142,7 +142,7 @@ def _arrays_of(seg):
     return arrays, meta
 
 
-@pytest.mark.parametrize("which", ["mixed", "http_logs"])
+@pytest.mark.parametrize("which", ["mixed", "http_logs", "delta"])
 def test_builder_matches_reference(which):
     if which == "mixed":
         docs, mapping = _mixed_docs(400), MIXED_MAPPING
@@ -150,7 +150,22 @@ def test_builder_matches_reference(which):
         docs, mapping = corpus.make_docs(700, long_every=300), corpus.MAPPING
     _, port = _build(docs, mapping, MapperService, SegmentBuilder)
     _, ref = _build(docs, mapping, RefMapper, RefBuilder)
+    if which == "delta":
+        # a delta segment of the streaming write path: its term dimension
+        # bucketed to a power of two, keyed on its base generation
+        from elasticsearch_tpu.index.segment import \
+            pad_delta_shapes as ref_pad
+        from elasticsearch_tpu_torch.index.segment import pad_delta_shapes
+        t_before = len(port.text["message"].terms)
+        for seg, pad in ((port, pad_delta_shapes), (ref, ref_pad)):
+            seg.delta_parent, seg.delta_epoch = "base-gen", 3
+            assert pad(seg) is seg
+        rows = port.text["message"].tile_max.shape[0]
+        assert rows >= t_before and rows & (rows - 1) == 0
+        assert port.cache_key() == ref.cache_key() \
+            == f"delta(base-gen):c{port.capacity}"
     _assert_same_segment(port, ref)
+    assert port.fingerprint() == ref.fingerprint()
     if which == "http_logs":
         assert port.text["body"].fwd_tids is None        # scatter-only field
         assert port.text["message"].fwd_tids is not None
