@@ -55,7 +55,12 @@ each of which fails the run on any error:
 
 `--rehearse` runs the main, delta and resident paths' checks on the CPU
 at a toy size (no build, no timings, no result line), to exercise this
-script without a card.
+script without a card. `--ab-parent DIR` loads the K3 of an earlier
+commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
+git-ignored `smoke_checkout/`) beside this one and times the two in turns
+on every K3 sweep and launch-form row (`ab`), with `k3_design` lines that
+time this K3 with each design step switched off and at other sub-chunk
+lengths; `--kernels-only` stops after the kernel phase (no result line).
 """
 
 from __future__ import annotations
@@ -1009,6 +1014,7 @@ def measure_bundle(args, kw, reps, rows=None):
     got = run(cs.bundle_walk, args, thr)
     torch.cuda.synchronize()
     launches = cs.LAUNCHES["bundle_topk"] - before
+    design = dict(cs.BUNDLE_LAUNCH)
     if rows is not None and rows % cs.BUNDLE_BT:
         raise ValueError(f"rows {rows} cut a batch tile")
     sub = (text, num, clauses,
@@ -1016,7 +1022,8 @@ def measure_bundle(args, kw, reps, rows=None):
            *_first_rows((msm, boost), rows), live,
            *_first_rows((can, ub), rows))
     n = sub[4].shape[0]
-    chunk = cs.bundle_chunk_tiles(B, n_tiles if step is None else step[0])
+    chunk = cs.bundle_chunk_tiles(B, n_tiles if step is None else step[0],
+                                  cs.bundle_positional(clauses))
     want, plain_ms = plain_run(lambda: run(
         cs.bundle_walk_ref, sub, None if thr is None else thr[:n],
         chunk_tiles=chunk))
@@ -1036,10 +1043,140 @@ def measure_bundle(args, kw, reps, rows=None):
             err = float((got[0][:n][fin] - want[0][fin]).abs().max())
     bound_ms, bound_by = bundle_bound(args, kw)
     return {"hits": int(got[2].sum()), "launches_per_walk": launches,
+            "design": design,
+            "thresholded_tiles": float(cs.normalize_prune(got[3])[1]),
             "ms": cuda_ms(lambda: run(cs.bundle_walk, args, thr), reps),
             "plain_ms": plain_ms, "plain_rows": n,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err}
+
+
+def k3_ptxas() -> dict:
+    """ptxas' report of K3's walk from the verbose build, per build of
+    bundle_topk_kernel (dense: no positional clause; positional):
+    registers, stack frame and spill bytes."""
+    import re
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    lines = cs.BUILD_LOG.get("bundle_topk", "").splitlines()
+    out = {}
+    for i, ln in enumerate(lines):
+        if "Function properties for" not in ln or \
+                "bundle_topk_kernel" not in ln:
+            continue
+        rep = out.setdefault("positional" if "ILb1E" in ln else "dense", {})
+        rep.update({k.replace(" ", "_"): int(v) for v, k in re.findall(
+            r"(\d+) bytes (stack frame|spill stores|spill loads)",
+            " ".join(lines[i + 1:i + 2]))})
+        m = re.search(r"Used (\d+) registers", " ".join(lines[i + 2:i + 3]))
+        if m:
+            rep["registers"] = int(m.group(1))
+    return out
+
+
+def load_parent_k3(path: str):
+    """The previous K3 (its cuda_scoring.py and csrc/) from a copy of an
+    earlier commit's elasticsearch_tpu_torch/ops under `path`, loaded
+    beside this one as its own module (own sources, build directory and
+    counts; the shared scoring and topk modules are this checkout's) and
+    built with ptxas' report."""
+    import importlib.util
+    src = os.path.join(path, "elasticsearch_tpu_torch", "ops",
+                       "cuda_scoring.py")
+    spec = importlib.util.spec_from_file_location(
+        "elasticsearch_tpu_torch.ops._parent_cuda_scoring", src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build(verbose=True)
+    for line in mod.BUILD_LOG.get("bundle_topk", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"ptxas parent bundle_topk: {line.strip()}")
+    return mod
+
+
+def _walk_kw(kw):
+    kw = dict(kw)
+    step, thr = kw.pop("step", None), kw.pop("thr_init", None)
+    return step, thr, {k: kw[k] for k in ("ck", "update_thr",
+                                          "emit_match")}
+
+
+def k3_ab(args, kw, old, reps: int = 10) -> dict:
+    """The previous K3 (`old`, its own schedule) against this one on one
+    walk in any launch form, timed in turns (new, old, old, new) on the
+    same inputs: both count every tile's matches alike (the counts, the
+    mask and the thresholded tiles are reported; candidates of
+    thresholded tiles depend on each one's schedule)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    step, thr, kw = _walk_kw(kw)
+
+    def run(mod):
+        return mod.bundle_walk_steps(mod.bundle_walk, *args, step=step,
+                                     thr_init=thr, **kw)
+
+    got, want = run(cs), run(old)
+    if not torch.equal(got[2], want[2]) or (
+            got[4] is not None and not torch.equal(got[4], want[4])):
+        raise AssertionError("K3 and the previous K3 count differently")
+    turns = {"new": [], "previous": []}
+    for who in ("new", "previous", "previous", "new"):
+        mod = cs if who == "new" else old
+        turns[who].append(cuda_ms(lambda: run(mod), reps))
+    new_ms, old_ms = (float(np.mean(turns[k])) for k in ("new", "previous"))
+    return {"previous_ms": old_ms, "new_ms": new_ms,
+            "speedup": old_ms / new_ms, "turns": turns,
+            "thresholded_tiles": {
+                "new": float(cs.normalize_prune(got[3])[1]),
+                "previous": float(cs.normalize_prune(want[3])[1])}}
+
+
+# K3's design steps switched off one at a time (the kernel's `ablate`
+# bits) and other sub-chunk lengths, for the A/B run's design-step rows
+K3_ABLATIONS = {"fixed doc chunks per warp": 1, "rows reloaded per term": 4,
+                "neither": 5}
+K3_CHUNKS = (2, 4, 16, 32)
+
+
+def k3_design_steps(label, args, kw, reps: int = 10) -> list[dict]:
+    """One walk with each design step of K3 turned off in turn, and at
+    other sub-chunk lengths, each timed in turns with the port's own
+    setting (port, variant, variant, port); counts must not move."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    step, thr, kw = _walk_kw(kw)
+
+    def run():
+        return cs.bundle_walk_steps(cs.bundle_walk, *args, step=step,
+                                    thr_init=thr, **kw)
+
+    base = run()
+    variants = [(f"ablate {name}", bits, cs._BUNDLE_CHUNK_TILES)
+                for name, bits in K3_ABLATIONS.items()]
+    variants += [(f"sub-chunks of {n} tiles", 0, n) for n in K3_CHUNKS]
+    rows = []
+    port = (cs._K3_ABLATE, cs._BUNDLE_CHUNK_TILES)
+    for name, bits, chunk in variants:
+        times = {"port": [], "variant": []}
+        for who in ("port", "variant", "variant", "port"):
+            cs._K3_ABLATE, cs._BUNDLE_CHUNK_TILES = (
+                port if who == "port" else (bits, chunk))
+            try:
+                out = run()
+                if not torch.equal(out[2], base[2]):
+                    raise AssertionError(f"K3 {name} counts differently")
+                times[who].append(cuda_ms(run, reps))
+                if who == "variant":
+                    design = dict(cs.BUNDLE_LAUNCH)
+                    thr_tiles = float(cs.normalize_prune(out[3])[1])
+            finally:
+                cs._K3_ABLATE, cs._BUNDLE_CHUNK_TILES = port
+        rows.append({"bundle": label, "variant": name,
+                     "port_ms": float(np.mean(times["port"])),
+                     "variant_ms": float(np.mean(times["variant"])),
+                     "variant_design": design,
+                     "variant_thresholded_tiles": thr_tiles})
+        log("k3_design " + json.dumps(rows[-1]))
+    return rows
 
 
 class SweepInputs:
@@ -1118,11 +1255,16 @@ class SweepInputs:
                 t(rng.integers(0, 3, size=B).astype(np.int32))) + tail
 
 
-def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20
+def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20, old=None
                  ) -> tuple[list[dict], float, SweepInputs]:
     """K3 at B 256, cap 2^20 (two text fields of 8 slots and a numeric
-    column drawn like the main path's), one to three clauses. Returns
-    the rows, the worst error and the inputs (for the launch forms)."""
+    column drawn like the main path's), one to three clauses; each row
+    carries the launch's design (sub-chunk tiles, items, CTAs per SM,
+    grid, shared memory) and ptxas' registers and spills, and, with the
+    previous K3 (`old`, chip_smoke --ab-parent), its time in turns with
+    this one and the design-step rows of the dense one-clause walks.
+    Returns the rows, the worst error and the inputs (for the launch
+    forms)."""
     from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
     sw = SweepInputs(dev, rng, B, cap)
     text, num, live, t = sw.text, sw.num, sw.live, sw.t
@@ -1162,6 +1304,7 @@ def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20
         ("must", "phrase_pos:3:s", "f", False),
         ("filter", "range_int", "n", False)), 10, True))
     rows, worst = [], 0.0
+    ptxas = k3_ptxas()
     for label, clauses, k, emit in configs:
         cl = tuple(rng_in() if kd == "range_int"
                    else positional(kd, f) if ":" in kd else dense(3, w)
@@ -1178,10 +1321,16 @@ def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20
             PLAIN_ROWS if any(":" in kd for _r, kd, _f, _w in clauses)
             else None))
         worst = max(worst, m["max_abs_err"])
+        if old is not None:
+            m["ab"] = k3_ab(args, kw, old)
         rows.append({"kernel": "bundle_topk", "bundle": label, "B": B,
                      "cap": cap, "k": k, "emit_match": emit,
-                     "can_match_share": float(can.float().mean()), **m})
+                     "can_match_share": float(can.float().mean()),
+                     "ptxas": ptxas, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
+        if old is not None and (label == "1 clause" and k in (10, 100)
+                                or label == "phrase exact n 2"):
+            k3_design_steps(f"{label}, k {k}", args, kw)
     for label, kind, f in (pos_kinds[3], pos_kinds[4], pos_kinds[6]):
         inp = positional(kind, f)
         m = measure_leaf((kind, f, inp, text), reps=5, rows=PLAIN_ROWS)
@@ -1201,7 +1350,7 @@ def _never_late(_c, st):
 _never_late.sync = False
 
 
-def form_sweep(dev, rng, base: SweepInputs, k: int = 10
+def form_sweep(dev, rng, base: SweepInputs, k: int = 10, old=None
                ) -> tuple[list[dict], float]:
     """K3's launch forms at B 256 over the sweep's 2^20-doc columns, on a
     `match` bundle (one dense clause) and a `phrase_pos:2:e` one, k 10,
@@ -1216,7 +1365,9 @@ def form_sweep(dev, rng, base: SweepInputs, k: int = 10
         and the chained top-k (init_topk / idx_offset) equal to the
         plain chain;
       * a stepped walk whose check flips at chunk 4 launches K3 4 times
-        and reports timed."""
+        and reports timed.
+    With the previous K3 (`old`), each form is also timed in turns
+    against it, and the stepped `match` walk gets design-step rows."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
@@ -1282,9 +1433,19 @@ def form_sweep(dev, rng, base: SweepInputs, k: int = 10
         if flipped != 4 or out[6] is not True:
             raise AssertionError(f"a walk timed out at chunk 4 launched K3 "
                                  f"{flipped} times, timed {out[6]}")
+        if old is not None:
+            single["ab"] = k3_ab(args + (can, ub), kw, old)
+            stepped["ab"] = k3_ab(args + (can, ub), {**kw, "step": step},
+                                  old)
+            seeded["ab"] = k3_ab(d_args + (d_can, d_ub),
+                                 {**kw, "thr_init": one[0][:, -1]}, old)
+            if not pos:
+                k3_design_steps(f"{label} stepped", args + (can, ub),
+                                {**kw, "step": step})
         for form, m, c in (("single", single, cap),
                            ("stepped", stepped, cap),
                            ("seeded", seeded, delta.cap)):
+            m["ptxas"] = k3_ptxas()
             worst = max(worst, m["max_abs_err"])
             rows.append({"kernel": f"bundle_topk {form}", "bundle": label,
                          "B": B, "cap": c, "k": k, "emit_match": True,
@@ -1315,7 +1476,7 @@ def synthetic_postings(rng, B, n_blocks, cap):
     return docs, vals
 
 
-def kernel_sweep(dev, rng) -> tuple[list[dict], float]:
+def kernel_sweep(dev, rng, old=None) -> tuple[list[dict], float]:
     import torch
     rows, worst = [], 0.0
     B, cap = 256, 1 << 20
@@ -1354,8 +1515,8 @@ def kernel_sweep(dev, rng) -> tuple[list[dict], float]:
     worst = max(worst, m["max_abs_err"])
     log("kernel_sweep " + json.dumps({"kernel": "scatter_add",
                                       "unsorted": True, **m}))
-    b_rows, b_worst, inputs = bundle_sweep(dev, rng)
-    f_rows, f_worst = form_sweep(dev, rng, inputs)
+    b_rows, b_worst, inputs = bundle_sweep(dev, rng, old=old)
+    f_rows, f_worst = form_sweep(dev, rng, inputs, old=old)
     return rows + b_rows + f_rows, max(worst, b_worst, f_worst)
 
 
@@ -1460,6 +1621,14 @@ def on_card(args) -> int:
         for line in out.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    log("ptxas bundle_topk_kernel: " + json.dumps(k3_ptxas()))
+    old = load_parent_k3(args.ab_parent) if args.ab_parent else None
+    if args.kernels_only:
+        rng = np.random.default_rng(42)
+        _sweep, worst = kernel_sweep(dev, rng, old=old)
+        log(f"kernels only: worst error {worst}, "
+            f"{time.perf_counter() - t_run:.1f} s")
+        return 0
 
     # phase 4a: build the index (started before the kernel sweep finishes
     # would compete for host cores; it is cheap to keep them apart)
@@ -1484,7 +1653,7 @@ def on_card(args) -> int:
 
     # phase 3: kernels at the slice's shapes
     rng = np.random.default_rng(42)
-    sweep, worst = kernel_sweep(dev, rng)
+    sweep, worst = kernel_sweep(dev, rng, old=old)
 
     # phase 4: main paths
     readers = make_readers(segs, dev)
@@ -1698,6 +1867,12 @@ def main(argv=None) -> int:
                    help="directory for the JSON report and profile tables")
     p.add_argument("--rehearse", action="store_true",
                    help="run the main path's checks on the CPU, tiny")
+    p.add_argument("--ab-parent", default=None,
+                   help="a copy of an earlier commit (its "
+                        "elasticsearch_tpu_torch/ops at least) whose K3 "
+                        "is timed in turns against this one")
+    p.add_argument("--kernels-only", action="store_true",
+                   help="stop after the kernel sweeps (no result line)")
     args = p.parse_args(argv)
     try:
         import torch

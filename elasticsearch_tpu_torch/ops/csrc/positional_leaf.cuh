@@ -35,9 +35,10 @@
 // * 2 bytes) and the tids are read once per row of a block, mostly from
 // L1/L2. Integer compares and adds, not bytes, set the time.
 //
-// f32: every add, multiply and divide is an explicit round-to-nearest
-// intrinsic in positional_impacts' / bm25f_tile_scores' op order, so nvcc
-// contracts nothing into an FMA (the build never passes --use_fast_math).
+// f32: every add and multiply is an explicit round-to-nearest intrinsic
+// and every divide the correctly rounded div_rn, in positional_impacts' /
+// bm25f_tile_scores' op order, so nvcc contracts nothing into an FMA (the
+// build never passes --use_fast_math).
 
 #pragma once
 
@@ -76,55 +77,66 @@ __device__ __forceinline__ int count_valid(const short* p, int P) {
   return c;
 }
 
-// Raw-index cursor: entry k of a slot's list, the running sum of its
-// valid deltas, and the decoded value at k (kBig on a pad).
+// Raw-index cursor over one slot's list in the doc's pack row prow: the
+// list's offset o in prow (-1: the term is absent), entry k, and rv, the
+// running sum of the list's valid deltas while entry k is a valid one,
+// its complement (< 0) on a pad or past the list. The decoded value at k
+// is rv, or kBig on a pad (val); three registers a cursor, which keeps
+// the bundle walk's positional leaf inside its register budget.
 struct Cur {
-  const short* p;
-  int k, run, val;
+  int o, k, rv;
 };
 
-__device__ __forceinline__ void cur_init(Cur& c, const short* p) {
-  c.p = p;
+// (rv < 0 is above kBig as unsigned; positions stay below it)
+__device__ __forceinline__ int val(const Cur& c) {
+  return static_cast<int>(min(static_cast<unsigned>(c.rv),
+                              static_cast<unsigned>(kBig)));
+}
+
+__device__ __forceinline__ int run(const Cur& c) {
+  return c.rv ^ (c.rv >> 31);
+}
+
+__device__ __forceinline__ void cur_init(Cur& c, const short* prow, int o) {
+  c.o = o;
   c.k = 0;
-  c.run = 0;
-  c.val = kBig;
-  if (p) {
-    const int d = __ldg(p);
-    if (d >= 0) c.run = c.val = d;
+  c.rv = ~0;
+  if (o >= 0) {
+    const int d = __ldg(prow + o);
+    if (d >= 0) c.rv = d;
   }
 }
 
-__device__ __forceinline__ void cur_next(Cur& c, int P) {
+__device__ __forceinline__ void cur_next(Cur& c, const short* prow, int P) {
   ++c.k;
-  c.val = kBig;
-  if (c.p && c.k < P) {
-    const int d = __ldg(c.p + c.k);
-    if (d >= 0) {
-      c.run += d;
-      c.val = c.run;
-    }
+  const int r = run(c);
+  c.rv = ~r;
+  if (c.o >= 0 && c.k < P) {
+    const int d = __ldg(prow + c.o + c.k);
+    if (d >= 0) c.rv = r + d;
   }
 }
 
 // Valid-entry cursor: the next valid position, kBig once exhausted.
-__device__ __forceinline__ void vcur_next(Cur& c, int P) {
-  c.val = kBig;
-  if (!c.p) return;
+__device__ __forceinline__ void vcur_next(Cur& c, const short* prow, int P) {
+  const int r = run(c);
+  c.rv = ~r;
+  if (c.o < 0) return;
   while (++c.k < P) {
-    const int d = __ldg(c.p + c.k);
+    const int d = __ldg(prow + c.o + c.k);
     if (d >= 0) {
-      c.run += d;
-      c.val = c.run;
+      c.rv = r + d;
       return;
     }
   }
 }
 
-__device__ __forceinline__ void vcur_init(Cur& c, const short* p, int P) {
-  c.p = p;
+__device__ __forceinline__ void vcur_init(Cur& c, const short* prow, int o,
+                                          int P) {
+  c.o = o;
   c.k = -1;
-  c.run = 0;
-  vcur_next(c, P);
+  c.rv = ~0;
+  vcur_next(c, prow, P);
 }
 
 // ops/scoring._phrase_freq_exact
@@ -136,21 +148,21 @@ __device__ __forceinline__ int phrase_exact(const short* prow,
   Cur c[kMaxTerms];
 #pragma unroll
   for (int i = 0; i < kMaxTerms; ++i)
-    if (i < n) vcur_init(c[i], off[i] >= 0 ? prow + off[i] : nullptr, P);
+    if (i < n) vcur_init(c[i], prow, off[i], P);
   int freq = 0;
-  while (c[0].val != kBig) {
-    const int v0 = c[0].val;
+  while (val(c[0]) != kBig) {
+    const int v0 = val(c[0]);
     bool alive = true;
 #pragma unroll
     for (int i = 1; i < kMaxTerms; ++i) {
       if (i < n) {
         const int t = v0 + i;
-        while (c[i].val < t) vcur_next(c[i], P);
-        alive = alive && c[i].val == t;
+        while (val(c[i]) < t) vcur_next(c[i], prow, P);
+        alive = alive && val(c[i]) == t;
       }
     }
     freq += alive ? 1 : 0;
-    vcur_next(c[0], P);
+    vcur_next(c[0], prow, P);
   }
   return freq;
 }
@@ -167,7 +179,7 @@ __device__ __forceinline__ int sweep(const short* prow,
   Cur c[kMaxTerms];
 #pragma unroll
   for (int i = 0; i < kMaxTerms; ++i)
-    if (i < n) cur_init(c[i], off[i] >= 0 ? prow + off[i] : nullptr);
+    if (i < n) cur_init(c[i], prow, off[i]);
   int freq = 0, last_lo = -1, last_hi = -1;
   for (;;) {
     bool active = true;
@@ -175,11 +187,11 @@ __device__ __forceinline__ int sweep(const short* prow,
     for (int i = 0; i < kMaxTerms; ++i)
       if (i < n) active = active && c[i].k < tf[i];
     if (!active) break;
-    int lo = c[0].val, hi = c[0].val, amin = 0;
+    int lo = val(c[0]), hi = val(c[0]), amin = 0;
 #pragma unroll
     for (int i = 1; i < kMaxTerms; ++i) {
       if (i < n) {
-        const int v = kSpan ? c[i].val : c[i].val - i;
+        const int v = kSpan ? val(c[i]) : val(c[i]) - i;
         if (v < lo) {
           lo = v;
           amin = i;
@@ -200,12 +212,12 @@ __device__ __forceinline__ int sweep(const short* prow,
       for (int i = 0; i < kMaxTerms; ++i)
 #pragma unroll
         for (int j = i + 1; j < kMaxTerms; ++j)
-          if (j < n) distinct = distinct && c[i].val != c[j].val;
+          if (j < n) distinct = distinct && val(c[i]) != val(c[j]);
       if (hi - lo <= slop && distinct) ++freq;
     }
 #pragma unroll
     for (int i = 0; i < kMaxTerms; ++i)
-      if (i == amin) cur_next(c[i], P);
+      if (i == amin) cur_next(c[i], prow, P);
   }
   return freq;
 }
@@ -220,47 +232,75 @@ __device__ __forceinline__ int span_ordered(const short* prow,
   Cur c[kMaxTerms];
 #pragma unroll
   for (int i = 0; i < kMaxTerms; ++i)
-    if (i < n) vcur_init(c[i], off[i] >= 0 ? prow + off[i] : nullptr, P);
+    if (i < n) vcur_init(c[i], prow, off[i], P);
   // two counters over the last term: entries <= the chain end x, and
   // entries <= start + slop + n - 1 (both bounds ascend with the start)
-  const short* last = off[n - 1] >= 0 ? prow + off[n - 1] : nullptr;
+  int off_last = -1;  // off[n - 1], without indexing off at run time
+#pragma unroll
+  for (int i = 0; i < kMaxTerms; ++i)
+    if (i == n - 1) off_last = off[i];
   Cur below_x, below_u;
-  vcur_init(below_x, last, P);
-  vcur_init(below_u, last, P);
+  vcur_init(below_x, prow, off_last, P);
+  vcur_init(below_u, prow, off_last, P);
   int n_x = 0, n_u = 0, freq = 0;
-  while (c[0].val != kBig) {
-    const int p0 = c[0].val;
+  while (val(c[0]) != kBig) {
+    const int p0 = val(c[0]);
     int x = p0;
 #pragma unroll
     for (int i = 1; i < kMaxTerms - 1; ++i) {
       if (i < n - 1) {
         const int t = x + 1;
-        while (c[i].val < t && c[i].val != kBig) vcur_next(c[i], P);
-        x = c[i].val;
+        while (val(c[i]) < t && val(c[i]) != kBig)
+          vcur_next(c[i], prow, P);
+        x = val(c[i]);
       }
     }
     const int u = p0 + slop + n - 1;
-    while (below_x.val <= x && below_x.val != kBig) {
-      vcur_next(below_x, P);
+    while (val(below_x) <= x && val(below_x) != kBig) {
+      vcur_next(below_x, prow, P);
       ++n_x;
     }
-    while (below_u.val <= u && below_u.val != kBig) {
-      vcur_next(below_u, P);
+    while (val(below_u) <= u && val(below_u) != kBig) {
+      vcur_next(below_u, prow, P);
       ++n_u;
     }
     freq += max(0, n_u - n_x);
-    vcur_next(c[0], P);
+    vcur_next(c[0], prow, P);
   }
   return freq;
 }
 
+// a / b rounded to nearest f32, as __fdiv_rn gives it, for a finite and
+// b positive, normal and finite (every divisor of the leaf: tf + k1ln,
+// lnorm, k1 + acc), with no call: IEEE f32 division keeps its rare-case
+// path in a subroutine, and the registers live across that call are
+// spilled. The quotient is taken in f64 from the f32 reciprocal estimate
+// (2^-22), two Newton steps (2^-44, then the f64 rounding) and one
+// correction from the exact FMA remainder, within about 2^-52 of a / b;
+// an f32 quotient of f32 operands is never within 2^-49 (relative) of a
+// rounding midpoint without being exact, so the final f64 -> f32
+// rounding is the correctly rounded quotient.
+__device__ __forceinline__ float div_rn(float a, float b) {
+  float r0;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r0) : "f"(b));
+  const double ad = a, bd = b;
+  double r = r0;
+  r = __fma_rn(r, __fma_rn(-bd, r, 1.0), r);
+  r = __fma_rn(r, __fma_rn(-bd, r, 1.0), r);
+  double q = __dmul_rn(ad, r);
+  q = __fma_rn(__fma_rn(-bd, q, ad), r, q);
+  return __double2float_rn(q);
+}
+
 // ops/scoring.positional_impacts: (idf_sum * tf) * f32(k1 + 1), then
-// / (tf + k1ln)
+// / (tf + k1ln). At tf 0 the numerator is +-0, and +-0 over the positive
+// divisor is that numerator: no division for the (many) docs without the
+// phrase.
 __device__ __forceinline__ float phrase_impact(int freq, float idf_sum,
                                                float k1ln) {
   const float tf = static_cast<float>(freq);
   const float num = __fmul_rn(__fmul_rn(idf_sum, tf), 2.2f);
-  return __fdiv_rn(num, __fadd_rn(tf, k1ln));
+  return freq == 0 ? num : div_rn(num, __fadd_rn(tf, k1ln));
 }
 
 // ops/scoring.bm25f_tile_scores: field then term, acc + (wf * tf) / lnorm,
@@ -282,13 +322,18 @@ __device__ __forceinline__ float bm25f(const PosField* pfs, const int* fidx,
                    : count_valid(f.pos + doc * static_cast<size_t>(f.L * f.P) +
                                      slot * f.P,
                                  f.P);
-      acc = __fadd_rn(acc,
-                      __fdiv_rn(__fmul_rn(__int_as_float(wf[fi]),
-                                          static_cast<float>(tf)),
-                                __ldg(f.lnorm + doc)));
+      // a zero tf adds (wf * 0) / lnorm = +-0, which leaves acc as it is
+      // (a sum from +0.0 is never -0.0): the term is skipped
+      if (tf > 0)
+        acc = __fadd_rn(acc, div_rn(__fmul_rn(__int_as_float(wf[fi]),
+                                              static_cast<float>(tf)),
+                                    __ldg(f.lnorm + doc)));
     }
-    total = __fadd_rn(total, __fdiv_rn(__fmul_rn(__int_as_float(idf[ti]), acc),
-                                       __fadd_rn(1.2f, acc)));
+    // likewise a zero acc adds +-0 to total
+    if (acc != 0.0f)
+      total = __fadd_rn(total,
+                        div_rn(__fmul_rn(__int_as_float(idf[ti]), acc),
+                               __fadd_rn(1.2f, acc)));
   }
   return total;
 }

@@ -59,6 +59,14 @@ LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0,
 # of the whole grid), a seeded single launch (thr_init given: a delta
 # walk chained onto its base), the plain single launch
 BUNDLE_FORMS = {"single": 0, "stepped": 0, "seeded": 0}
+# K3's last launch as the entry sized it: sub-chunk tiles, work items,
+# CTAs an SM holds, grid, dynamic shared memory and candidate buffers
+# (chip_smoke reports them)
+BUNDLE_LAUNCH: dict = {}
+# design steps of K3 turned off, for chip_smoke's A/B only (bit 0: fixed
+# doc chunks per warp, bit 2: dense rows reloaded per query term); 0 in
+# the port
+_K3_ABLATE = 0
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -332,7 +340,21 @@ POS_MAX_TERMS = 8
 POS_MAX_FIELDS = 4
 POS_MAX_PARAMS = 512     # positional parameter ints per row (kMaxPW)
 POS_MAX_PFIELDS = 8      # distinct positional fields of one bundle
-_BUNDLE_TARGET_BLOCKS = 2048   # ~16 blocks per SM on 132 SMs
+# K3 runs one CTA per (batch tile x sub-chunk) work item. A sub-chunk's
+# tiles are walked in order from the launch's seed threshold;
+# bundle_chunk_tiles cuts a launch's tile span into sub-chunks of
+# _BUNDLE_CHUNK_TILES tiles, shorter only where that would leave fewer
+# than _BUNDLE_MIN_ITEMS items to share out (four times as many for a
+# positional bundle, whose tiles cost as much as the rows that can match
+# them: more, smaller items even out the SMs' loads). The values were
+# chosen by measurement (chip_smoke --ab-parent, the sub-chunk rows;
+# PERF.md, Findings)
+_BUNDLE_CHUNK_TILES = 8
+_BUNDLE_MIN_ITEMS = 512
+BUNDLE_THREADS = 256
+# dynamic shared memory a CTA may use on sm_90 (232,448 bytes) less the
+# kernel's static arrays (parameters of 8 rows, thresholds, counters)
+BUNDLE_SMEM_BUDGET = 232_448 - 6 * 1024
 _ROLES = {"must": 0, "filter": 1, "must_not": 2, "should": 3}
 _KINDS = {"terms_dense": 0, "term_text": 0, "range_int": 1, "range_f32": 2}
 # positional kinds of the descriptor table (posleaf::kPhraseExact ...)
@@ -353,13 +375,44 @@ def _kind_code(kind: str) -> int:
     return _POS_KINDS[(head, parse_positional_kind(kind)[2])]
 
 
-def bundle_chunk_tiles(B: int, n_tiles: int) -> int:
-    """Doc tiles walked in order by one block: enough (batch tile x
-    chunk) blocks to fill the card, the longest chunks that do so (a
-    chunk's threshold starts at -inf, so longer chunks prune more)."""
+def bundle_chunk_tiles(B: int, n_tiles: int, positional: bool = False
+                       ) -> int:
+    """Doc tiles walked in order by one work item of a launch over
+    n_tiles tiles: at most _BUNDLE_CHUNK_TILES, fewer where the launch
+    would otherwise have fewer than _BUNDLE_MIN_ITEMS (batch tile x
+    sub-chunk) items, four times that for a positional bundle."""
     n_bt = -(-B // BUNDLE_BT)
-    n_chunks = max(1, min(n_tiles, -(-_BUNDLE_TARGET_BLOCKS // n_bt)))
+    min_items = _BUNDLE_MIN_ITEMS * (4 if positional else 1)
+    n_chunks = max(-(-n_tiles // _BUNDLE_CHUNK_TILES),
+                   min(n_tiles, -(-min_items // n_bt)))
     return -(-n_tiles // n_chunks)
+
+
+def bundle_positional(clauses: tuple) -> bool:
+    """Whether a bundle has a positional clause (phrase, span, BM25F)."""
+    from .scoring import positional_prefix
+    return any(positional_prefix(kind) for _r, kind, _f, _w in clauses)
+
+
+def bundle_items(B: int, nt: int, chunk_tiles: int) -> int:
+    """Work items of one K3 launch over nt tiles: batch tiles x
+    sub-chunks."""
+    return -(-B // BUNDLE_BT) * -(-nt // chunk_tiles)
+
+
+def bundle_smem_bytes(tile: int, pw: int, chunk_tiles: int,
+                      n_pos: int = 0) -> int:
+    """K3's dynamic shared memory (mirror of bundle_smem in
+    csrc/bundle_topk.cu): candidate buffers (two; one for a positional
+    bundle) of f32 scores [BT, tile] and match bits [BT, 32] u32, the
+    positional parameter rows [BT, pw] i32, per positional clause its
+    leaf scores [BT, threads] f32 and match bits [threads] i32, and per
+    tile of a sub-chunk its active-list entry (i32), the rows' bounds
+    [BT] f32 and the rows that can match (u8)."""
+    bufs = 1 if n_pos else 2
+    return (bufs * BUNDLE_BT * (4 * tile + 4 * 32) + 4 * BUNDLE_BT * pw
+            + n_pos * (4 * BUNDLE_BT + 4) * BUNDLE_THREADS
+            + (4 + 4 * BUNDLE_BT + 1) * chunk_tiles)
 
 
 def _stack_bundle_inputs(clauses: tuple, cl_inputs: tuple):
@@ -500,7 +553,7 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
     """Plain version of the K3 walk, on any device. One launch walks the
     doc tiles [t0, t0 + nt) (default: all). Rows go in batch tiles of
     `bt`, the span's tiles in sub-chunks of `chunk_tiles` consecutive
-    tiles (default `bundle_chunk_tiles(B, nt)`, the kernel's); each
+    tiles (default `bundle_chunk_tiles`, the kernel's); each
     (batch tile, sub-chunk) walks its tiles in order with a per-row
     threshold seeded from `thr_init` [B] (None: -inf). Per (batch tile,
     doc tile):
@@ -531,7 +584,7 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
     if nt is None:
         nt = n_tiles - t0
     if chunk_tiles is None:
-        chunk_tiles = bundle_chunk_tiles(B, nt)
+        chunk_tiles = bundle_chunk_tiles(B, nt, bundle_positional(clauses))
     n_chunks = -(-nt // chunk_tiles)
     n_bt = -(-B // bt)
 
@@ -625,7 +678,9 @@ class _BundleArgs(ctypes.Structure):
                 ("qm", _I), ("n_dense", _I), ("n_range", _I), ("ck", _I),
                 ("update_thr", _I), ("chunk_tiles", _I),
                 ("emit_match", _I), ("thr_in", _P), ("thr_out", _P),
-                ("t0", _I), ("nt", _I)]
+                ("t0", _I), ("nt", _I), ("ablate", _I),
+                ("n_pos", _I), ("n_sub", _I), ("smem", _I),
+                ("ctas_per_sm", _I), ("grid", _I)]
 
 
 class _PosLeafArgs(ctypes.Structure):
@@ -681,7 +736,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     """One launch of the K3 walk (csrc/bundle_topk.cu) over the doc
     tiles [t0, t0 + nt), seeded from `thr_init` [B], with
     `bundle_walk_ref`'s outputs: batch tile BUNDLE_BT, sub-chunks of
-    `bundle_chunk_tiles(B, nt)`, the per-sub-chunk final thresholds
+    `bundle_chunk_tiles`, the per-sub-chunk final thresholds
     folded with a row max into thr [B] (the next launch's thr_init).
     CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise."""
@@ -718,7 +773,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
         raise ValueError(f"K3 takes at most {POS_MAX_PARAMS} positional "
                          f"parameters per row, got {pw}")
     a = _BundleArgs()
-    text_fields, num_fields, pos_fields = [], [], []
+    text_fields, num_fields, pos_fields, pos_clauses = [], [], [], []
     dc = ri = 0
     for c, ((role, kind, field, _w), inp) in enumerate(zip(clauses,
                                                            cl_inputs)):
@@ -756,6 +811,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
             slot, fidx = ri, num_fields.index(field)
             ri += 1
         else:
+            pos_clauses.append(c)
             n_pos, nt_pos = _check_pos_shape(kind, field, inp)
             for j, f in enumerate(clause_fields(field)):
                 if f not in pos_fields:
@@ -814,7 +870,11 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     else:
         cs, ci, cnt, flags, match = _walk_buffers(B, n_tiles, tile, ck,
                                                   emit_match, dev)
-    chunk_tiles = bundle_chunk_tiles(B, nt)
+    chunk_tiles = bundle_chunk_tiles(B, nt, bool(pos_clauses))
+    smem = bundle_smem_bytes(tile, pw, chunk_tiles, len(pos_clauses))
+    if smem > BUNDLE_SMEM_BUDGET:
+        raise ValueError(f"K3 needs {smem} bytes of shared memory, more "
+                         f"than {BUNDLE_SMEM_BUDGET}")
     thr_in = thr_out = None
     if ck > 0:
         if thr_init is not None:
@@ -840,10 +900,15 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     a.chunk_tiles = chunk_tiles
     a.thr_in, a.thr_out = ptr(thr_in), ptr(thr_out)
     a.t0, a.nt = t0, nt
+    a.ablate = _K3_ABLATE
     fn = _fn("bundle_topk")
     err = fn(ctypes.byref(a), _stream(dev))
     _raise_on(err, "bundle_topk")
     LAUNCHES["bundle_topk"] += 1
+    BUNDLE_LAUNCH.update(chunk_tiles=chunk_tiles,
+                         items=bundle_items(B, nt, chunk_tiles),
+                         ctas_per_sm=a.ctas_per_sm, grid=a.grid,
+                         smem=a.smem, cand_buffers=1 if pos_clauses else 2)
     BUNDLE_FORMS["stepped" if nt < n_tiles else
                  "seeded" if thr_in is not None else "single"] += 1
     thr = None if thr_out is None else thr_out.max(dim=1).values

@@ -81,6 +81,10 @@ def test_scatter_add_equals_plain(cuda, B, N, sorted_rows):
 
 _BUNDLES = {
     "single": (("should", "terms_dense", "f", False),),
+    # field g has L 6 (not a multiple of 4: scalar slot loads)
+    "single_g": (("should", "terms_dense", "g", False),),
+    # every impact and weight 1: all matches of a tile tie
+    "ties": (("should", "terms_dense", "f", False),),
     "main": (("must", "terms_dense", "f", True),
              ("filter", "range_int", "n", False)),
     "bundle": (("must", "terms_dense", "f", True),
@@ -107,12 +111,20 @@ def _fwd(rng, cap, L, n_terms, tile):
 
 
 def _bundle_case(bundle, cap, tile, B, dev, seed=0):
-    from elasticsearch_tpu_torch.index.segment import build_tile_minmax
+    """Seeded K3 inputs; the "ties" bundle holds every impact and query
+    weight at 1, so a tile's matches all score alike and the lower doc
+    must win."""
+    from elasticsearch_tpu_torch.index.segment import (build_tile_max,
+                                                       build_tile_minmax)
     rng = np.random.default_rng(seed)
     n_terms = 320
     text = {}
     for f, L in (("f", 8), ("g", 6)):
         tids, imps, tm = _fwd(rng, cap, L, n_terms, tile)
+        if bundle == "ties":
+            imps = np.where(tids < 0, 0.0, 1.0).astype(np.float32)
+            tm = build_tile_max(tids, imps, (n_terms // L) * L, cap,
+                                tile=tile)
         text[f] = {"fwd_tids": torch.from_numpy(tids).to(dev),
                    "fwd_imps": torch.from_numpy(imps).to(dev),
                    "tile_max": torch.from_numpy(tm).to(dev)}
@@ -139,6 +151,8 @@ def _bundle_case(bundle, cap, tile, B, dev, seed=0):
             q = 1 if kind == "term_text" else 3
             qt = rng.integers(-1, n_terms // 4, size=(B, q)).astype(np.int32)
             wq = (rng.integers(1, 8, size=(B, q)) / 4).astype(np.float32)
+            if bundle == "ties":
+                wq[:] = 1.0
             wq[qt < 0] = 0.0
             msm_c = (rng.integers(0, 3, size=B) if wrapped else np.ones(B))
             boost_c = ((rng.integers(1, 5, size=B) / 2) if wrapped
@@ -147,7 +161,7 @@ def _bundle_case(bundle, cap, tile, B, dev, seed=0):
                        boost_c.astype(np.float32)))
     n_should = sum(r == "should" for r, *_ in _BUNDLES[bundle])
     msm = rng.integers(0, n_should + 1, size=B).astype(np.int32)
-    if bundle == "single":
+    if len(_BUNDLES[bundle]) == 1:
         msm[:] = 1
     boost = (rng.integers(1, 5, size=B) / 2).astype(np.float32)
     live = rng.random(cap) > 0.05
@@ -164,7 +178,19 @@ _K3_CASES = [("single", 4096, 1024, 16, 10, False),
              ("bundle", 4096, 1024, 33, 0, True),
              ("single", 1 << 20, 1024, 64, 10, False),
              ("main", 1 << 20, 1024, 64, 100, True),
-             ("main", 1 << 20, 1024, 64, 0, False)]
+             ("main", 1 << 20, 1024, 64, 0, False),
+             # the selection's branches: ck 1, one and two warps' worth,
+             # far more than a tile's matches, the whole tile; L 6; ties
+             # to the lower doc; B short of a batch tile
+             ("single", 4096, 1024, 16, 1, False),
+             ("single_g", 4096, 256, 12, 16, True),
+             ("main", 4096, 1024, 20, 32, False),
+             ("main", 4096, 1024, 20, 33, True),
+             ("bundle", 4096, 1024, 9, 256, False),
+             ("single", 4096, 1024, 5, 1024, True),
+             ("ties", 4096, 1024, 11, 33, False),
+             ("ties", 4096, 256, 16, 10, True),
+             ("ties", 1 << 18, 1024, 40, 100, False)]
 
 
 @pytest.mark.parametrize("bundle,cap,tile,B,k,emit", _K3_CASES)
@@ -399,7 +425,8 @@ def test_positional_leaf_equals_plain(cuda, bundle, cap, B):
 
 def test_register_and_spill_report(cuda, tmp_path):
     """ptxas' report of every kernel of the CUDA sources (printed with
-    -s): each kernel builds and reports its registers."""
+    -s): each kernel builds and reports its registers, and K3's walk
+    (bundle_topk_kernel) spills nothing."""
     import subprocess
     for name, src in cs._SOURCES.items():
         out = subprocess.run(
@@ -407,10 +434,19 @@ def test_register_and_spill_report(cuda, tmp_path):
              str(cs._CSRC), "-o", str(tmp_path / f"{name}.so"),
              str(cs._CSRC / src)], capture_output=True, text=True,
             check=True)
-        report = [ln.strip() for ln in (out.stdout + out.stderr).splitlines()
+        lines = (out.stdout + out.stderr).splitlines()
+        report = [ln.strip() for ln in lines
                   if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print("\n".join([f"{name}:"] + report))
         assert any("registers" in ln for ln in report), name
+        if name == "bundle_topk":
+            props = [lines[i + 1] for i, ln in enumerate(lines[:-1])
+                     if "Function properties for" in ln
+                     and "bundle_topk_kernel" in ln]
+            assert props, "no ptxas properties for bundle_topk_kernel"
+            for ln in props:
+                assert "0 bytes spill stores" in ln, ln
+                assert "0 bytes spill loads" in ln, ln
 
 
 # ---------------------------------------------------------------------------
@@ -425,7 +461,10 @@ def _never(c, st):
 _STEP_CASES = [("main", 4096, 256, 12, 10, True, 5),
                ("bundle", 4096, 256, 16, 300, False, 3),
                ("bundle", 4096, 1024, 33, 0, True, 1),
-               ("main", 1 << 20, 1024, 64, 10, True, 128)]
+               ("main", 1 << 20, 1024, 64, 10, True, 128),
+               # spans that no sub-chunk length divides
+               ("main", 4096, 256, 12, 33, True, 3),
+               ("ties", 1 << 18, 1024, 24, 16, False, 100)]
 
 
 @pytest.mark.parametrize("bundle,cap,tile,B,k,emit,chunk", _STEP_CASES)
@@ -467,7 +506,8 @@ def test_stepped_walk_equals_single_launch_and_plain(cuda, bundle, cap,
     assert st[-1] is False
 
 
-@pytest.mark.parametrize("bundle,k", [("main", 10), ("single", 100)])
+@pytest.mark.parametrize("bundle,k", [("main", 10), ("single", 100),
+                                      ("single_g", 16), ("ties", 33)])
 def test_seeded_walk_equals_plain(cuda, bundle, k):
     """A delta walk seeded with a base walk's top-k (init_topk,
     idx_offset) against its plain version: every output of the seeded
