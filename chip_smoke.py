@@ -58,9 +58,10 @@ at a toy size (no build, no timings, no result line), to exercise this
 script without a card. `--ab-parent DIR` loads the K3 of an earlier
 commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
 git-ignored `smoke_checkout/`) beside this one and times the two in turns
-on every K3 sweep and launch-form row (`ab`), with `k3_design` lines that
-time this K3 with each design step switched off and at other sub-chunk
-lengths; `--kernels-only` stops after the kernel phase (no result line).
+on every K3 sweep and launch-form row (`ab`); `tools/k3_variants.py`
+builds patched copies of this checkout's K3 (a design step undone, or a
+probe) under DIR and times them this way. `--kernels-only` stops after
+the kernel phase (no result line).
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import gc
 import json
 import multiprocessing
@@ -1014,7 +1016,6 @@ def measure_bundle(args, kw, reps, rows=None):
     got = run(cs.bundle_walk, args, thr)
     torch.cuda.synchronize()
     launches = cs.LAUNCHES["bundle_topk"] - before
-    design = dict(cs.BUNDLE_LAUNCH)
     if rows is not None and rows % cs.BUNDLE_BT:
         raise ValueError(f"rows {rows} cut a batch tile")
     sub = (text, num, clauses,
@@ -1022,8 +1023,10 @@ def measure_bundle(args, kw, reps, rows=None):
            *_first_rows((msm, boost), rows), live,
            *_first_rows((can, ub), rows))
     n = sub[4].shape[0]
-    chunk = cs.bundle_chunk_tiles(B, n_tiles if step is None else step[0],
-                                  cs.bundle_positional(clauses))
+    nt = n_tiles if step is None else step[0]
+    chunk = cs.bundle_chunk_tiles(B, nt, cs.bundle_positional(clauses))
+    design = k3_design(clauses, cl_inputs, B, nt, live.shape[0] // n_tiles,
+                       chunk)
     want, plain_ms = plain_run(lambda: run(
         cs.bundle_walk_ref, sub, None if thr is None else thr[:n],
         chunk_tiles=chunk))
@@ -1049,6 +1052,28 @@ def measure_bundle(args, kw, reps, rows=None):
             "plain_ms": plain_ms, "plain_rows": n,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err}
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_occupancy(tile: int, pw: int, chunk: int, n_pos: int):
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    return cs.bundle_occupancy(tile, pw, chunk, n_pos)
+
+
+def k3_design(clauses, cl_inputs, B: int, nt: int, tile: int, chunk: int
+              ) -> dict:
+    """A K3 launch over nt tiles as its entry sizes it: sub-chunk tiles,
+    work items (batch tiles x sub-chunks, one CTA each), candidate
+    buffers, dynamic shared memory and the CTAs an SM holds."""
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    pp, offsets = cs._pos_param_rows(clauses, cl_inputs, B)
+    pw = 0 if pp is None else pp.shape[1]
+    n_pos = sum(o is not None for o in offsets)
+    smem, per_sm = _k3_occupancy(tile, pw, chunk, n_pos)
+    return {"chunk_tiles": chunk,
+            "items": -(-B // cs.BUNDLE_BT) * -(-nt // chunk),
+            "cand_buffers": 1 if n_pos else 2, "smem": smem,
+            "ctas_per_sm": per_sm}
 
 
 def k3_ptxas() -> dict:
@@ -1100,12 +1125,15 @@ def _walk_kw(kw):
                                           "emit_match")}
 
 
-def k3_ab(args, kw, old, reps: int = 10) -> dict:
+def k3_ab(args, kw, old, reps: int = 10, same_counts: bool = True
+          ) -> dict:
     """The previous K3 (`old`, its own schedule) against this one on one
     walk in any launch form, timed in turns (new, old, old, new) on the
     same inputs: both count every tile's matches alike (the counts, the
     mask and the thresholded tiles are reported; candidates of
-    thresholded tiles depend on each one's schedule)."""
+    thresholded tiles depend on each one's schedule). With same_counts
+    False (a probe that reads other data) the hits of each are reported
+    instead."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     step, thr, kw = _walk_kw(kw)
@@ -1115,8 +1143,8 @@ def k3_ab(args, kw, old, reps: int = 10) -> dict:
                                      thr_init=thr, **kw)
 
     got, want = run(cs), run(old)
-    if not torch.equal(got[2], want[2]) or (
-            got[4] is not None and not torch.equal(got[4], want[4])):
+    if same_counts and (not torch.equal(got[2], want[2]) or (
+            got[4] is not None and not torch.equal(got[4], want[4]))):
         raise AssertionError("K3 and the previous K3 count differently")
     turns = {"new": [], "previous": []}
     for who in ("new", "previous", "previous", "new"):
@@ -1125,58 +1153,10 @@ def k3_ab(args, kw, old, reps: int = 10) -> dict:
     new_ms, old_ms = (float(np.mean(turns[k])) for k in ("new", "previous"))
     return {"previous_ms": old_ms, "new_ms": new_ms,
             "speedup": old_ms / new_ms, "turns": turns,
+            "hits": {"new": int(got[2].sum()), "previous": int(want[2].sum())},
             "thresholded_tiles": {
                 "new": float(cs.normalize_prune(got[3])[1]),
                 "previous": float(cs.normalize_prune(want[3])[1])}}
-
-
-# K3's design steps switched off one at a time (the kernel's `ablate`
-# bits) and other sub-chunk lengths, for the A/B run's design-step rows
-K3_ABLATIONS = {"fixed doc chunks per warp": 1, "rows reloaded per term": 4,
-                "neither": 5}
-K3_CHUNKS = (2, 4, 16, 32)
-
-
-def k3_design_steps(label, args, kw, reps: int = 10) -> list[dict]:
-    """One walk with each design step of K3 turned off in turn, and at
-    other sub-chunk lengths, each timed in turns with the port's own
-    setting (port, variant, variant, port); counts must not move."""
-    import torch
-    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
-    step, thr, kw = _walk_kw(kw)
-
-    def run():
-        return cs.bundle_walk_steps(cs.bundle_walk, *args, step=step,
-                                    thr_init=thr, **kw)
-
-    base = run()
-    variants = [(f"ablate {name}", bits, cs._BUNDLE_CHUNK_TILES)
-                for name, bits in K3_ABLATIONS.items()]
-    variants += [(f"sub-chunks of {n} tiles", 0, n) for n in K3_CHUNKS]
-    rows = []
-    port = (cs._K3_ABLATE, cs._BUNDLE_CHUNK_TILES)
-    for name, bits, chunk in variants:
-        times = {"port": [], "variant": []}
-        for who in ("port", "variant", "variant", "port"):
-            cs._K3_ABLATE, cs._BUNDLE_CHUNK_TILES = (
-                port if who == "port" else (bits, chunk))
-            try:
-                out = run()
-                if not torch.equal(out[2], base[2]):
-                    raise AssertionError(f"K3 {name} counts differently")
-                times[who].append(cuda_ms(run, reps))
-                if who == "variant":
-                    design = dict(cs.BUNDLE_LAUNCH)
-                    thr_tiles = float(cs.normalize_prune(out[3])[1])
-            finally:
-                cs._K3_ABLATE, cs._BUNDLE_CHUNK_TILES = port
-        rows.append({"bundle": label, "variant": name,
-                     "port_ms": float(np.mean(times["port"])),
-                     "variant_ms": float(np.mean(times["variant"])),
-                     "variant_design": design,
-                     "variant_thresholded_tiles": thr_tiles})
-        log("k3_design " + json.dumps(rows[-1]))
-    return rows
 
 
 class SweepInputs:
@@ -1260,9 +1240,9 @@ def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20, old=None
     """K3 at B 256, cap 2^20 (two text fields of 8 slots and a numeric
     column drawn like the main path's), one to three clauses; each row
     carries the launch's design (sub-chunk tiles, items, CTAs per SM,
-    grid, shared memory) and ptxas' registers and spills, and, with the
+    shared memory) and ptxas' registers and spills, and, with the
     previous K3 (`old`, chip_smoke --ab-parent), its time in turns with
-    this one and the design-step rows of the dense one-clause walks.
+    this one.
     Returns the rows, the worst error and the inputs (for the launch
     forms)."""
     from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
@@ -1328,9 +1308,6 @@ def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20, old=None
                      "can_match_share": float(can.float().mean()),
                      "ptxas": ptxas, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
-        if old is not None and (label == "1 clause" and k in (10, 100)
-                                or label == "phrase exact n 2"):
-            k3_design_steps(f"{label}, k {k}", args, kw)
     for label, kind, f in (pos_kinds[3], pos_kinds[4], pos_kinds[6]):
         inp = positional(kind, f)
         m = measure_leaf((kind, f, inp, text), reps=5, rows=PLAIN_ROWS)
@@ -1367,7 +1344,7 @@ def form_sweep(dev, rng, base: SweepInputs, k: int = 10, old=None
       * a stepped walk whose check flips at chunk 4 launches K3 4 times
         and reports timed.
     With the previous K3 (`old`), each form is also timed in turns
-    against it, and the stepped `match` walk gets design-step rows."""
+    against it."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
@@ -1439,9 +1416,6 @@ def form_sweep(dev, rng, base: SweepInputs, k: int = 10, old=None
                                   old)
             seeded["ab"] = k3_ab(d_args + (d_can, d_ub),
                                  {**kw, "thr_init": one[0][:, -1]}, old)
-            if not pos:
-                k3_design_steps(f"{label} stepped", args + (can, ub),
-                                {**kw, "step": step})
         for form, m, c in (("single", single, cap),
                            ("stepped", stepped, cap),
                            ("seeded", seeded, delta.cap)):

@@ -108,23 +108,26 @@
 //      them one row at a time; hit += select(...) is a compare and a
 //      predicated add (add_hit), and the rows' parameters come in 8-byte
 //      pairs. Staging doc slabs through TMA into a shared ring (with
-//      cluster multicast) is not built: the forward rows come from L2 at
-//      a small share of its rate (ROADMAP).
+//      cluster multicast) is not built: with its forward rows drawn from
+//      one 1,024-doc window, which stays on chip, the dense walk runs no
+//      faster, so those loads are not what it waits on; served so, the
+//      positional leaf gains some (tools/k3_variants.py; PERF.md,
+//      Findings).
 //   4. Registers and shared memory. The kernel is built twice: without a
 //      positional clause (the leaf compiled out) and with one; both fit
-//      __launch_bounds__(256, 2), 128 registers, with no spill (the leaf
-//      runs first for the doc with little else live, its cursors take
-//      three registers, its divisions are a correctly rounded f64 path
-//      with no slow-path call). Shared memory is sized per launch
-//      (cuda_scoring.bundle_smem_bytes): a positional bundle has one
-//      candidate buffer, not two, leaving L1 to the leaf's rereads.
+//      __launch_bounds__(256, 2), at most 128 registers, with no spill
+//      (the leaf runs first for the doc with little else live, its
+//      cursors take three registers, its divisions are a correctly
+//      rounded f64 path with no slow-path call). Shared memory is sized
+//      per launch (bundle_smem): a positional bundle has one candidate
+//      buffer, not two, leaving L1 to the leaf's rereads.
 //   5. Sub-chunks of 8 tiles (shorter where a launch would have too few
 //      items; cuda_scoring.bundle_chunk_tiles), chosen by measurement.
 //      A persistent grid (one or two CTAs an SM taking items from an
 //      atomic counter) was built and measured 0-2% slower than one CTA
 //      per item, whose scheduling the hardware does for free: not kept.
-// `ablate` (chip_smoke's design-step rows; 0 in the port) turns steps
-// off: bit 0 fixed doc chunks, bit 2 rows reloaded per query term.
+// tools/k3_variants.py times steps 2, 3 and 5 undone, each in a patched
+// copy of the port's ops.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -167,11 +170,9 @@ struct BundleArgs {
   const float* thr_in;  // [B] seed threshold; null = -inf
   float* thr_out;       // [B, n_sub] final threshold per sub-chunk, or null
   int t0, nt;           // the launch walks tiles [t0, t0 + nt)
-  int ablate;           // A/B switches of the design steps; 0 = all on
-  int n_pos;            // positional clauses (set by the entry)
-  int n_sub;            // sub-chunks of the span (set by the entry)
-  // written back by the entry: dynamic shared memory, CTAs per SM, grid
-  int smem, ctas_per_sm, grid;
+  // set by the entry on its copy of the arguments: positional clauses,
+  // sub-chunks of the span
+  int n_pos, n_sub;
 };
 
 // The unfused path's positional clause over the whole capacity (entry
@@ -201,7 +202,6 @@ constexpr int kSlots = 8;         // forward slots held in registers
 constexpr int kHeads = 4;         // sorted best keys per lane in selection
 constexpr int kMust = 0, kFilter = 1, kMustNot = 2;  // else should (3)
 constexpr int kDense = 0, kRangeInt = 1;
-constexpr int kStaticChunks = 1, kNoHeldRows = 4;
 constexpr int kStealCk = 32;      // ck above which warps steal doc chunks
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -440,7 +440,7 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
   // enough (ck > 32) to leave warps idle that other warps could cover, and
   // for a positional bundle, whose docs cost as much as their positions;
   // otherwise the counter costs more than it balances
-  const bool steal = (kPos || ck > kStealCk) && !(a.ablate & kStaticChunks);
+  const bool steal = kPos || ck > kStealCk;
 
   // one CTA per item, sub-chunk-major: the items in flight share their
   // doc tiles in L2
@@ -620,7 +620,7 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
                 (L & 3) == 0 &&
                 ((reinterpret_cast<uintptr_t>(a.tids[f]) |
                   reinterpret_cast<uintptr_t>(a.imps[f])) & 15u) == 0;
-            const bool held = L <= kSlots && !(a.ablate & kNoHeldRows);
+            const bool held = L <= kSlots;
             // slots past L: id -1, impact 0 (a padded slot)
             int t[kSlots];
             float v[kSlots];
@@ -836,8 +836,7 @@ positional_leaf_kernel(const __grid_constant__ PosLeafArgs a) {
   a.m_out[o] = m ? 1 : 0;
 }
 
-// bytes of the walk's dynamic shared memory (cuda_scoring
-// .bundle_smem_bytes mirrors it)
+// bytes of the walk's dynamic shared memory
 size_t bundle_smem(int tile, int pw, int chunk_tiles, int n_pos) {
   // candidate scores and match bits
   const size_t bufs = n_pos > 0 ? 1 : 2;
@@ -848,6 +847,17 @@ size_t bundle_smem(int tile, int pw, int chunk_tiles, int n_pos) {
              kThreads +
          (sizeof(int) + sizeof(float) * kBT + 1) *
              static_cast<size_t>(chunk_tiles);
+}
+
+// The walk's kernel for a bundle with or without positional clauses, its
+// dynamic shared memory opted in (an oversize request fails here).
+cudaError_t bundle_kernel(int tile, int pw, int chunk_tiles, int n_pos,
+                          void (**kernel)(BundleArgs), size_t* smem) {
+  *kernel = n_pos > 0 ? bundle_topk_kernel<true> : bundle_topk_kernel<false>;
+  *smem = bundle_smem(tile, pw, chunk_tiles, n_pos);
+  return cudaFuncSetAttribute(*kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
 }
 
 }  // namespace
@@ -866,8 +876,8 @@ extern "C" int positional_leaf(const PosLeafArgs* args, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bundle_topk(BundleArgs* args, void* stream) {
-  BundleArgs& a = *args;
+extern "C" int bundle_topk(const BundleArgs* args, void* stream) {
+  BundleArgs a = *args;
   if (a.B <= 0 || a.n_tiles <= 0 || a.nt <= 0) return 0;
   if (a.n_clauses > kMaxClauses || a.qm > kMaxQ || a.n_dense > kMaxClauses ||
       a.n_range > kMaxClauses || a.tile > 1024 || a.tile <= 0 ||
@@ -875,31 +885,35 @@ extern "C" int bundle_topk(BundleArgs* args, void* stream) {
       a.pw > kMaxPW || a.t0 < 0 || a.t0 + a.nt > a.n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   // a positional clause always brings parameter rows (pw > 0)
-  int n_pos = 0;
+  a.n_pos = 0;
   for (int c = 0; c < a.n_clauses; ++c)
-    n_pos += a.clause[c][1] >= posleaf::kPhraseExact ? 1 : 0;
-  if ((n_pos > 0) != (a.pw > 0))
+    a.n_pos += a.clause[c][1] >= posleaf::kPhraseExact ? 1 : 0;
+  if ((a.n_pos > 0) != (a.pw > 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  a.n_pos = n_pos;
-  void (*kernel)(BundleArgs) =
-      n_pos > 0 ? bundle_topk_kernel<true> : bundle_topk_kernel<false>;
-  const size_t smem = bundle_smem(a.tile, a.pw, a.chunk_tiles, n_pos);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;  // for the launch report
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   a.n_sub = (a.nt + a.chunk_tiles - 1) / a.chunk_tiles;
   const long long n_items =
       static_cast<long long>(a.n_sub) * ((a.B + kBT - 1) / kBT);
   if (n_items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  a.smem = static_cast<int>(smem);
-  a.ctas_per_sm = per_sm;
-  a.grid = static_cast<int>(n_items);
+  void (*kernel)(BundleArgs);
+  size_t smem;
+  const cudaError_t err =
+      bundle_kernel(a.tile, a.pw, a.chunk_tiles, a.n_pos, &kernel, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   kernel<<<static_cast<unsigned>(n_items), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A launch's dynamic shared memory and the CTAs an SM holds at that size,
+// for reports (the walk itself does not ask).
+extern "C" int bundle_topk_occupancy(int tile, int pw, int chunk_tiles,
+                                     int n_pos, int* smem, int* ctas_per_sm) {
+  void (*kernel)(BundleArgs);
+  size_t bytes;
+  cudaError_t err = bundle_kernel(tile, pw, chunk_tiles, n_pos, &kernel,
+                                  &bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<int>(bytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, kernel, kThreads, bytes));
 }

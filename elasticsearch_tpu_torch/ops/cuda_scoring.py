@@ -59,14 +59,6 @@ LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0,
 # of the whole grid), a seeded single launch (thr_init given: a delta
 # walk chained onto its base), the plain single launch
 BUNDLE_FORMS = {"single": 0, "stepped": 0, "seeded": 0}
-# K3's last launch as the entry sized it: sub-chunk tiles, work items,
-# CTAs an SM holds, grid, dynamic shared memory and candidate buffers
-# (chip_smoke reports them)
-BUNDLE_LAUNCH: dict = {}
-# design steps of K3 turned off, for chip_smoke's A/B only (bit 0: fixed
-# doc chunks per warp, bit 2: dense rows reloaded per query term); 0 in
-# the port
-_K3_ABLATE = 0
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -74,7 +66,8 @@ _SOURCES = {"dense_score": "dense_score.cu", "scatter_add": "scatter_add.cu",
             "bundle_topk": "bundle_topk.cu"}
 # entry point -> the library (source) that defines it
 _ENTRIES = {"dense_score": "dense_score", "scatter_add": "scatter_add",
-            "bundle_topk": "bundle_topk", "positional_leaf": "bundle_topk"}
+            "bundle_topk": "bundle_topk", "positional_leaf": "bundle_topk",
+            "bundle_topk_occupancy": "bundle_topk"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _LANES = 128
@@ -114,6 +107,9 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
         leaf = lib.positional_leaf
         leaf.argtypes = [ctypes.POINTER(_PosLeafArgs), P]
         leaf.restype = ctypes.c_int
+        occ = lib.bundle_topk_occupancy
+        occ.argtypes = [I, I, I, I, ctypes.POINTER(I), ctypes.POINTER(I)]
+        occ.restype = ctypes.c_int
     else:
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
     fn.restype = ctypes.c_int
@@ -351,10 +347,6 @@ POS_MAX_PFIELDS = 8      # distinct positional fields of one bundle
 # PERF.md, Findings)
 _BUNDLE_CHUNK_TILES = 8
 _BUNDLE_MIN_ITEMS = 512
-BUNDLE_THREADS = 256
-# dynamic shared memory a CTA may use on sm_90 (232,448 bytes) less the
-# kernel's static arrays (parameters of 8 rows, thresholds, counters)
-BUNDLE_SMEM_BUDGET = 232_448 - 6 * 1024
 _ROLES = {"must": 0, "filter": 1, "must_not": 2, "should": 3}
 _KINDS = {"terms_dense": 0, "term_text": 0, "range_int": 1, "range_f32": 2}
 # positional kinds of the descriptor table (posleaf::kPhraseExact ...)
@@ -394,25 +386,16 @@ def bundle_positional(clauses: tuple) -> bool:
     return any(positional_prefix(kind) for _r, kind, _f, _w in clauses)
 
 
-def bundle_items(B: int, nt: int, chunk_tiles: int) -> int:
-    """Work items of one K3 launch over nt tiles: batch tiles x
-    sub-chunks."""
-    return -(-B // BUNDLE_BT) * -(-nt // chunk_tiles)
-
-
-def bundle_smem_bytes(tile: int, pw: int, chunk_tiles: int,
-                      n_pos: int = 0) -> int:
-    """K3's dynamic shared memory (mirror of bundle_smem in
-    csrc/bundle_topk.cu): candidate buffers (two; one for a positional
-    bundle) of f32 scores [BT, tile] and match bits [BT, 32] u32, the
-    positional parameter rows [BT, pw] i32, per positional clause its
-    leaf scores [BT, threads] f32 and match bits [threads] i32, and per
-    tile of a sub-chunk its active-list entry (i32), the rows' bounds
-    [BT] f32 and the rows that can match (u8)."""
-    bufs = 1 if n_pos else 2
-    return (bufs * BUNDLE_BT * (4 * tile + 4 * 32) + 4 * BUNDLE_BT * pw
-            + n_pos * (4 * BUNDLE_BT + 4) * BUNDLE_THREADS
-            + (4 + 4 * BUNDLE_BT + 1) * chunk_tiles)
+def bundle_occupancy(tile: int, pw: int, chunk_tiles: int, n_pos: int
+                     ) -> tuple[int, int]:
+    """A K3 launch's dynamic shared memory in bytes, as the entry sizes
+    it, and the CTAs an SM holds at that size. On the card; for reports
+    (the walk does not ask)."""
+    smem, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(_fn("bundle_topk_occupancy")(
+        tile, pw, chunk_tiles, n_pos, ctypes.byref(smem),
+        ctypes.byref(per_sm)), "bundle_topk_occupancy")
+    return smem.value, per_sm.value
 
 
 def _stack_bundle_inputs(clauses: tuple, cl_inputs: tuple):
@@ -678,9 +661,7 @@ class _BundleArgs(ctypes.Structure):
                 ("qm", _I), ("n_dense", _I), ("n_range", _I), ("ck", _I),
                 ("update_thr", _I), ("chunk_tiles", _I),
                 ("emit_match", _I), ("thr_in", _P), ("thr_out", _P),
-                ("t0", _I), ("nt", _I), ("ablate", _I),
-                ("n_pos", _I), ("n_sub", _I), ("smem", _I),
-                ("ctas_per_sm", _I), ("grid", _I)]
+                ("t0", _I), ("nt", _I), ("n_pos", _I), ("n_sub", _I)]
 
 
 class _PosLeafArgs(ctypes.Structure):
@@ -871,10 +852,6 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
         cs, ci, cnt, flags, match = _walk_buffers(B, n_tiles, tile, ck,
                                                   emit_match, dev)
     chunk_tiles = bundle_chunk_tiles(B, nt, bool(pos_clauses))
-    smem = bundle_smem_bytes(tile, pw, chunk_tiles, len(pos_clauses))
-    if smem > BUNDLE_SMEM_BUDGET:
-        raise ValueError(f"K3 needs {smem} bytes of shared memory, more "
-                         f"than {BUNDLE_SMEM_BUDGET}")
     thr_in = thr_out = None
     if ck > 0:
         if thr_init is not None:
@@ -900,15 +877,10 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     a.chunk_tiles = chunk_tiles
     a.thr_in, a.thr_out = ptr(thr_in), ptr(thr_out)
     a.t0, a.nt = t0, nt
-    a.ablate = _K3_ABLATE
     fn = _fn("bundle_topk")
     err = fn(ctypes.byref(a), _stream(dev))
     _raise_on(err, "bundle_topk")
     LAUNCHES["bundle_topk"] += 1
-    BUNDLE_LAUNCH.update(chunk_tiles=chunk_tiles,
-                         items=bundle_items(B, nt, chunk_tiles),
-                         ctas_per_sm=a.ctas_per_sm, grid=a.grid,
-                         smem=a.smem, cand_buffers=1 if pos_clauses else 2)
     BUNDLE_FORMS["stepped" if nt < n_tiles else
                  "seeded" if thr_in is not None else "single"] += 1
     thr = None if thr_out is None else thr_out.max(dim=1).values

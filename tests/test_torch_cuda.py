@@ -94,7 +94,18 @@ _BUNDLES = {
                ("must_not", "range_int", "n", False),
                ("should", "term_text", "g", False),
                ("should", "terms_dense", "f", True)),
+    # field f wider than the 8 slots the kernel holds in registers (its
+    # rows are reloaded 8 slots at a time per query term): L 16 and 32,
+    # L 12 (not a multiple of 8), L 10 (not a multiple of 4 either)
+    "wide16": (("should", "terms_dense", "f", False),),
+    "wide32": (("should", "terms_dense", "f", False),),
+    "wide12": (("must", "terms_dense", "f", True),
+               ("filter", "range_int", "n", False)),
+    "wide10": (("should", "terms_dense", "f", False),
+               ("should", "terms_dense", "g", False)),
 }
+# slots of field f per bundle (8 where not given)
+_F_SLOTS = {"wide16": 16, "wide32": 32, "wide12": 12, "wide10": 10}
 
 
 def _fwd(rng, cap, L, n_terms, tile):
@@ -119,7 +130,7 @@ def _bundle_case(bundle, cap, tile, B, dev, seed=0):
     rng = np.random.default_rng(seed)
     n_terms = 320
     text = {}
-    for f, L in (("f", 8), ("g", 6)):
+    for f, L in (("f", _F_SLOTS.get(bundle, 8)), ("g", 6)):
         tids, imps, tm = _fwd(rng, cap, L, n_terms, tile)
         if bundle == "ties":
             imps = np.where(tids < 0, 0.0, 1.0).astype(np.float32)
@@ -190,7 +201,12 @@ _K3_CASES = [("single", 4096, 1024, 16, 10, False),
              ("single", 4096, 1024, 5, 1024, True),
              ("ties", 4096, 1024, 11, 33, False),
              ("ties", 4096, 256, 16, 10, True),
-             ("ties", 1 << 18, 1024, 40, 100, False)]
+             ("ties", 1 << 18, 1024, 40, 100, False),
+             # forward rows wider than the slots held in registers
+             ("wide16", 4096, 1024, 16, 10, True),
+             ("wide32", 1 << 18, 1024, 24, 100, False),
+             ("wide12", 4096, 256, 12, 33, True),
+             ("wide10", 4096, 256, 9, 1, False)]
 
 
 @pytest.mark.parametrize("bundle,cap,tile,B,k,emit", _K3_CASES)
@@ -449,6 +465,100 @@ def test_register_and_spill_report(cuda, tmp_path):
                 assert "0 bytes spill loads" in ln, ln
 
 
+@pytest.mark.parametrize("n_pos", range(cs.BUNDLE_MAX_CLAUSES + 1))
+def test_shared_memory_fits_every_admitted_bundle(cuda, n_pos):
+    """K3's entry sizes the walk's shared memory (its only definition) and
+    opts the kernel in; at the widest tile (1,024 docs), the longest
+    sub-chunk and the widest positional parameter rows, every bundle of 0
+    to 8 positional clauses fits in a CTA, one or more an SM."""
+    pw = cs.POS_MAX_PARAMS if n_pos else 0
+    smem, per_sm = cs.bundle_occupancy(1024, pw, cs._BUNDLE_CHUNK_TILES,
+                                       n_pos)
+    props = torch.cuda.get_device_properties(0)
+    assert 0 < smem <= getattr(props, "shared_memory_per_block_optin",
+                               232_448)
+    assert per_sm >= 1
+
+
+_DIV_SRC = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+#include "positional_leaf.cuh"
+
+__global__ void div_pair(const float* a, const float* b, float* q,
+                         float* want, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  q[i] = posleaf::div_rn(a[i], b[i]);
+  want[i] = __fdiv_rn(a[i], b[i]);
+}
+
+extern "C" int div_pairs(const float* a, const float* b, float* q,
+                         float* want, int n) {
+  div_pair<<<(n + 255) / 256, 256>>>(a, b, q, want, n);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def test_leaf_division_equals_fdiv_rn(cuda, tmp_path):
+    """The positional leaf's division (posleaf::div_rn, an f64 path with
+    no slow-path call) gives __fdiv_rn's bits for every finite dividend
+    and positive normal divisor whose reciprocal is normal: random
+    operands over the whole exponent range, quotients near and below
+    the smallest normal, exact quotients, and exact midpoints between
+    two subnormals (ties to even)."""
+    import ctypes
+    import subprocess
+    src = tmp_path / "div.cu"
+    src.write_text(_DIV_SRC)
+    lib_path = tmp_path / "div.so"
+    subprocess.run([cs._nvcc(), *cs._NVCC_FLAGS, "-I", str(cs._CSRC), "-o",
+                    str(lib_path), str(src)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+
+    def f32(m, e):
+        return np.ldexp(m, e).astype(np.float32)
+
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    a = [f32(sign * rng.uniform(1, 2, n), rng.integers(-149, 128, n)),
+         # quotients around 2^-126 and down into the subnormals
+         f32(sign * rng.uniform(1, 2, n), rng.integers(-135, -100, n)),
+         # exact quotients, and midpoints (2j + 1) 2^-150
+         f32(sign * rng.integers(1, 1 << 12, n), -100),
+         f32(sign * (2 * rng.integers(0, 1 << 10, n) + 1), -100)]
+    b = [f32(rng.uniform(1, 2, n), rng.integers(-125, 126, n)),
+         f32(rng.uniform(1, 2, n), rng.integers(-2, 20, n)),
+         f32(1.0, rng.integers(-20, 40, n)),
+         f32(1.0, np.full(n, 50))]
+    a, b = np.concatenate(a), np.concatenate(b)
+    ok = np.isfinite(a) & (b > 0) & (b >= np.float32(2.0 ** -126))
+    a, b = a[ok], b[ok]
+    ta = torch.from_numpy(a).to(cuda)
+    tb = torch.from_numpy(b).to(cuda)
+    q, want = torch.empty_like(ta), torch.empty_like(ta)
+    torch.cuda.synchronize()
+    assert lib.div_pairs(ctypes.c_void_p(ta.data_ptr()),
+                         ctypes.c_void_p(tb.data_ptr()),
+                         ctypes.c_void_p(q.data_ptr()),
+                         ctypes.c_void_p(want.data_ptr()),
+                         ctypes.c_int(a.size)) == 0
+    got, ref = q.cpu().numpy(), want.cpu().numpy()
+    # __fdiv_rn is IEEE division: the host's f64 quotient rounded once
+    # more to f32 agrees (53 >= 2 * 24 + 2 bits)
+    host = (a.astype(np.float64) / b.astype(np.float64)).astype(np.float32)
+    assert np.array_equal(ref.view(np.uint32), host.view(np.uint32))
+    bad = np.flatnonzero(got.view(np.uint32) != ref.view(np.uint32))
+    assert bad.size == 0, [(float(a[i]), float(b[i]), float(got[i]),
+                            float(ref[i])) for i in bad[:5]]
+    tiny = np.abs(ref) < np.float32(2.0 ** -126)
+    assert int((tiny & (ref != 0)).sum()) > 1000     # subnormals reached
+
+
 # ---------------------------------------------------------------------------
 # K3's stepped and seeded launch forms
 # ---------------------------------------------------------------------------
@@ -464,7 +574,9 @@ _STEP_CASES = [("main", 4096, 256, 12, 10, True, 5),
                ("main", 1 << 20, 1024, 64, 10, True, 128),
                # spans that no sub-chunk length divides
                ("main", 4096, 256, 12, 33, True, 3),
-               ("ties", 1 << 18, 1024, 24, 16, False, 100)]
+               ("ties", 1 << 18, 1024, 24, 16, False, 100),
+               ("wide16", 1 << 18, 1024, 24, 10, True, 100),
+               ("wide12", 4096, 256, 12, 16, False, 3)]
 
 
 @pytest.mark.parametrize("bundle,cap,tile,B,k,emit,chunk", _STEP_CASES)
@@ -507,7 +619,8 @@ def test_stepped_walk_equals_single_launch_and_plain(cuda, bundle, cap,
 
 
 @pytest.mark.parametrize("bundle,k", [("main", 10), ("single", 100),
-                                      ("single_g", 16), ("ties", 33)])
+                                      ("single_g", 16), ("ties", 33),
+                                      ("wide12", 10)])
 def test_seeded_walk_equals_plain(cuda, bundle, k):
     """A delta walk seeded with a base walk's top-k (init_topk,
     idx_offset) against its plain version: every output of the seeded

@@ -8,11 +8,12 @@ of the walk that the CUDA kernel takes as given.
     four times as many for a positional bundle);
     the plain walk follows the same plan, so the kernel and its plain
     version share one schedule.
-(b) The dynamic shared memory of one CTA (`bundle_smem_bytes`, mirror of
-    the kernel's `bundle_smem`) stays inside the 227 KB a CTA may use for
+(b) The positional parameter rows of a bundle (`_pos_param_rows`), which
+    the kernel stages in shared memory, fit its `kMaxPW` ints a row for
     every bundle the executor admits, 1 to 8 clauses, dense, range and
-    positional, at the widest tile (1,024 docs) and the widest positional
-    parameter rows those clauses give.
+    positional at their widest, and give each positional clause a slice
+    of its own. (Whether the kernel's shared memory fits at these widths
+    is asked of its entry, on the card: tests/test_torch_cuda.py.)
 
 Exact integer checks; no tolerance.
 """
@@ -36,8 +37,7 @@ def test_sub_chunks_cover_the_span_once(B, nt, pos):
     n_bt = -(-B // cs.BUNDLE_BT)
     assert 1 <= chunk <= cs._BUNDLE_CHUNK_TILES
     assert (n_sub - 1) * chunk < nt <= n_sub * chunk
-    items = cs.bundle_items(B, nt, chunk)
-    assert items == n_bt * n_sub
+    items = n_bt * n_sub
     full = -(-nt // cs._BUNDLE_CHUNK_TILES)
     min_items = cs._BUNDLE_MIN_ITEMS * (4 if pos else 1)
     if n_bt * full >= min_items:
@@ -78,7 +78,7 @@ def _clause(i, B):
 
 
 @pytest.mark.parametrize("n_clauses", range(1, cs.BUNDLE_MAX_CLAUSES + 1))
-def test_shared_memory_fits_every_admitted_bundle(n_clauses):
+def test_parameter_rows_fit_every_admitted_bundle(n_clauses):
     B = 256
     pairs = [_clause(i, B) for i in range(n_clauses)]
     clauses = tuple(c for c, _ in pairs)
@@ -88,18 +88,10 @@ def test_shared_memory_fits_every_admitted_bundle(n_clauses):
     n_pos = sum(o is not None for o in offsets)
     assert pw <= cs.POS_MAX_PARAMS
     assert len(offsets) == n_clauses and (n_pos > 0) == (pw > 0)
-    for nt in (1, 128, 1024, 1 << 14):
-        chunk = cs.bundle_chunk_tiles(B, nt)
-        for b in (1, B):
-            smem = cs.bundle_smem_bytes(1024, pw, cs.bundle_chunk_tiles(b, nt),
-                                        n_pos)
-            assert smem <= cs.BUNDLE_SMEM_BUDGET
-        # candidate buffers of 8 rows (two; one with a positional
-        # clause): 1,024 f32 scores and 32 match words a row; the
-        # parameter rows and, per positional clause, a leaf slot of 8 rows
-        # and a match word per thread; per tile of a sub-chunk 37 bytes
-        bufs = 1 if n_pos else 2
-        smem = cs.bundle_smem_bytes(1024, pw, chunk, n_pos)
-        assert smem == (bufs * cs.BUNDLE_BT * (1024 + 32) * 4
-                        + cs.BUNDLE_BT * pw * 4
-                        + n_pos * 9 * 4 * cs.BUNDLE_THREADS + 37 * chunk)
+    assert n_pos == sum(cs.bundle_positional((c,)) for c in clauses)
+    # one slice per positional clause, in clause order, inside the row
+    if pp is not None:
+        assert pp.shape == (B, pw) and pp.dtype == torch.int32
+        starts = [o for o in offsets if o is not None]
+        assert starts == sorted(starts) and len(set(starts)) == n_pos
+        assert 0 <= starts[0] and starts[-1] < pw
