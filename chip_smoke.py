@@ -15,7 +15,11 @@ each of which fails the run on any error:
    filter, k 10 and 100, the match mask on and off, the mask-only grid;
    its positional leaf: exact and sloppy phrases, ordered and unordered
    spans, BM25F over two fields; the unfused positional leaf entry; the
-   positional rows against their plain versions on their first 16 rows);
+   positional rows against their plain versions on their first 16 rows;
+   K2 also at the main path's prefix shape, B 128 x 262,144 postings;
+   the agg-sum kernels, not ports of a TPU kernel: the scan
+   `ordered_prefix` and the tree `ordered_sum`, XLA's cumsum / sum order,
+   at B 256 over 2^20 docs drawn like the agg mixes' inputs);
    then K3's launch forms on `match` and `phrase_pos:2:e` bundles: the
    stepped walk (8 launches, the threshold carried) equal to the single
    launch and to the plain stepped walk, the seeded walk (a 2^17-doc
@@ -31,10 +35,12 @@ each of which fails the run on any error:
    must admit exactly the plans of the fused mixes (the positional ones
    carrying a positional clause, none falling back to the host), the
    same requests with the plain versions swapped in must give identical
-   responses, a small index searched on the card must agree with the
-   same search on the CPU, and each kernel must equal its plain version
-   on the inputs the main path handed it; the `match` mix is also timed
-   on the unfused path (`ES_TPU_FUSED=0`), and 64 requests of the
+   responses, a small index searched on the card must give the CPU's
+   responses exactly (agg sums included; a terms -> stats and a stats
+   agg, whose doc-space scatter sums use index_add_, at rtol 1e-5), and
+   each kernel must equal its plain version on the inputs the main path
+   handed it (the scan kernel on every agg mix's); the `match` mix is
+   also timed on the unfused path (`ES_TPU_FUSED=0`), and 64 requests of the
    positional mixes on the host oracle (`ES_TPU_POSITIONAL=0`, the
    phrase / span / BM25F code of search/phrase.py through K2), whose
    responses must be identical, with matches in every mix compared;
@@ -58,7 +64,9 @@ at a toy size (no build, no timings, no result line), to exercise this
 script without a card. `--ab-parent DIR` loads the K3 of an earlier
 commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
 git-ignored `smoke_checkout/`) beside this one and times the two in turns
-on every K3 sweep and launch-form row (`ab`); `tools/k3_variants.py`
+on every K3 sweep and launch-form row, K2's and the unfused leaf's
+sweep rows and, in a whole run, their main-path calls (`ab`);
+`tools/k3_variants.py`
 builds patched copies of this checkout's K3 (a design step undone, or a
 probe) under DIR and times them this way. `--kernels-only` stops after
 the kernel phase (no result line).
@@ -92,10 +100,11 @@ PLAIN_ROWS = 16
 PATHS = {
     "dense": (("match", "bool_aggs", "prefix", "term_body", "aggs_only",
                "match_range_aggs", "count_match"),
-              ("dense_score", "scatter_add", "bundle_topk")),
+              ("dense_score", "scatter_add", "bundle_topk", "ordered_prefix",
+               "ordered_sum")),
     "positional": (("phrase", "phrase_slop_aggs", "span_near",
                     "cross_fields", "phrase_filter"),
-                   ("bundle_topk", "positional_leaf")),
+                   ("bundle_topk", "positional_leaf", "ordered_prefix")),
 }
 MIXES = tuple(m for mixes, _k in PATHS.values() for m in mixes)
 POSITIONAL_MIXES = ("phrase", "phrase_slop_aggs", "span_near",
@@ -111,6 +120,14 @@ KERNEL_SOURCES = {
     "positional_leaf": (
         "elasticsearch_tpu_torch/ops/csrc/positional_leaf.cuh",
         "elasticsearch_tpu/ops/pallas_scoring.py:458"),
+    # not TPU kernels: the reference's agg sums in XLA (cumsum, sum), in
+    # XLA's exact order
+    "ordered_prefix": ("elasticsearch_tpu_torch/ops/csrc/ordered_scan.cu",
+                       "elasticsearch_tpu/ops/aggs.py:123 (jnp.cumsum in "
+                       "XLA, not a TPU kernel)"),
+    "ordered_sum": ("elasticsearch_tpu_torch/ops/csrc/ordered_scan.cu",
+                    "elasticsearch_tpu/ops/aggs.py:83 (.sum(-1) in XLA, "
+                    "not a TPU kernel)"),
 }
 # K3's other launch forms, entries of the kernels line of their own: the
 # stepped walk (`_bundle_pallas_walk`'s step branch) and the seeded walk
@@ -136,7 +153,13 @@ DELTA_BATCH = {"match_range_aggs": 64, "count_match": 64}
 FORM_CHUNKS = 8           # launches of the kernel phase's stepped walk
 # the wrapper of each kernel that counts its launches
 WRAPPERS = {"dense_score": "dense_score", "scatter_add": "scatter_add",
-            "bundle_topk": "bundle_walk", "positional_leaf": "positional_leaf"}
+            "bundle_topk": "bundle_walk", "positional_leaf": "positional_leaf",
+            "ordered_prefix": "ordered_prefix", "ordered_sum": "ordered_sum"}
+# the agg mixes: their sorted-layout and view sums go through the scan
+# kernel (ordered_prefix), aggs_only's view sums also through the tree
+# (ordered_sum)
+AGG_MIXES = ("bool_aggs", "aggs_only", "match_range_aggs", "count_match",
+             "phrase_slop_aggs")
 
 
 _log_file = None     # chip_smoke.log under --out-dir
@@ -206,15 +229,16 @@ def _strip(resps: list[dict]) -> list[dict]:
 
 
 def assert_close_responses(got, want, path="resp", rtol=1e-6) -> None:
-    """Exact, except float agg `value`s (sum/avg: f32 partial sums may
-    be added in another order) at `rtol`."""
+    """Exact, except float agg metrics (`value`, a stats agg's `sum`,
+    `avg` ...: f32 partial sums may be added in another order) at
+    `rtol`."""
     if isinstance(want, dict):
         if not isinstance(got, dict) or sorted(got) != sorted(want):
             raise AssertionError(f"{path}: keys differ")
         for k, v in want.items():
             if k == "took":
                 continue
-            if k == "value" and isinstance(v, float) and "aggregations" in path:
+            if isinstance(v, float) and "aggregations" in path:
                 if not np.isclose(got[k], v, rtol=rtol, atol=0):
                     raise AssertionError(f"{path}.{k}: {got[k]} != {v}")
                 continue
@@ -226,6 +250,23 @@ def assert_close_responses(got, want, path="resp", rtol=1e-6) -> None:
             assert_close_responses(g, w, f"{path}[{i}]", rtol)
     elif type(got) is not type(want) or got != want:
         raise AssertionError(f"{path}: {got!r} != {want!r}")
+
+
+def max_agg_rel_diff(got, want, path="resp", out=None) -> dict:
+    """Largest relative difference of each float agg metric key (`sum`,
+    `avg`, ...) between two response trees of the same shape."""
+    out = {} if out is None else out
+    if isinstance(want, dict):
+        for k, v in want.items():
+            if isinstance(v, float) and "aggregations" in path and v != 0:
+                rel = abs(got[k] - v) / abs(v)
+                out[k] = max(out.get(k, 0.0), rel)
+            elif isinstance(v, (dict, list)):
+                max_agg_rel_diff(got[k], v, f"{path}.{k}", out)
+    elif isinstance(want, list):
+        for g, w in zip(got, want):
+            max_agg_rel_diff(g, w, path, out)
+    return out
 
 
 def _message_words(body: dict) -> list[str]:
@@ -276,11 +317,14 @@ def swapped_kernels(**impls):
 def plain_versions() -> dict:
     """Wrapper name -> its plain version, for the plain swap."""
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.ops import ordered
     return {"dense_score": cs.dense_score_ref,
             "scatter_add": cs.scatter_add_ref,
             "fused_topk_bundle": cs.fused_topk_bundle_ref,
             "match_mask_bundle": cs.match_mask_bundle_ref,
-            "positional_leaf": cs.positional_leaf_ref}
+            "positional_leaf": cs.positional_leaf_ref,
+            "ordered_prefix": ordered.prefix_at,
+            "ordered_sum": ordered.xla_block_sum}
 
 
 def check_plain_swap(readers, mixes, last) -> None:
@@ -842,7 +886,20 @@ def measure_dense(args, reps):
             "max_abs_err": err}
 
 
-def measure_scatter(docs, vals, cap, reps):
+def ab_turns(new_fn, old_fn, reps: int) -> dict:
+    """This checkout's kernel against the previous commit's (--ab-parent)
+    on the same inputs, timed in turns (new, previous, previous, new)."""
+    turns = {"new": [], "previous": []}
+    for who in ("new", "previous", "previous", "new"):
+        turns[who].append(cuda_ms(new_fn if who == "new" else old_fn, reps))
+    new_ms, old_ms = (float(np.mean(turns[k])) for k in ("new", "previous"))
+    return {"previous_ms": old_ms, "new_ms": new_ms,
+            "speedup": old_ms / new_ms, "turns": turns}
+
+
+def measure_scatter(docs, vals, cap, reps, old=None):
+    """K2 vs its plain version; with the previous commit's ops (`old`),
+    also its K2 in turns with this one (outputs equal)."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     got = cs.scatter_add(docs, vals, cap)
@@ -858,10 +915,102 @@ def measure_scatter(docs, vals, cap, reps):
         return out.scatter_add_(1, idx, vals)
 
     bound_ms, bound_by = scatter_bound(docs, cap)
-    return {"ms": cuda_ms(lambda: cs.scatter_add(docs, vals, cap), reps),
+    m = {"ms": cuda_ms(lambda: cs.scatter_add(docs, vals, cap), reps),
+         "plain_ms": plain_ms,
+         "library_ms": cuda_ms(library, reps),
+         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+    if old is not None:
+        if not torch.equal(old.scatter_add(docs, vals, cap), got):
+            raise AssertionError("scatter_add != the previous scatter_add")
+        m["ab"] = ab_turns(lambda: cs.scatter_add(docs, vals, cap),
+                           lambda: old.scatter_add(docs, vals, cap), reps)
+    return m
+
+
+def scan_bound(w, perm, pos):
+    """Least time of ordered_prefix: the weights, perm and positions read
+    once, the prefixes written; one add per weight and per level total."""
+    from elasticsearch_tpu_torch.ops.cuda_scoring import scan_scratch
+    B, n = w.shape
+    nbytes = (B * n * 4 + (0 if perm is None else n * 4) + pos.numel() * 4
+              + B * pos.shape[-1] * 4)
+    return _bound(nbytes, B * (n + scan_scratch(n)))
+
+
+def measure_scan(w, perm, pos, reps):
+    """The scan kernel vs its plain version (XLA's cumsum order), which
+    it must equal bit for bit; library: torch.cumsum over the same rows
+    (another order, no permutation: a yardstick only)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.ops import ordered
+    got = cs.ordered_prefix(w, perm, pos)
+    want, plain_ms = plain_run(lambda: ordered.prefix_at(w, perm, pos))
+    if not torch.equal(got, want):
+        raise AssertionError(f"ordered_prefix != plain at {tuple(w.shape)}")
+    bound_ms, bound_by = scan_bound(w, perm, pos)
+    return {"ms": cuda_ms(lambda: cs.ordered_prefix(w, perm, pos), reps),
             "plain_ms": plain_ms,
-            "library_ms": cuda_ms(library, reps),
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+            "library_ms": cuda_ms(lambda: torch.cumsum(w, dim=-1), reps),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def measure_tree(x, reps):
+    """The tree-sum kernel vs its plain version (XLA's reduction order),
+    bit for bit; library: x.sum(-1) (another order)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.ops import ordered
+    got = cs.ordered_sum(x)
+    want, plain_ms = plain_run(lambda: ordered.xla_block_sum(x))
+    if not torch.equal(got, want):
+        raise AssertionError(f"ordered_sum != plain at {tuple(x.shape)}")
+    bound_ms, bound_by = _bound(x.numel() * 4 + got.numel() * 4, x.numel())
+    return {"ms": cuda_ms(lambda: cs.ordered_sum(x), reps),
+            "plain_ms": plain_ms,
+            "library_ms": cuda_ms(lambda: x.sum(dim=-1), reps),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def scan_sweep(dev, rng, B: int = 256, cap: int = 1 << 20) -> list[dict]:
+    """The agg sums at B 256 over 2^20 docs, drawn like the agg mixes'
+    inputs (corpus.make_docs' columns): `size` weights under a range
+    mask, summed per `status` key (terms: the keyword sort's bounds) and
+    per day of `@timestamp` (date_histogram: searchsorted edges), and the
+    agg views' 512-doc block sums."""
+    import torch
+    from elasticsearch_tpu_torch import corpus
+    status = rng.integers(0, len(corpus.STATUS), size=cap)
+    ords = np.array([sorted(set(corpus.STATUS)).index(corpus.STATUS[i])
+                     for i in range(len(corpus.STATUS))])[status]
+    size = rng.integers(100, 100_001, size=cap).astype(np.float32)
+    secs = rng.integers(0, corpus.SPAN_MILLIS // 1000, size=cap)
+    lo = torch.from_numpy(rng.integers(100, 60_000, size=(B, 1))
+                          .astype(np.float32)).to(dev)
+    sz = torch.from_numpy(size).to(dev)[None, :]
+    w = torch.where((sz >= lo) & (sz <= lo + 40_000), sz, 0.0).contiguous()
+    rows = []
+    perm = np.argsort(ords, kind="stable").astype(np.int32)
+    starts = np.searchsorted(ords[perm], np.arange(ords.max() + 2))
+    tperm = np.argsort(secs, kind="stable").astype(np.int32)
+    edges = np.searchsorted(secs[tperm], np.arange(31) * 86_400)
+    for label, p, pos in (("terms status", perm, starts),
+                          ("date_histogram day", tperm, edges)):
+        m = measure_scan(w, torch.from_numpy(p).to(dev),
+                         torch.from_numpy(pos.astype(np.int32)).to(dev),
+                         reps=10)
+        rows.append({"kernel": "ordered_prefix", "agg": label, "B": B,
+                     "cap": cap, "positions": int(len(pos)), **m})
+        log("kernel_sweep " + json.dumps(rows[-1]))
+    for label, x in (("view block sums", w.view(B, cap // 512, 512)),
+                     ("whole rows", w)):
+        m = measure_tree(x, reps=10)
+        rows.append({"kernel": "ordered_sum", "agg": label,
+                     "shape": list(x.shape), **m})
+        log("kernel_sweep " + json.dumps(rows[-1]))
+    return rows
 
 
 def _doc_bytes(clauses, text_cols, num_cols) -> int:
@@ -963,16 +1112,39 @@ def leaf_bound(kind, field, inp, cols):
     return _bound(nbytes, B * cap * _pos_ops(kind, field, inp, cols))
 
 
+def leaf_decode_share(kind, field, inp, cols) -> float:
+    """Share of (row, doc) pairs the unfused leaf decodes: the doc holds
+    every term of the row (phrase / span; BM25F: any (field, term))."""
+    import torch
+    from elasticsearch_tpu_torch.ops.scoring import (clause_fields,
+                                                     positional_prefix)
+    bm25f = positional_prefix(kind) == "bm25f"
+    qt = inp[0] if bm25f else inp[0][:, None, :]       # [B, fields, terms]
+    tids = [cols[f]["fwd_tids"] for f in clause_fields(field)]
+    hits = 0
+    for r0 in range(0, qt.shape[0], 8):                 # 8 rows at a time
+        q = qt[r0:r0 + 8]
+        per = torch.stack([torch.stack([
+            ((t[None, :, :] == q[:, fi, ti, None, None]).any(-1)
+             & (q[:, fi, ti, None] >= 0))
+            for ti in range(q.shape[2])], dim=1)
+            for fi, t in enumerate(tids)], dim=1)     # [b, F, T, cap]
+        hit = per.flatten(1, 2).any(1) if bm25f else per.flatten(1, 2).all(1)
+        hits += int(hit.sum())
+    return hits / (qt.shape[0] * tids[0].shape[0])
+
+
 def _first_rows(inp: tuple, rows: int | None) -> tuple:
     """A clause's per-row inputs cut to their first `rows` rows."""
     return inp if rows is None else tuple(t[:rows] for t in inp)
 
 
-def measure_leaf(args, reps, rows=None):
+def measure_leaf(args, reps, rows=None, old=None):
     """The unfused positional leaf vs its plain version; with `rows`, the
     plain version computes (and is timed on) only the first rows, which
     the kernel's rows are held against (each (row, doc) is computed on
-    its own, so the cut changes no number)."""
+    its own, so the cut changes no number). With the previous commit's
+    ops (`old`), its leaf in turns with this one (outputs equal)."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     kind, field, inp, cols = args
@@ -985,10 +1157,17 @@ def measure_leaf(args, reps, rows=None):
         raise AssertionError(f"positional_leaf != plain for {kind}")
     err = float((got[0][:n] - want[0]).abs().max())
     bound_ms, bound_by = leaf_bound(*args)
-    return {"ms": cuda_ms(lambda: cs.positional_leaf(*args), reps),
-            "plain_ms": plain_ms, "plain_rows": n,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err}
+    m = {"ms": cuda_ms(lambda: cs.positional_leaf(*args), reps),
+         "plain_ms": plain_ms, "plain_rows": n,
+         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+         "max_abs_err": err, "decode_share": leaf_decode_share(*args)}
+    if old is not None:
+        prev = old.positional_leaf(*args)
+        if not (torch.equal(prev[0], got[0]) and torch.equal(prev[1], got[1])):
+            raise AssertionError("positional_leaf != the previous leaf")
+        m["ab"] = ab_turns(lambda: cs.positional_leaf(*args),
+                           lambda: old.positional_leaf(*args), reps)
+    return m
 
 
 def measure_bundle(args, kw, reps, rows=None):
@@ -1146,13 +1325,7 @@ def k3_ab(args, kw, old, reps: int = 10, same_counts: bool = True
     if same_counts and (not torch.equal(got[2], want[2]) or (
             got[4] is not None and not torch.equal(got[4], want[4]))):
         raise AssertionError("K3 and the previous K3 count differently")
-    turns = {"new": [], "previous": []}
-    for who in ("new", "previous", "previous", "new"):
-        mod = cs if who == "new" else old
-        turns[who].append(cuda_ms(lambda: run(mod), reps))
-    new_ms, old_ms = (float(np.mean(turns[k])) for k in ("new", "previous"))
-    return {"previous_ms": old_ms, "new_ms": new_ms,
-            "speedup": old_ms / new_ms, "turns": turns,
+    return {**ab_turns(lambda: run(cs), lambda: run(old), reps),
             "hits": {"new": int(got[2].sum()), "previous": int(want[2].sum())},
             "thresholded_tiles": {
                 "new": float(cs.normalize_prune(got[3])[1]),
@@ -1308,9 +1481,11 @@ def bundle_sweep(dev, rng, B: int = 256, cap: int = 1 << 20, old=None
                      "can_match_share": float(can.float().mean()),
                      "ptxas": ptxas, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
-    for label, kind, f in (pos_kinds[3], pos_kinds[4], pos_kinds[6]):
+    for label, kind, f in (pos_kinds[1], pos_kinds[3], pos_kinds[4],
+                           pos_kinds[6]):
         inp = positional(kind, f)
-        m = measure_leaf((kind, f, inp, text), reps=5, rows=PLAIN_ROWS)
+        m = measure_leaf((kind, f, inp, text), reps=5, rows=PLAIN_ROWS,
+                         old=old)
         worst = max(worst, m["max_abs_err"])
         rows.append({"kernel": "positional_leaf", "clause": label, "B": B,
                      "cap": cap, **m})
@@ -1450,6 +1625,19 @@ def synthetic_postings(rng, B, n_blocks, cap):
     return docs, vals
 
 
+def term_postings(rng, B, N, cap, n_terms=10):
+    """Rows like a prefix query's postings: n_terms terms' doc-sorted
+    lists one after another (document frequencies falling as 1/rank,
+    N postings in all), so a 128-posting block spans few docs."""
+    df = 1.0 / np.arange(1, n_terms + 1)
+    df = np.maximum(1, (df / df.sum() * N).astype(np.int64))
+    df[0] += N - df.sum()
+    docs = np.concatenate([np.sort(rng.integers(0, cap, size=(B, int(f))),
+                                   axis=1) for f in df], axis=1)
+    vals = rng.random((B, N), dtype=np.float32)
+    return docs.astype(np.int32), vals
+
+
 def kernel_sweep(dev, rng, old=None) -> tuple[list[dict], float]:
     import torch
     rows, worst = [], 0.0
@@ -1472,23 +1660,39 @@ def kernel_sweep(dev, rng, old=None) -> tuple[list[dict], float]:
                          "L": L, **m})
             log("kernel_sweep " + json.dumps(rows[-1]))
         del t_tids, t_imps
-    for n_blocks in (8, 64, 512):
-        docs, vals = synthetic_postings(rng, B, n_blocks, cap)
+    # the last: the main path's prefix call, B 128 x N 262,144
+    for rows_b, n_blocks in ((B, 8), (B, 64), (B, 512), (128, 2048)):
+        docs, vals = synthetic_postings(rng, rows_b, n_blocks, cap)
         m = measure_scatter(torch.from_numpy(docs).to(dev),
-                            torch.from_numpy(vals).to(dev), cap, reps=10)
+                            torch.from_numpy(vals).to(dev), cap, reps=10,
+                            old=old)
         worst = max(worst, m["max_abs_err"])
-        rows.append({"kernel": "scatter_add", "B": B, "N": n_blocks * 128,
-                     "cap": cap, **m})
+        rows.append({"kernel": "scatter_add", "B": rows_b,
+                     "N": n_blocks * 128, "cap": cap, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
+        del docs, vals
+    # blocks of 128 random docs above span the capacity (rare terms); a
+    # prefix query's blocks span few docs
+    docs, vals = term_postings(rng, 128, 2048 * 128, cap)
+    m = measure_scatter(torch.from_numpy(docs).to(dev),
+                        torch.from_numpy(vals).to(dev), cap, reps=10, old=old)
+    worst = max(worst, m["max_abs_err"])
+    rows.append({"kernel": "scatter_add", "B": 128, "N": docs.shape[1],
+                 "cap": cap, "terms": 10, **m})
+    log("kernel_sweep " + json.dumps(rows[-1]))
+    del docs, vals
     # unsorted rows with in-chunk repeats take the kernel's serial path
     docs = rng.integers(0, 70_000, size=(33, 1000)).astype(np.int32)
     docs[:, 10:30] = docs[:, 9:10]
     vals = rng.standard_normal((33, 1000)).astype(np.float32)
     m = measure_scatter(torch.from_numpy(docs).to(dev),
-                        torch.from_numpy(vals).to(dev), 65_536, reps=3)
+                        torch.from_numpy(vals).to(dev), 65_536, reps=3,
+                        old=old)
     worst = max(worst, m["max_abs_err"])
     log("kernel_sweep " + json.dumps({"kernel": "scatter_add",
                                       "unsorted": True, **m}))
+    rows += scan_sweep(dev, rng, B, cap)
+    torch.cuda.empty_cache()
     b_rows, b_worst, inputs = bundle_sweep(dev, rng, old=old)
     f_rows, f_worst = form_sweep(dev, rng, inputs, old=old)
     return rows + b_rows + f_rows, max(worst, b_worst, f_worst)
@@ -1687,17 +1891,32 @@ def on_card(args) -> int:
     on_gpu = make_readers(small, dev)
     on_cpu = make_readers([copy.copy(s) for s in small], "cpu")
     small_mix = request_mixes(48, on_cpu, args.small_docs)
-    # agg sums are differences of f32 prefix sums over the whole row
-    # (ops/aggs.sorted_group_reduce); the card's parallel scan and the
-    # CPU's sequential one round those prefixes differently, by an error
-    # that scales with the row's total rather than the bucket's value
-    # (1.0e-6 of a bucket seen on match_range_aggs), hence rtol 1e-5 here
+    # every agg sum of the mixes (sorted layouts and views: terms and
+    # date_histogram counts, sum and avg) is taken in XLA's order on both
+    # (ops/ordered.py; the scan and tree kernels on the card), so the
+    # card must give the CPU's bits: compared exactly (rtol 0)
     for name in MIXES:
         assert_close_responses(
             _strip(search_merged(on_gpu, small_mix[name])),
-            _strip(search_merged(on_cpu, small_mix[name])), rtol=1e-5)
+            _strip(search_merged(on_cpu, small_mix[name])), rtol=0.0)
+    # the sums still held to a tolerance: bucket_sums / bucket_sum_sq
+    # (terms -> stats, the doc-space scatter: index_add_, whose float
+    # adds on the card are atomics in no fixed order), and masked_stats'
+    # sum / sum_sq (a top-level stats agg: XLA's order, exact at the
+    # small index's power-of-two capacity; the bound ROADMAP.md states
+    # otherwise); both at rtol 1e-5, the largest difference reported
+    stats_bodies = [{"query": b["query"], "size": 0, "aggs": {
+        "by_status": {"terms": {"field": "status"},
+                      "aggs": {"st": {"stats": {"field": "size"}}}},
+        "all": {"stats": {"field": "size"}}}}
+        for b in small_mix["match"][:16]]
+    got_st = _strip(search_merged(on_gpu, stats_bodies))
+    want_st = _strip(search_merged(on_cpu, stats_bodies))
+    assert_close_responses(got_st, want_st, rtol=1e-5)
+    stats_diff = max_agg_rel_diff(got_st, want_st)
     log(f"cpu check: {args.small_docs}-doc shards agree on the card and "
-        f"the CPU")
+        "the CPU, agg sums exactly; stats sums (bucket_sums, masked_stats) "
+        "largest relative difference " + json.dumps(stats_diff))
     pos_ab["small"] = positional_ab(
         on_gpu, {name: host_affordable(on_gpu, small_mix[name], 48)
                  for name in ("phrase_slop_aggs", "span_near")}, sync)
@@ -1755,9 +1974,23 @@ def on_card(args) -> int:
     meas = {"dense_score": measure_dense(first["dense_score"][1][0],
                                          reps=20),
             "scatter_add": measure_scatter(*first["scatter_add"][1][0],
-                                           reps=20),
+                                           reps=20, old=old),
             "positional_leaf": measure_leaf(first["positional_leaf"][1][0],
-                                            reps=10)}
+                                            reps=10, old=old),
+            "ordered_sum": measure_tree(*first["ordered_sum"][1][0],
+                                        reps=20)}
+    # the scan kernel on every agg mix's first call (B, cap of the main
+    # path), equal to its plain version; the kernels line takes the first
+    scan_err = 0.0
+    for name in AGG_MIXES:
+        a, _kw = seen[name]["ordered_prefix"]
+        m = measure_scan(*a, reps=20)
+        scan_err = max(scan_err, m["max_abs_err"])
+        log(f"main-path inputs ordered_prefix ({name}): " + json.dumps({
+            "shapes": [list(v.shape) for v in a if hasattr(v, "shape")],
+            **m}))
+        meas.setdefault("ordered_prefix", m)
+    meas["ordered_prefix"]["max_abs_err"] = scan_err
     k3_err = 0.0
     for name in FUSED_MIXES:
         a, kw = seen[name]["bundle_topk"]
@@ -1788,7 +2021,8 @@ def on_card(args) -> int:
         m = meas[name]
         mix, (a, kw) = first[name]
         # the main-path call that ms, plain_ms and bound_ms were taken on
-        if name in ("dense_score", "scatter_add"):
+        if name in ("dense_score", "scatter_add", "ordered_prefix",
+                    "ordered_sum"):
             call = {"mix": mix, "shapes": [list(v.shape) for v in a
                                            if hasattr(v, "shape")]}
         elif name.startswith("bundle_topk"):

@@ -9,11 +9,21 @@ drops the ids still out of bounds; torch's `index_add_` /
 `scatter_reduce_` do neither, so every scatter here wraps the same way
 and routes the rest to a sentinel column `n_buckets` of an
 `n_buckets + 1` wide buffer that is sliced off.
+
+f32 sums taken by the reference with XLA's `cumsum` / `.sum(-1)`
+(sorted_group_reduce, sorted_hist_reduce, view_group_reduce's float
+path, masked_stats) go through `cuda_scoring.ordered_prefix` /
+`ordered_sum`: XLA's exact order (ops/ordered.py) on the CPU, a kernel
+of that order on the card, so both give the reference's bits. Counts
+stay in int32 (exact in any order); the scatters (`_vscatter`) use
+`index_add_`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import cuda_scoring as cs
 
 F32_INF = float("inf")
 
@@ -66,54 +76,68 @@ def view_group_reduce(w: torch.Tensor, bounds: torch.Tensor,
 
     Two-level decomposition, as in the reference: block sums -> short
     cumsum -> boundary base plus an intra-block prefix at each bound.
-    Counts (`int_weights`) accumulate in int32, exact past 2^24 docs."""
+    Counts (`int_weights`) accumulate in int32, exact past 2^24 docs;
+    float sums take XLA's order at each level."""
     B, Np = w.shape
     K = _view_block_k(Np)
-    acc = torch.int32 if int_weights else torch.float32
     bounds = bounds.to(torch.int64)
+    if not int_weights:
+        w = w.to(torch.float32)
     if K is None:
-        cs0 = torch.nn.functional.pad(torch.cumsum(w.to(acc), dim=-1,
-                                                   dtype=acc), (1, 0))
+        if not int_weights:
+            return _diff(cs.ordered_prefix(w.contiguous(), None,
+                                           bounds.to(torch.int32)))
+        cs0 = torch.nn.functional.pad(torch.cumsum(
+            w.to(torch.int32), dim=-1, dtype=torch.int32), (1, 0))
         if bounds.dim() == 1:
             return cs0[:, bounds[1:]] - cs0[:, bounds[:-1]]
         return (cs0.gather(1, bounds[:, 1:])
                 - cs0.gather(1, bounds[:, :-1]))
     NB = Np // K
     blocks = w.reshape(B, NB, K)
-    bs = blocks.sum(dim=-1, dtype=acc)
-    cs0 = torch.nn.functional.pad(torch.cumsum(bs, dim=-1, dtype=acc), (1, 0))
     blk = torch.div(bounds, K, rounding_mode="floor")
     off = bounds - blk * K
+    if int_weights:
+        bs = blocks.sum(dim=-1, dtype=torch.int32)
+        cs0 = torch.nn.functional.pad(torch.cumsum(bs, dim=-1,
+                                                   dtype=torch.int32), (1, 0))
+        base = cs0[:, blk] if bounds.dim() == 1 else cs0.gather(1, blk)
+    else:
+        bs = cs.ordered_sum(blocks.contiguous())
+        base = cs.ordered_prefix(bs, None, blk.to(torch.int32))
     lane = torch.arange(K, dtype=torch.int64, device=w.device)
     # bounds == Np land on blk == NB: cs0[NB] is valid, and off == 0
     # zeroes the intra term, so clamping the row gather is inert
     row_blk = blk.clamp(max=NB - 1)
     if bounds.dim() == 1:
-        base = cs0[:, blk]                                # [B, G+1]
         rows = blocks[:, row_blk]                         # [B, G+1, K]
         keep = lane[None, None, :] < off[None, :, None]
     else:
-        base = cs0.gather(1, blk)
         rows = blocks.gather(1, row_blk[:, :, None].expand(-1, -1, K))
         keep = lane[None, None, :] < off[:, :, None]
-    intra = torch.where(keep, rows.to(acc),
-                        torch.zeros((), dtype=acc, device=w.device)
-                        ).sum(dim=-1, dtype=acc)
-    pref = base + intra
+    if int_weights:
+        intra = torch.where(keep, rows.to(torch.int32),
+                            torch.zeros((), dtype=torch.int32,
+                                        device=w.device)
+                            ).sum(dim=-1, dtype=torch.int32)
+    else:
+        intra = cs.ordered_sum(torch.where(keep, rows, 0.0).contiguous())
+    return _diff(base + intra)
+
+
+def _diff(pref: torch.Tensor) -> torch.Tensor:
     return pref[:, 1:] - pref[:, :-1]
-
-
-def _cumsum0(x: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.pad(torch.cumsum(x, dim=-1), (1, 0))
 
 
 def sorted_group_reduce(perm: torch.Tensor, starts: torch.Tensor,
                         weighted: torch.Tensor) -> torch.Tensor:
     """Sum `weighted` [B, cap] per group: `perm` [cap] sorts docs by
-    group key; group g spans sorted positions [starts[g], starts[g+1])."""
-    cs0 = _cumsum0(weighted[:, perm.to(torch.int64)])
-    starts = starts.to(torch.int64)
-    return cs0[:, starts[1:]] - cs0[:, starts[:-1]]
+    group key; group g spans sorted positions [starts[g], starts[g+1]).
+    The prefix sums of the permuted rows are taken in XLA's cumsum order
+    at the group bounds only."""
+    return _diff(cs.ordered_prefix(weighted.to(torch.float32).contiguous(),
+                                   perm.to(torch.int32).contiguous(),
+                                   starts.to(torch.int32).contiguous()))
 
 
 def sorted_hist_reduce(sorted_vals: torch.Tensor, perm: torch.Tensor,
@@ -121,10 +145,11 @@ def sorted_hist_reduce(sorted_vals: torch.Tensor, perm: torch.Tensor,
                        edges: torch.Tensor) -> torch.Tensor:
     """Histogram over value-sorted docs: bucket b sums `weighted` where
     edges[b] <= value < edges[b+1]."""
-    cs0 = _cumsum0(weighted[:, perm.to(torch.int64)])
     pos = torch.searchsorted(sorted_vals, edges.to(sorted_vals.dtype),
                              side="left")
-    return cs0[:, pos[1:]] - cs0[:, pos[:-1]]
+    return _diff(cs.ordered_prefix(weighted.to(torch.float32).contiguous(),
+                                   perm.to(torch.int32).contiguous(),
+                                   pos.to(torch.int32)))
 
 
 def bucket_sums(bucket_ids, mask, values, n_buckets):
@@ -184,13 +209,16 @@ def edges_bucket_ids(values: torch.Tensor, exists: torch.Tensor,
 def masked_stats(values: torch.Tensor, exists: torch.Tensor,
                  mask: torch.Tensor) -> dict:
     """count/sum/min/max/sum_sq of a numeric column under a match mask,
-    as [B] arrays."""
+    as [B] arrays. sum and sum_sq take XLA's window tree: the
+    reference's bits on rows of a power-of-two length (every capacity
+    SegmentBuilder makes), within the bound ROADMAP.md states
+    otherwise."""
     m = mask & exists[None, :]
     v = values.to(torch.float32)[None, :]
     return {
         "count": m.sum(dim=-1, dtype=torch.float32),
-        "sum": torch.where(m, v, 0.0).sum(dim=-1),
-        "sum_sq": torch.where(m, v * v, 0.0).sum(dim=-1),
+        "sum": cs.ordered_sum(torch.where(m, v, 0.0).contiguous()),
+        "sum_sq": cs.ordered_sum(torch.where(m, v * v, 0.0).contiguous()),
         "min": torch.where(m, v, F32_INF).amin(dim=-1),
         "max": torch.where(m, v, -F32_INF).amax(dim=-1),
     }

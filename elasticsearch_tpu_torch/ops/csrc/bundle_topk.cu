@@ -129,6 +129,8 @@
 // tools/k3_variants.py times steps 2, 3 and 5 undone, each in a patched
 // copy of the port's ops.
 
+#include <algorithm>
+
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -176,8 +178,8 @@ struct BundleArgs {
 };
 
 // The unfused path's positional clause over the whole capacity (entry
-// `positional_leaf`): one thread per (row, doc), the same leaf as the
-// walk. Writes s_leaf (clause boost applied) and m_leaf; eval_node masks
+// `positional_leaf`): a CTA per slab of docs walks every row, the same
+// leaf as the walk. Writes s_leaf (clause boost applied) and m_leaf; eval_node masks
 // the score with m_leaf.
 struct PosLeafArgs {
   posleaf::PosField pfields[posleaf::kMaxFields];
@@ -821,19 +823,303 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
         s_thr[(s_nact + 1) & 1][tid];
 }
 
-// one thread per (row, doc) of the unfused leaf (struct PosLeafArgs)
-__global__ void __launch_bounds__(kThreads)
-positional_leaf_kernel(const __grid_constant__ PosLeafArgs a) {
-  const int b = blockIdx.y;
-  const size_t doc = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (doc >= static_cast<size_t>(a.cap)) return;
-  float s;
-  bool m;
-  posleaf::leaf(a.kind, a.n, a.nt, a.fidx, a.pp + static_cast<size_t>(b) * a.pw,
-                a.pfields, doc, s, m);
-  const size_t o = static_cast<size_t>(b) * a.cap + doc;
-  a.s_out[o] = s;
-  a.m_out[o] = m ? 1 : 0;
+// The unfused leaf (struct PosLeafArgs): one CTA owns a slab of `slab`
+// docs and walks every row against it, so the positional columns are
+// read from device memory once per launch, not once per row. It stages
+// the slab's norms of each of the clause's fields in shared memory, and
+// (kCols) its slot ids and position pack (doc strides odd in words: a
+// warp's 32 docs hit 32 banks); where a field is too wide for that (the
+// slot ids and pack of 32 docs past the staging budget: L up to 256, P
+// up to 64), the leaf reads them from device memory. Per (field, doc),
+// built once for all rows: a 32-bit signature (bit tid & 31 of every
+// slot's term), a slot table by term hash (16-bit: slot + 1) and each
+// slot's valid-entry count (the leaf then finds a term's slot and its
+// frequency in two or three reads); then the rows' parameter rows, `rg`
+// rows at a time. Per pass over 16 rows, a warp takes a (row, 32 docs)
+// item, a lane one (row, doc): a doc whose signatures lack one of the
+// row's terms (phrase / span) or all of them (BM25F) has frequency 0,
+// and the leaf's own arithmetic at 0 gives its outputs, written
+// row-major (8 warps: 8 x 32 consecutive docs of a row); the other
+// pairs go to a queue in shared memory, and a second pass runs the leaf
+// on the slab for them, a thread each, so a warp's lanes all decode.
+// Launch bounds (256, 1): ptxas then takes the registers the leaf needs
+// and spills nothing; under (256) alone it stops at 64 and spills.
+constexpr int kLeafThreads = 256;
+constexpr int kLeafMaxSlab = 128;      // docs a CTA stages, at most
+constexpr int kLeafMinSlab = 32;       // ... at least: a warp's docs
+constexpr int kLeafParamInts = 4096;   // parameter ints staged at a time
+constexpr int kLeafLay = 12;           // ints of a field's slab layout
+constexpr int kLeafHashWords = 17;     // a doc's slot table row (32 u16)
+constexpr int kLeafPassRows = 16;      // rows whose pairs are queued at once
+constexpr size_t kLeafSmem = 96 * 1024;  // bytes of staging, at most
+
+// a field's slab layout in ints of the dynamic shared memory: offsets of
+// the slot ids [0], pack [1], k1ln [2] and lnorm [3], the slot ids'
+// stride in ints [4] and the pack's in int16 [5], L [6], P [7], offsets
+// of the slot tables [8] (kLeafHashWords a doc) and the slots' counts
+// [9] (stride in bytes [10]), the end [11]; strides odd in words. Without
+// cols the slot ids and pack take no room, and [4] / [5] are their
+// strides in device memory.
+__host__ __device__ inline void leaf_layout(int L, int P, int slab, int at,
+                                            bool cols, int* lay) {
+  const int ts = cols ? L | 1 : 0;
+  const int pwords = cols ? ((L * P + 1) / 2) | 1 : 0;
+  const int tfw = ((L + 3) / 4) | 1;
+  lay[0] = at;
+  lay[2] = at + slab * ts;
+  lay[3] = lay[2] + slab;
+  lay[1] = lay[3] + slab;
+  lay[8] = lay[1] + slab * pwords;
+  lay[9] = lay[8] + slab * kLeafHashWords;
+  lay[11] = lay[9] + slab * tfw;
+  lay[4] = cols ? ts : L;
+  lay[5] = cols ? 2 * pwords : L * P;
+  lay[6] = L;
+  lay[7] = P;
+  lay[10] = 4 * tfw;
+}
+
+// ints of the dynamic shared memory: parameter rows, signatures, then
+// each field's slab
+__host__ __device__ inline int leaf_smem_ints(const PosLeafArgs& a, int slab,
+                                              int rg, bool cols) {
+  const int nf = a.kind == posleaf::kBm25f ? a.n : 1;
+  int at = rg * a.pw + nf * slab;
+  for (int fi = 0; fi < nf; ++fi) {
+    const posleaf::PosField& f = a.pfields[a.fidx[fi]];
+    int lay[kLeafLay];
+    leaf_layout(f.L, f.P, slab, at, cols, lay);
+    at = lay[11];
+  }
+  return at;
+}
+
+// a slab doc's rows in the clause's field fi: norms and tables in the
+// slab, slot ids and pack there too (kCols) or in device memory
+template <bool kCols>
+struct SlabDoc {
+  const int* base;
+  const int* lay;         // [nf][kLeafLay]
+  const PosLeafArgs* a;   // the columns in device memory (not kCols)
+  int d0, d;
+  __device__ __forceinline__ posleaf::DocRows field(int fi) const {
+    const int* l = lay + fi * kLeafLay;
+    const unsigned char* bytes = reinterpret_cast<const unsigned char*>(base);
+    const int* trow;
+    const short* prow;
+    if constexpr (kCols) {
+      trow = base + l[0] + d * l[4];
+      prow = reinterpret_cast<const short*>(base + l[1]) + d * l[5];
+    } else {
+      const posleaf::PosField& f = a->pfields[a->fidx[fi]];
+      const size_t g = static_cast<size_t>(d0 + d);
+      trow = f.tids + g * l[4];
+      prow = f.pos + g * l[5];
+    }
+    return {trow, prow, reinterpret_cast<const float*>(base + l[2]) + d,
+            reinterpret_cast<const float*>(base + l[3]) + d, l[6], l[7],
+            reinterpret_cast<const unsigned short*>(base + l[8]) +
+                d * (2 * kLeafHashWords),
+            bytes + 4 * l[9] + d * l[10]};
+  }
+};
+
+template <bool kCols>
+__global__ void __launch_bounds__(kLeafThreads, 1)
+positional_leaf_kernel(const __grid_constant__ PosLeafArgs a, int slab,
+                       int rg) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  int* s_ints = reinterpret_cast<int*>(s_dyn);
+  __shared__ int s_lay[posleaf::kMaxFields * kLeafLay];
+  __shared__ int s_q[kLeafPassRows * kLeafMaxSlab];  // queued (row, doc)
+  __shared__ int s_qn;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nf = a.kind == posleaf::kBm25f ? a.n : 1;
+  const int d0 = blockIdx.x * slab;
+  int* s_pp = s_ints;
+  unsigned* s_sig = reinterpret_cast<unsigned*>(s_ints + rg * a.pw);
+  if (tid < nf) {
+    int at = rg * a.pw + nf * slab;
+    for (int fi = 0; fi <= tid; ++fi) {
+      const posleaf::PosField& f = a.pfields[a.fidx[fi]];
+      leaf_layout(f.L, f.P, slab, at, kCols, s_lay + tid * kLeafLay);
+      at = s_lay[tid * kLeafLay + 11];
+    }
+  }
+  __syncthreads();
+  // stage the slab; docs past cap hold no term (-1 ids and pads)
+  for (int fi = 0; fi < nf; ++fi) {
+    const posleaf::PosField& f = a.pfields[a.fidx[fi]];
+    const int* l = s_lay + fi * kLeafLay;
+    if constexpr (kCols) {
+      const int L = f.L, LP = f.L * f.P;
+      for (int e = tid; e < slab * L; e += kLeafThreads) {
+        const int d = e / L, g = d0 + d;
+        s_ints[l[0] + d * l[4] + e - d * L] =
+            g < a.cap ? __ldg(f.tids + static_cast<size_t>(d0) * L + e) : -1;
+      }
+      short* pos = reinterpret_cast<short*>(s_ints + l[1]);
+      for (int e = tid; e < slab * LP; e += kLeafThreads) {
+        const int d = e / LP, g = d0 + d;
+        pos[d * l[5] + e - d * LP] =
+            g < a.cap ? __ldg(f.pos + static_cast<size_t>(d0) * LP + e)
+                      : static_cast<short>(-1);
+      }
+    }
+    float* k1ln = reinterpret_cast<float*>(s_ints + l[2]);
+    float* lnorm = reinterpret_cast<float*>(s_ints + l[3]);
+    for (int d = tid; d < slab; d += kLeafThreads) {
+      const bool in = d0 + d < a.cap;
+      k1ln[d] = in ? __ldg(f.k1ln + d0 + d) : 1.0f;
+      lnorm[d] = in ? __ldg(f.lnorm + d0 + d) : 1.0f;
+    }
+  }
+  __syncthreads();
+  // per (field, doc), for all rows: the term signature, the slot table
+  // and the slots' valid-entry counts (a doc past cap: none)
+  for (int e = tid; e < nf * slab; e += kLeafThreads) {
+    const int fi = e / slab, d = e - fi * slab;
+    const int* l = s_lay + fi * kLeafLay;
+    const int L = l[6], P = l[7];
+    const bool in = d0 + d < a.cap;
+    const int* trow;
+    const short* pr;
+    if constexpr (kCols) {
+      trow = s_ints + l[0] + d * l[4];
+      pr = reinterpret_cast<const short*>(s_ints + l[1]) + d * l[5];
+    } else {
+      const posleaf::PosField& f = a.pfields[a.fidx[fi]];
+      const size_t g = in ? static_cast<size_t>(d0 + d) : 0;
+      trow = f.tids + g * l[4];
+      pr = f.pos + g * l[5];
+    }
+    int* hw = s_ints + l[8] + d * kLeafHashWords;
+    for (int k = 0; k < kLeafHashWords; ++k) hw[k] = 0;
+    unsigned short* h = reinterpret_cast<unsigned short*>(hw);
+    unsigned char* tfr = reinterpret_cast<unsigned char*>(s_ints + l[9]) +
+                         d * l[10];
+    unsigned sig = 0u;
+    for (int k = 0; k < L; ++k) {
+      int c = 0;
+      for (int q = 0; in && q < P; ++q) c += pr[k * P + q] >= 0 ? 1 : 0;
+      tfr[k] = static_cast<unsigned char>(c);
+      const int t = in ? trow[k] : -1;
+      if (t >= 0) {
+        sig |= 1u << (t & 31);
+        unsigned short& slot = h[t & (posleaf::kHashSlots - 1)];
+        slot = slot == 0 ? static_cast<unsigned short>(k + 1)
+                         : posleaf::kHashMany;
+      }
+    }
+    s_sig[e] = sig;
+  }
+  const int groups = slab / 32;
+  const int tail = posleaf::param_tail(a.kind, a.n, a.nt);
+  const bool bm25f = a.kind == posleaf::kBm25f;
+  for (int r0 = 0; r0 < a.B; r0 += rg) {
+    const int nr = min(rg, a.B - r0);
+    __syncthreads();  // signatures written; the last rows' params read
+    for (int e = tid; e < nr * a.pw; e += kLeafThreads)
+      s_pp[e] = __ldg(a.pp + static_cast<size_t>(r0) * a.pw + e);
+    for (int p0 = 0; p0 < nr; p0 += kLeafPassRows) {
+      const int np = min(kLeafPassRows, nr - p0);
+      if (tid == 0) s_qn = 0;
+      __syncthreads();  // params staged, the queue empty
+      // pass 1, a warp per (row, 32 docs): a pair whose doc lacks one
+      // of the row's terms (by the signatures) has frequency 0 (bm25f:
+      // no (field, term) present, raw 0), and the leaf's own arithmetic
+      // at 0 gives its outputs; the others go to the queue
+      for (int item = warp; item < np * groups;
+           item += kLeafThreads / 32) {
+        const int r = p0 + item / groups;
+        const int d = (item % groups) * 32 + lane;
+        const int* prm = s_pp + r * a.pw;
+        bool zero = bm25f;
+        if (bm25f) {
+          for (int e = 0; e < a.n * a.nt; ++e) {
+            const int t = prm[e];
+            if (t >= 0 && ((s_sig[(e / a.nt) * slab + d] >> (t & 31)) & 1u))
+              zero = false;
+          }
+        } else {
+          for (int i = 0; i < a.n; ++i) {
+            const int t = prm[i];
+            if (t < 0 || !((s_sig[d] >> (t & 31)) & 1u)) zero = true;
+          }
+        }
+        if (zero && d0 + d < a.cap) {
+          const float raw =
+              bm25f ? 0.0f
+                    : posleaf::phrase_impact(0, __int_as_float(prm[2 * a.n]),
+                                             0.0f);
+          const size_t o = static_cast<size_t>(r0 + r) * a.cap + d0 + d;
+          a.s_out[o] = __fmul_rn(raw, __int_as_float(prm[tail]));
+          a.m_out[o] = 0;
+        }
+        const unsigned slow = __ballot_sync(kFull, !zero && d0 + d < a.cap);
+        if (slow != 0u) {
+          const int leader = __ffs(slow) - 1;
+          int at = 0;
+          if (lane == leader) at = atomicAdd(&s_qn, __popc(slow));
+          at = __shfl_sync(kFull, at, leader);
+          if ((slow >> lane) & 1u)
+            s_q[at + __popc(slow & ((1u << lane) - 1u))] = r * slab + d;
+        }
+      }
+      __syncthreads();
+      // pass 2: the queued pairs, a thread each, run the leaf on the slab
+      const int qn = s_qn;
+      for (int i = tid; i < qn; i += kLeafThreads) {
+        const int r = s_q[i] / slab, d = s_q[i] - r * slab;
+        float sv;
+        bool mv;
+        posleaf::leaf_doc<posleaf::Smem>(
+            a.kind, a.n, a.nt, s_pp + r * a.pw,
+            SlabDoc<kCols>{s_ints, s_lay, &a, d0, d}, sv, mv);
+        const size_t o = static_cast<size_t>(r0 + r) * a.cap + d0 + d;
+        a.s_out[o] = sv;
+        a.m_out[o] = mv ? 1 : 0;
+      }
+      __syncthreads();  // the queue is drained before the next pass fills it
+    }
+  }
+}
+
+// The unfused leaf's launch: the widest slab (128 docs, down to 32) whose
+// staging, with its parameter rows, fits kLeafSmem with the slot ids and
+// pack staged; else the widest with them left in device memory. Checks
+// the arguments and opts the kernel in (rg: parameter rows a stage).
+cudaError_t leaf_launch_plan(const PosLeafArgs& a, int* rg, bool* cols,
+                             int* slab, size_t* smem) {
+  if (a.B > 65535 || a.kind < posleaf::kPhraseExact ||
+      a.kind > posleaf::kBm25f || a.n < 1 || a.n > posleaf::kMaxTerms ||
+      a.pw < 1 || a.pw > kMaxPW ||
+      (a.kind == posleaf::kBm25f &&
+       (a.n > posleaf::kMaxFields || a.nt < 1 || a.nt > posleaf::kMaxTerms)))
+    return cudaErrorInvalidValue;
+  // the slab's tables hold a slot + 1 in 16 bits and a count in a byte
+  for (int fi = 0; fi < (a.kind == posleaf::kBm25f ? a.n : 1); ++fi) {
+    const posleaf::PosField& f = a.pfields[a.fidx[fi]];
+    if (f.L < 1 || f.L >= posleaf::kHashMany || f.P < 1 || f.P > 255)
+      return cudaErrorInvalidValue;
+  }
+  *rg = std::min(std::max(a.B, 1), std::max(1, kLeafParamInts / a.pw));
+  for (int c = 1; c >= 0; --c) {
+    for (int s = kLeafMaxSlab; s >= kLeafMinSlab; s /= 2) {
+      const size_t bytes =
+          sizeof(int) * static_cast<size_t>(leaf_smem_ints(a, s, *rg, c));
+      if (bytes <= kLeafSmem) {
+        *cols = c == 1;
+        *slab = s;
+        *smem = bytes;
+        return cudaFuncSetAttribute(
+            c ? positional_leaf_kernel<true> : positional_leaf_kernel<false>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(bytes));
+      }
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 // bytes of the walk's dynamic shared memory
@@ -865,15 +1151,34 @@ cudaError_t bundle_kernel(int tile, int pw, int chunk_tiles, int n_pos,
 extern "C" int positional_leaf(const PosLeafArgs* args, void* stream) {
   const PosLeafArgs a = *args;
   if (a.B <= 0 || a.cap <= 0) return 0;
-  if (a.B > 65535 || a.kind < posleaf::kPhraseExact ||
-      a.kind > posleaf::kBm25f || a.n < 1 || a.n > posleaf::kMaxTerms ||
-      (a.kind == posleaf::kBm25f &&
-       (a.n > posleaf::kMaxFields || a.nt < 1 || a.nt > posleaf::kMaxTerms)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((a.cap + kThreads - 1) / kThreads, a.B);
-  positional_leaf_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(a);
+  int rg, slab;
+  bool cols;
+  size_t smem;
+  const cudaError_t err = leaf_launch_plan(a, &rg, &cols, &slab, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>((a.cap + slab - 1) / slab);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cols)
+    positional_leaf_kernel<true><<<grid, kLeafThreads, smem, st>>>(a, slab,
+                                                                   rg);
+  else
+    positional_leaf_kernel<false><<<grid, kLeafThreads, smem, st>>>(a, slab,
+                                                                    rg);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The unfused leaf's launch for args (pointers unused): whether it stages
+// the slot ids and pack, its slab and its dynamic shared memory in bytes,
+// the kernel opted in. For tests and reports.
+extern "C" int positional_leaf_plan(const PosLeafArgs* args, int* cols,
+                                    int* slab, int* smem) {
+  int rg;
+  bool c;
+  size_t bytes;
+  const cudaError_t err = leaf_launch_plan(*args, &rg, &c, slab, &bytes);
+  *cols = c ? 1 : 0;
+  *smem = static_cast<int>(bytes);
+  return static_cast<int>(err);
 }
 
 extern "C" int bundle_topk(const BundleArgs* args, void* stream) {

@@ -8,7 +8,8 @@ Pallas kernel:
   out[b, d] = sum_q wq[b, q] * sum_l [tids[d, l] == qt[b, q]] * imps[d, l].
 * K2 `scatter_add` (csrc/scatter_add.cu) replaces `_scatter_kernel` /
   `scatter_add_pallas`: out[b, docs[b, n]] += vals[b, n], docs outside
-  [0, cap) dropped, each doc summed in ascending n.
+  [0, cap) dropped, each doc summed in ascending n (postings partitioned
+  by doc bucket, each bucket summed in shared memory by one warp).
 * K3 `bundle_topk` (csrc/bundle_topk.cu) replaces `_make_bundle_kernel`
   / `fused_topk_bundle_pallas` / `match_mask_bundle_pallas`: the fused
   block-max walk over a bool clause bundle (dense text clauses, numeric
@@ -25,6 +26,10 @@ Pallas kernel:
   csrc/positional_leaf.cuh): K3's positional leaf as its own entry, one
   positional clause over the whole capacity for the unfused path (the
   reference runs `ops/scoring.positional_tile_scores` there in XLA).
+* `ordered_prefix` / `ordered_sum` (csrc/ordered_scan.cu) are no TPU
+  kernel's port: the agg sums the reference takes with XLA's `cumsum`
+  and `.sum(-1)`, in XLA's exact f32 order (plain versions in
+  `ops/ordered.py`), for ops/aggs.
 
 Each kernel sits beside its plain PyTorch version (`*_ref`), which
 repeats the kernel's arithmetic op for op. A wrapper takes the plain
@@ -53,8 +58,10 @@ from pathlib import Path
 
 import torch
 
+from . import ordered
+
 LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0,
-            "positional_leaf": 0}
+            "positional_leaf": 0, "ordered_prefix": 0, "ordered_sum": 0}
 # K3's launches by launch form: one chunk of a stepped walk (a span short
 # of the whole grid), a seeded single launch (thr_init given: a delta
 # walk chained onto its base), the plain single launch
@@ -63,15 +70,18 @@ BUNDLE_FORMS = {"single": 0, "stepped": 0, "seeded": 0}
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _SOURCES = {"dense_score": "dense_score.cu", "scatter_add": "scatter_add.cu",
-            "bundle_topk": "bundle_topk.cu"}
+            "bundle_topk": "bundle_topk.cu", "ordered_scan": "ordered_scan.cu"}
 # entry point -> the library (source) that defines it
 _ENTRIES = {"dense_score": "dense_score", "scatter_add": "scatter_add",
+            "scatter_add_scratch": "scatter_add",
             "bundle_topk": "bundle_topk", "positional_leaf": "bundle_topk",
-            "bundle_topk_occupancy": "bundle_topk"}
+            "bundle_topk_occupancy": "bundle_topk",
+            "positional_leaf_plan": "bundle_topk",
+            "ordered_prefix": "ordered_scan", "ordered_sum": "ordered_scan",
+            "ordered_prefix_scratch": "ordered_scan",
+            "ordered_sum_scratch": "ordered_scan"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
-_LANES = 128
-_I32_MAX = 2 ** 31 - 1
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -99,9 +109,22 @@ def _lib_path(name: str) -> Path:
 def _bind(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     P, I = ctypes.c_void_p, ctypes.c_int
+    if name == "ordered_scan":
+        lib.ordered_prefix.argtypes = [ctypes.POINTER(_ScanArgs), P]
+        lib.ordered_sum.argtypes = [P, P, I, P, I, I, P]
+        lib.ordered_prefix_scratch.argtypes = [I]
+        lib.ordered_sum_scratch.argtypes = [I]
+        for fn in (lib.ordered_prefix, lib.ordered_sum,
+                   lib.ordered_prefix_scratch, lib.ordered_sum_scratch):
+            fn.restype = ctypes.c_int
+        return lib
     fn = getattr(lib, name)
     if name == "dense_score":
         fn.argtypes = [P, P, P, P, P, I, I, I, I, P]
+    elif name == "scatter_add":
+        fn.argtypes = [P, P, P, ctypes.c_longlong, P, I, I, I, I, P]
+        lib.scatter_add_scratch.argtypes = [I, I, I, I]
+        lib.scatter_add_scratch.restype = ctypes.c_longlong
     elif name == "bundle_topk":
         fn.argtypes = [ctypes.POINTER(_BundleArgs), P]
         leaf = lib.positional_leaf
@@ -110,8 +133,10 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
         occ = lib.bundle_topk_occupancy
         occ.argtypes = [I, I, I, I, ctypes.POINTER(I), ctypes.POINTER(I)]
         occ.restype = ctypes.c_int
-    else:
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+        plan = lib.positional_leaf_plan
+        plan.argtypes = [ctypes.POINTER(_PosLeafArgs), ctypes.POINTER(I),
+                         ctypes.POINTER(I), ctypes.POINTER(I)]
+        plan.restype = ctypes.c_int
     fn.restype = ctypes.c_int
     return lib
 
@@ -272,29 +297,13 @@ def scatter_add_ref(docs: torch.Tensor, vals: torch.Tensor,
     return out[:, :cap]
 
 
-def chunk_ranges(docs: torch.Tensor, cap: int
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per 128-posting chunk: [min, max] of its in-range docs (an empty
-    chunk gets min > max) and whether those docs come first and strictly
-    increase (then they are distinct and can be added in parallel)."""
-    B, N = docs.shape
-    C = -(-N // _LANES)
-    pad = C * _LANES - N
-    d = torch.nn.functional.pad(docs, (0, pad), value=-1).view(B, C, _LANES)
-    valid = (d >= 0) & (d < cap)
-    cmin = torch.where(valid, d, _I32_MAX).amin(dim=-1).to(torch.int32)
-    cmax = torch.where(valid, d, -1).amax(dim=-1).to(torch.int32)
-    ok = ~valid[..., 1:] | (valid[..., :-1] & (d[..., 1:] > d[..., :-1]))
-    simple = ok.all(dim=-1).to(torch.uint8)
-    return cmin.contiguous(), cmax.contiguous(), simple.contiguous()
+SCATTER_BUCKET = 2048     # docs a K2 warp owns (a CTA holds 4 buckets)
 
 
-def scatter_span(B: int, cap: int) -> int:
-    """Docs owned by one scatter block: about 8192 blocks in all, at
-    least 1024 docs each, a multiple of the chunk width."""
-    per_row = max(1, min(-(-8192 // max(B, 1)), -(-cap // 1024)))
-    span = -(-cap // per_row)
-    return -(-span // _LANES) * _LANES
+def scatter_span(cap: int) -> int:
+    """Docs of one K2 bucket, one warp's: SCATTER_BUCKET, fewer (a
+    multiple of 4) where a row holds fewer than 4 such buckets."""
+    return min(SCATTER_BUCKET, -(-cap // 16) * 4)
 
 
 def scatter_add(docs: torch.Tensor, vals: torch.Tensor,
@@ -311,14 +320,96 @@ def scatter_add(docs: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"vals {tuple(vals.shape)} != docs {(B, N)}")
     if B > 65535:
         raise ValueError(f"scatter_add takes at most 65535 rows, got {B}")
+    span = scatter_span(cap)
+    # scratch, sized by the kernel's entry: the per-(block, bucket)
+    # counts, the slots they give, the postings partitioned by bucket
+    nbytes = _fn("scatter_add_scratch")(B, N, cap, span)
+    if nbytes < 0:
+        raise ValueError(f"scatter_add cannot take B {B}, N {N}, cap {cap}")
+    scratch = torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
     out = torch.empty((B, cap), dtype=torch.float32, device=dev)
-    cmin, cmax, simple = chunk_ranges(docs, cap)
-    fn = _fn("scatter_add")
-    err = fn(docs.data_ptr(), vals.data_ptr(), cmin.data_ptr(),
-             cmax.data_ptr(), simple.data_ptr(), out.data_ptr(), B, N, cap,
-             scatter_span(B, cap), _stream(dev))
+    err = _fn("scatter_add")(docs.data_ptr(), vals.data_ptr(),
+                             scratch.data_ptr(), nbytes, out.data_ptr(), B,
+                             N, cap, span, _stream(dev))
     _raise_on(err, "scatter_add")
     LAUNCHES["scatter_add"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# agg sums in XLA's order (no TPU kernel: the reference's cumsum / sum)
+# ---------------------------------------------------------------------------
+
+
+class _ScanArgs(ctypes.Structure):
+    """Mirror of `struct ScanArgs` in csrc/ordered_scan.cu."""
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    _fields_ = [("w", _P), ("perm", _P), ("pos", _P), ("lev", _P),
+                ("out", _P), ("B", _I), ("n", _I), ("P", _I),
+                ("pos_per_row", _I), ("lev_len", _I)]
+
+
+def scan_scratch(n: int) -> int:
+    """Floats a row of n needs for the scan's level totals, as the scan's
+    entry sizes them. On the card."""
+    return _fn("ordered_prefix_scratch")(n)
+
+
+def ordered_prefix(w: torch.Tensor, perm: torch.Tensor | None,
+                   pos: torch.Tensor) -> torch.Tensor:
+    """cs0[:, pos] of cs0 = [0, cumsum(w[:, perm])] with the cumsum in
+    XLA's order (`ops/ordered.prefix_at`): w f32 [B, n], perm int32 [n]
+    or None, pos int32 [P] or [B, P] in [0, n] -> f32 [B, P]. Only the
+    positions are evaluated."""
+    if w.device.type == "cpu":
+        return ordered.prefix_at(w, perm, pos)
+    dev = w.device
+    _check(w, "w", torch.float32, 2, dev)
+    B, n = w.shape
+    if perm is not None:
+        _check(perm, "perm", torch.int32, 1, dev)
+        if perm.shape[0] != n:
+            raise ValueError(f"perm {tuple(perm.shape)} != row {n}")
+    _check(pos, "pos", torch.int32, pos.dim(), dev)
+    if pos.dim() not in (1, 2) or (pos.dim() == 2 and pos.shape[0] != B):
+        raise ValueError(f"pos {tuple(pos.shape)} for {B} rows")
+    if B > 65535:
+        raise ValueError(f"ordered_prefix takes at most 65535 rows, got {B}")
+    P = pos.shape[-1]
+    lev_len = scan_scratch(n)
+    lev = torch.empty((B, max(lev_len, 1)), dtype=torch.float32, device=dev)
+    out = torch.empty((B, P), dtype=torch.float32, device=dev)
+    a = _ScanArgs(w.data_ptr(), 0 if perm is None else perm.data_ptr(),
+                  pos.data_ptr(), lev.data_ptr(), out.data_ptr(), B, n, P,
+                  int(pos.dim() == 2), lev_len)
+    err = _fn("ordered_prefix")(ctypes.byref(a), _stream(dev))
+    _raise_on(err, "ordered_prefix")
+    LAUNCHES["ordered_prefix"] += 1
+    return out
+
+
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """x.sum(-1) of f32 rows in XLA's window-tree order
+    (`ops/ordered.xla_block_sum`): x [..., n] -> [...]."""
+    if x.device.type == "cpu":
+        return ordered.xla_block_sum(x)
+    dev = x.device
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    n = x.shape[-1]
+    R = x.numel() // max(n, 1)
+    if n < 1:
+        raise ValueError("ordered_sum needs rows of at least one value")
+    scratch_len = _fn("ordered_sum_scratch")(n)
+    scratch = torch.empty((max(R * scratch_len, 1),), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=dev)
+    err = _fn("ordered_sum")(x.data_ptr(), scratch.data_ptr(), scratch_len,
+                             out.data_ptr(), R, n, _stream(dev))
+    _raise_on(err, "ordered_sum")
+    LAUNCHES["ordered_sum"] += 1
     return out
 
 
@@ -957,6 +1048,24 @@ def positional_leaf(kind: str, field, inp: tuple, cols: dict
     _raise_on(err, "positional_leaf")
     LAUNCHES["positional_leaf"] += 1
     return s_out, m_out
+
+
+def leaf_plan(kind: str, widths: list[tuple[int, int]], n: int, nt: int,
+              pw: int, B: int) -> tuple[bool, int, int]:
+    """The unfused leaf's launch for a clause over fields of (L, P) pack
+    widths, as its entry plans it: (slot ids and pack staged, slab docs,
+    dynamic shared memory in bytes), the kernel opted in. On the card;
+    for tests and reports (the leaf does not ask)."""
+    a = _PosLeafArgs()
+    for j, (L, P) in enumerate(widths):
+        a.pfields[j] = _PosField(0, 0, 0, 0, L, P)
+        a.fidx[j] = j
+    a.kind, a.n, a.nt, a.pw, a.B, a.cap = _kind_code(kind), n, nt, pw, B, 1
+    cols, slab, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(_fn("positional_leaf_plan")(
+        ctypes.byref(a), ctypes.byref(cols), ctypes.byref(slab),
+        ctypes.byref(smem)), "positional_leaf_plan")
+    return bool(cols.value), slab.value, smem.value
 
 
 def normalize_prune(flags: torch.Tensor, bt: int = BUNDLE_BT

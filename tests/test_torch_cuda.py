@@ -75,6 +75,99 @@ def test_scatter_add_equals_plain(cuda, B, N, sorted_rows):
     assert torch.equal(got.cpu(), cs.scatter_add_ref(d.cpu(), v.cpu(), cap))
 
 
+# B, postings blocks, cap: caps that no warp's or CTA's span divides,
+# one smaller than a CTA's span, and B x spans over many waves
+@pytest.mark.parametrize("B,n_blocks,cap", [(5, 6, 300), (9, 20, 8192 + 5),
+                                            (2, 9, 40_961),
+                                            (300, 16, 1 << 20),
+                                            (128, 64, (1 << 20) - 3)])
+def test_scatter_add_owners_and_edges(cuda, B, n_blocks, cap):
+    """K2 partitions the postings by doc bucket and sums each bucket in
+    shared memory: sorted blocks repeated whole (one doc, several terms'
+    postings: terms_fused), unsorted blocks with repeats within 32
+    postings, ids past cap and negative ids (dropped), docs on every
+    bucket edge, a ragged last block."""
+    rng = np.random.default_rng(B * n_blocks)
+    N = n_blocks * 128
+    docs = np.sort(rng.integers(-40, cap + 40, size=(B, n_blocks, 128)),
+                   axis=-1).astype(np.int32)
+    docs[:, 1] = docs[:, 0]                      # a block repeated whole
+    docs[:, 2] = rng.integers(-5, cap + 5, size=(B, 128))
+    docs[:, 2, 7:20] = docs[:, 2, 3:4]           # repeats, unsorted
+    edges = np.array([0, cap - 1, 2047, 2048, 8191, 8192, 16_383, 16_384])
+    docs[:, 3, :len(edges)] = np.minimum(edges, cap - 1)
+    docs = docs.reshape(B, N)[:, :N - 37]        # a ragged last chunk
+    vals = rng.standard_normal(docs.shape).astype(np.float32)
+    d = torch.from_numpy(np.ascontiguousarray(docs)).to(cuda)
+    v = torch.from_numpy(np.ascontiguousarray(vals)).to(cuda)
+    got = cs.scatter_add(d, v, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cs.scatter_add_ref(d, v, cap))
+
+
+# ---------------------------------------------------------------------------
+# agg sums in XLA's order: the scan (ordered_prefix) and the tree
+# (ordered_sum) of csrc/ordered_scan.cu
+# ---------------------------------------------------------------------------
+
+
+def _wild(rng, shape):
+    x = (rng.standard_normal(shape)
+         * np.exp(rng.uniform(-12, 12, shape))).astype(np.float32)
+    x.reshape(-1)[rng.random(x.size) < 0.05] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("B,n,use_perm,per_row", [
+    (1, 1, True, False), (3, 15, False, False), (2, 16, True, True),
+    (4, 17, True, False), (70, 1000, False, True), (5, 4097, True, False),
+    (3, 65_539, True, True), (64, 1 << 20, True, False)])
+def test_ordered_prefix_equals_plain(cuda, B, n, use_perm, per_row):
+    """Ragged lengths, bounds at 0 and at n, one-doc and empty groups,
+    shared and per-row bounds; equal to the plain scan on the card and on
+    the CPU."""
+    from elasticsearch_tpu_torch.ops import ordered
+    rng = np.random.default_rng(B + n)
+    w = _wild(rng, (B, n))
+    perm = rng.permutation(n).astype(np.int32) if use_perm else None
+    G = 9
+    shape = (B, G + 1) if per_row else (G + 1,)
+    pos = np.sort(rng.integers(0, n + 1, size=shape), axis=-1)
+    pos[..., 0], pos[..., -1] = 0, n
+    if n > 1:
+        pos[..., 2] = pos[..., 1]                 # an empty group
+        pos[..., 4] = np.minimum(pos[..., 3] + 1, n)   # a one-doc group
+        pos = np.sort(pos, axis=-1)
+    pos = pos.astype(np.int32)
+    t = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(cuda)
+    before = cs.LAUNCHES["ordered_prefix"]
+    got = cs.ordered_prefix(t(w), t(perm), t(pos))
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["ordered_prefix"] == before + 1
+    assert torch.equal(got, ordered.prefix_at(t(w), t(perm), t(pos)))
+    cpu = ordered.prefix_at(torch.from_numpy(w),
+                            None if perm is None else torch.from_numpy(perm),
+                            torch.from_numpy(pos))
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (5, 33), (3, 48), (2, 1000),
+                                   (7, 64, 512), (3, 300, 128),
+                                   (3, 1 << 20), (64, 2048, 512)])
+def test_ordered_sum_equals_plain(cuda, shape):
+    from elasticsearch_tpu_torch.ops import ordered
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(_wild(rng, shape)).to(cuda)
+    before = cs.LAUNCHES["ordered_sum"]
+    got = cs.ordered_sum(x)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["ordered_sum"] == before + 1
+    assert got.shape == shape[:-1]
+    assert torch.equal(got, ordered.xla_block_sum(x))
+    assert torch.equal(got.cpu(), ordered.xla_block_sum(x.cpu()))
+
+
 # ---------------------------------------------------------------------------
 # K3: the fused bundle walk
 # ---------------------------------------------------------------------------
@@ -330,6 +423,8 @@ def _pos_inputs(rng, kind, field, text, B, wrapped):
     tids = text[field]["tids_np"]
     docs = tids[rng.integers(0, tids.shape[0], size=B)]
     cols = np.stack([rng.permutation(tids.shape[1])[:a] for _ in range(B)])
+    if tids.shape[1] >= 255:
+        cols[::2, 0] = tids.shape[1] - 1          # slot + 1 past a byte
     qt = np.take_along_axis(docs, cols, axis=1).astype(np.int32)
     if a > 2:
         qt[::4, -1] = qt[::4, 0]                 # a repeated term
@@ -340,13 +435,13 @@ def _pos_inputs(rng, kind, field, text, B, wrapped):
     return (qt, wb, idf_sum, slop) + tail
 
 
-def _pos_case(bundle, cap, tile, B, dev, seed=0, P=4):
+def _pos_case(bundle, cap, tile, B, dev, seed=0, P=4, L_f=8):
     from elasticsearch_tpu_torch import corpus
     from elasticsearch_tpu_torch.index.segment import build_tile_minmax
     rng = np.random.default_rng(seed)
     text = {}
-    for f, L in (("f", 8), ("g", 6)):
-        tids, imps, tm = _fwd(rng, cap, L, 96, tile)
+    for f, L in (("f", L_f), ("g", 6)):
+        tids, imps, tm = _fwd(rng, cap, L, 12 * max(L, 8), tile)
         pos, k1ln, lnorm = corpus.synthetic_positions(rng, tids, P)
         text[f] = {"fwd_tids": torch.from_numpy(tids).to(dev),
                    "fwd_imps": torch.from_numpy(imps).to(dev),
@@ -418,16 +513,27 @@ def test_positional_walk_equals_plain(cuda, bundle, cap, tile, B, k, emit):
     assert int(got[2].sum()) > 0
 
 
-@pytest.mark.parametrize("bundle,cap,B", [("phrase_e2", 5000, 7),
-                                          ("phrase_s3", 5000, 9),
-                                          ("span_o3", 5000, 5),
-                                          ("span_u2", 5000, 3),
-                                          ("bm25f", 5000, 4),
-                                          ("phrase_s3", 1 << 20, 64)])
-def test_positional_leaf_equals_plain(cuda, bundle, cap, B):
+# bundle, cap, B, and the L and P of field f's pack: the widest packs the
+# index admits (L 256: slot + 1 past a byte; L 64 x P 64: slot ids and
+# pack too wide to stage, read from device memory)
+@pytest.mark.parametrize("bundle,cap,B,L,P", [
+    ("phrase_e2", 5000, 7, 8, 4), ("phrase_s3", 5000, 9, 8, 4),
+    ("span_o3", 5000, 5, 8, 4), ("span_u2", 5000, 3, 8, 4),
+    ("bm25f", 5000, 4, 8, 4), ("phrase_s3", 1 << 20, 64, 8, 4),
+    ("bm25f", 4161, 1, 8, 4), ("phrase_e3", 4161, 300, 8, 4),
+    ("phrase_s3", 4161, 130, 8, 4), ("span_o3", 4161, 257, 8, 4),
+    ("span_u2", 4161, 33, 8, 4), ("bm25f", 4161, 300, 8, 4),
+    ("phrase_e3", 1 << 20, 128, 8, 4),
+    ("phrase_e3", 1 << 14, 40, 256, 2), ("span_u2", 1 << 14, 40, 256, 2),
+    ("bm25f", (1 << 14) - 3, 33, 256, 2),
+    ("phrase_s3", 1 << 15, 6, 64, 64), ("span_o3", (1 << 15) - 7, 5, 64, 64),
+    ("bm25f", 1 << 15, 4, 64, 64)])
+def test_positional_leaf_equals_plain(cuda, bundle, cap, B, L, P):
     """The unfused entry over the whole capacity (cap need not be a
-    multiple of the block), s_leaf and m_leaf."""
-    args = _pos_case(bundle, cap, cap, B, cuda, seed=cap + B)
+    multiple of the staged slab), s_leaf and m_leaf, all five kinds, B
+    from 1 to 300 (bm25f at 300 stages its parameter rows twice), packs
+    from L 8 x P 4 to the widest the index admits."""
+    args = _pos_case(bundle, cap, cap, B, cuda, seed=cap + B, P=P, L_f=L)
     text, _num, clauses, cl, *_ = args
     (_role, kind, field, _w), inp = clauses[0], cl[0]
     before = cs.LAUNCHES["positional_leaf"]
@@ -442,7 +548,16 @@ def test_positional_leaf_equals_plain(cuda, bundle, cap, B):
 def test_register_and_spill_report(cuda, tmp_path):
     """ptxas' report of every kernel of the CUDA sources (printed with
     -s): each kernel builds and reports its registers, and K3's walk
-    (bundle_topk_kernel) spills nothing."""
+    (bundle_topk_kernel), the unfused leaf, K2 and the scan and tree
+    kernels spill nothing."""
+    no_spill = {"bundle_topk": ("bundle_topk_kernel",
+                                "positional_leaf_kernel"),
+                "scatter_add": ("bucket_counts_kernel", "bucket_scan_kernel",
+                                "bucket_scatter_kernel",
+                                "bucket_accumulate_kernel"),
+                "ordered_scan": ("level_totals_kernel", "scan_points_kernel",
+                                 "window_sums_kernel",
+                                 "window32_sums_kernel")}
     import subprocess
     for name, src in cs._SOURCES.items():
         out = subprocess.run(
@@ -455,14 +570,39 @@ def test_register_and_spill_report(cuda, tmp_path):
                   if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print("\n".join([f"{name}:"] + report))
         assert any("registers" in ln for ln in report), name
-        if name == "bundle_topk":
+        for kernel in no_spill.get(name, ()):
             props = [lines[i + 1] for i, ln in enumerate(lines[:-1])
-                     if "Function properties for" in ln
-                     and "bundle_topk_kernel" in ln]
-            assert props, "no ptxas properties for bundle_topk_kernel"
+                     if "Function properties for" in ln and kernel in ln]
+            assert props, f"no ptxas properties for {kernel}"
             for ln in props:
-                assert "0 bytes spill stores" in ln, ln
-                assert "0 bytes spill loads" in ln, ln
+                assert "0 bytes spill stores" in ln, (kernel, ln)
+                assert "0 bytes spill loads" in ln, (kernel, ln)
+
+
+@pytest.mark.parametrize("kind,n,nt", [("phrase_pos:8:s", 8, 0),
+                                       ("bm25f:4:8", 4, 8)])
+def test_leaf_plan_fits_every_admitted_pack(cuda, kind, n, nt):
+    """The unfused leaf's entry plans its launch for every pack width the
+    index admits (segment.pos_pack_width: L from 8 to MAX_FWD_SLOTS, P
+    from 2 to POS_CAP, pow2 each) at the widest parameter rows and at 1
+    and 300 rows: it fits a CTA, staging the slot ids and pack where they
+    fit (always at the main path's L 8 x P 2) and reading them from
+    device memory otherwise."""
+    from elasticsearch_tpu_torch.index.segment import MAX_FWD_SLOTS, POS_CAP
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", 232_448)
+    nf = n if nt else 1
+    for L in (1 << k for k in range(3, MAX_FWD_SLOTS.bit_length())):
+        for P in (1 << k for k in range(1, POS_CAP.bit_length())):
+            for B in (1, 300):
+                for pw in (2 * n + 5 if not nt else n * nt + nt + n + 3,
+                           cs.POS_MAX_PARAMS):
+                    cols, slab, smem = cs.leaf_plan(kind, [(L, P)] * nf, n,
+                                                    nt, pw, B)
+                    assert slab in (32, 64, 128) and 0 < smem <= optin, \
+                        (L, P, B, pw)
+                    if (L, P) == (8, 2):
+                        assert cols, (B, pw)
 
 
 @pytest.mark.parametrize("n_pos", range(cs.BUNDLE_MAX_CLAUSES + 1))

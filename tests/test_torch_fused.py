@@ -16,8 +16,8 @@ Tolerance: exact everywhere, and bit-exact for scores. Impacts, weights
 and boosts are small dyadic rationals, so every f32 product and sum is
 exact and no FMA contraction (which the Pallas interpreter may apply)
 can move a score or a tie. The whole-path check (c) compares floats
-exactly too, except agg `sum`/`avg` values at rtol 1e-6 (XLA and torch
-add f32 partial sums in different orders).
+exactly too, agg `sum`/`avg` values included (the port adds f32 agg
+sums in XLA's order, ops/ordered.py).
 """
 
 import jax.numpy as jnp
@@ -411,7 +411,7 @@ def two_shards():
 
 
 def _assert_same(port, ref, path="resp"):
-    """Exact equality, except float agg `value`s (sum/avg) at rtol 1e-6."""
+    """Exact equality, float agg `value`s (sum/avg) included."""
     if isinstance(ref, dict):
         assert isinstance(port, dict) and sorted(port) == sorted(ref), path
         for k in ref:
@@ -419,7 +419,7 @@ def _assert_same(port, ref, path="resp"):
                 continue
             if (k == "value" and isinstance(ref[k], float)
                     and "aggregations" in path):
-                assert port[k] == pytest.approx(ref[k], rel=1e-6), path
+                assert port[k] == ref[k], (path, port[k], ref[k])
                 continue
             _assert_same(port[k], ref[k], f"{path}.{k}")
     elif isinstance(ref, list):

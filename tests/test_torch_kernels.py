@@ -150,44 +150,64 @@ def _postings(rng, B, n_blocks, cap, dup_blocks=True):
     return docs.reshape(B, -1), vals.reshape(B, -1)
 
 
-def _emulate_scatter_kernel(docs, vals, cap, span):
-    """Host model of csrc/scatter_add.cu's schedule: one owner per
-    (row, doc range), chunks walked in ascending n, a flagged chunk added
-    lane-parallel, an unflagged one by each doc's first lane in n order."""
+def _partition(docs, cap, span, block=2048, warp=256):
+    """Host model of csrc/scatter_add.cu's passes 1-3: each in-range
+    posting's slot in the row partitioned by bucket (doc // span), from
+    the exclusive prefix of the bucket-major (bucket, block) counts, the
+    bucket's postings in the block's earlier warps of 256 and its rank
+    in its own warp. Returns part [B, N] of posting indices (-1 unused)
+    and the bucket ranges [B, n_bkt + 1]."""
     B, N = docs.shape
-    cmin, cmax, simple = (x.numpy() for x in cs.chunk_ranges(_t(docs), cap))
-    out = np.full((B, cap), np.nan, np.float32)
-    C = cmin.shape[1]
+    n_bkt = -(-cap // span)
+    n_blk = -(-N // block)
+    part = np.full((B, N), -1, np.int64)
+    ranges = np.zeros((B, n_bkt + 1), np.int64)
     for b in range(B):
-        for lo in range(0, cap, span):
-            hi = min(cap, lo + span)
-            out[b, lo:hi] = 0.0
-            for c in range(C):
-                if cmax[b, c] < lo or cmin[b, c] >= hi:
+        bkt = np.where((docs[b] >= 0) & (docs[b] < cap), docs[b] // span, -1)
+        cnt = np.zeros((n_bkt, n_blk), np.int64)
+        for n in range(N):
+            if bkt[n] >= 0:
+                cnt[bkt[n], n // block] += 1
+        off = np.concatenate([[0], np.cumsum(cnt.reshape(-1))])
+        ranges[b] = off[::n_blk] if n_blk else 0
+        for blk in range(n_blk):
+            n0, n1 = blk * block, min(N, (blk + 1) * block)
+            for n in range(n0, n1):
+                j = bkt[n]
+                if j < 0:
                     continue
-                n0 = c * 128
-                lane_d = [int(docs[b, n]) if n < N else -1
-                          for n in range(n0, n0 + 128)]
-                lane_v = [vals[b, n] if n < N else np.float32(0)
-                          for n in range(n0, n0 + 128)]
-                mine = [lo <= d < hi for d in lane_d]
-                if simple[b, c]:
-                    hit = [d for d, m in zip(lane_d, mine) if m]
-                    assert len(hit) == len(set(hit))  # race-free lanes
-                    for t in range(128):
-                        if mine[t]:
-                            out[b, lane_d[t]] = np.float32(
-                                out[b, lane_d[t]] + lane_v[t])
-                else:
-                    for t in range(128):
-                        d = lane_d[t]
-                        if not mine[t] or d in lane_d[:t]:
-                            continue
-                        a = out[b, d]
-                        for j in range(t, 128):
-                            if lane_d[j] == d:
-                                a = np.float32(a + lane_v[j])
-                        out[b, d] = a
+                w0 = n0 + (n - n0) // warp * warp   # first posting of n's warp
+                earlier = int((bkt[n0:w0] == j).sum())
+                rank = int((bkt[w0:n] == j).sum())
+                part[b, off[j * n_blk + blk] + earlier + rank] = n
+    return part, ranges
+
+
+def _emulate_scatter_kernel(docs, vals, cap, span):
+    """Host model of csrc/scatter_add.cu's schedule: the postings
+    partitioned by bucket of `span` docs (n order kept), then per bucket
+    one owner (a warp) accumulating from zero, the bucket's postings 32
+    at a time in n order, a doc's postings among the 32 added by its
+    first lane in lane order."""
+    B, N = docs.shape
+    part, ranges = _partition(docs, cap, span)
+    out = np.full((B, cap), np.nan, np.float32)
+    for b in range(B):
+        for j in range(-(-cap // span)):
+            lst = part[b, ranges[b, j]:ranges[b, j + 1]]
+            assert (np.diff(lst) > 0).all()       # n order kept
+            assert (docs[b, lst] // span == j).all()
+            out[b, j * span:(j + 1) * span] = 0.0
+            for i0 in range(0, len(lst), 32):
+                grp = [(int(docs[b, n]), vals[b, n]) for n in lst[i0:i0 + 32]]
+                for t, (d, _v) in enumerate(grp):
+                    if d in [g[0] for g in grp[:t]]:
+                        continue
+                    a = out[b, d]
+                    for d2, v2 in grp[t:]:
+                        if d2 == d:
+                            a = np.float32(a + v2)
+                    out[b, d] = a
     return out
 
 
@@ -251,24 +271,26 @@ class TestScatterAdd:
                         jnp.asarray(gather), jnp.asarray(gw), cap)
         np.testing.assert_array_equal(got, np.asarray(ref))
 
-    def test_chunk_ranges_flags(self):
-        cap = 1000
-        docs = np.full((2, 300), cap, np.int32)
-        docs[0, :128] = np.arange(128) * 3            # sorted distinct
-        docs[0, 128:140] = np.arange(12) + 500        # sorted, padded tail
-        docs[0, 256:258] = [7, 7]                     # duplicate
-        docs[1, :3] = [9, cap, 4]                     # valid after padding
-        cmin, cmax, simple = (x.numpy() for x in cs.chunk_ranges(_t(docs),
-                                                                 cap))
-        assert cmin.shape == (2, 3)
-        assert cmin[0].tolist() == [0, 500, 7]
-        assert cmax[0].tolist() == [381, 511, 7]
-        assert simple[0].tolist() == [1, 1, 0]
-        assert simple[1].tolist() == [0, 1, 1]
-        assert cmin[1, 1] > cmax[1, 1]                # empty chunk: skipped
+    def test_partition_keeps_n_order_per_bucket(self):
+        # the slots of passes 1-3: every in-range posting once, grouped by
+        # bucket, ascending n within a bucket, across blocks and warps
+        rng = np.random.default_rng(5)
+        cap, span = 5000, 1024
+        docs = rng.integers(-30, cap + 30, size=(2, 2500)).astype(np.int32)
+        docs[1, 1000:1300] = 17                      # one doc, many blocks
+        part, ranges = _partition(docs, cap, span)
+        for b in range(2):
+            ok = np.flatnonzero((docs[b] >= 0) & (docs[b] < cap))
+            used = part[b][part[b] >= 0]
+            assert sorted(used) == list(ok) and ranges[b, -1] == len(ok)
+            for j in range(ranges.shape[1] - 1):
+                lst = part[b, ranges[b, j]:ranges[b, j + 1]]
+                assert (np.diff(lst) > 0).all()
+                assert (docs[b, lst] // span == j).all()
 
     @pytest.mark.parametrize("span", [128, 384, 1024])
     def test_kernel_schedule_matches_reference(self, span):
+        # span: docs of a bucket (the kernel's is 2048; smaller here)
         rng = np.random.default_rng(span)
         cap, B = 1024, 3
         docs, vals = _postings(rng, B, 4, cap)
@@ -282,8 +304,11 @@ class TestScatterAdd:
     @pytest.mark.parametrize("B,cap", [(1, 2 ** 20), (256, 2 ** 20),
                                        (3, 300)])
     def test_scatter_span_covers_cap(self, B, cap):
-        span = cs.scatter_span(B, cap)
-        assert span % 128 == 0 and span >= 128
+        # a bucket's docs fit its warp's shared-memory accumulator (float4
+        # stores); the buckets of a row cover the capacity, at least 4
+        # where the capacity is smaller than 4 full buckets
+        span = cs.scatter_span(cap)
+        assert span % 4 == 0 and 4 <= span <= cs.SCATTER_BUCKET
         per_row = -(-cap // span)
         assert per_row * span >= cap
-        assert B * per_row <= 8192 or per_row == 1
+        assert span == cs.SCATTER_BUCKET or per_row <= 4

@@ -21,8 +21,8 @@ the JAX reference, on the CPU.
 
 Tolerance: exact everywhere. Frequencies are integers; every f32 score
 is compared bit for bit (the leaf's impact chain has no mul-add pair an
-FMA could contract). Agg `sum`/`avg` values would compare at rtol 1e-6,
-but these requests carry terms aggs only.
+FMA could contract). Agg `sum`/`avg` values would compare exactly too
+(XLA's order, ops/ordered.py), but these requests carry terms aggs only.
 """
 
 import copy

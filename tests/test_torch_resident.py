@@ -16,7 +16,7 @@ Contracts (after tests/test_resident_loop.py):
   * A poll that reports late from chunk 3: the base walk runs exactly 3
     chunk launches, then the timeout.
 
-Tolerance: exact, except float agg `value`s (sum/avg) at rtol 1e-6.
+Tolerance: exact, float agg `value`s (sum/avg) included.
 """
 
 import copy

@@ -10,9 +10,8 @@ reduce. On the CPU the port's kernel wrappers run their plain versions.
 
 Tolerances: hit ids, order, totals, scores, agg keys and counts exact
 (the reference's CPU programs contract no mul+add into an FMA on this
-path, so scores are bit-identical); `sum`/`avg` agg values within
-rtol 1e-6, because XLA and torch add f32 partial sums in different
-orders.
+path, so scores are bit-identical); `sum`/`avg` agg values exact too
+(the port adds f32 agg sums in XLA's order, ops/ordered.py).
 """
 
 import numpy as np
@@ -68,7 +67,7 @@ def two_shards():
 
 
 def _assert_same(port, ref, path="resp"):
-    """Exact equality, except float agg `value`s (sum/avg) at rtol 1e-6."""
+    """Exact equality, float agg `value`s (sum/avg) included."""
     if isinstance(ref, dict):
         assert isinstance(port, dict) and sorted(port) == sorted(ref), path
         for k in ref:
@@ -76,7 +75,7 @@ def _assert_same(port, ref, path="resp"):
                 continue
             if (k == "value" and isinstance(ref[k], float)
                     and "aggregations" in path):
-                assert port[k] == pytest.approx(ref[k], rel=1e-6), path
+                assert port[k] == ref[k], (path, port[k], ref[k])
                 continue
             _assert_same(port[k], ref[k], f"{path}.{k}")
     elif isinstance(ref, list):

@@ -12,8 +12,8 @@ a few delta docs deleted through the live mask).
 (c) `ES_TPU_PACK_DISPATCH=0` gives identical responses through the
     per-segment path.
 
-Tolerance: exact, except float agg `value`s (sum/avg) at rtol 1e-6 (XLA
-and torch add f32 partial sums in other orders).
+Tolerance: exact, float agg `value`s (sum/avg) included (the port adds
+f32 agg sums in XLA's order, ops/ordered.py).
 """
 
 import copy

@@ -1,10 +1,10 @@
 """Top-k and aggregation primitives of the PyTorch port vs the JAX
 reference, on the CPU.
 
-Tolerances: exact for indices, tie order, totals, bucket ids and counts;
-float sums exact where the inputs make every summation order agree
-(small integers), otherwise rtol 1e-6 (XLA and torch sum f32 in
-different orders).
+Tolerances: exact for indices, tie order, totals, bucket ids and counts,
+and for the float sums of the sorted and view reduces, which the port
+takes in XLA's order (ops/ordered.py; tests/test_torch_ordered_aggs.py
+pins that order on non-integer weights).
 """
 
 import numpy as np
@@ -142,12 +142,15 @@ class TestBuckets:
         np.testing.assert_array_equal(_np(g), np.asarray(r))
 
     def test_view_group_reduce_float_sums_rtol(self):
+        # exact: the port takes the block sums, the short cumsum and the
+        # intra-block prefix in XLA's order (ops/ordered.py)
         rng = np.random.default_rng(4)
         w = rng.random((2, 2048), dtype=np.float32) * 1e4
         bounds = np.array([0, 3, 511, 512, 1500, 2048], np.int32)
         r = ref_aggs.view_group_reduce(jnp.asarray(w), jnp.asarray(bounds))
         g = port_aggs.view_group_reduce(_t(w), _t(bounds))
-        np.testing.assert_allclose(_np(g), np.asarray(r), rtol=1e-6)
+        np.testing.assert_array_equal(_np(g).view(np.int32),
+                                      np.asarray(r).view(np.int32))
 
     def test_sorted_group_and_hist_reduce(self):
         rng = np.random.default_rng(2)
@@ -215,11 +218,10 @@ class TestBuckets:
         r = ref_aggs.masked_stats(jnp.asarray(vals), jnp.asarray(exists),
                                   jnp.asarray(mask))
         g = port_aggs.masked_stats(_t(vals), _t(exists), _t(mask))
-        for key in ("count", "min", "max"):
+        # sum / sum_sq exact too: XLA's reduction order at a
+        # power-of-two row (ops/ordered.xla_block_sum)
+        for key in ("count", "min", "max", "sum", "sum_sq"):
             np.testing.assert_array_equal(_np(g[key]), np.asarray(r[key]))
-        for key in ("sum", "sum_sq"):
-            np.testing.assert_allclose(_np(g[key]), np.asarray(r[key]),
-                                       rtol=1e-6)
 
     @pytest.mark.parametrize("origin,interval", [
         (2 ** 31 - 5 * 86400, 86400),     # padded tail overflows int32

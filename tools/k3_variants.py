@@ -73,7 +73,8 @@ VARIANTS = {
 
 def make_variant(name: str, edits, dest: Path) -> Path:
     """A copy of the port's ops under dest/<name>/ with the edits made
-    (each text must occur exactly once)."""
+    (each text must occur exactly once; a text of None: the replacement
+    is the whole file)."""
     root = dest / name.replace(" ", "_")
     ops = root / "elasticsearch_tpu_torch" / "ops"
     if root.exists():
@@ -82,6 +83,9 @@ def make_variant(name: str, edits, dest: Path) -> Path:
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     for rel, old, new in edits:
         path = ops / rel
+        if old is None:
+            path.write_text(new)
+            continue
         text = path.read_text()
         if text.count(old) != 1:
             raise ValueError(f"{name}: [{old}] occurs {text.count(old)} "
