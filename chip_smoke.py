@@ -18,8 +18,11 @@ each of which fails the run on any error:
    positional rows against their plain versions on their first 16 rows;
    K2 also at the main path's prefix shape, B 128 x 262,144 postings;
    the agg-sum kernels, not ports of a TPU kernel: the scan
-   `ordered_prefix` and the tree `ordered_sum`, XLA's cumsum / sum order,
-   at B 256 over 2^20 docs drawn like the agg mixes' inputs);
+   `ordered_prefix` (a keyword sort, a timestamp sort, no perm), the
+   tree `ordered_sum` (the views' blocks, whole rows, rows off a power
+   of two) and the bucket sum `ordered_bucket_sum`, XLA's cumsum / sum /
+   scatter order, at B 256 over 2^20 docs drawn like the agg mixes'
+   inputs);
    then K3's launch forms on `match` and `phrase_pos:2:e` bundles: the
    stepped walk (8 launches, the threshold carried) equal to the single
    launch and to the plain stepped walk, the seeded walk (a 2^17-doc
@@ -28,7 +31,8 @@ each of which fails the run on any error:
 4. main paths: two shards of 2^20 http_logs-like docs (seeds 42, 43)
    built with the port's SegmentBuilder, request mixes of 256 requests
    through `ShardReader.msearch` + `merge_shard_results`: the earlier
-   slices' seven mixes, then this slice's positional mixes (phrase,
+   slices' seven mixes and stats_aggs (terms -> extended_stats and a
+   stats agg: the bucket sum), then the positional mixes (phrase,
    sloppy phrase with aggs, span_near, cross_fields, phrase with a
    keyword filter), each path run with the launch counts zeroed just
    before it; each path's kernels must have launched, the fused engine
@@ -36,10 +40,10 @@ each of which fails the run on any error:
    carrying a positional clause, none falling back to the host), the
    same requests with the plain versions swapped in must give identical
    responses, a small index searched on the card must give the CPU's
-   responses exactly (agg sums included; a terms -> stats and a stats
-   agg, whose doc-space scatter sums use index_add_, at rtol 1e-5), and
-   each kernel must equal its plain version on the inputs the main path
-   handed it (the scan kernel on every agg mix's); the `match` mix is
+   responses exactly (every agg sum, terms -> stats / extended_stats and
+   stats aggs included), and each kernel must equal its plain version on
+   the inputs the main path handed it (the scan kernel on every agg
+   mix's first call of each permutation kind); the `match` mix is
    also timed on the unfused path (`ES_TPU_FUSED=0`), and 64 requests of the
    positional mixes on the host oracle (`ES_TPU_POSITIONAL=0`, the
    phrase / span / BM25F code of search/phrase.py through K2), whose
@@ -64,8 +68,9 @@ at a toy size (no build, no timings, no result line), to exercise this
 script without a card. `--ab-parent DIR` loads the K3 of an earlier
 commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
 git-ignored `smoke_checkout/`) beside this one and times the two in turns
-on every K3 sweep and launch-form row, K2's and the unfused leaf's
-sweep rows and, in a whole run, their main-path calls (`ab`);
+on every K3 sweep and launch-form row, K2's, the unfused leaf's, the
+scan's and the tree's sweep rows and, in a whole run, their main-path
+calls (`ab`);
 `tools/k3_variants.py`
 builds patched copies of this checkout's K3 (a design step undone, or a
 probe) under DIR and times them this way. `--kernels-only` stops after
@@ -99,9 +104,9 @@ PLAIN_ROWS = 16
 # zeroed just before it, and every kernel listed must launch in it
 PATHS = {
     "dense": (("match", "bool_aggs", "prefix", "term_body", "aggs_only",
-               "match_range_aggs", "count_match"),
+               "match_range_aggs", "count_match", "stats_aggs"),
               ("dense_score", "scatter_add", "bundle_topk", "ordered_prefix",
-               "ordered_sum")),
+               "ordered_sum", "ordered_bucket_sum")),
     "positional": (("phrase", "phrase_slop_aggs", "span_near",
                     "cross_fields", "phrase_filter"),
                    ("bundle_topk", "positional_leaf", "ordered_prefix")),
@@ -128,6 +133,9 @@ KERNEL_SOURCES = {
     "ordered_sum": ("elasticsearch_tpu_torch/ops/csrc/ordered_scan.cu",
                     "elasticsearch_tpu/ops/aggs.py:83 (.sum(-1) in XLA, "
                     "not a TPU kernel)"),
+    "ordered_bucket_sum": ("elasticsearch_tpu_torch/ops/csrc/bucket_sum.cu",
+                           "elasticsearch_tpu/ops/aggs.py:25 (.at[].add in "
+                           "XLA, not a TPU kernel)"),
 }
 # K3's other launch forms, entries of the kernels line of their own: the
 # stepped walk (`_bundle_pallas_walk`'s step branch) and the seeded walk
@@ -154,12 +162,14 @@ FORM_CHUNKS = 8           # launches of the kernel phase's stepped walk
 # the wrapper of each kernel that counts its launches
 WRAPPERS = {"dense_score": "dense_score", "scatter_add": "scatter_add",
             "bundle_topk": "bundle_walk", "positional_leaf": "positional_leaf",
-            "ordered_prefix": "ordered_prefix", "ordered_sum": "ordered_sum"}
+            "ordered_prefix": "ordered_prefix", "ordered_sum": "ordered_sum",
+            "ordered_bucket_sum": "ordered_bucket_sum"}
 # the agg mixes: their sorted-layout and view sums go through the scan
-# kernel (ordered_prefix), aggs_only's view sums also through the tree
-# (ordered_sum)
+# kernel (ordered_prefix), aggs_only's view sums and stats_aggs' stats
+# through the tree (ordered_sum), stats_aggs' terms -> extended_stats
+# through the bucket sum (ordered_bucket_sum)
 AGG_MIXES = ("bool_aggs", "aggs_only", "match_range_aggs", "count_match",
-             "phrase_slop_aggs")
+             "stats_aggs", "phrase_slop_aggs")
 
 
 _log_file = None     # chip_smoke.log under --out-dir
@@ -252,23 +262,6 @@ def assert_close_responses(got, want, path="resp", rtol=1e-6) -> None:
         raise AssertionError(f"{path}: {got!r} != {want!r}")
 
 
-def max_agg_rel_diff(got, want, path="resp", out=None) -> dict:
-    """Largest relative difference of each float agg metric key (`sum`,
-    `avg`, ...) between two response trees of the same shape."""
-    out = {} if out is None else out
-    if isinstance(want, dict):
-        for k, v in want.items():
-            if isinstance(v, float) and "aggregations" in path and v != 0:
-                rel = abs(got[k] - v) / abs(v)
-                out[k] = max(out.get(k, 0.0), rel)
-            elif isinstance(v, (dict, list)):
-                max_agg_rel_diff(got[k], v, f"{path}.{k}", out)
-    elif isinstance(want, list):
-        for g, w in zip(got, want):
-            max_agg_rel_diff(g, w, path, out)
-    return out
-
-
 def _message_words(body: dict) -> list[str]:
     """The message-field words of a positional request."""
     q = body["query"]
@@ -324,7 +317,8 @@ def plain_versions() -> dict:
             "match_mask_bundle": cs.match_mask_bundle_ref,
             "positional_leaf": cs.positional_leaf_ref,
             "ordered_prefix": ordered.prefix_at,
-            "ordered_sum": ordered.xla_block_sum}
+            "ordered_sum": ordered.xla_block_sum,
+            "ordered_bucket_sum": ordered.bucket_fold}
 
 
 def check_plain_swap(readers, mixes, last) -> None:
@@ -385,8 +379,9 @@ def run_main_path(readers, mixes, reps, sync):
     from elasticsearch_tpu_torch.search import executor
     stats, last, launches = {}, {}, {}
     for path, (names, _kernels) in PATHS.items():
-        for k in cs.LAUNCHES:
-            cs.LAUNCHES[k] = 0
+        for counts in (cs.LAUNCHES, cs.SCAN_ROUTES):
+            for k in counts:
+                counts[k] = 0
         for name in names:
             bodies = mixes[name]
             before = dict(cs.LAUNCHES)
@@ -399,7 +394,8 @@ def run_main_path(readers, mixes, reps, sync):
                 "hits": sum(r["hits"]["total"] for r in last[name]),
                 "fused": executor.fused_scoring_stats(),
             }
-        launches[path] = dict(cs.LAUNCHES)
+        launches[path] = {**cs.LAUNCHES,
+                          "ordered_prefix_routes": dict(cs.SCAN_ROUTES)}
     return stats, last, launches
 
 
@@ -937,10 +933,22 @@ def scan_bound(w, perm, pos):
     return _bound(nbytes, B * (n + scan_scratch(n)))
 
 
-def measure_scan(w, perm, pos, reps):
+def perm_kind(perm) -> str:
+    """The scan's permutation: none, a keyword sort (docs ascending
+    within each key: nearly every step ascends) or a timestamp sort (a
+    random order: the corpus draws @timestamp per doc)."""
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    if perm is None:
+        return "none"
+    return "timestamp sort" if cs.perm_scattered(perm) else "keyword sort"
+
+
+def measure_scan(w, perm, pos, reps, old=None):
     """The scan kernel vs its plain version (XLA's cumsum order), which
-    it must equal bit for bit; library: torch.cumsum over the same rows
-    (another order, no permutation: a yardstick only)."""
+    it must equal bit for bit; library: torch.cumsum over the same rows,
+    gathered through perm first (another order: a yardstick only). With
+    the previous commit's ops (`old`), its scan in turns with this one
+    (outputs equal)."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     from elasticsearch_tpu_torch.ops import ordered
@@ -949,16 +957,41 @@ def measure_scan(w, perm, pos, reps):
     if not torch.equal(got, want):
         raise AssertionError(f"ordered_prefix != plain at {tuple(w.shape)}")
     bound_ms, bound_by = scan_bound(w, perm, pos)
-    return {"ms": cuda_ms(lambda: cs.ordered_prefix(w, perm, pos), reps),
-            "plain_ms": plain_ms,
-            "library_ms": cuda_ms(lambda: torch.cumsum(w, dim=-1), reps),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": float((got - want).abs().max())}
+    idx = None if perm is None else perm.long()
+    m = {"perm": perm_kind(perm),
+         "ms": cuda_ms(lambda: cs.ordered_prefix(w, perm, pos), reps),
+         "plain_ms": plain_ms,
+         "library_ms": cuda_ms(
+             lambda: torch.cumsum(w if idx is None else w[:, idx], dim=-1),
+             reps),
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "max_abs_err": float((got - want).abs().max())}
+    if perm is not None:
+        # the two routes through perm in turns, whichever this perm takes:
+        # the weights copied doc-major first (eight rows a sector), and
+        # the gathers straight from the rows
+        routes = {k: (lambda dm=k: cs.ordered_prefix(w, perm, pos,
+                                                     doc_major=dm))
+                  for k in (True, False)}
+        if not torch.equal(routes[not cs.perm_scattered(perm)](), got):
+            raise AssertionError("ordered_prefix's other route != plain")
+        t = ab_turns(routes[True], routes[False], reps)
+        m["routes"] = {"rows_ms": t["previous_ms"],
+                       "doc_major_ms": t["new_ms"]}
+    if old is not None:
+        if not torch.equal(old.ordered_prefix(w, perm, pos), got):
+            raise AssertionError("ordered_prefix != the previous scan")
+        m["ab"] = ab_turns(lambda: cs.ordered_prefix(w, perm, pos),
+                           lambda: old.ordered_prefix(w, perm, pos), reps)
+    return m
 
 
-def measure_tree(x, reps):
+def measure_tree(x, reps, old=None):
     """The tree-sum kernel vs its plain version (XLA's reduction order),
-    bit for bit; library: x.sum(-1) (another order)."""
+    bit for bit; library: x.sum(-1) (another order). With `old`, the
+    previous commit's tree in turns with this one; its outputs equal
+    this one's where no level pads (a power-of-two length, the views'
+    blocks), its own uncentred windows elsewhere."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     from elasticsearch_tpu_torch.ops import ordered
@@ -967,19 +1000,74 @@ def measure_tree(x, reps):
     if not torch.equal(got, want):
         raise AssertionError(f"ordered_sum != plain at {tuple(x.shape)}")
     bound_ms, bound_by = _bound(x.numel() * 4 + got.numel() * 4, x.numel())
-    return {"ms": cuda_ms(lambda: cs.ordered_sum(x), reps),
-            "plain_ms": plain_ms,
-            "library_ms": cuda_ms(lambda: x.sum(dim=-1), reps),
+    m = {"ms": cuda_ms(lambda: cs.ordered_sum(x), reps),
+         "plain_ms": plain_ms,
+         "library_ms": cuda_ms(lambda: x.sum(dim=-1), reps),
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "max_abs_err": float((got - want).abs().max())}
+    if old is not None:
+        n = x.shape[-1]
+        same = torch.equal(old.ordered_sum(x), got)
+        if not same and all(lo == 0 for lo, _k in ordered.sum_windows(n)):
+            raise AssertionError("ordered_sum != the previous tree")
+        m["ab"] = {**ab_turns(lambda: cs.ordered_sum(x),
+                              lambda: old.ordered_sum(x), reps),
+                   "outputs_equal": same}
+    return m
+
+
+def bucket_bound(ids, mask, n_buckets):
+    """Least time of ordered_bucket_sum: the mask, ids and values read
+    once, the sums written; one add per matched doc of a kept id."""
+    B, cap = mask.shape
+    nbytes = B * cap + cap * 8 + B * n_buckets * 4
+    kept = (ids >= -n_buckets) & (ids < n_buckets)
+    return _bound(nbytes, int((mask & kept[None, :]).sum()))
+
+
+def measure_bucket(ids, mask, values, n_buckets, square, reps):
+    """The bucket-sum kernel vs its plain version (XLA's scatter order: a
+    left fold per bucket in doc order), bit for bit; library: index_add_
+    of the masked values (atomics in no fixed order). `hottest`: the
+    longest fold, the matched docs of the busiest (row, bucket)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.ops import ordered
+    args = (ids, mask, values, n_buckets, square)
+    got = cs.ordered_bucket_sum(*args)
+    want, plain_ms = plain_run(lambda: ordered.bucket_fold(*args))
+    if not torch.equal(got, want):
+        raise AssertionError(f"ordered_bucket_sum != plain at "
+                             f"{tuple(mask.shape)}, {n_buckets} buckets")
+    kept = ordered.bucket_ids_kept(ids, n_buckets)
+    v = values * values if square else values
+    w = torch.where(mask, v[None, :], 0.0)
+
+    def library():
+        out = torch.zeros((mask.shape[0], n_buckets + 1), device=mask.device)
+        return out.index_add_(1, kept, w)
+
+    per = torch.zeros((mask.shape[0], n_buckets + 1), device=mask.device)
+    per.index_add_(1, kept, mask.float())
+    bound_ms, bound_by = bucket_bound(ids, mask, n_buckets)
+    return {"ms": cuda_ms(lambda: cs.ordered_bucket_sum(*args), reps),
+            "plain_ms": plain_ms, "library_ms": cuda_ms(library, reps),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "hottest": int(per[:, :n_buckets].max()),
             "max_abs_err": float((got - want).abs().max())}
 
 
-def scan_sweep(dev, rng, B: int = 256, cap: int = 1 << 20) -> list[dict]:
+def scan_sweep(dev, rng, B: int = 256, cap: int = 1 << 20,
+               old=None) -> list[dict]:
     """The agg sums at B 256 over 2^20 docs, drawn like the agg mixes'
     inputs (corpus.make_docs' columns): `size` weights under a range
-    mask, summed per `status` key (terms: the keyword sort's bounds) and
-    per day of `@timestamp` (date_histogram: searchsorted edges), and the
-    agg views' 512-doc block sums."""
+    mask, summed per `status` key (terms: the keyword sort's bounds), per
+    day of `@timestamp` (date_histogram: searchsorted edges) and over the
+    rows as they are (no perm); the tree on the agg views' 512- and
+    128-doc blocks, whole rows and rows off a power of two; the bucket
+    sum per `status` (terms -> stats: three buckets, one of 60% of the
+    docs), over 1,000 buckets and into one. With `old`, the previous
+    commit's scan and tree in turns."""
     import torch
     from elasticsearch_tpu_torch import corpus
     status = rng.integers(0, len(corpus.STATUS), size=cap)
@@ -997,18 +1085,41 @@ def scan_sweep(dev, rng, B: int = 256, cap: int = 1 << 20) -> list[dict]:
     tperm = np.argsort(secs, kind="stable").astype(np.int32)
     edges = np.searchsorted(secs[tperm], np.arange(31) * 86_400)
     for label, p, pos in (("terms status", perm, starts),
-                          ("date_histogram day", tperm, edges)):
-        m = measure_scan(w, torch.from_numpy(p).to(dev),
+                          ("date_histogram day", tperm, edges),
+                          ("no perm, day bounds", None, edges)):
+        m = measure_scan(w, None if p is None else torch.from_numpy(p).to(dev),
                          torch.from_numpy(pos.astype(np.int32)).to(dev),
-                         reps=10)
+                         reps=10, old=old)
         rows.append({"kernel": "ordered_prefix", "agg": label, "B": B,
                      "cap": cap, "positions": int(len(pos)), **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
     for label, x in (("view block sums", w.view(B, cap // 512, 512)),
-                     ("whole rows", w)):
-        m = measure_tree(x, reps=10)
+                     ("view blocks of 128", w.view(B, cap // 128, 128)),
+                     ("whole rows", w),
+                     ("rows of 100,000", w[:, :100_000].contiguous()),
+                     ("rows of 1,000", w.reshape(-1)[:65_536 * 1000]
+                      .view(65_536, 1000))):
+        m = measure_tree(x, reps=10, old=old)
         rows.append({"kernel": "ordered_sum", "agg": label,
                      "shape": list(x.shape), **m})
+        log("kernel_sweep " + json.dumps(rows[-1]))
+    # the bucket sum: the plain fold takes one pass per doc of the
+    # longest fold, so the rows keep it in the 10^5
+    sz_ok = (sz >= lo) & (sz <= lo + 40_000)
+    ids = torch.from_numpy(ords.astype(np.int32)).to(dev)
+    for label, b_ids, n_b, rows_b, square in (
+            ("terms status -> stats", ids, 3, 128, False),
+            ("terms status -> sum of squares", ids, 3, 128, True),
+            ("1,000 buckets", torch.from_numpy(rng.integers(
+                -5, 1005, size=cap).astype(np.int32)).to(dev), 1000, 256,
+             False),
+            ("one bucket", torch.zeros(cap, dtype=torch.int32, device=dev),
+             1, 1, False)):
+        m = measure_bucket(b_ids, sz_ok[:rows_b].contiguous(), sz[0], n_b,
+                           square, reps=10)
+        rows.append({"kernel": "ordered_bucket_sum", "agg": label,
+                     "B": rows_b, "cap": cap, "n_buckets": n_b,
+                     "square": square, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
     return rows
 
@@ -1691,7 +1802,7 @@ def kernel_sweep(dev, rng, old=None) -> tuple[list[dict], float]:
     worst = max(worst, m["max_abs_err"])
     log("kernel_sweep " + json.dumps({"kernel": "scatter_add",
                                       "unsorted": True, **m}))
-    rows += scan_sweep(dev, rng, B, cap)
+    rows += scan_sweep(dev, rng, B, cap, old=old)
     torch.cuda.empty_cache()
     b_rows, b_worst, inputs = bundle_sweep(dev, rng, old=old)
     f_rows, f_worst = form_sweep(dev, rng, inputs, old=old)
@@ -1700,7 +1811,9 @@ def kernel_sweep(dev, rng, old=None) -> tuple[list[dict], float]:
 
 def capture_first_calls():
     """Shims that remember, per mix, the first (args, kwargs) each
-    kernel's wrapper sees: seen[mix][kernel]. Set current["mix"]."""
+    kernel's wrapper sees: seen[mix][kernel], and the scan's first by
+    permutation kind, seen[mix]["ordered_prefix", kind]. Set
+    current["mix"]."""
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     seen: dict[str, dict] = {}
     current = {"mix": None}
@@ -1708,7 +1821,10 @@ def capture_first_calls():
 
     def shim(name):
         def call(*args, **kw):
-            seen.setdefault(current["mix"], {}).setdefault(name, (args, kw))
+            mine = seen.setdefault(current["mix"], {})
+            mine.setdefault(name, (args, kw))
+            if name == "ordered_prefix":
+                mine.setdefault((name, perm_kind(args[1])), (args, kw))
             return orig[name](*args, **kw)
         return call
 
@@ -1892,31 +2008,29 @@ def on_card(args) -> int:
     on_cpu = make_readers([copy.copy(s) for s in small], "cpu")
     small_mix = request_mixes(48, on_cpu, args.small_docs)
     # every agg sum of the mixes (sorted layouts and views: terms and
-    # date_histogram counts, sum and avg) is taken in XLA's order on both
-    # (ops/ordered.py; the scan and tree kernels on the card), so the
-    # card must give the CPU's bits: compared exactly (rtol 0)
+    # date_histogram counts, sum and avg; the doc-space bucket sums of
+    # terms -> stats / extended_stats; a stats agg's row sums) is taken in
+    # XLA's order on both (ops/ordered.py; the scan, tree and bucket-sum
+    # kernels on the card), so the card must give the CPU's bits:
+    # compared exactly (rtol 0), also for terms -> stats / extended_stats
+    # and stats aggs on match queries (doc-space masks)
     for name in MIXES:
         assert_close_responses(
             _strip(search_merged(on_gpu, small_mix[name])),
             _strip(search_merged(on_cpu, small_mix[name])), rtol=0.0)
-    # the sums still held to a tolerance: bucket_sums / bucket_sum_sq
-    # (terms -> stats, the doc-space scatter: index_add_, whose float
-    # adds on the card are atomics in no fixed order), and masked_stats'
-    # sum / sum_sq (a top-level stats agg: XLA's order, exact at the
-    # small index's power-of-two capacity; the bound ROADMAP.md states
-    # otherwise); both at rtol 1e-5, the largest difference reported
     stats_bodies = [{"query": b["query"], "size": 0, "aggs": {
         "by_status": {"terms": {"field": "status"},
-                      "aggs": {"st": {"stats": {"field": "size"}}}},
+                      "aggs": {"st": {"stats": {"field": "size"}},
+                               "ext": {"extended_stats": {
+                                   "field": "size"}}}},
         "all": {"stats": {"field": "size"}}}}
         for b in small_mix["match"][:16]]
-    got_st = _strip(search_merged(on_gpu, stats_bodies))
-    want_st = _strip(search_merged(on_cpu, stats_bodies))
-    assert_close_responses(got_st, want_st, rtol=1e-5)
-    stats_diff = max_agg_rel_diff(got_st, want_st)
+    assert_close_responses(_strip(search_merged(on_gpu, stats_bodies)),
+                           _strip(search_merged(on_cpu, stats_bodies)),
+                           rtol=0.0)
     log(f"cpu check: {args.small_docs}-doc shards agree on the card and "
-        "the CPU, agg sums exactly; stats sums (bucket_sums, masked_stats) "
-        "largest relative difference " + json.dumps(stats_diff))
+        "the CPU, every agg sum exactly (stats and extended_stats "
+        "included)")
     pos_ab["small"] = positional_ab(
         on_gpu, {name: host_affordable(on_gpu, small_mix[name], 48)
                  for name in ("phrase_slop_aggs", "span_near")}, sync)
@@ -1968,7 +2082,8 @@ def on_card(args) -> int:
     first = {}
     for name in MIXES:
         for kern, call in seen.get(name, {}).items():
-            first.setdefault(kern, (name, call))
+            if not isinstance(kern, tuple):     # by perm kind: below
+                first.setdefault(kern, (name, call))
     if set(first) != set(cs.LAUNCHES):
         raise AssertionError(f"captured {sorted(first)}")
     meas = {"dense_score": measure_dense(first["dense_score"][1][0],
@@ -1978,19 +2093,30 @@ def on_card(args) -> int:
             "positional_leaf": measure_leaf(first["positional_leaf"][1][0],
                                             reps=10, old=old),
             "ordered_sum": measure_tree(*first["ordered_sum"][1][0],
-                                        reps=20)}
-    # the scan kernel on every agg mix's first call (B, cap of the main
-    # path), equal to its plain version; the kernels line takes the first
+                                        reps=20, old=old),
+            "ordered_bucket_sum": measure_bucket(
+                *first["ordered_bucket_sum"][1][0], reps=20)}
+    # the scan kernel on every agg mix's first call of each permutation
+    # kind (B, cap of the main path), equal to its plain version; the
+    # kernels line takes the first; the tree also on stats_aggs' rows
     scan_err = 0.0
     for name in AGG_MIXES:
-        a, _kw = seen[name]["ordered_prefix"]
-        m = measure_scan(*a, reps=20)
-        scan_err = max(scan_err, m["max_abs_err"])
-        log(f"main-path inputs ordered_prefix ({name}): " + json.dumps({
-            "shapes": [list(v.shape) for v in a if hasattr(v, "shape")],
-            **m}))
-        meas.setdefault("ordered_prefix", m)
+        for key, (a, _kw) in seen[name].items():
+            if not isinstance(key, tuple):
+                continue
+            m = measure_scan(*a, reps=20, old=old)
+            scan_err = max(scan_err, m["max_abs_err"])
+            log(f"main-path inputs ordered_prefix ({name}, {key[1]}): "
+                + json.dumps({"shapes": [list(v.shape) for v in a
+                                         if hasattr(v, "shape")], **m}))
+            meas.setdefault("ordered_prefix", m)
     meas["ordered_prefix"]["max_abs_err"] = scan_err
+    a, _kw = seen["stats_aggs"]["ordered_sum"]
+    m = measure_tree(*a, reps=20, old=old)
+    log("main-path inputs ordered_sum (stats_aggs): " + json.dumps(
+        {"shape": list(a[0].shape), **m}))
+    meas["ordered_sum"]["max_abs_err"] = max(
+        meas["ordered_sum"]["max_abs_err"], m["max_abs_err"])
     k3_err = 0.0
     for name in FUSED_MIXES:
         a, kw = seen[name]["bundle_topk"]
@@ -2022,7 +2148,7 @@ def on_card(args) -> int:
         mix, (a, kw) = first[name]
         # the main-path call that ms, plain_ms and bound_ms were taken on
         if name in ("dense_score", "scatter_add", "ordered_prefix",
-                    "ordered_sum"):
+                    "ordered_sum", "ordered_bucket_sum"):
             call = {"mix": mix, "shapes": [list(v.shape) for v in a
                                            if hasattr(v, "shape")]}
         elif name.startswith("bundle_topk"):

@@ -152,11 +152,15 @@ def request_mixes(n: int, seed: int = 7, n_docs: int = 1 << 20,
         head terms (the BM25F leaf);
     (l) phrase_filter: bool must match_phrase + terms filter on status
         (the keyword terms filter keeps it off the fused engine: the
-        unfused positional leaf).
+        unfused positional leaf);
+    (m) stats_aggs: size 0, a range filter on size, terms(status) ->
+        extended_stats(size) and a stats(size) agg (a dashboard's
+        per-status size panel: min / max-bearing metrics keep the
+        doc-space bucket sums, the stats agg the row sums).
     Phrases are 2-3 consecutive tokens of the paths of make_docs(n_docs,
-    doc_seed). (f)-(g) and (h)-(l) each draw from a generator of their
-    own, so earlier mixes are the same requests for a seed whatever the
-    later ones hold."""
+    doc_seed). (f)-(g), (h)-(l) and (m) each draw from a generator of
+    their own, so earlier mixes are the same requests for a seed whatever
+    the later ones hold."""
     rng = np.random.default_rng(seed)
     texts = head_terms(rng, 2 * n)
     body_w = zipf_weights(BODY_VOCAB)
@@ -249,6 +253,18 @@ def request_mixes(n: int, seed: int = 7, n_docs: int = 1 << 20,
                     "message": " ".join(phrases[3 * n + i])}}],
                 "filter": [{"terms": {"status": ["200", "404"]}}]}},
             "size": 10})
+    rng4 = np.random.default_rng([seed, 4])
+    mixes["stats_aggs"] = []
+    for _ in range(n):
+        lo = int(rng4.integers(100, 60_000))
+        mixes["stats_aggs"].append({
+            "query": {"range": {"size": {"gte": lo, "lte": lo + 40_000}}},
+            "aggs": {"by_status": {"terms": {"field": "status"},
+                                   "aggs": {"size_stats": {
+                                       "extended_stats": {
+                                           "field": "size"}}}},
+                     "size_stats": {"stats": {"field": "size"}}},
+            "size": 0})
     return mixes
 
 

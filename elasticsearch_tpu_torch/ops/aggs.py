@@ -13,10 +13,12 @@ and routes the rest to a sentinel column `n_buckets` of an
 f32 sums taken by the reference with XLA's `cumsum` / `.sum(-1)`
 (sorted_group_reduce, sorted_hist_reduce, view_group_reduce's float
 path, masked_stats) go through `cuda_scoring.ordered_prefix` /
-`ordered_sum`: XLA's exact order (ops/ordered.py) on the CPU, a kernel
-of that order on the card, so both give the reference's bits. Counts
-stay in int32 (exact in any order); the scatters (`_vscatter`) use
-`index_add_`.
+`ordered_sum`, and its doc-space float scatters (bucket_sums,
+bucket_sum_sq: `.at[ids].add`) through `cuda_scoring.
+ordered_bucket_sum`: XLA's exact order (ops/ordered.py) on the CPU, a
+kernel of that order on the card, so both give the reference's bits.
+Counts stay in int32 where the views take them; `bucket_counts` scatters
+its 1.0s with `index_add_`, exact in any order below 2^24 a bucket.
 """
 
 from __future__ import annotations
@@ -24,40 +26,36 @@ from __future__ import annotations
 import torch
 
 from . import cuda_scoring as cs
+from . import ordered
 
 F32_INF = float("inf")
 
 
-def _sentinel_ids(bucket_ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    bucket_ids = torch.where(bucket_ids < 0, bucket_ids + n_buckets,
-                             bucket_ids)
-    ok = (bucket_ids >= 0) & (bucket_ids < n_buckets)
-    return torch.where(ok, bucket_ids, n_buckets).to(torch.int64)
-
-
-def _vscatter(bucket_ids: torch.Tensor, weights: torch.Tensor,
-              n_buckets: int) -> torch.Tensor:
-    """weights [B, cap] summed by bucket_ids [cap] -> [B, n_buckets]."""
-    B = weights.shape[0]
-    out = torch.zeros((B, n_buckets + 1), dtype=torch.float32,
-                      device=weights.device)
-    out.index_add_(1, _sentinel_ids(bucket_ids, n_buckets),
-                   weights.to(torch.float32))
-    return out[:, :n_buckets]
+def _bucket_fold(bucket_ids, mask, values, n_buckets, square):
+    return cs.ordered_bucket_sum(
+        bucket_ids.to(torch.int32).contiguous(), mask.contiguous(),
+        values.to(torch.float32).contiguous(), n_buckets, square)
 
 
 def _vreduce(bucket_ids, values, n_buckets, init, how):
     B = values.shape[0]
     out = torch.full((B, n_buckets + 1), init, dtype=torch.float32,
                      device=values.device)
-    idx = _sentinel_ids(bucket_ids, n_buckets)[None, :].expand(B, -1)
+    idx = ordered.bucket_ids_kept(bucket_ids, n_buckets)[None, :]
+    idx = idx.expand(B, -1)
     out.scatter_reduce_(1, idx, values, reduce=how, include_self=True)
     return out[:, :n_buckets]
 
 
 def bucket_counts(bucket_ids: torch.Tensor, mask: torch.Tensor,
                   n_buckets: int) -> torch.Tensor:
-    return _vscatter(bucket_ids, mask.to(torch.float32), n_buckets)
+    """Matched docs per bucket, summed in no fixed order: sums of 1.0,
+    exact below 2^24 a bucket."""
+    out = torch.zeros((mask.shape[0], n_buckets + 1), dtype=torch.float32,
+                      device=mask.device)
+    out.index_add_(1, ordered.bucket_ids_kept(bucket_ids, n_buckets),
+                   mask.to(torch.float32))
+    return out[:, :n_buckets]
 
 
 def _view_block_k(n: int) -> int | None:
@@ -153,8 +151,7 @@ def sorted_hist_reduce(sorted_vals: torch.Tensor, perm: torch.Tensor,
 
 
 def bucket_sums(bucket_ids, mask, values, n_buckets):
-    v = values.to(torch.float32)[None, :]
-    return _vscatter(bucket_ids, torch.where(mask, v, 0.0), n_buckets)
+    return _bucket_fold(bucket_ids, mask, values, n_buckets, False)
 
 
 def bucket_min(bucket_ids, mask, values, n_buckets):
@@ -168,8 +165,7 @@ def bucket_max(bucket_ids, mask, values, n_buckets):
 
 
 def bucket_sum_sq(bucket_ids, mask, values, n_buckets):
-    v = values.to(torch.float32)[None, :]
-    return _vscatter(bucket_ids, torch.where(mask, v * v, 0.0), n_buckets)
+    return _bucket_fold(bucket_ids, mask, values, n_buckets, True)
 
 
 def keyword_bucket_ids(ords: torch.Tensor, seg2global: torch.Tensor,
@@ -210,9 +206,7 @@ def masked_stats(values: torch.Tensor, exists: torch.Tensor,
                  mask: torch.Tensor) -> dict:
     """count/sum/min/max/sum_sq of a numeric column under a match mask,
     as [B] arrays. sum and sum_sq take XLA's window tree: the
-    reference's bits on rows of a power-of-two length (every capacity
-    SegmentBuilder makes), within the bound ROADMAP.md states
-    otherwise."""
+    reference's bits at every length."""
     m = mask & exists[None, :]
     v = values.to(torch.float32)[None, :]
     return {

@@ -26,9 +26,10 @@ Pallas kernel:
   csrc/positional_leaf.cuh): K3's positional leaf as its own entry, one
   positional clause over the whole capacity for the unfused path (the
   reference runs `ops/scoring.positional_tile_scores` there in XLA).
-* `ordered_prefix` / `ordered_sum` (csrc/ordered_scan.cu) are no TPU
-  kernel's port: the agg sums the reference takes with XLA's `cumsum`
-  and `.sum(-1)`, in XLA's exact f32 order (plain versions in
+* `ordered_prefix` / `ordered_sum` (csrc/ordered_scan.cu) and
+  `ordered_bucket_sum` (csrc/bucket_sum.cu) are no TPU kernel's port:
+  the agg sums the reference takes with XLA's `cumsum`, `.sum(-1)` and
+  `.at[ids].add`, in XLA's exact f32 order (plain versions in
   `ops/ordered.py`), for ops/aggs.
 
 Each kernel sits beside its plain PyTorch version (`*_ref`), which
@@ -36,7 +37,8 @@ repeats the kernel's arithmetic op for op. A wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it checks device,
 dtype, shape and contiguity and launches the kernel or raises. `LAUNCHES`
 counts kernel launches, one per launch, so a run can show that its path
-went through the kernels (`BUNDLE_FORMS` splits K3's by launch form).
+went through the kernels (`BUNDLE_FORMS` splits K3's by launch form,
+`SCAN_ROUTES` the scan's by route).
 
 The kernels build at first use from the `.cu` sources beside this file
 with `nvcc` for `sm_90a` (one compiler process per source, all started
@@ -61,16 +63,21 @@ import torch
 from . import ordered
 
 LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0,
-            "positional_leaf": 0, "ordered_prefix": 0, "ordered_sum": 0}
+            "positional_leaf": 0, "ordered_prefix": 0, "ordered_sum": 0,
+            "ordered_bucket_sum": 0}
 # K3's launches by launch form: one chunk of a stepped walk (a span short
 # of the whole grid), a seeded single launch (thr_init given: a delta
 # walk chained onto its base), the plain single launch
 BUNDLE_FORMS = {"single": 0, "stepped": 0, "seeded": 0}
+# the scan's launches by route: no perm, gathers straight from the rows
+# (a key sort), the doc-major copy first (a scattered perm)
+SCAN_ROUTES = {"none": 0, "rows": 0, "doc_major": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _SOURCES = {"dense_score": "dense_score.cu", "scatter_add": "scatter_add.cu",
-            "bundle_topk": "bundle_topk.cu", "ordered_scan": "ordered_scan.cu"}
+            "bundle_topk": "bundle_topk.cu", "ordered_scan": "ordered_scan.cu",
+            "bucket_sum": "bucket_sum.cu"}
 # entry point -> the library (source) that defines it
 _ENTRIES = {"dense_score": "dense_score", "scatter_add": "scatter_add",
             "scatter_add_scratch": "scatter_add",
@@ -79,7 +86,9 @@ _ENTRIES = {"dense_score": "dense_score", "scatter_add": "scatter_add",
             "positional_leaf_plan": "bundle_topk",
             "ordered_prefix": "ordered_scan", "ordered_sum": "ordered_scan",
             "ordered_prefix_scratch": "ordered_scan",
-            "ordered_sum_scratch": "ordered_scan"}
+            "ordered_sum_scratch": "ordered_scan",
+            "ordered_prefix_doc_major_scratch": "ordered_scan",
+            "ordered_bucket_sum": "bucket_sum"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -117,6 +126,13 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
         for fn in (lib.ordered_prefix, lib.ordered_sum,
                    lib.ordered_prefix_scratch, lib.ordered_sum_scratch):
             fn.restype = ctypes.c_int
+        dm = lib.ordered_prefix_doc_major_scratch
+        dm.argtypes = [I, I]
+        dm.restype = ctypes.c_longlong
+        return lib
+    if name == "bucket_sum":
+        lib.ordered_bucket_sum.argtypes = [ctypes.POINTER(_BucketArgs), P]
+        lib.ordered_bucket_sum.restype = ctypes.c_int
         return lib
     fn = getattr(lib, name)
     if name == "dense_score":
@@ -346,7 +362,22 @@ class _ScanArgs(ctypes.Structure):
     _P, _I = ctypes.c_void_p, ctypes.c_int
     _fields_ = [("w", _P), ("perm", _P), ("pos", _P), ("lev", _P),
                 ("out", _P), ("B", _I), ("n", _I), ("P", _I),
-                ("pos_per_row", _I), ("lev_len", _I)]
+                ("pos_per_row", _I), ("lev_len", _I), ("wt", _P),
+                ("wt_len", ctypes.c_longlong)]
+
+
+def perm_scattered(perm: torch.Tensor) -> bool:
+    """Whether fewer than 90% of perm's steps ascend: a scattered order
+    (a sort by a key drawn apart from the doc order, as the corpus's
+    timestamps are), whose gathers each pull a 32-byte sector for one
+    weight, where a key sort's runs of ascending docs share sectors.
+    Found once per perm tensor (one device sync) and kept on it."""
+    hit = getattr(perm, "_scattered", None)
+    if hit is None:
+        hit = perm.numel() > 1 and float(
+            (perm[1:] > perm[:-1]).float().mean()) < 0.9
+        perm._scattered = hit
+    return hit
 
 
 def scan_scratch(n: int) -> int:
@@ -356,11 +387,15 @@ def scan_scratch(n: int) -> int:
 
 
 def ordered_prefix(w: torch.Tensor, perm: torch.Tensor | None,
-                   pos: torch.Tensor) -> torch.Tensor:
+                   pos: torch.Tensor, doc_major: bool | None = None
+                   ) -> torch.Tensor:
     """cs0[:, pos] of cs0 = [0, cumsum(w[:, perm])] with the cumsum in
     XLA's order (`ops/ordered.prefix_at`): w f32 [B, n], perm int32 [n]
     or None, pos int32 [P] or [B, P] in [0, n] -> f32 [B, P]. Only the
-    positions are evaluated."""
+    positions are evaluated. `doc_major` (with a perm; by default where
+    `perm_scattered`) first copies the weights doc-major, eight rows a
+    group, so that each gather through perm reads one sector for eight
+    rows."""
     if w.device.type == "cpu":
         return ordered.prefix_at(w, perm, pos)
     dev = w.device
@@ -379,12 +414,21 @@ def ordered_prefix(w: torch.Tensor, perm: torch.Tensor | None,
     lev_len = scan_scratch(n)
     lev = torch.empty((B, max(lev_len, 1)), dtype=torch.float32, device=dev)
     out = torch.empty((B, P), dtype=torch.float32, device=dev)
+    if doc_major is None:
+        doc_major = perm is not None and perm_scattered(perm)
+    wt, wt_len = None, 0
+    if doc_major and perm is not None:
+        wt_len = _fn("ordered_prefix_doc_major_scratch")(B, n)
+        wt = torch.empty((wt_len,), dtype=torch.float32, device=dev)
     a = _ScanArgs(w.data_ptr(), 0 if perm is None else perm.data_ptr(),
                   pos.data_ptr(), lev.data_ptr(), out.data_ptr(), B, n, P,
-                  int(pos.dim() == 2), lev_len)
+                  int(pos.dim() == 2), lev_len,
+                  0 if wt is None else wt.data_ptr(), wt_len)
     err = _fn("ordered_prefix")(ctypes.byref(a), _stream(dev))
     _raise_on(err, "ordered_prefix")
     LAUNCHES["ordered_prefix"] += 1
+    SCAN_ROUTES["none" if perm is None else
+                "doc_major" if doc_major else "rows"] += 1
     return out
 
 
@@ -410,6 +454,58 @@ def ordered_sum(x: torch.Tensor) -> torch.Tensor:
                              out.data_ptr(), R, n, _stream(dev))
     _raise_on(err, "ordered_sum")
     LAUNCHES["ordered_sum"] += 1
+    return out
+
+
+class _BucketArgs(ctypes.Structure):
+    """Mirror of `struct BucketArgs` in csrc/bucket_sum.cu."""
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    _fields_ = [("order", _P), ("sorted_b", _P), ("starts", _P),
+                ("mask", _P), ("values", _P), ("out", _P), ("B", _I),
+                ("cap", _I), ("n_buckets", _I), ("square", _I)]
+
+
+def ordered_bucket_sum(bucket_ids: torch.Tensor, mask: torch.Tensor,
+                       values: torch.Tensor, n_buckets: int,
+                       square: bool = False) -> torch.Tensor:
+    """Per-bucket sums of the matched docs' values (squares with
+    `square`) in XLA's scatter order, each (row, bucket) a left fold in
+    ascending doc order (`ops/ordered.bucket_fold`): bucket_ids int32
+    [cap] ([-n, 0) wrapped, the rest out of range dropped), mask bool
+    [B, cap], values f32 [cap] -> f32 [B, n_buckets]."""
+    if mask.device.type == "cpu":
+        return ordered.bucket_fold(bucket_ids, mask, values, n_buckets,
+                                   square)
+    dev = mask.device
+    _check(bucket_ids, "bucket_ids", torch.int32, 1, dev)
+    _check(mask, "mask", torch.bool, 2, dev)
+    _check(values, "values", torch.float32, 1, dev)
+    B, cap = mask.shape
+    if bucket_ids.shape[0] != cap or values.shape[0] != cap:
+        raise ValueError(f"bucket_ids {tuple(bucket_ids.shape)} / values "
+                         f"{tuple(values.shape)} for rows of {cap}")
+    if B > 65535:
+        raise ValueError(f"ordered_bucket_sum takes at most 65535 rows, "
+                         f"got {B}")
+    out = torch.zeros((B, n_buckets), dtype=torch.float32, device=dev)
+    if B == 0 or cap == 0 or n_buckets == 0:
+        return out
+    # the docs in bucket order, ascending within a bucket (and their
+    # values, in that order); dropped ids (sent to n_buckets) sort last,
+    # past starts[n_buckets]
+    ids = ordered.bucket_ids_kept(bucket_ids, n_buckets).to(torch.int32)
+    sorted_b, order = torch.sort(ids, stable=True)
+    sorted_v = values[order]
+    order = order.to(torch.int32)
+    starts = torch.searchsorted(
+        sorted_b, torch.arange(n_buckets + 1, dtype=torch.int32,
+                               device=dev)).to(torch.int32)
+    a = _BucketArgs(order.data_ptr(), sorted_b.data_ptr(),
+                    starts.data_ptr(), mask.data_ptr(), sorted_v.data_ptr(),
+                    out.data_ptr(), B, cap, n_buckets, int(square))
+    err = _fn("ordered_bucket_sum")(ctypes.byref(a), _stream(dev))
+    _raise_on(err, "ordered_bucket_sum")
+    LAUNCHES["ordered_bucket_sum"] += 1
     return out
 
 

@@ -121,15 +121,25 @@ def _wild(rng, shape):
 @pytest.mark.parametrize("B,n,use_perm,per_row", [
     (1, 1, True, False), (3, 15, False, False), (2, 16, True, True),
     (4, 17, True, False), (70, 1000, False, True), (5, 4097, True, False),
-    (3, 65_539, True, True), (64, 1 << 20, True, False)])
+    (3, 65_539, True, True), (64, 1 << 20, True, False),
+    (4, 1 << 20, False, True), (2, 4096, "key", False),
+    (128, 1 << 16, "key", True), (16, 1 << 20, "key", False),
+    (3, 4098, False, False), (2, 16 ** 4 + 3, "key", True),
+    (2, 1 << 21, True, True)])
 def test_ordered_prefix_equals_plain(cuda, B, n, use_perm, per_row):
     """Ragged lengths, bounds at 0 and at n, one-doc and empty groups,
-    shared and per-row bounds; equal to the plain scan on the card and on
-    the CPU."""
+    shared and per-row bounds; no perm, a key sort (ascending runs) and a
+    random permutation; equal to the plain scan on the card and on the
+    CPU."""
     from elasticsearch_tpu_torch.ops import ordered
     rng = np.random.default_rng(B + n)
     w = _wild(rng, (B, n))
-    perm = rng.permutation(n).astype(np.int32) if use_perm else None
+    perm = None
+    if use_perm == "key":
+        perm = np.argsort(rng.integers(0, 5, size=n),
+                          kind="stable").astype(np.int32)
+    elif use_perm:
+        perm = rng.permutation(n).astype(np.int32)
     G = 9
     shape = (B, G + 1) if per_row else (G + 1,)
     pos = np.sort(rng.integers(0, n + 1, size=shape), axis=-1)
@@ -142,20 +152,40 @@ def test_ordered_prefix_equals_plain(cuda, B, n, use_perm, per_row):
     t = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a)).to(cuda)
     before = cs.LAUNCHES["ordered_prefix"]
+    routes = dict(cs.SCAN_ROUTES)
     got = cs.ordered_prefix(t(w), t(perm), t(pos))
     torch.cuda.synchronize()
     assert cs.LAUNCHES["ordered_prefix"] == before + 1
+    # the route follows the perm: none, a key sort's runs read from the
+    # rows, a random permutation (n > 1) through the doc-major copy
+    route = ("none" if perm is None else "rows" if use_perm == "key"
+             or n == 1 else "doc_major")
+    assert cs.SCAN_ROUTES[route] == routes[route] + 1
     assert torch.equal(got, ordered.prefix_at(t(w), t(perm), t(pos)))
     cpu = ordered.prefix_at(torch.from_numpy(w),
                             None if perm is None else torch.from_numpy(perm),
                             torch.from_numpy(pos))
     assert torch.equal(got.cpu(), cpu)
+    if perm is not None:
+        # the weights copied doc-major (eight rows a sector) first: rows
+        # past B in the last group, B not a multiple of eight
+        dm = cs.ordered_prefix(t(w), t(perm), t(pos), doc_major=True)
+        torch.cuda.synchronize()
+        assert torch.equal(dm, got)
 
 
 @pytest.mark.parametrize("shape", [(4, 1), (5, 33), (3, 48), (2, 1000),
                                    (7, 64, 512), (3, 300, 128),
-                                   (3, 1 << 20), (64, 2048, 512)])
+                                   (3, 1 << 20), (64, 2048, 512),
+                                   (5, 31), (3, 65), (2, 100), (4, 1500),
+                                   (2, 3000), (3, 20_000), (2, 100_000),
+                                   (9, 32), (5, 77, 64), (128, 33, 512),
+                                   (128, 40, 128), (6, 1024),
+                                   (3, 1026)])
 def test_ordered_sum_equals_plain(cuda, shape):
+    """Rows off a power of two (XLA's centred windows: the padding split
+    before and after each level), the agg views' [B, NB, 512] / [B, NB,
+    128] blocks, rows packed several to a warp, rows of 2^20."""
     from elasticsearch_tpu_torch.ops import ordered
     rng = np.random.default_rng(sum(shape))
     x = torch.from_numpy(_wild(rng, shape)).to(cuda)
@@ -166,6 +196,56 @@ def test_ordered_sum_equals_plain(cuda, shape):
     assert got.shape == shape[:-1]
     assert torch.equal(got, ordered.xla_block_sum(x))
     assert torch.equal(got.cpu(), ordered.xla_block_sum(x.cpu()))
+
+
+@pytest.mark.parametrize("shape", [(3, 1000), (4, 64, 512)])
+def test_ordered_sum_unaligned_rows(cuda, shape):
+    """A view that starts one float into its storage takes the kernel's
+    4-byte loads."""
+    from elasticsearch_tpu_torch.ops import ordered
+    rng = np.random.default_rng(5)
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(_wild(rng, (n + 1,))).to(cuda)
+    x = flat[1:].view(shape)
+    got = cs.ordered_sum(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ordered.xla_block_sum(x))
+
+
+def _bucket_inputs(rng, B, cap, n_buckets, hot=None, p_match=0.6):
+    ids = rng.integers(-n_buckets - 3, n_buckets + 3, size=cap)
+    if hot is not None:
+        ids[rng.random(cap) < 0.8] = hot
+    values = _wild(rng, (cap,))
+    mask = rng.random((B, cap)) < p_match
+    mask[0] = False
+    return ids.astype(np.int32), mask, values
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("B,cap,n_buckets,hot", [
+    (1, 5000, 7, None), (128, 4096, 3, 1), (3, 30_000, 1, 0),
+    (4, 40_000, 100_000, None), (128, 65_536, 40_000, None),
+    (2, 40_000, 3, 2), (5, 33, 4, None)])
+def test_ordered_bucket_sum_equals_plain(cuda, square, B, cap, n_buckets,
+                                         hot):
+    """The bucket-sum kernel against its plain version (XLA's scatter:
+    a left fold per bucket in doc order): many buckets, one bucket, more
+    buckets than shared memory would hold, a hot bucket holding most docs
+    (its fold crosses CTA spans and tiles), ids out of range and
+    negative, a row with no match, B 1 and 128."""
+    from elasticsearch_tpu_torch.ops import ordered
+    rng = np.random.default_rng(B + cap + n_buckets)
+    ids, mask, values = _bucket_inputs(rng, B, cap, n_buckets, hot)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    before = cs.LAUNCHES["ordered_bucket_sum"]
+    got = cs.ordered_bucket_sum(t(ids), t(mask), t(values), n_buckets,
+                                square)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["ordered_bucket_sum"] == before + 1
+    want = ordered.bucket_fold(t(ids), t(mask), t(values), n_buckets, square)
+    assert torch.equal(got, want)
+    assert not got[0].any()
 
 
 # ---------------------------------------------------------------------------
@@ -555,9 +635,11 @@ def test_register_and_spill_report(cuda, tmp_path):
                 "scatter_add": ("bucket_counts_kernel", "bucket_scan_kernel",
                                 "bucket_scatter_kernel",
                                 "bucket_accumulate_kernel"),
-                "ordered_scan": ("level_totals_kernel", "scan_points_kernel",
-                                 "window_sums_kernel",
-                                 "window32_sums_kernel")}
+                "ordered_scan": ("scan_levels_kernel",
+                                 "scan_levels_doc_major_kernel",
+                                 "doc_major_kernel", "scan_points_kernel",
+                                 "tree_pair_kernel"),
+                "bucket_sum": ("bucket_fold_kernel",)}
     import subprocess
     for name, src in cs._SOURCES.items():
         out = subprocess.run(

@@ -1,15 +1,13 @@
 """Agg sums of the PyTorch port in the reference's exact f32 order, on the
 CPU, against the JAX package bit for bit.
 
-The reference takes its agg sums with XLA's `cumsum` and `.sum(-1)`;
-`elasticsearch_tpu_torch/ops/ordered.py` reproduces both orders (a
-base-16 blocked scan; a tree of windows of at most 32), and ops/aggs
-routes every float agg sum through them. The orders are pinned here
-against JAX itself, on non-integer weights whose sums round differently
-in any other order. Tolerance: none (bit equality), except masked_stats'
-sum / sum_sq on rows whose length is not a power of two, where XLA's
-order was not pinned: those are held to the bound ROADMAP.md states,
-|port - ref| <= 2^-16 * sum |v| (observed here at most a few ULPs).
+The reference takes its agg sums with XLA's `cumsum`, `.sum(-1)` and
+`.at[ids].add(mode="drop")`; `elasticsearch_tpu_torch/ops/ordered.py`
+reproduces the three orders (a base-16 blocked scan; a tree of centred
+windows of 32; a left fold per bucket in doc order), and ops/aggs routes
+every float agg sum through them. The orders are pinned here against
+JAX itself, on non-integer weights whose sums round differently in any
+other order. Tolerance: none (bit equality).
 """
 
 import json
@@ -186,23 +184,76 @@ def test_masked_stats_exact_at_power_of_two_capacity(n):
         _assert_bits(got[k], want[k])
 
 
-@pytest.mark.parametrize("n", [1000, 20_000, 100_000])
+# lengths off a power of two: XLA pads each level to windows of 32 with
+# p // 2 zeros before the row and the rest after it
+_ODD_LENGTHS = [*range(1, 41), 65, 100, 1000, 1500, 3000, 20_000, 100_000]
+
+
+@pytest.mark.parametrize("n", _ODD_LENGTHS)
+def test_xla_block_sum_is_row_sum_at_every_length(n):
+    rng = np.random.default_rng(n + 7)
+    x = _wild(rng, (4, n))
+    want = jax.jit(lambda a: a.sum(-1))(jnp.asarray(x))
+    _assert_bits(ordered.xla_block_sum(_t(x)), want)
+    _assert_bits(ordered.xla_block_sum(_t(x)), jnp.asarray(x).sum(-1))
+
+
+@pytest.mark.parametrize("n", [1000, 20_000, 100_000, 33, 100, 1500, 3000])
 def test_masked_stats_within_bound_elsewhere(n):
-    """Rows whose length is no power of two: XLA's order is not pinned;
-    the stated bound holds (2^-16 of the sum of magnitudes)."""
+    """Rows whose length is no power of two: sum and sum_sq take XLA's
+    centred windows, so every stat is the reference's bits (the name is
+    kept from when a bound held these)."""
     values, exists, mask = _stats_case(n, n)
     got = port_aggs.masked_stats(_t(values), _t(exists), _t(mask))
     want = ref_aggs.masked_stats(jnp.asarray(values), jnp.asarray(exists),
                                  jnp.asarray(mask))
-    m = mask & exists[None, :]
-    v = values.astype(np.float64)[None, :]
-    for k, mag in (("sum", np.where(m, v, 0).sum(-1)),
-                   ("sum_sq", np.where(m, v * v, 0).sum(-1))):
-        diff = np.abs(got[k].numpy().astype(np.float64)
-                      - np.asarray(want[k]).astype(np.float64))
-        assert (diff <= mag * 2.0 ** -16).all(), (k, diff / mag)
-    for k in ("count", "min", "max"):
+    for k in ("count", "sum", "sum_sq", "min", "max"):
         _assert_bits(got[k], want[k])
+
+
+def _bucket_case(seed, B, cap, n_buckets, hot=None, p_match=0.6):
+    """Bucket ids with some past n_buckets and some negative (wrapped or
+    dropped), non-integer values, a match mask with one empty row."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-n_buckets - 3, n_buckets + 3, size=cap)
+    if hot is not None:                 # one bucket holds most docs
+        ids[rng.random(cap) < 0.8] = hot
+    values = _wild(rng, cap)
+    mask = rng.random((B, cap)) < p_match
+    mask[0] = False
+    return ids.astype(np.int32), mask, values
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("B,cap,n_buckets,hot", [
+    (3, 1000, 7, None), (4, 4096, 3, 1), (2, 3000, 500, None),
+    (5, 777, 1, 0), (1, 64, 40, -2)])
+def test_bucket_fold_is_at_add(square, B, cap, n_buckets, hot):
+    """bucket_sums / bucket_sum_sq's plain version (the CPU path) against
+    the reference's `.at[ids].add(mode="drop")`: ids out of range and
+    negative, a hot bucket holding most docs, rows with no match."""
+    ids, mask, values = _bucket_case(B * cap + n_buckets, B, cap,
+                                     n_buckets, hot)
+    fn = "bucket_sum_sq" if square else "bucket_sums"
+    want = getattr(ref_aggs, fn)(jnp.asarray(ids), jnp.asarray(mask),
+                                 jnp.asarray(values), n_buckets)
+    got = getattr(port_aggs, fn)(_t(ids), _t(mask), _t(values), n_buckets)
+    _assert_bits(got, want)
+    _assert_bits(ordered.bucket_fold(_t(ids), _t(mask), _t(values),
+                                     n_buckets, square), want)
+    assert not got[0].any()
+
+
+def test_bucket_fold_order_matters():
+    """The case shows the order: a different order of the same adds (a
+    reversed doc order) gives other bits, the fold the reference's."""
+    ids, mask, values = _bucket_case(3, 4, 5000, 2, hot=0)
+    want = ref_aggs.bucket_sums(jnp.asarray(ids), jnp.asarray(mask),
+                                jnp.asarray(values), 2)
+    rev = ordered.bucket_fold(_t(ids[::-1]), _t(mask[:, ::-1]),
+                              _t(values[::-1]), 2)
+    assert (_bits(rev) != _bits(want)).any()
+    _assert_bits(ordered.bucket_fold(_t(ids), _t(mask), _t(values), 2), want)
 
 
 # -- the slice: _msearch with float sum / avg sub-aggs, byte for byte ------
