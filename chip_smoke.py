@@ -16,13 +16,16 @@ each of which fails the run on any error:
    its positional leaf: exact and sloppy phrases, ordered and unordered
    spans, BM25F over two fields; the unfused positional leaf entry; the
    positional rows against their plain versions on their first 16 rows;
-   K2 also at the main path's prefix shape, B 128 x 262,144 postings;
-   the agg-sum kernels, not ports of a TPU kernel: the scan
-   `ordered_prefix` (a keyword sort, a timestamp sort, no perm), the
-   tree `ordered_sum` (the views' blocks, whole rows, rows off a power
-   of two) and the bucket sum `ordered_bucket_sum`, XLA's cumsum / sum /
-   scatter order, at B 256 over 2^20 docs drawn like the agg mixes'
-   inputs);
+   K1 on random term ids (few pairs share a term) and on a small
+   vocabulary (most pairs do), with the share of pairs its signature
+   filter lets through; K2 also at the main path's prefix shape, B 128
+   x 262,144 postings; the agg kernels, not ports of a TPU kernel: the
+   scan `ordered_prefix` (a keyword sort, a timestamp sort, no perm),
+   the tree `ordered_sum` (the views' blocks, whole rows, rows off a
+   power of two) and the bucket stats `ordered_bucket_stats` (sum, sum
+   of squares, count, min, max: XLA's scatter results), at B 256 over
+   2^20 docs drawn like the agg mixes' inputs, with the add's dependent
+   latency measured by a one-thread chain, the bucket stats' bound);
    then K3's launch forms on `match` and `phrase_pos:2:e` bundles: the
    stepped walk (8 launches, the threshold carried) equal to the single
    launch and to the plain stepped walk, the seeded walk (a 2^17-doc
@@ -32,7 +35,7 @@ each of which fails the run on any error:
    built with the port's SegmentBuilder, request mixes of 256 requests
    through `ShardReader.msearch` + `merge_shard_results`: the earlier
    slices' seven mixes and stats_aggs (terms -> extended_stats and a
-   stats agg: the bucket sum), then the positional mixes (phrase,
+   stats agg: the bucket stats), then the positional mixes (phrase,
    sloppy phrase with aggs, span_near, cross_fields, phrase with a
    keyword filter), each path run with the launch counts zeroed just
    before it; each path's kernels must have launched, the fused engine
@@ -41,9 +44,11 @@ each of which fails the run on any error:
    same requests with the plain versions swapped in must give identical
    responses, a small index searched on the card must give the CPU's
    responses exactly (every agg sum, terms -> stats / extended_stats and
-   stats aggs included), and each kernel must equal its plain version on
+   stats aggs included), each kernel must equal its plain version on
    the inputs the main path handed it (the scan kernel on every agg
-   mix's first call of each permutation kind); the `match` mix is
+   mix's first call of each permutation kind), and stats_aggs' profiled
+   batch must spend no device time in `scatter_reduce_` / `index_add_`
+   (its doc-space metrics are the bucket stats kernel's); the `match` mix is
    also timed on the unfused path (`ES_TPU_FUSED=0`), and 64 requests of the
    positional mixes on the host oracle (`ES_TPU_POSITIONAL=0`, the
    phrase / span / BM25F code of search/phrase.py through K2), whose
@@ -68,9 +73,11 @@ at a toy size (no build, no timings, no result line), to exercise this
 script without a card. `--ab-parent DIR` loads the K3 of an earlier
 commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
 git-ignored `smoke_checkout/`) beside this one and times the two in turns
-on every K3 sweep and launch-form row, K2's, the unfused leaf's, the
-scan's and the tree's sweep rows and, in a whole run, their main-path
-calls (`ab`);
+on every K3 sweep and launch-form row, K1's, K2's, the unfused leaf's,
+the scan's, the tree's and the bucket stats' sweep rows and, in a whole
+run, their main-path calls (`ab`; the bucket stats against the earlier
+commit's two bucket sums plus the library calls it made for counts,
+min and max);
 `tools/k3_variants.py`
 builds patched copies of this checkout's K3 (a design step undone, or a
 probe) under DIR and times them this way. `--kernels-only` stops after
@@ -106,7 +113,7 @@ PATHS = {
     "dense": (("match", "bool_aggs", "prefix", "term_body", "aggs_only",
                "match_range_aggs", "count_match", "stats_aggs"),
               ("dense_score", "scatter_add", "bundle_topk", "ordered_prefix",
-               "ordered_sum", "ordered_bucket_sum")),
+               "ordered_sum", "ordered_bucket_stats")),
     "positional": (("phrase", "phrase_slop_aggs", "span_near",
                     "cross_fields", "phrase_filter"),
                    ("bundle_topk", "positional_leaf", "ordered_prefix")),
@@ -133,9 +140,10 @@ KERNEL_SOURCES = {
     "ordered_sum": ("elasticsearch_tpu_torch/ops/csrc/ordered_scan.cu",
                     "elasticsearch_tpu/ops/aggs.py:83 (.sum(-1) in XLA, "
                     "not a TPU kernel)"),
-    "ordered_bucket_sum": ("elasticsearch_tpu_torch/ops/csrc/bucket_sum.cu",
-                           "elasticsearch_tpu/ops/aggs.py:25 (.at[].add in "
-                           "XLA, not a TPU kernel)"),
+    "ordered_bucket_stats": (
+        "elasticsearch_tpu_torch/ops/csrc/bucket_stats.cu",
+        "elasticsearch_tpu/ops/aggs.py:25 (.at[].add / .min / .max in XLA, "
+        "not a TPU kernel)"),
 }
 # K3's other launch forms, entries of the kernels line of their own: the
 # stepped walk (`_bundle_pallas_walk`'s step branch) and the seeded walk
@@ -163,11 +171,11 @@ FORM_CHUNKS = 8           # launches of the kernel phase's stepped walk
 WRAPPERS = {"dense_score": "dense_score", "scatter_add": "scatter_add",
             "bundle_topk": "bundle_walk", "positional_leaf": "positional_leaf",
             "ordered_prefix": "ordered_prefix", "ordered_sum": "ordered_sum",
-            "ordered_bucket_sum": "ordered_bucket_sum"}
+            "ordered_bucket_stats": "ordered_bucket_stats"}
 # the agg mixes: their sorted-layout and view sums go through the scan
 # kernel (ordered_prefix), aggs_only's view sums and stats_aggs' stats
 # through the tree (ordered_sum), stats_aggs' terms -> extended_stats
-# through the bucket sum (ordered_bucket_sum)
+# through the bucket stats (ordered_bucket_stats)
 AGG_MIXES = ("bool_aggs", "aggs_only", "match_range_aggs", "count_match",
              "stats_aggs", "phrase_slop_aggs")
 
@@ -318,7 +326,7 @@ def plain_versions() -> dict:
             "positional_leaf": cs.positional_leaf_ref,
             "ordered_prefix": ordered.prefix_at,
             "ordered_sum": ordered.xla_block_sum,
-            "ordered_bucket_sum": ordered.bucket_fold}
+            "ordered_bucket_stats": cs.ordered_bucket_stats_ref}
 
 
 def check_plain_swap(readers, mixes, last) -> None:
@@ -867,19 +875,31 @@ def scatter_bound(docs, cap):
                                        else "operations")
 
 
-def measure_dense(args, reps):
-    import torch
+def measure_dense(args, reps, old=None):
+    """K1 vs its plain version, bit for bit, with the share of pairs its
+    signature filter scores (`candidate_share`, the plain mirror
+    `dense_candidates_ref`: the rest are written +0.0 without the
+    compares); with the previous commit's ops (`old`), its K1 in turns
+    with this one (outputs equal)."""
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     got = cs.dense_score(*args)
     want, plain_ms = plain_run(lambda: cs.dense_score_ref(*args))
-    if not torch.equal(got, want):
+    if not _same_bits(got, want):
         raise AssertionError(f"dense_score != plain at {args[2].shape}")
-    err = float((got - want).abs().max())
+    err = float((got - want).abs().nan_to_num().max())
     bound_ms, bound_by = dense_bound(args[0], args[2])
-    return {"ms": cuda_ms(lambda: cs.dense_score(*args), reps),
-            "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err}
+    m = {"ms": cuda_ms(lambda: cs.dense_score(*args), reps),
+         "plain_ms": plain_ms,
+         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+         "max_abs_err": err,
+         "candidate_share": float(cs.dense_candidates_ref(*args)
+                                  .float().mean())}
+    if old is not None:
+        if not _same_bits(old.dense_score(*args), got):
+            raise AssertionError("dense_score != the previous dense_score")
+        m["ab"] = ab_turns(lambda: cs.dense_score(*args),
+                           lambda: old.dense_score(*args), reps)
+    return m
 
 
 def ab_turns(new_fn, old_fn, reps: int) -> dict:
@@ -1016,45 +1036,130 @@ def measure_tree(x, reps, old=None):
     return m
 
 
-def bucket_bound(ids, mask, n_buckets):
-    """Least time of ordered_bucket_sum: the mask, ids and values read
-    once, the sums written; one add per matched doc of a kept id."""
+@functools.lru_cache(maxsize=None)
+def add_latency(dev) -> dict:
+    """The f32 add's dependent latency on this card, the bucket stats'
+    bound per doc of a fold: one thread's chain of 2^24 __fadd_rn
+    (csrc/bucket_stats.cu `add_chain_kernel`), timed by CUDA events and
+    by the SM's cycle counter. Measured once a run."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    n = 1 << 24
+    x = torch.tensor([1.5, -0.25], dtype=torch.float32, device=dev)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    cycles = torch.empty(1, dtype=torch.int64, device=dev)
+    fn = cs._fn("bucket_add_chain")
+
+    def run():
+        cs._raise_on(fn(x.data_ptr(), out.data_ptr(), cycles.data_ptr(), n,
+                        cs._stream(dev)), "bucket_add_chain")
+
+    ms = cuda_ms(run, 3)
+    return {"adds": n, "ns_per_add": ms * 1e6 / n,
+            "cycles_per_add": int(cycles.item()) / n}
+
+
+def bucket_hottest(ids, mask, n_buckets) -> int:
+    """The longest fold: the matched docs of the busiest (row, bucket)."""
+    from elasticsearch_tpu_torch.ops import ordered
+    return int(ordered.bucket_count(ids, mask, n_buckets).max()) \
+        if n_buckets else 0
+
+
+def bucket_bound(ids, mask, n_buckets, n_stats, ns_per_add):
+    """Least time of ordered_bucket_stats, the larger of two: the mask,
+    ids and values read once and the stats written once, over the
+    memory's rate; the hottest (row, bucket)'s fold, one dependent add
+    per matched doc at the measured add latency."""
     B, cap = mask.shape
-    nbytes = B * cap + cap * 8 + B * n_buckets * 4
-    kept = (ids >= -n_buckets) & (ids < n_buckets)
-    return _bound(nbytes, int((mask & kept[None, :]).sum()))
+    nbytes = B * cap + cap * 8 + n_stats * B * n_buckets * 4
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_chain = bucket_hottest(ids, mask, n_buckets) * ns_per_add * 1e-9
+    return max(t_bytes, t_chain) * 1e3, ("bytes" if t_bytes >= t_chain
+                                         else "operations")
 
 
-def measure_bucket(ids, mask, values, n_buckets, square, reps):
-    """The bucket-sum kernel vs its plain version (XLA's scatter order: a
-    left fold per bucket in doc order), bit for bit; library: index_add_
-    of the masked values (atomics in no fixed order). `hottest`: the
-    longest fold, the matched docs of the busiest (row, bucket)."""
+def _same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def measure_bucket_stats(ids, mask, values, n_buckets, stats, reps,
+                         ns_per_add, old=None):
+    """The bucket-stats kernel vs its plain version (XLA's scatter
+    results), every stat bit for bit; library: what the main path ran
+    for the count, min and max before this kernel, index_add_ and two
+    scatter_reduce_ (atomics; the sums had no library call). With the
+    previous commit's ops (`old`): in turns, this kernel against that
+    commit's bucket sums plus those library calls (`ab`: the work it
+    replaces) and against its bucket sums alone on the sums (`ab_sums`),
+    the sums equal."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     from elasticsearch_tpu_torch.ops import ordered
-    args = (ids, mask, values, n_buckets, square)
-    got = cs.ordered_bucket_sum(*args)
-    want, plain_ms = plain_run(lambda: ordered.bucket_fold(*args))
-    if not torch.equal(got, want):
-        raise AssertionError(f"ordered_bucket_sum != plain at "
-                             f"{tuple(mask.shape)}, {n_buckets} buckets")
+    args = (ids, mask, values, n_buckets, stats)
+    got = cs.ordered_bucket_stats(*args)
+    want, plain_ms = plain_run(lambda: cs.ordered_bucket_stats_ref(*args))
+    for st in stats:
+        if not _same_bits(got[st], want[st]):
+            raise AssertionError(f"ordered_bucket_stats {st} != plain at "
+                                 f"{tuple(mask.shape)}, {n_buckets} buckets")
+    B = mask.shape[0]
     kept = ordered.bucket_ids_kept(ids, n_buckets)
-    v = values * values if square else values
-    w = torch.where(mask, v[None, :], 0.0)
+    idx = kept[None, :].expand(B, -1)
+    inf = float("inf")
 
     def library():
-        out = torch.zeros((mask.shape[0], n_buckets + 1), device=mask.device)
-        return out.index_add_(1, kept, w)
+        cnt = torch.zeros((B, n_buckets + 1), device=mask.device)
+        cnt.index_add_(1, kept, mask.float())
+        out = [cnt]
+        for fill, how in ((inf, "amin"), (-inf, "amax")):
+            o = torch.full((B, n_buckets + 1), fill, device=mask.device)
+            out.append(o.scatter_reduce_(
+                1, idx, torch.where(mask, values[None, :], fill), reduce=how,
+                include_self=True))
+        return out
 
-    per = torch.zeros((mask.shape[0], n_buckets + 1), device=mask.device)
-    per.index_add_(1, kept, mask.float())
-    bound_ms, bound_by = bucket_bound(ids, mask, n_buckets)
-    return {"ms": cuda_ms(lambda: cs.ordered_bucket_sum(*args), reps),
-            "plain_ms": plain_ms, "library_ms": cuda_ms(library, reps),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "hottest": int(per[:, :n_buckets].max()),
-            "max_abs_err": float((got - want).abs().max())}
+    bound_ms, bound_by = bucket_bound(ids, mask, n_buckets, len(stats),
+                                      ns_per_add)
+    m = {"stats": list(stats),
+         "ms": cuda_ms(lambda: cs.ordered_bucket_stats(*args), reps),
+         # the bucket layout, built once per bucket-id tensor (the main
+         # path: once per doc-space sub-agg call), outside `ms`
+         "layout_ms": cuda_ms(lambda: cs.bucket_layout(ids.clone(),
+                                                       n_buckets), 3),
+         "plain_ms": plain_ms,
+         "library_ms": cuda_ms(library, max(2, reps // 4)),
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "hottest": bucket_hottest(ids, mask, n_buckets),
+         "max_abs_err": max(float((got[st] - want[st]).abs().nan_to_num()
+                                  .max()) for st in stats)}
+    if old is not None:
+        sums = [st for st in ("sum", "sum_sq") if st in stats]
+        for st in sums:
+            prev = old.ordered_bucket_sum(ids, mask, values, n_buckets,
+                                          st == "sum_sq")
+            if not _same_bits(prev, got[st]):
+                raise AssertionError(f"ordered_bucket_stats {st} != the "
+                                     f"previous bucket sum")
+
+        def previous():
+            for st in sums:
+                old.ordered_bucket_sum(ids, mask, values, n_buckets,
+                                       st == "sum_sq")
+            library()
+
+        m["ab"] = ab_turns(lambda: cs.ordered_bucket_stats(*args), previous,
+                           max(2, reps // 4))
+        if sums:
+            m["ab_sums"] = ab_turns(
+                lambda: cs.ordered_bucket_stats(ids, mask, values, n_buckets,
+                                                tuple(sums)),
+                lambda: [old.ordered_bucket_sum(ids, mask, values, n_buckets,
+                                                st == "sum_sq")
+                         for st in sums], reps)
+    return m
 
 
 def scan_sweep(dev, rng, B: int = 256, cap: int = 1 << 20,
@@ -1065,9 +1170,10 @@ def scan_sweep(dev, rng, B: int = 256, cap: int = 1 << 20,
     day of `@timestamp` (date_histogram: searchsorted edges) and over the
     rows as they are (no perm); the tree on the agg views' 512- and
     128-doc blocks, whole rows and rows off a power of two; the bucket
-    sum per `status` (terms -> stats: three buckets, one of 60% of the
-    docs), over 1,000 buckets and into one. With `old`, the previous
-    commit's scan and tree in turns."""
+    stats per `status` (terms -> extended_stats: three buckets, one of
+    60% of the docs; its sum alone), over 1,000 buckets and into one.
+    With `old`, the previous commit's scan, tree and bucket sums in
+    turns."""
     import torch
     from elasticsearch_tpu_torch import corpus
     status = rng.integers(0, len(corpus.STATUS), size=cap)
@@ -1103,23 +1209,26 @@ def scan_sweep(dev, rng, B: int = 256, cap: int = 1 << 20,
         rows.append({"kernel": "ordered_sum", "agg": label,
                      "shape": list(x.shape), **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
-    # the bucket sum: the plain fold takes one pass per doc of the
+    # the bucket stats: the plain fold takes one pass per doc of the
     # longest fold, so the rows keep it in the 10^5
     sz_ok = (sz >= lo) & (sz <= lo + 40_000)
     ids = torch.from_numpy(ords.astype(np.int32)).to(dev)
-    for label, b_ids, n_b, rows_b, square in (
-            ("terms status -> stats", ids, 3, 128, False),
-            ("terms status -> sum of squares", ids, 3, 128, True),
-            ("1,000 buckets", torch.from_numpy(rng.integers(
-                -5, 1005, size=cap).astype(np.int32)).to(dev), 1000, 256,
-             False),
-            ("one bucket", torch.zeros(cap, dtype=torch.int32, device=dev),
-             1, 1, False)):
-        m = measure_bucket(b_ids, sz_ok[:rows_b].contiguous(), sz[0], n_b,
-                           square, reps=10)
-        rows.append({"kernel": "ordered_bucket_sum", "agg": label,
-                     "B": rows_b, "cap": cap, "n_buckets": n_b,
-                     "square": square, **m})
+    lat = add_latency(dev)
+    log("add latency " + json.dumps(lat))
+    ext = ("sum", "sum_sq", "count", "min", "max")
+    for label, b_ids, n_b, rows_b, stats in (
+            ("terms status -> extended_stats", ids, 3, 128, ext),
+            ("terms status -> sum", ids, 3, 128, ("sum",)),
+            ("1,000 buckets -> extended_stats", torch.from_numpy(
+                rng.integers(-5, 1005, size=cap).astype(np.int32)).to(dev),
+             1000, 256, ext),
+            ("one bucket -> extended_stats",
+             torch.zeros(cap, dtype=torch.int32, device=dev), 1, 1, ext)):
+        m = measure_bucket_stats(b_ids, sz_ok[:rows_b].contiguous(), sz[0],
+                                 n_b, stats, reps=8,
+                                 ns_per_add=lat["ns_per_add"], old=old)
+        rows.append({"kernel": "ordered_bucket_stats", "agg": label,
+                     "B": rows_b, "cap": cap, "n_buckets": n_b, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
     return rows
 
@@ -1753,22 +1862,26 @@ def kernel_sweep(dev, rng, old=None) -> tuple[list[dict], float]:
     import torch
     rows, worst = [], 0.0
     B, cap = 256, 1 << 20
-    for L in (8, 32):
-        tids = rng.integers(-1, 4000, size=(cap, L)).astype(np.int32)
+    # term ids drawn from 4,000 (few pairs share a term), then from 24
+    # (most pairs do: K1 scores nearly every pair)
+    for L, n_terms, Qs in ((8, 4000, (1, 3, 8)), (32, 4000, (1, 3, 8)),
+                           (8, 24, (4,))):
+        tids = rng.integers(-1, n_terms, size=(cap, L)).astype(np.int32)
         imps = (rng.random((cap, L), dtype=np.float32) * 5)
         imps[tids < 0] = 0
         t_tids = torch.from_numpy(tids).to(dev)
         t_imps = torch.from_numpy(imps).to(dev)
-        for Q in (1, 3, 8):
-            qt = rng.integers(-1, 4000, size=(B, Q)).astype(np.int32)
+        for Q in Qs:
+            qt = rng.integers(-1, n_terms, size=(B, Q)).astype(np.int32)
             qt[:, 0] = tids[rng.integers(0, cap, size=B), 0]
             wq = rng.random((B, Q), dtype=np.float32) * 3
             wq[qt < 0] = 0
             m = measure_dense((t_tids, t_imps, torch.from_numpy(qt).to(dev),
-                               torch.from_numpy(wq).to(dev)), reps=10)
+                               torch.from_numpy(wq).to(dev)), reps=8,
+                              old=old)
             worst = max(worst, m["max_abs_err"])
             rows.append({"kernel": "dense_score", "B": B, "Q": Q, "cap": cap,
-                         "L": L, **m})
+                         "L": L, "terms": n_terms, **m})
             log("kernel_sweep " + json.dumps(rows[-1]))
         del t_tids, t_imps
     # the last: the main path's prefix call, B 128 x N 262,144
@@ -1871,7 +1984,12 @@ def profile_mixes(readers, mixes, out_dir: str | None) -> dict:
             "wall_ms": wall, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall),
             "top_device_ops_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                                  for e in top_dev}}
+                                  for e in top_dev},
+            # the atomics the doc-space metrics took before the bucket
+            # stats kernel
+            "scatter_atomics_ms": sum(
+                e.self_device_time_total for e in ka
+                if "scatter_reduce" in e.key or "index_add" in e.key) / 1e3}
         log("profile " + json.dumps({"mix": name, **out[name]}))
         if out_dir:
             buf = io.StringIO()
@@ -2000,6 +2118,9 @@ def on_card(args) -> int:
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     profiles = profile_mixes(readers, mixes, out_dir)
+    if profiles["stats_aggs"]["scatter_atomics_ms"] > 0:
+        raise AssertionError("stats_aggs: scatter_reduce_ / index_add_ on "
+                             "the card: " + json.dumps(profiles["stats_aggs"]))
 
     # the card agrees with the CPU on a small index
     small = build_shards(args.small_docs, 2, 300, workers=2)
@@ -2087,15 +2208,16 @@ def on_card(args) -> int:
     if set(first) != set(cs.LAUNCHES):
         raise AssertionError(f"captured {sorted(first)}")
     meas = {"dense_score": measure_dense(first["dense_score"][1][0],
-                                         reps=20),
+                                         reps=20, old=old),
             "scatter_add": measure_scatter(*first["scatter_add"][1][0],
                                            reps=20, old=old),
             "positional_leaf": measure_leaf(first["positional_leaf"][1][0],
                                             reps=10, old=old),
             "ordered_sum": measure_tree(*first["ordered_sum"][1][0],
                                         reps=20, old=old),
-            "ordered_bucket_sum": measure_bucket(
-                *first["ordered_bucket_sum"][1][0], reps=20)}
+            "ordered_bucket_stats": measure_bucket_stats(
+                *seen["stats_aggs"]["ordered_bucket_stats"][0], reps=20,
+                ns_per_add=add_latency(dev)["ns_per_add"], old=old)}
     # the scan kernel on every agg mix's first call of each permutation
     # kind (B, cap of the main path), equal to its plain version; the
     # kernels line takes the first; the tree also on stats_aggs' rows
@@ -2148,7 +2270,7 @@ def on_card(args) -> int:
         mix, (a, kw) = first[name]
         # the main-path call that ms, plain_ms and bound_ms were taken on
         if name in ("dense_score", "scatter_add", "ordered_prefix",
-                    "ordered_sum", "ordered_bucket_sum"):
+                    "ordered_sum", "ordered_bucket_stats"):
             call = {"mix": mix, "shapes": [list(v.shape) for v in a
                                            if hasattr(v, "shape")]}
         elif name.startswith("bundle_topk"):

@@ -13,12 +13,14 @@ and routes the rest to a sentinel column `n_buckets` of an
 f32 sums taken by the reference with XLA's `cumsum` / `.sum(-1)`
 (sorted_group_reduce, sorted_hist_reduce, view_group_reduce's float
 path, masked_stats) go through `cuda_scoring.ordered_prefix` /
-`ordered_sum`, and its doc-space float scatters (bucket_sums,
-bucket_sum_sq: `.at[ids].add`) through `cuda_scoring.
-ordered_bucket_sum`: XLA's exact order (ops/ordered.py) on the CPU, a
-kernel of that order on the card, so both give the reference's bits.
-Counts stay in int32 where the views take them; `bucket_counts` scatters
-its 1.0s with `index_add_`, exact in any order below 2^24 a bucket.
+`ordered_sum`, and its doc-space bucket scatters (bucket_sums,
+bucket_sum_sq, bucket_counts: `.at[ids].add`; bucket_min, bucket_max:
+`.at[ids].min / .max`) have their exact results in `ops/ordered.py`;
+`bucket_stats` takes any of them at once (`cuda_scoring.
+ordered_bucket_stats`: the plain reduces on the CPU, one kernel on the
+card), so both give the reference's bits. Counts stay in int32 where
+the views take them; `bucket_counts` scatters its 1.0s with
+`index_add_`, exact in any order below 2^24 a bucket.
 """
 
 from __future__ import annotations
@@ -31,20 +33,14 @@ from . import ordered
 F32_INF = float("inf")
 
 
-def _bucket_fold(bucket_ids, mask, values, n_buckets, square):
-    return cs.ordered_bucket_sum(
+def bucket_stats(bucket_ids, mask, values, n_buckets, stats) -> dict:
+    """{stat: [B, n_buckets]} for the stats asked of `cuda_scoring.
+    BUCKET_STATS` (sum, sum_sq, count, min, max), each what the
+    reference's bucket_sums / bucket_sum_sq / bucket_counts / bucket_min
+    / bucket_max give."""
+    return cs.ordered_bucket_stats(
         bucket_ids.to(torch.int32).contiguous(), mask.contiguous(),
-        values.to(torch.float32).contiguous(), n_buckets, square)
-
-
-def _vreduce(bucket_ids, values, n_buckets, init, how):
-    B = values.shape[0]
-    out = torch.full((B, n_buckets + 1), init, dtype=torch.float32,
-                     device=values.device)
-    idx = ordered.bucket_ids_kept(bucket_ids, n_buckets)[None, :]
-    idx = idx.expand(B, -1)
-    out.scatter_reduce_(1, idx, values, reduce=how, include_self=True)
-    return out[:, :n_buckets]
+        values.to(torch.float32).contiguous(), n_buckets, stats)
 
 
 def bucket_counts(bucket_ids: torch.Tensor, mask: torch.Tensor,
@@ -151,21 +147,21 @@ def sorted_hist_reduce(sorted_vals: torch.Tensor, perm: torch.Tensor,
 
 
 def bucket_sums(bucket_ids, mask, values, n_buckets):
-    return _bucket_fold(bucket_ids, mask, values, n_buckets, False)
+    return bucket_stats(bucket_ids, mask, values, n_buckets, ("sum",))["sum"]
 
 
 def bucket_min(bucket_ids, mask, values, n_buckets):
-    v = torch.where(mask, values.to(torch.float32)[None, :], F32_INF)
-    return _vreduce(bucket_ids, v, n_buckets, F32_INF, "amin")
+    return ordered.bucket_extreme(bucket_ids, mask, values, n_buckets)
 
 
 def bucket_max(bucket_ids, mask, values, n_buckets):
-    v = torch.where(mask, values.to(torch.float32)[None, :], -F32_INF)
-    return _vreduce(bucket_ids, v, n_buckets, -F32_INF, "amax")
+    return ordered.bucket_extreme(bucket_ids, mask, values, n_buckets,
+                                  largest=True)
 
 
 def bucket_sum_sq(bucket_ids, mask, values, n_buckets):
-    return _bucket_fold(bucket_ids, mask, values, n_buckets, True)
+    return bucket_stats(bucket_ids, mask, values, n_buckets,
+                        ("sum_sq",))["sum_sq"]
 
 
 def keyword_bucket_ids(ords: torch.Tensor, seg2global: torch.Tensor,

@@ -8,7 +8,7 @@
 // elasticsearch_tpu_torch/ops/ordered.py (`prefix_at`, `xla_block_sum`).
 // The third agg sum, XLA's scatter `.at[ids].add` (a left fold from
 // +0.0 per bucket over its docs in ascending doc order), is
-// csrc/bucket_sum.cu.
+// csrc/bucket_stats.cu.
 //
 // Entry `ordered_prefix`: cs0[b, pos[g]] of cs0 = [0, cumsum(w[b, perm])]
 // in XLA's order, a recursive blocked scan of base 16: blocks of 16

@@ -5,7 +5,9 @@ Pallas kernel:
 
 * K1 `dense_score` (csrc/dense_score.cu) replaces `_dense_kernel` /
   `score_terms_dense_pallas`: the forward-index compare+FMA
-  out[b, d] = sum_q wq[b, q] * sum_l [tids[d, l] == qt[b, q]] * imps[d, l].
+  out[b, d] = sum_q wq[b, q] * sum_l [tids[d, l] == qt[b, q]] * imps[d, l],
+  the compares only for the pairs whose term signatures meet
+  (`dense_candidates_ref`).
 * K2 `scatter_add` (csrc/scatter_add.cu) replaces `_scatter_kernel` /
   `scatter_add_pallas`: out[b, docs[b, n]] += vals[b, n], docs outside
   [0, cap) dropped, each doc summed in ascending n (postings partitioned
@@ -27,10 +29,10 @@ Pallas kernel:
   positional clause over the whole capacity for the unfused path (the
   reference runs `ops/scoring.positional_tile_scores` there in XLA).
 * `ordered_prefix` / `ordered_sum` (csrc/ordered_scan.cu) and
-  `ordered_bucket_sum` (csrc/bucket_sum.cu) are no TPU kernel's port:
-  the agg sums the reference takes with XLA's `cumsum`, `.sum(-1)` and
-  `.at[ids].add`, in XLA's exact f32 order (plain versions in
-  `ops/ordered.py`), for ops/aggs.
+  `ordered_bucket_stats` (csrc/bucket_stats.cu) are no TPU kernel's
+  port: the agg reduces the reference takes with XLA's `cumsum`,
+  `.sum(-1)` and `.at[ids].add / .min / .max`, with XLA's exact f32
+  results (plain versions in `ops/ordered.py`), for ops/aggs.
 
 Each kernel sits beside its plain PyTorch version (`*_ref`), which
 repeats the kernel's arithmetic op for op. A wrapper takes the plain
@@ -64,7 +66,7 @@ from . import ordered
 
 LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0,
             "positional_leaf": 0, "ordered_prefix": 0, "ordered_sum": 0,
-            "ordered_bucket_sum": 0}
+            "ordered_bucket_stats": 0}
 # K3's launches by launch form: one chunk of a stepped walk (a span short
 # of the whole grid), a seeded single launch (thr_init given: a delta
 # walk chained onto its base), the plain single launch
@@ -77,7 +79,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _SOURCES = {"dense_score": "dense_score.cu", "scatter_add": "scatter_add.cu",
             "bundle_topk": "bundle_topk.cu", "ordered_scan": "ordered_scan.cu",
-            "bucket_sum": "bucket_sum.cu"}
+            "bucket_stats": "bucket_stats.cu"}
 # entry point -> the library (source) that defines it
 _ENTRIES = {"dense_score": "dense_score", "scatter_add": "scatter_add",
             "scatter_add_scratch": "scatter_add",
@@ -88,7 +90,9 @@ _ENTRIES = {"dense_score": "dense_score", "scatter_add": "scatter_add",
             "ordered_prefix_scratch": "ordered_scan",
             "ordered_sum_scratch": "ordered_scan",
             "ordered_prefix_doc_major_scratch": "ordered_scan",
-            "ordered_bucket_sum": "bucket_sum"}
+            "ordered_bucket_stats": "bucket_stats",
+            "ordered_bucket_stats_scratch": "bucket_stats",
+            "bucket_add_chain": "bucket_stats"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -130,9 +134,14 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
         dm.argtypes = [I, I]
         dm.restype = ctypes.c_longlong
         return lib
-    if name == "bucket_sum":
-        lib.ordered_bucket_sum.argtypes = [ctypes.POINTER(_BucketArgs), P]
-        lib.ordered_bucket_sum.restype = ctypes.c_int
+    if name == "bucket_stats":
+        lib.ordered_bucket_stats.argtypes = [
+            ctypes.POINTER(_BucketStatsArgs), P]
+        lib.ordered_bucket_stats.restype = ctypes.c_int
+        lib.ordered_bucket_stats_scratch.argtypes = [I, I, I]
+        lib.ordered_bucket_stats_scratch.restype = ctypes.c_longlong
+        lib.bucket_add_chain.argtypes = [P, P, P, I, P]
+        lib.bucket_add_chain.restype = ctypes.c_int
         return lib
     fn = getattr(lib, name)
     if name == "dense_score":
@@ -247,6 +256,50 @@ def dense_score_ref(fwd_tids: torch.Tensor, fwd_imps: torch.Tensor,
                                     fwd_imps[:, l][None, :], zero)
         acc = acc + hit * wq[:, q:q + 1]
     return acc
+
+
+def _sig_words(ids: torch.Tensor, on: torch.Tensor) -> list:
+    """K1's 128-bit term signatures as two int64 words (bits 0-63,
+    64-127) over the last axis of `ids`, from the entries where `on`:
+    negative ids on bit 127, the others on the high bits of 127 times
+    their 32-bit Fibonacci hash (csrc/dense_score.cu `sig_bit`)."""
+    t = ids.to(torch.int64)
+    h = ((t & 0xFFFFFFFF) * 0x9E3779B1) & 0xFFFFFFFF
+    bit = torch.where(t < 0, 127, (h * 127) >> 32)
+    words = []
+    for lo in (0, 64):
+        inw = on & (bit >= lo) & (bit < lo + 64)
+        w = torch.where(inw, torch.ones_like(bit) << (bit - lo).clamp(0, 63),
+                        0)
+        acc = torch.zeros(ids.shape[:-1], dtype=torch.int64,
+                          device=ids.device)
+        for i in range(ids.shape[-1]):
+            acc = acc | w[..., i]
+        words.append(acc)
+    return words
+
+
+def dense_candidates_ref(fwd_tids: torch.Tensor, fwd_imps: torch.Tensor,
+                         qt: torch.Tensor, wq: torch.Tensor,
+                         rows: int = 16) -> torch.Tensor:
+    """K1's signature filter as plain torch: bool [B, cap], True where
+    the kernel scores the pair, False where it writes +0.0 without the
+    compares: the doc's signature (slots whose impact is not +-0.0) and
+    the row's (every query term) share no bit, in a row whose weights
+    are all finite. Taken `rows` rows at a time."""
+    doc_w = _sig_words(fwd_tids, fwd_imps != 0)
+    row_w = _sig_words(qt, torch.ones_like(qt, dtype=torch.bool))
+    wild = ~torch.isfinite(wq).all(dim=1)
+    out = []
+    for r in range(0, qt.shape[0], rows):
+        hit = wild[r:r + rows, None].expand(-1, fwd_tids.shape[0]).clone()
+        for dw, rw in zip(doc_w, row_w):
+            hit |= (dw[None, :] & rw[r:r + rows, None]) != 0
+        out.append(hit)
+    if not out:
+        return torch.zeros((0, fwd_tids.shape[0]), dtype=torch.bool,
+                           device=fwd_tids.device)
+    return torch.cat(out)
 
 
 def dense_score(fwd_tids: torch.Tensor, fwd_imps: torch.Tensor,
@@ -457,25 +510,83 @@ def ordered_sum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class _BucketArgs(ctypes.Structure):
-    """Mirror of `struct BucketArgs` in csrc/bucket_sum.cu."""
+class _BucketStatsArgs(ctypes.Structure):
+    """Mirror of `struct BucketStatsArgs` in csrc/bucket_stats.cu."""
     _P, _I = ctypes.c_void_p, ctypes.c_int
     _fields_ = [("order", _P), ("sorted_b", _P), ("starts", _P),
-                ("mask", _P), ("values", _P), ("out", _P), ("B", _I),
-                ("cap", _I), ("n_buckets", _I), ("square", _I)]
+                ("chunk_first", _P), ("mask", _P), ("values", _P),
+                ("sum", _P), ("sum_sq", _P), ("count", _P), ("min", _P),
+                ("max", _P), ("scratch", _P),
+                ("scratch_len", ctypes.c_longlong), ("B", _I), ("cap", _I),
+                ("n_buckets", _I)]
 
 
-def ordered_bucket_sum(bucket_ids: torch.Tensor, mask: torch.Tensor,
-                       values: torch.Tensor, n_buckets: int,
-                       square: bool = False) -> torch.Tensor:
-    """Per-bucket sums of the matched docs' values (squares with
-    `square`) in XLA's scatter order, each (row, bucket) a left fold in
-    ascending doc order (`ops/ordered.bucket_fold`): bucket_ids int32
-    [cap] ([-n, 0) wrapped, the rest out of range dropped), mask bool
-    [B, cap], values f32 [cap] -> f32 [B, n_buckets]."""
+BUCKET_STATS = ("sum", "sum_sq", "count", "min", "max")
+BUCKET_TILE = 2048       # sorted positions a tile: kTile of bucket_stats.cu
+
+
+def bucket_layout(bucket_ids: torch.Tensor, n_buckets: int) -> tuple:
+    """The docs in bucket order for `ordered_bucket_stats`: (order, the
+    bucket of each sorted position, each bucket's first position, each
+    bucket's first chunk), int32. A stable sort of the wrapped ids
+    (`ordered.bucket_ids_kept`: dropped ids sort last, past
+    starts[n_buckets]); a chunk is a BUCKET_TILE tile's part of one
+    bucket. Built once per bucket-id tensor and n_buckets, and kept on
+    the tensor (every stat and value column of its calls reuses it)."""
+    hit = getattr(bucket_ids, "_bucket_layout", None)
+    if hit is not None and hit[0] == n_buckets:
+        return hit[1]
+    dev = bucket_ids.device
+    ids = ordered.bucket_ids_kept(bucket_ids, n_buckets).to(torch.int32)
+    sorted_b, order = torch.sort(ids, stable=True)
+    starts = torch.searchsorted(
+        sorted_b, torch.arange(n_buckets + 1, dtype=torch.int32,
+                               device=dev)).to(torch.int32)
+    s, e = starts[:-1].to(torch.int64), starts[1:].to(torch.int64)
+    n_chunks = torch.where(e > s, (e - 1) // BUCKET_TILE
+                           - s // BUCKET_TILE + 1, 0)
+    chunk_first = torch.nn.functional.pad(torch.cumsum(n_chunks, 0),
+                                          (1, 0)).to(torch.int32)
+    layout = (order.to(torch.int32), sorted_b, starts, chunk_first)
+    bucket_ids._bucket_layout = (n_buckets, layout)
+    return layout
+
+
+def ordered_bucket_stats_ref(bucket_ids: torch.Tensor, mask: torch.Tensor,
+                             values: torch.Tensor, n_buckets: int,
+                             stats=BUCKET_STATS) -> dict:
+    """Plain version of `ordered_bucket_stats`: each stat from its plain
+    reduce (`ops/ordered.py`)."""
+    out = {}
+    for st in stats:
+        if st in ("sum", "sum_sq"):
+            out[st] = ordered.bucket_fold(bucket_ids, mask, values,
+                                          n_buckets, st == "sum_sq")
+        elif st == "count":
+            out[st] = ordered.bucket_count(bucket_ids, mask, n_buckets)
+        else:
+            out[st] = ordered.bucket_extreme(bucket_ids, mask, values,
+                                             n_buckets, st == "max")
+    return out
+
+
+def ordered_bucket_stats(bucket_ids: torch.Tensor, mask: torch.Tensor,
+                         values: torch.Tensor, n_buckets: int,
+                         stats=BUCKET_STATS) -> dict:
+    """Per-bucket stats of the matched docs' values, each the reference's
+    exact f32 result: `sum` / `sum_sq` left folds from +0.0 in ascending
+    doc order (`ordered.bucket_fold`), `count` an integer count as f32,
+    `min` / `max` XLA's scatter min / max of where(mask, v, +-inf)
+    (`ordered.bucket_extreme`). bucket_ids int32 [cap] ([-n, 0) wrapped,
+    the rest out of range dropped), mask bool [B, cap], values f32 [cap]
+    -> {stat: f32 [B, n_buckets]} for the stats asked."""
+    stats = tuple(stats)
+    bad = [st for st in stats if st not in BUCKET_STATS]
+    if bad or not stats:
+        raise ValueError(f"stats {stats}: each one of {BUCKET_STATS}")
     if mask.device.type == "cpu":
-        return ordered.bucket_fold(bucket_ids, mask, values, n_buckets,
-                                   square)
+        return ordered_bucket_stats_ref(bucket_ids, mask, values, n_buckets,
+                                        stats)
     dev = mask.device
     _check(bucket_ids, "bucket_ids", torch.int32, 1, dev)
     _check(mask, "mask", torch.bool, 2, dev)
@@ -484,28 +595,27 @@ def ordered_bucket_sum(bucket_ids: torch.Tensor, mask: torch.Tensor,
     if bucket_ids.shape[0] != cap or values.shape[0] != cap:
         raise ValueError(f"bucket_ids {tuple(bucket_ids.shape)} / values "
                          f"{tuple(values.shape)} for rows of {cap}")
-    if B > 65535:
-        raise ValueError(f"ordered_bucket_sum takes at most 65535 rows, "
-                         f"got {B}")
-    out = torch.zeros((B, n_buckets), dtype=torch.float32, device=dev)
+    out = {st: torch.empty((B, n_buckets), dtype=torch.float32, device=dev)
+           for st in stats}
     if B == 0 or cap == 0 or n_buckets == 0:
+        for st, t in out.items():
+            t.fill_({"min": float("inf"), "max": float("-inf")}.get(st, 0.0))
         return out
-    # the docs in bucket order, ascending within a bucket (and their
-    # values, in that order); dropped ids (sent to n_buckets) sort last,
-    # past starts[n_buckets]
-    ids = ordered.bucket_ids_kept(bucket_ids, n_buckets).to(torch.int32)
-    sorted_b, order = torch.sort(ids, stable=True)
-    sorted_v = values[order]
-    order = order.to(torch.int32)
-    starts = torch.searchsorted(
-        sorted_b, torch.arange(n_buckets + 1, dtype=torch.int32,
-                               device=dev)).to(torch.int32)
-    a = _BucketArgs(order.data_ptr(), sorted_b.data_ptr(),
-                    starts.data_ptr(), mask.data_ptr(), sorted_v.data_ptr(),
-                    out.data_ptr(), B, cap, n_buckets, int(square))
-    err = _fn("ordered_bucket_sum")(ctypes.byref(a), _stream(dev))
-    _raise_on(err, "ordered_bucket_sum")
-    LAUNCHES["ordered_bucket_sum"] += 1
+    order, sorted_b, starts, chunk_first = bucket_layout(bucket_ids,
+                                                         n_buckets)
+    nbytes = _fn("ordered_bucket_stats_scratch")(B, cap, n_buckets)
+    scratch = torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
+    ptr = {st: out[st].data_ptr() if st in out else 0
+           for st in BUCKET_STATS}
+    a = _BucketStatsArgs(order.data_ptr(), sorted_b.data_ptr(),
+                         starts.data_ptr(), chunk_first.data_ptr(),
+                         mask.data_ptr(), values.data_ptr(), ptr["sum"],
+                         ptr["sum_sq"], ptr["count"], ptr["min"],
+                         ptr["max"], scratch.data_ptr(), nbytes, B, cap,
+                         n_buckets)
+    err = _fn("ordered_bucket_stats")(ctypes.byref(a), _stream(dev))
+    _raise_on(err, "ordered_bucket_stats")
+    LAUNCHES["ordered_bucket_stats"] += 1
     return out
 
 

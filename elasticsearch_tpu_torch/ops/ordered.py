@@ -30,10 +30,14 @@ and the card round alike (no FMA, no reassociation);
 tests/test_torch_ordered_aggs.py pins the three orders against JAX
 itself, at lengths 1-40 and others off a power of two.
 
+`.at[ids].min / .max(mode="drop")` keep no sum; their result still
+depends on the order where NaN or signed zeros meet (`bucket_extreme`).
+
 `prefix_at` is the plain version of the card's scan kernel
 (`ops/cuda_scoring.ordered_prefix`), `xla_block_sum` of its tree entry
-(`ops/cuda_scoring.ordered_sum`), `bucket_fold` of its bucket-sum entry
-(`ops/cuda_scoring.ordered_bucket_sum`).
+(`ops/cuda_scoring.ordered_sum`), `bucket_fold`, `bucket_count` and
+`bucket_extreme` of its bucket-stats entry
+(`ops/cuda_scoring.ordered_bucket_stats`).
 """
 
 from __future__ import annotations
@@ -148,6 +152,96 @@ def bucket_fold(bucket_ids: torch.Tensor, mask: torch.Tensor,
         out.index_add_(0, tgt_r[lo:lo + count], val_r[lo:lo + count])
         lo += count
     return out.reshape(B, n_buckets)
+
+
+def bucket_count(bucket_ids: torch.Tensor, mask: torch.Tensor,
+                 n_buckets: int) -> torch.Tensor:
+    """Matched docs per bucket as f32, as the reference's `.at[ids].add`
+    of 1.0s gives them: exact, and stopped at 2^24 (fl(2^24 + 1) is
+    2^24). bucket_ids [cap], mask bool [B, cap] -> f32 [B, n_buckets]."""
+    B = mask.shape[0]
+    out = torch.zeros((B, n_buckets + 1), dtype=torch.int64,
+                      device=mask.device)
+    out.index_add_(1, bucket_ids_kept(bucket_ids, n_buckets),
+                   mask.to(torch.int64))
+    return out[:, :n_buckets].clamp(max=1 << 24).to(torch.float32)
+
+
+# `.at[ids].min / .max(mode="drop")` of where(mask, v, +-inf): XLA folds
+# each bucket's docs in ascending doc order through its NaN-propagating
+# minimum / maximum (on the CPU, LLVM's x86 lowering). Without NaN that is
+# the order-free minimum with -0.0 below +0.0 (maximum: +0.0 above -0.0).
+# Which NaN survives depends on the order: the minimum keeps the first NaN
+# with the sign bit clear, else the last one with it set; the maximum the
+# first NaN with the sign bit set, else the last one with it clear. Each
+# candidate is ranked by an integer key, smaller preferred, whose ties
+# cannot occur (the doc breaks them), so a reduction in any order gives
+# the fold's result: class 0 / 1 for the two NaN kinds (ranked by doc,
+# first or last), class 2 for numbers (ranked by the monotone bits below).
+EXTREME_CLASS = 1 << 32
+EXTREME_NONE = 3 << 32       # no matched doc: the reduction's +-inf
+
+
+def float_order_bits(values: torch.Tensor) -> torch.Tensor:
+    """f32 -> int64 in [0, 2^32), monotone in value with -0.0 below +0.0
+    (NaN excluded)."""
+    u = values.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, 0xFFFFFFFF - u, u | (1 << 31))
+
+
+def extreme_keys(values: torch.Tensor, largest: bool) -> torch.Tensor:
+    """The rank key of each doc's value for `bucket_extreme`, [cap] int64
+    (smaller wins; the doc breaks NaN ties)."""
+    v = values.to(torch.float32)
+    cap = v.shape[0]
+    doc = torch.arange(cap, dtype=torch.int64, device=v.device)
+    neg = (v.contiguous().view(torch.int32) < 0)
+    ordv = float_order_bits(v)
+    num = 2 * EXTREME_CLASS + (0xFFFFFFFF - ordv if largest else ordv)
+    # the NaN kind kept first (minimum: sign clear; maximum: sign set)
+    first = neg if largest else ~neg
+    nan = torch.where(first, doc, EXTREME_CLASS + 0xFFFFFFFF - doc)
+    return torch.where(torch.isnan(v), nan, num)
+
+
+def extreme_value(keys: torch.Tensor, values: torch.Tensor,
+                  largest: bool) -> torch.Tensor:
+    """Decode `extreme_keys` (reduced per bucket) back to f32 values; a
+    NaN class key takes its doc's value, EXTREME_NONE the reduction's
+    identity (+inf for the minimum, -inf for the maximum)."""
+    cls = keys >> 32
+    lo = keys & 0xFFFFFFFF
+    ordv = 0xFFFFFFFF - lo if largest else lo
+    bits = torch.where(ordv >= 1 << 31, ordv & 0x7FFFFFFF, 0xFFFFFFFF - ordv)
+    doc = torch.where(cls == 0, lo, 0xFFFFFFFF - lo).clamp(
+        max=max(values.shape[0] - 1, 0))
+    nan_bits = values.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64)[doc] & 0xFFFFFFFF if values.numel() else lo
+    bits = torch.where(cls < 2, nan_bits, bits)
+    ident = 0xFF800000 if largest else 0x7F800000
+    bits = torch.where(keys >= EXTREME_NONE, ident, bits)
+    return (bits - ((bits >= 1 << 31).to(torch.int64) << 32)).to(
+        torch.int32).view(torch.float32)
+
+
+def bucket_extreme(bucket_ids: torch.Tensor, mask: torch.Tensor,
+                   values: torch.Tensor, n_buckets: int,
+                   largest: bool = False) -> torch.Tensor:
+    """XLA's `.at[bucket_ids].min(where(mask, v, +inf), mode="drop")`
+    (`.max` of where(mask, v, -inf) with `largest`), bit for bit, NaN and
+    signed zeros included: bucket_ids [cap], mask bool [B, cap], values
+    [cap] -> f32 [B, n_buckets]. An integer reduction of the rank keys,
+    exact in any order."""
+    B, cap = mask.shape
+    keys = extreme_keys(values, largest)
+    ids = bucket_ids_kept(bucket_ids, n_buckets)
+    k = torch.where(mask, keys[None, :], EXTREME_NONE)
+    out = torch.full((B, n_buckets + 1), EXTREME_NONE, dtype=torch.int64,
+                     device=mask.device)
+    out.scatter_reduce_(1, ids[None, :].expand(B, -1), k, reduce="amin",
+                        include_self=True)
+    return extreme_value(out[:, :n_buckets], values, largest)
 
 
 def prefix_at(w: torch.Tensor, perm: torch.Tensor | None,

@@ -1414,6 +1414,7 @@ def _hist_sorted(seg, col, srtn, valid, subs, kind, params, n_buckets):
     w = torch.where(exists[None, :], valid.to(torch.float32), 0.0)
     entry = {"counts": _sorted_hist_counts(srtn, exists, valid, edges)}
     B = valid.shape[0]
+    bids = None
     for mname, mfield, mkind in subs:
         mcol = seg["num"].get(mfield)
         if mcol is None:
@@ -1421,12 +1422,12 @@ def _hist_sorted(seg, col, srtn, valid, subs, kind, params, n_buckets):
             continue
         if "mv_values" in mcol or mkind not in ("avg", "sum", "value_count"):
             # multi-valued sources and min/max-bearing metrics keep the
-            # per-doc scatter path
-            if kind == "hist_fixed":
+            # per-doc path (one bucket-id tensor: one bucket layout)
+            if bids is None and kind == "hist_fixed":
                 origin, interval = params
                 bids = agg_ops.fixed_histogram_bucket_ids(
                     col["values"], exists, origin, interval, n_buckets)
-            else:
+            elif bids is None:
                 bids = agg_ops.edges_bucket_ids(col["values"], exists,
                                                 params[0], n_buckets)
             entry[mname] = _bucket_metrics(
@@ -1462,14 +1463,16 @@ def _terms_sorted(seg, field, srt, valid, subs, seg2global, g2seg, n_global):
     entry = {"counts": _to_global(
         agg_ops.sorted_group_reduce(perm, starts, w), g2seg)}
     B = valid.shape[0]
+    bids = None
     for mname, mfield, mkind in subs:
         col = seg["num"].get(mfield)
         if col is None:
             entry[mname] = _empty_bucket_metric(mkind, B, n_global, device)
             continue
         if "mv_values" in col or mkind not in ("avg", "sum", "value_count"):
-            bids = agg_ops.keyword_bucket_ids(seg["kw"][field], seg2global,
-                                              n_global)
+            if bids is None:       # one tensor: one bucket layout
+                bids = agg_ops.keyword_bucket_ids(seg["kw"][field],
+                                                  seg2global, n_global)
             entry[mname] = _bucket_metrics(
                 bids, valid, [(mname, mfield, mkind)], seg, n_global)[mname]
             continue
@@ -1569,23 +1572,18 @@ def _bucket_metrics(bucket_ids, mask, sub_metrics, seg, n_buckets):
                     if "mv_values" in col
                     else [(col["values"], col["exists"])])
         entry = _empty_bucket_metric(mkind, B, n_buckets, device)
+        # every stat of a value column in one call: the bucket layout is
+        # built once per bucket-id tensor (kept on it)
         for vals, exists in val_cols:
-            m = mask & exists[None, :]
-            if mkind in ("avg", "sum", "stats", "extended_stats"):
-                entry["sum"] = entry["sum"] + agg_ops.bucket_sums(
-                    bucket_ids, m, vals, n_buckets)
-            if mkind in ("avg", "stats", "extended_stats", "value_count"):
-                entry["count"] = entry["count"] + agg_ops.bucket_counts(
-                    bucket_ids, m, n_buckets)
-            if mkind in ("min", "stats", "extended_stats"):
-                entry["min"] = torch.minimum(entry["min"], agg_ops.bucket_min(
-                    bucket_ids, m, vals, n_buckets))
-            if mkind in ("max", "stats", "extended_stats"):
-                entry["max"] = torch.maximum(entry["max"], agg_ops.bucket_max(
-                    bucket_ids, m, vals, n_buckets))
-            if mkind == "extended_stats":
-                entry["sum_sq"] = entry["sum_sq"] + agg_ops.bucket_sum_sq(
-                    bucket_ids, m, vals, n_buckets)
+            st = agg_ops.bucket_stats(bucket_ids, mask & exists[None, :],
+                                      vals, n_buckets, tuple(entry))
+            for key, arr in st.items():
+                if key == "min":
+                    entry[key] = torch.minimum(entry[key], arr)
+                elif key == "max":
+                    entry[key] = torch.maximum(entry[key], arr)
+                else:
+                    entry[key] = entry[key] + arr
         out[mname] = entry
     return out
 

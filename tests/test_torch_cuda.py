@@ -40,6 +40,61 @@ def _dense_inputs(rng, B, Q, cap, L, n_terms=5000):
     return tids, imps, qt, wq
 
 
+def _sig_bit(t):
+    t = np.asarray(t, np.int64)
+    h = ((t & 0xFFFFFFFF) * 0x9E3779B1) & 0xFFFFFFFF
+    return np.where(t < 0, 127, (h * 127) >> 32)
+
+
+@pytest.mark.parametrize("kind", ["dense", "collisions", "wild rows",
+                                  "zero impacts", "negative ids",
+                                  "duplicate ids", "no terms",
+                                  "huge impacts"])
+@pytest.mark.parametrize("cap", [4096 + 80, 70_003])
+def test_dense_score_filter_equals_plain(cuda, kind, cap):
+    """K1's signature filter on the card: pairs dealt to lanes, warps that
+    score every pair, rows with a non-finite weight, signatures that meet
+    on colliding terms, slots of impact +-0.0, negative ids with impact,
+    duplicate ids in a doc, rows without terms, impacts whose hits
+    overflow (a zero weight then counts), a ragged last block and a
+    capacity off a multiple of 4 (scalar stores)."""
+    rng = np.random.default_rng(cap + len(kind))
+    B, Q, L = 45, 4, 8
+    n_terms = 24 if kind == "dense" else 3000
+    tids, imps, qt, wq = _dense_inputs(rng, B, Q, cap, L, n_terms)
+    if kind == "collisions":
+        bits = _sig_bit(np.arange(n_terms))
+        for b in range(B):
+            t = int(qt[b, 0])
+            same = np.flatnonzero((bits == bits[t]) & (np.arange(n_terms)
+                                                       != t))
+            if len(same):
+                tids[tids == t] = same[0]
+    elif kind == "wild rows":
+        wq[3, 1], wq[17, 0], wq[40, 3] = np.inf, -np.inf, np.nan
+    elif kind == "zero impacts":
+        imps[rng.random(imps.shape) < 0.5] = -0.0
+    elif kind == "negative ids":
+        tids[::5, 0], imps[::5, 0] = -3, 2.0
+        qt[::3, 1], wq[::3, 1] = -3, 1.5
+    elif kind == "duplicate ids":
+        tids[:, 1] = tids[:, 0]
+    elif kind == "no terms":
+        qt[:20], wq[:20] = -1, 0.0
+    elif kind == "huge impacts":
+        tids[::9, 1] = np.where(tids[::9, 0] >= 0, tids[::9, 0], 5)
+        imps[::9, :2] = 3e38
+        qt[:, 3], wq[:, 3] = tids[0, 0], 0.0
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (tids, imps, qt, wq)]
+    got = cs.dense_score(*args)
+    torch.cuda.synchronize()
+    want = cs.dense_score_ref(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    share = float(cs.dense_candidates_ref(*args).float().mean())
+    assert (share > 0.5) if kind == "dense" else (share < 0.5)
+
+
 @pytest.mark.parametrize("B,Q,L", [(1, 1, 8), (33, 3, 8), (70, 8, 32),
                                    (5, 11, 256)])
 def test_dense_score_equals_plain(cuda, B, Q, L):
@@ -222,30 +277,71 @@ def _bucket_inputs(rng, B, cap, n_buckets, hot=None, p_match=0.6):
     return ids.astype(np.int32), mask, values
 
 
-@pytest.mark.parametrize("square", [False, True])
-@pytest.mark.parametrize("B,cap,n_buckets,hot", [
+_BUCKET_SHAPES = [
     (1, 5000, 7, None), (128, 4096, 3, 1), (3, 30_000, 1, 0),
     (4, 40_000, 100_000, None), (128, 65_536, 40_000, None),
-    (2, 40_000, 3, 2), (5, 33, 4, None)])
+    (2, 40_000, 3, 2), (5, 33, 4, None)]
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("B,cap,n_buckets,hot", _BUCKET_SHAPES)
 def test_ordered_bucket_sum_equals_plain(cuda, square, B, cap, n_buckets,
                                          hot):
-    """The bucket-sum kernel against its plain version (XLA's scatter:
-    a left fold per bucket in doc order): many buckets, one bucket, more
-    buckets than shared memory would hold, a hot bucket holding most docs
-    (its fold crosses CTA spans and tiles), ids out of range and
-    negative, a row with no match, B 1 and 128."""
+    """The bucket sums (the bucket-stats kernel asked for one sum)
+    against their plain version (XLA's scatter: a left fold per bucket
+    in doc order): many buckets, one bucket, more buckets than shared
+    memory would hold, a hot bucket holding most docs (its fold crosses
+    tiles and ring pieces), ids out of range and negative, a row with no
+    match, B 1 and 128."""
     from elasticsearch_tpu_torch.ops import ordered
     rng = np.random.default_rng(B + cap + n_buckets)
     ids, mask, values = _bucket_inputs(rng, B, cap, n_buckets, hot)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
-    before = cs.LAUNCHES["ordered_bucket_sum"]
-    got = cs.ordered_bucket_sum(t(ids), t(mask), t(values), n_buckets,
-                                square)
+    st = "sum_sq" if square else "sum"
+    before = cs.LAUNCHES["ordered_bucket_stats"]
+    got = cs.ordered_bucket_stats(t(ids), t(mask), t(values), n_buckets,
+                                  (st,))[st]
     torch.cuda.synchronize()
-    assert cs.LAUNCHES["ordered_bucket_sum"] == before + 1
+    assert cs.LAUNCHES["ordered_bucket_stats"] == before + 1
     want = ordered.bucket_fold(t(ids), t(mask), t(values), n_buckets, square)
     assert torch.equal(got, want)
     assert not got[0].any()
+
+
+_SPECIAL = np.array([0x7FC00001, 0x7FC00005, 0xFFC00002, 0xFFC00009,
+                     0x7F800001, 0xFF800003, 0x7F800000, 0xFF800000, 0,
+                     0x80000000], np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("special", [0, 300])
+@pytest.mark.parametrize("B,cap,n_buckets,hot", _BUCKET_SHAPES)
+def test_ordered_bucket_stats_equals_plain(cuda, special, B, cap, n_buckets,
+                                           hot):
+    """All five stats of the bucket-stats kernel against their plain
+    versions, bit for bit, on the bucket sums' shapes; with `special`,
+    NaNs of both signs and payloads, infinities and signed zeros in
+    bucket 0 (min / max keep the reference's NaN, -0.0 below +0.0)."""
+    rng = np.random.default_rng(B * 7 + cap + n_buckets + special)
+    ids, mask, values = _bucket_inputs(rng, B, cap, n_buckets, hot)
+    if special:
+        at = rng.choice(cap, size=min(special, cap), replace=False)
+        ids[at] = 0
+        values[at] = rng.choice(_SPECIAL, size=len(at))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    before = cs.LAUNCHES["ordered_bucket_stats"]
+    got = cs.ordered_bucket_stats(t(ids), t(mask), t(values), n_buckets)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["ordered_bucket_stats"] == before + 1
+    want = cs.ordered_bucket_stats_ref(t(ids), t(mask), t(values), n_buckets)
+    for st in cs.BUCKET_STATS:
+        assert torch.equal(got[st].view(torch.int32),
+                           want[st].view(torch.int32)), st
+    # the count, min and max alone skip the compaction and the folds
+    part = cs.ordered_bucket_stats(t(ids), t(mask), t(values), n_buckets,
+                                   ("max", "count"))
+    for st in ("max", "count"):
+        assert torch.equal(part[st].view(torch.int32),
+                           want[st].view(torch.int32)), st
 
 
 # ---------------------------------------------------------------------------
@@ -627,9 +723,9 @@ def test_positional_leaf_equals_plain(cuda, bundle, cap, B, L, P):
 
 def test_register_and_spill_report(cuda, tmp_path):
     """ptxas' report of every kernel of the CUDA sources (printed with
-    -s): each kernel builds and reports its registers, and K3's walk
-    (bundle_topk_kernel), the unfused leaf, K2 and the scan and tree
-    kernels spill nothing."""
+    -s): each kernel builds and reports its registers, and K1, K3's walk
+    (bundle_topk_kernel), the unfused leaf, K2, the scan and tree kernels
+    and the bucket stats' two kernels spill nothing."""
     no_spill = {"bundle_topk": ("bundle_topk_kernel",
                                 "positional_leaf_kernel"),
                 "scatter_add": ("bucket_counts_kernel", "bucket_scan_kernel",
@@ -639,7 +735,8 @@ def test_register_and_spill_report(cuda, tmp_path):
                                  "scan_levels_doc_major_kernel",
                                  "doc_major_kernel", "scan_points_kernel",
                                  "tree_pair_kernel"),
-                "bucket_sum": ("bucket_fold_kernel",)}
+                "bucket_stats": ("compact_kernel", "fold_kernel"),
+                "dense_score": ("dense_score_kernel",)}
     import subprocess
     for name, src in cs._SOURCES.items():
         out = subprocess.run(
