@@ -25,14 +25,17 @@ each of which fails the run on any error:
    power of two) and the bucket stats `ordered_bucket_stats` (sum, sum
    of squares, count, min, max: XLA's scatter results), at B 256 over
    2^20 docs drawn like the agg mixes' inputs, with the add's dependent
-   latency measured by a one-thread chain, the bucket stats' bound);
+   latency measured by a one-thread chain, the bucket stats' bound; and
+   all three on rows of subnormals, signed zeros and normal values whose
+   sums cancel into the subnormal range, bit for bit their plain
+   versions, which flush as XLA's CPU runtime does);
    then K3's launch forms on `match` and `phrase_pos:2:e` bundles: the
    stepped walk (8 launches, the threshold carried) equal to the single
    launch and to the plain stepped walk, the seeded walk (a 2^17-doc
    delta opened at a base walk's k-th best) equal to its plain version,
    and a stepped walk whose check flips at chunk 4 launching K3 4 times;
-4. main paths: two shards of 2^20 http_logs-like docs (seeds 42, 43)
-   built with the port's SegmentBuilder, request mixes of 256 requests
+4. main paths: two shards of 2^20 http_logs-like docs (seeds 42, 43),
+   the node's compacted bases (phase 7), request mixes of 256 requests
    through `ShardReader.msearch` + `merge_shard_results`: the earlier
    slices' seven mixes and stats_aggs (terms -> extended_stats and a
    stats agg: the bucket stats), then the positional mixes (phrase,
@@ -41,7 +44,7 @@ each of which fails the run on any error:
    before it; each path's kernels must have launched, the fused engine
    must admit exactly the plans of the fused mixes (the positional ones
    carrying a positional clause, none falling back to the host), the
-   same requests with the plain versions swapped in must give identical
+   first 64 requests with the plain versions swapped in must give identical
    responses, a small index searched on the card must give the CPU's
    responses exactly (every agg sum, terms -> stats / extended_stats and
    stats aggs included), each kernel must equal its plain version on
@@ -49,7 +52,7 @@ each of which fails the run on any error:
    mix's first call of each permutation kind), and stats_aggs' profiled
    batch must spend no device time in `scatter_reduce_` / `index_add_`
    (its doc-space metrics are the bucket stats kernel's); the `match` mix is
-   also timed on the unfused path (`ES_TPU_FUSED=0`), and 64 requests of the
+   also timed on the unfused path (`ES_TPU_FUSED=0`), and 16 requests of the
    positional mixes on the host oracle (`ES_TPU_POSITIONAL=0`, the
    phrase / span / BM25F code of search/phrase.py through K2), whose
    responses must be identical, with matches in every mix compared;
@@ -65,7 +68,29 @@ each of which fails the run on any error:
    timed in turns with the cold path; then a batch whose deadline has
    passed and one whose poll flips at chunk 4 must each raise
    SearchTimeoutError and count as preempted;
-7. a `kernels` JSON line, then the result line
+7. the node path: the main path's index comes from a `Node` on the card
+   behind a loopback `RestServer` (index `logs`, 2 shards, the streaming
+   delta mode): shard s takes corpus.make_docs(2^20, seed 42 + s, start
+   s * 2^20), routed there, through node.bulk in batches (one over HTTP
+   _bulk), and one refresh compacts each shard's delta into its base
+   (phase 4 searches these bases). After the other paths: a delta of
+   2^17 docs per shard beside each base; every mix through node.msearch
+   (timed), a sample of each through HTTP POST /_msearch and the same
+   requests through the engines' own readers, all equal (took aside),
+   every fused group one pack, each kernel of the path launched (counts
+   zeroed just before); 2,000 deletes and 2,000 updates, a refresh,
+   responses again equal to the engines' readers; compaction, after which
+   the responses equal those before the swap (hits, totals, keys and
+   counts exactly, f32 agg sums within COMPACTION_AGG_RTOL (not the
+   variance derived from them), the
+   positional mixes, which score with the segment's field statistics,
+   by their totals) and the replaced segments' fielddata holds are
+   released; then a 20,000-doc node on the card and one on the CPU take
+   the same writes, Part A's subnormal docs included (bulk + compaction,
+   a delta, deletes and updates, compaction, _forcemerge), and give the
+   same responses exactly after each; a `node summary` line with the
+   card's name and power limit;
+8. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `--rehearse` runs the main, delta and resident paths' checks on the CPU
@@ -91,6 +116,7 @@ import contextlib
 import copy
 import functools
 import gc
+import io
 import json
 import multiprocessing
 import os
@@ -107,6 +133,9 @@ H100_F32_OPS_PER_S = 67e12    # float32 outside the tensor cores
 # seconds for all 256 rows over 2^20 docs, and the main path's own calls
 # are held against it in full
 PLAIN_ROWS = 16
+# the plain swap's requests a mix: the plain K3 walk takes seconds per
+# call over 2^20 docs, and its time grows with the rows
+PLAIN_SWAP_REQUESTS = 64
 # the main paths, in slice order: each runs with the launch counts
 # zeroed just before it, and every kernel listed must launch in it
 PATHS = {
@@ -330,10 +359,13 @@ def plain_versions() -> dict:
 
 
 def check_plain_swap(readers, mixes, last) -> None:
+    """The first PLAIN_SWAP_REQUESTS requests of each mix with the plain
+    versions swapped in give the kernels' responses."""
+    n = PLAIN_SWAP_REQUESTS
     with swapped_kernels(**plain_versions()):
         for name in MIXES:
-            if _strip(search_merged(readers, mixes[name])) \
-                    != _strip(last[name]):
+            if _strip(search_merged(readers, mixes[name][:n])) \
+                    != _strip(last[name][:n]):
                 raise AssertionError(f"{name}: responses with the plain "
                                      f"versions swapped in differ")
 
@@ -816,6 +848,10 @@ def rehearse(n_docs: int, batch: int) -> int:
     delta_ab(readers_d, dmix, d_last, 1, lambda: None)
     res = run_resident_path(readers, mixes, last, 1, lambda: None,
                             on_card=False)
+    # their lines stay out of stdout, which holds the result line alone
+    with contextlib.redirect_stdout(io.StringIO()):
+        node_out = rehearse_node(n_docs, batch)
+        subnormal_rows("cpu", np.random.default_rng(5), B=8, cap=2048)
     log("rehearse: " + json.dumps({
         **{k: {"requests": v["requests"], "hits": v["hits"],
                "fused_admitted": v["fused"]["admission"]["admitted"]}
@@ -825,8 +861,524 @@ def rehearse(n_docs: int, batch: int) -> int:
                       "packs": v["dispatches"]["pack"]}
                   for k, v in d_stats.items()},
         "resident": {"hits": res["stats"]["resident_hits"],
-                     "preemption": res["preemption"]}}))
+                     "preemption": res["preemption"]},
+        "node": node_out}))
     return 0
+
+
+def rehearse_node(n_docs: int, batch: int) -> dict:
+    """The node path's steps on the CPU at a toy size: ingest (one batch
+    over HTTP), refresh with compaction, a delta, every mix through
+    node.msearch / HTTP / the engines' readers, edits, compaction, and
+    the small node's steps (a CPU node against a CPU node)."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.rest.server import RestServer
+    node = Node({"node.name": "rehearse"}, device="cpu")
+    server = RestServer(node, "127.0.0.1", 0).start()
+    url = f"http://127.0.0.1:{server.port}"
+    try:
+        # a toy base compacts only under a toy threshold
+        node.create_index("logs", {"number_of_shards": 2,
+                                   "index.streaming.delta": True,
+                                   "index.delta.min_compact_docs": 64},
+                          corpus.MAPPING)
+        docs = [corpus.make_docs(n_docs, seed=42 + s, start=s * n_docs,
+                                 long_every=200) for s in range(2)]
+        ingest = node_ingest(node, url, docs, routing_keys(2),
+                             http_docs=100)
+        node.refresh("logs")
+        ns = argparse.Namespace(docs=n_docs, delta_docs=n_docs // 4,
+                                batch=batch, reps=1)
+        out, launches = node_phase(ns, node, url, lambda: None)
+    finally:
+        server.stop()
+        node.close()
+    small = small_node_check(min(n_docs, 600), 4, "cpu", lambda: None)
+    return {"ingest": ingest["docs"], "compaction_s": out["compaction_s"],
+            "fielddata": out["fielddata"],
+            "launched": sorted(k for k in NODE_KERNELS if launches[k] > 0),
+            "small": small["steps"]}
+
+
+# ---------------------------------------------------------------------------
+# the node path: Node -> IndexService -> Engine -> ShardReader behind the
+# REST handlers
+# ---------------------------------------------------------------------------
+
+# the node path's msearch size per mix: a base + delta pack runs one
+# un-chunked walk over both segments, so an agg plan of more rows than the
+# transient budget allows goes per segment (DELTA_BATCH)
+NODE_BATCH = {"match_range_aggs": 64, "count_match": 64,
+              "phrase_slop_aggs": 64}
+# every kernel of the main paths runs on the node path, K3's seeded form
+# for the base + delta packs
+NODE_KERNELS = ("dense_score", "scatter_add", "bundle_topk",
+                "bundle_topk_seeded", "positional_leaf", "ordered_prefix",
+                "ordered_sum", "ordered_bucket_stats")
+NODE_HTTP_SAMPLE = 32      # requests per mix also sent over HTTP _msearch
+NODE_PROFILE_MIXES = ("match", "bool_aggs", "stats_aggs", "phrase")
+NODE_WRITE_BATCH = 16384   # documents per node.bulk call
+NODE_EDITS = 1000          # deletes and updates of the node path's step 4
+# f32 agg metrics across a compaction: summed in one segment instead of
+# two, each in XLA's order. A bucket's left fold over ~700,000 values of
+# `size` (or its square) ends near 3.5e10 (2.3e15), where an add rounds
+# by up to half of an ulp of 4,096 (2.7e8): the two orders differ by
+# about 3e-5 relative (one standard deviation), up to ~1e-4 over a run's
+# 768 buckets. Sums compared within COMPACTION_AGG_RTOL; not the metrics
+# derived from them by a cancelling subtraction (variance,
+# std_deviation: full runs showed 1.0e-4 and 1.15e-3 relative there)
+COMPACTION_AGG_RTOL = 1e-3
+DERIVED_METRICS = ("variance", "std_deviation")
+# Part A's values: subnormals of both signs, signed zeros, normal values
+# just above 2^-126 whose sums cancel into the subnormal range
+SUBNORMALS = (1e-40, -1e-40, 1e-45, -1e-45, 1e-38, 9.9e-39, -1e-38,
+              -9.9e-39, 3e-39, -2e-39, 0.0, -0.0, 1.5e-38, -1.4e-38, 1.2e-38,
+              -1.19e-38, 1e-20, -1e-20, 1.5, -2.25)
+
+
+def routing_keys(n_shards: int) -> list[str]:
+    """A `_routing` value per shard that the node's routing (DjbHash)
+    places on that shard."""
+    from elasticsearch_tpu_torch.cluster.routing import shard_id
+    keys: dict[int, str] = {}
+    i = 0
+    while len(keys) < n_shards:
+        keys.setdefault(shard_id("", n_shards, f"r{i}"), f"r{i}")
+        i += 1
+    return [keys[s] for s in range(n_shards)]
+
+
+def _bulk_ops(docs, key: str, index: str = "logs") -> list:
+    return [("index", {"_index": index, "_id": did, "_routing": key,
+                       "doc": d}) for did, d in docs]
+
+
+def _ndjson(lines) -> bytes:
+    return ("\n".join(json.dumps(x) for x in lines) + "\n").encode()
+
+
+def http_call(url: str, method: str, path: str, lines=None):
+    import urllib.request
+    data = _ndjson(lines) if lines is not None else None
+    req = urllib.request.Request(url + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as f:
+        return json.loads(f.read())
+
+
+def node_ingest(node, url: str, shard_docs, keys, index: str = "logs",
+                http_docs: int = 4096) -> dict:
+    """Every shard's documents through node.bulk in batches of
+    NODE_WRITE_BATCH, routed to their shard; shard 0's first `http_docs`
+    go as one NDJSON _bulk over HTTP. Returns docs and seconds."""
+    t0 = time.perf_counter()
+    n = 0
+    for s, docs in enumerate(shard_docs):
+        lo = 0
+        if s == 0 and http_docs:
+            lines = []
+            for did, d in docs[:http_docs]:
+                lines += [{"index": {"_index": index, "_id": did,
+                                     "routing": keys[s]}}, d]
+            r = http_call(url, "POST", "/_bulk", lines=lines)
+            if r["errors"] or len(r["items"]) != min(http_docs, len(docs)):
+                raise AssertionError("HTTP _bulk: " + json.dumps(r)[:400])
+            lo = http_docs
+        for i in range(lo, len(docs), NODE_WRITE_BATCH):
+            r = node.bulk(_bulk_ops(docs[i:i + NODE_WRITE_BATCH], keys[s],
+                                    index))
+            if r["errors"]:
+                raise AssertionError("node.bulk: " + json.dumps(r)[:400])
+        n += len(docs)
+    return {"docs": n, "s": time.perf_counter() - t0}
+
+
+def node_readers(node, index: str = "logs") -> list:
+    return [eng.acquire_searcher()
+            for eng in node.indices[index].shards.values()]
+
+
+def node_search(node, bodies, batch=None, index: str = "logs") -> list:
+    step = batch or len(bodies)
+    out = []
+    for i in range(0, len(bodies), step):
+        out += node.msearch([(index, b)
+                             for b in bodies[i:i + step]])["responses"]
+    bad = [r for r in out if r.get("status") != 200]
+    if bad:
+        raise AssertionError("node.msearch item failed: "
+                             + json.dumps(bad[0])[:400])
+    return out
+
+
+def _node_strip(resps: list[dict]) -> list[dict]:
+    return [{k: v for k, v in r.items() if k not in ("took", "status")}
+            for r in resps]
+
+
+def node_mixes(n: int, readers, n_docs: int) -> dict[str, list[dict]]:
+    """request_mixes for the node's readers (base + delta): fused mixes
+    keep the requests whose message words every segment holds, so that
+    each fused group goes as one pack."""
+    mixes = request_mixes(max(16 * n, 256), readers, n_docs)
+    vocab = [set(seg.text["message"].terms) for r in readers
+             for seg in r.segments]
+    out = {}
+    for name, bodies in mixes.items():
+        if name in FUSED_MIXES:
+            bodies = [b for b in bodies
+                      if all(set(_query_words(b)) <= v for v in vocab)]
+        out[name] = bodies[:n]
+        if not out[name]:
+            raise AssertionError(f"node path: no {name} request")
+    return out
+
+
+def run_node_path(node, url: str, mixes, reps: int, sync) -> tuple:
+    """Every mix through node.msearch (timed), a sample of each through
+    HTTP POST /_msearch, and the same requests through the engines' own
+    readers (search_merged); the three must agree (took aside), every
+    fused group must go as one pack. The launch counts are zeroed just
+    before and read just after. Returns (stats, last responses,
+    launches)."""
+    stats, last = {}, {}
+    readers = node_readers(node)
+    _zero_counts()
+    with counted_dispatches() as counts:
+        for name in MIXES:
+            bodies = mixes[name]
+            batch = NODE_BATCH.get(name)
+            before = dict(counts)
+            t0 = time.perf_counter()
+            lat = []
+            for _ in range(reps):
+                t1 = time.perf_counter()
+                resps = node_search(node, bodies, batch)
+                sync()
+                lat.append((time.perf_counter() - t1) * 1e3)
+            wall = time.perf_counter() - t0
+            d = {k: counts[k] - before[k] for k in counts}
+            # an unfused plan is refused by the pack and goes per segment
+            if name in FUSED_MIXES and (d["refused"] or d["segment"]
+                                        or not d["pack"]):
+                raise AssertionError(f"node path, {name}: a fused group "
+                                     f"did not go as one pack: {d}")
+            direct_st, direct = time_mix(readers, bodies, max(1, reps - 2),
+                                         sync, batch=batch)
+            if _node_strip(resps) != _strip(direct):
+                raise AssertionError(f"node path, {name}: node.msearch != "
+                                     f"the engines' readers")
+            sample = bodies[:NODE_HTTP_SAMPLE]
+            lines = [x for b in sample for x in ({"index": "logs"}, b)]
+            lat_h = []
+            for _ in range(max(1, reps - 2)):
+                t1 = time.perf_counter()
+                over_http = http_call(url, "POST", "/_msearch",
+                                      lines=lines)["responses"]
+                lat_h.append((time.perf_counter() - t1) * 1e3)
+            if _node_strip(over_http) != _node_strip(resps[:len(sample)]):
+                raise AssertionError(f"node path, {name}: HTTP _msearch != "
+                                     f"node.msearch")
+            stats[name] = {
+                "requests": len(bodies), "msearch_batch": batch or len(bodies),
+                "node": {"qps": len(bodies) * reps / wall,
+                         "p50_ms": float(np.percentile(lat, 50))},
+                "rest": {"requests": len(sample),
+                         "qps": len(sample) / (float(np.median(lat_h)) / 1e3),
+                         "p50_ms": float(np.percentile(lat_h, 50))},
+                "direct": {"qps": direct_st["qps"],
+                           "p50_ms": direct_st["p50_ms"]},
+                "dispatches": d,
+                "hits": sum(r["hits"]["total"] for r in resps)}
+            last[name] = resps
+            log("node mix " + json.dumps({"mix": name, **stats[name]}))
+    return stats, last, _read_counts()
+
+
+def node_serve_equal(node, mixes, want: dict, what: str,
+                     agg_rtol: float = 0.0, totals_only=()) -> dict:
+    """Every mix through node.msearch once; with `want`, the responses
+    must equal it (took aside), float agg metrics within `agg_rtol`, the
+    mixes of `totals_only` their hit totals only. Returns the
+    responses."""
+    got = {name: node_search(node, mixes[name], NODE_BATCH.get(name))
+           for name in MIXES}
+    if want is not None:
+        for name in MIXES:
+            g, w = _node_strip(got[name]), _node_strip(want[name])
+            if name in totals_only:
+                g = [r["hits"]["total"] for r in g]
+                w = [r["hits"]["total"] for r in w]
+            elif agg_rtol:
+                g, w = _drop_keys(g, DERIVED_METRICS), \
+                    _drop_keys(w, DERIVED_METRICS)
+            try:
+                assert_close_responses(g, w, rtol=agg_rtol)
+            except AssertionError as e:
+                raise AssertionError(f"node path, {name}: responses "
+                                     f"differ {what}: {e}") from None
+    return got
+
+
+def _drop_keys(x, keys):
+    if isinstance(x, dict):
+        return {k: _drop_keys(v, keys) for k, v in x.items() if k not in keys}
+    if isinstance(x, list):
+        return [_drop_keys(v, keys) for v in x]
+    return x
+
+
+def node_direct_equal(node, mixes, got: dict, what: str) -> None:
+    readers = node_readers(node)
+    for name in MIXES:
+        direct = search_merged(readers, mixes[name])
+        if _node_strip(got[name]) != _strip(direct):
+            raise AssertionError(f"node path, {name}: node.msearch != the "
+                                 f"engines' readers {what}")
+
+
+def fielddata_bytes() -> int:
+    from elasticsearch_tpu_torch.utils.breaker import breaker_service
+    return breaker_service().breaker("fielddata").used
+
+
+def subnormal_docs(docs, seed: int) -> list:
+    """The corpus docs with a `double` and a `float` field holding Part
+    A's values (85% of docs each)."""
+    rng = np.random.default_rng(seed)
+    vals = np.array(SUBNORMALS, np.float32)
+    out = []
+    for did, d in docs:
+        d = dict(d)
+        if rng.random() < 0.85:
+            d["dval"] = float(rng.choice(vals))
+        if rng.random() < 0.85:
+            d["fval"] = float(rng.choice(vals))
+        out.append((did, d))
+    return out
+
+
+def subnormal_bodies() -> list[dict]:
+    out = []
+    for f in ("dval", "fval"):
+        aggs = {
+            "st": {"stats": {"field": f}},
+            "ex": {"extended_stats": {"field": f}},
+            "mn": {"min": {"field": f}}, "mx": {"max": {"field": f}},
+            "sm": {"sum": {"field": f}}, "av": {"avg": {"field": f}},
+            "by_status": {"terms": {"field": "status"},
+                          "aggs": {"st": {"stats": {"field": f}},
+                                   "ex": {"extended_stats": {
+                                       "field": f}}}},
+            "by_size": {"histogram": {"field": "size", "interval": 20_000},
+                        "aggs": {"s": {"sum": {"field": f}},
+                                 "mn": {"min": {"field": f}}}}}
+        out += [
+            {"query": {"range": {f: {"gte": 1e-45}}}, "size": 0,
+             "aggs": aggs},
+            {"query": {"range": {f: {"gte": 1e-45, "lt": 1e-39}}},
+             "size": 30, "sort": [{f: "asc"}]},
+            {"query": {"range": {f: {"gt": -1e-45}}}, "size": 0},
+            {"query": {"match": {"message": "images"}}, "size": 0,
+             "aggs": aggs},
+            {"query": {"match_all": {}}, "size": 100,
+             "sort": [{f: "desc"}]},
+            {"query": {"bool": {"must": [{"match": {"message": "images"}}],
+                                "filter": [{"range": {f: {"lt": 1e-39}}}]}},
+             "size": 10, "aggs": aggs}]
+    return out
+
+
+def small_node_check(n_docs: int, n_per_mix: int, dev, sync) -> dict:
+    """A node on the card and one on the CPU take the same writes (Part
+    A's subnormal docs included): bulk + refresh (compaction), a delta,
+    deletes and updates, compaction, _forcemerge. After each step every
+    mix and the subnormal bodies give the CPU's responses exactly."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    mapping = {"properties": {**corpus.MAPPING["properties"],
+                              "dval": {"type": "double"},
+                              "fval": {"type": "float"}}}
+    keys = routing_keys(2)
+    docs = [subnormal_docs(list(corpus.make_docs(
+        n_docs, seed=42 + s, start=s * n_docs, long_every=300)), 900 + s)
+        for s in range(2)]
+    extra = [subnormal_docs(list(corpus.make_docs(
+        n_docs // 10, seed=142 + s, start=(2 + s) * n_docs,
+        long_every=300)), 910 + s) for s in range(2)]
+    nodes = {"gpu": Node({"node.name": "small-gpu"}, device=dev),
+             "cpu": Node({"node.name": "small-cpu"}, device="cpu")}
+    steps = []
+    try:
+        for n in nodes.values():
+            n.create_index("small", {"number_of_shards": 2,
+                                     "index.streaming.delta": True,
+                                     "index.delta.min_compact_docs":
+                                         min(4096, n_docs // 2)},
+                           mapping)
+        mixes = None
+
+        def compare(step):
+            nonlocal mixes
+            if mixes is None:
+                mixes = request_mixes(n_per_mix, node_readers(
+                    nodes["cpu"], "small"), n_docs)
+                mixes["subnormal"] = subnormal_bodies()
+            for name, bodies in mixes.items():
+                got = {side: _node_strip(node_search(n, bodies,
+                                                     index="small"))
+                       for side, n in nodes.items()}
+                if json.dumps(got["gpu"], sort_keys=True) != json.dumps(
+                        got["cpu"], sort_keys=True):
+                    raise AssertionError(f"small node, {step}, {name}: "
+                                         "the card != the CPU")
+            steps.append(step)
+
+        for n in nodes.values():
+            for s in range(2):
+                n.bulk(_bulk_ops(docs[s], keys[s], "small"))
+            n.refresh("small")
+        compare("ingest + refresh (compaction)")
+        for n in nodes.values():
+            for s in range(2):
+                n.bulk(_bulk_ops(extra[s], keys[s], "small"))
+            n.refresh("small")
+        compare("delta")
+        for n in nodes.values():
+            ops = []
+            for s in range(2):
+                pick = np.random.default_rng(78 + s).choice(
+                    n_docs, size=200, replace=False)
+                ops += [("delete", {"_index": "small",
+                                    "_id": docs[s][i][0],
+                                    "_routing": keys[s]})
+                        for i in pick[:100]]
+                ops += [("update", {"_index": "small",
+                                    "_id": docs[s][i][0],
+                                    "_routing": keys[s],
+                                    "doc": {"doc": {"size": 7,
+                                                    "fval": -1e-40}}})
+                        for i in pick[100:]]
+            r = n.bulk(ops)
+            if r["errors"]:
+                raise AssertionError("small node bulk edits failed")
+            n.refresh("small")
+        compare("deletes + updates")
+        for n in nodes.values():
+            for eng in n.indices["small"].shards.values():
+                eng.compact()
+        compare("compaction")
+        for n in nodes.values():
+            n.force_merge("small")
+        compare("_forcemerge")
+    finally:
+        for n in nodes.values():
+            n.close()
+    return {"docs_per_shard": n_docs, "steps": steps,
+            "mixes": len(mixes) if mixes else 0}
+
+
+def node_phase(args, node, url: str, sync, profile=None) -> tuple:
+    """Steps 2-5 of the node path on the full-width node: a delta beside
+    each base, every mix served (node / REST / direct readers), deletes
+    and updates, compaction (identical responses across the swap; the
+    replaced segments' fielddata holds released)."""
+    from elasticsearch_tpu_torch import corpus
+    keys = routing_keys(2)
+    out: dict = {}
+    # 2. a delta of DELTA_DOCS per shard beside each base
+    extra = [list(corpus.make_docs(args.delta_docs, seed=242 + s,
+                                   start=2 * args.docs + s * args.delta_docs,
+                                   long_every=1000)) for s in range(2)]
+    w = node_ingest(node, url, extra, keys, http_docs=0)
+    t0 = time.perf_counter()
+    node.refresh("logs")
+    out["delta_refresh_s"] = time.perf_counter() - t0
+    out["delta_ingest"] = {"docs": w["docs"], "s": w["s"],
+                           "docs_per_s": w["docs"] / w["s"]}
+    segs = [[s.num_docs for s in eng.segments]
+            for eng in node.indices["logs"].shards.values()]
+    if any(len(x) != 2 for x in segs):
+        raise AssertionError(f"node path: not a base + delta: {segs}")
+    log("node delta: " + json.dumps({**out, "segments": segs}))
+    # 3. serve
+    readers = node_readers(node)
+    mixes = node_mixes(args.batch, readers, args.docs)
+    node_search(node, mixes["match"][:8])            # warm-up
+    for name in MIXES:
+        node_search(node, mixes[name], NODE_BATCH.get(name))
+    sync()
+    stats, last, launches = run_node_path(node, url, mixes,
+                                          min(args.reps, 3), sync)
+    out["mixes"] = stats
+    if profile is not None:
+        out["profiles"] = profile(
+            lambda bodies: node_search(node, bodies), mixes)
+    # 4. deletes and updates
+    rng = np.random.default_rng(99)
+    n_edits = min(NODE_EDITS, args.docs // 4)
+    ops = []
+    for s in range(2):
+        ids = rng.choice(args.docs, size=2 * n_edits, replace=False)
+        base_ids = [str(s * args.docs + int(i)) for i in ids]
+        ops += [("delete", {"_index": "logs", "_id": d, "_routing": keys[s]})
+                for d in base_ids[:n_edits]]
+        ops += [("update", {"_index": "logs", "_id": d, "_routing": keys[s],
+                            "doc": {"doc": {"size": 7}}})
+                for d in base_ids[n_edits:]]
+    r = node.bulk(ops)
+    if r["errors"]:
+        raise AssertionError("node path edits: " + json.dumps(
+            [i for i in r["items"] if "error" in next(iter(i.values()))][:3]))
+    t0 = time.perf_counter()
+    node.refresh("logs")
+    out["edits_refresh_s"] = time.perf_counter() - t0
+    edited = node_serve_equal(node, mixes, None, "after the edits")
+    node_direct_equal(node, mixes, edited, "after the edits")
+    log("node edits: " + json.dumps({"deletes": 2 * n_edits,
+                                     "updates": 2 * n_edits,
+                                     "refresh_s": out["edits_refresh_s"]}))
+    # 5. compaction: identical responses across the swap, the replaced
+    # segments' fielddata holds released
+    svc = node.indices["logs"]
+    old_holds = [seg._breaker_hold for eng in svc.shards.values()
+                 for seg in eng.segments]
+    held = sum(h.bytes for h in old_holds)
+    before = fielddata_bytes()
+    t0 = time.perf_counter()
+    for eng in svc.shards.values():
+        if not eng.compact():
+            raise AssertionError("node path: compaction did not swap")
+    out["compaction_s"] = time.perf_counter() - t0
+    del readers
+    gc.collect()
+    released = sum(1 for h in old_holds if h.bytes == 0)
+    after_swap = fielddata_bytes()
+    # hits, totals, scores, keys and counts identical across the swap;
+    # f32 agg sums within COMPACTION_AGG_RTOL: the compacted base sums in
+    # one segment what base and delta summed apart; the positional mixes
+    # score with the field statistics of the segment they search, which
+    # the fold changes, so their totals only. The reference's compaction
+    # does the same (tests/test_torch_engine.py holds the port to it
+    # across compactions; ROADMAP Queue 3)
+    compacted = node_serve_equal(node, mixes, edited, "across compaction",
+                                 agg_rtol=COMPACTION_AGG_RTOL,
+                                 totals_only=PATHS["positional"][0])
+    out["fielddata"] = {"before_compaction": before,
+                        "replaced_segments_held": held,
+                        "after_swap": after_swap,
+                        "after_serving": fielddata_bytes(),
+                        "replaced_holds_released": released,
+                        "replaced_holds": len(old_holds)}
+    if released != len(old_holds) or after_swap > before - held:
+        raise AssertionError("node path: the replaced segments' fielddata "
+                             "holds were not released: "
+                             + json.dumps(out["fielddata"]))
+    del compacted, edited
+    log("node compaction: " + json.dumps(
+        {"s": out["compaction_s"], "fielddata": out["fielddata"]}))
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1230,6 +1782,59 @@ def scan_sweep(dev, rng, B: int = 256, cap: int = 1 << 20,
         rows.append({"kernel": "ordered_bucket_stats", "agg": label,
                      "B": rows_b, "cap": cap, "n_buckets": n_b, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
+    rows += subnormal_rows(dev, rng)
+    return rows
+
+
+def subnormal_rows(dev, rng, B: int = 64, cap: int = 1 << 14) -> list:
+    """The agg kernels on values drawn from SUBNORMALS (subnormals, signed
+    zeros, normal values whose sums cancel into the subnormal range):
+    each output bit for bit its plain version's, which flushes as XLA's
+    CPU runtime does (ops/ordered.ftz)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.ops import ordered
+    vals = torch.from_numpy(rng.choice(np.array(SUBNORMALS, np.float32),
+                                       size=(B, cap))).to(dev)
+    perm = torch.from_numpy(rng.permutation(cap).astype(np.int32)).to(dev)
+    pos = torch.from_numpy(np.sort(rng.integers(0, cap + 1, size=300))
+                           .astype(np.int32)).to(dev)
+    ids = torch.from_numpy(rng.integers(-1, 4, size=cap)
+                           .astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random((B, cap)) < 0.7).to(dev)
+    calls = {
+        "ordered_prefix, perm": (lambda: cs.ordered_prefix(vals, perm, pos),
+                                 lambda: ordered.prefix_at(vals, perm, pos)),
+        "ordered_prefix, no perm": (
+            lambda: cs.ordered_prefix(vals, None, pos),
+            lambda: ordered.prefix_at(vals, None, pos)),
+        "ordered_sum, rows": (lambda: cs.ordered_sum(vals),
+                              lambda: ordered.xla_block_sum(vals)),
+        "ordered_sum, rows of 1,000": (
+            lambda: cs.ordered_sum(vals[:, :1000].contiguous()),
+            lambda: ordered.xla_block_sum(vals[:, :1000].contiguous())),
+    }
+    rows = []
+    for label, (kernel, plain) in calls.items():
+        got, want = kernel(), plain()
+        if not _same_bits(got, want):
+            raise AssertionError(f"{label}: the kernel != plain on "
+                                 "subnormal inputs")
+        rows.append({"kernel": label.split(",")[0], "agg": "subnormal, "
+                     + label.split(", ", 1)[1], "shape": list(vals.shape),
+                     "max_abs_err": 0.0})
+    args = (ids, mask, vals[0].contiguous(), 3, cs.BUCKET_STATS)
+    got = cs.ordered_bucket_stats(*args)
+    want = cs.ordered_bucket_stats_ref(*args)
+    for st in cs.BUCKET_STATS:
+        if not _same_bits(got[st], want[st]):
+            raise AssertionError(f"ordered_bucket_stats {st} != plain on "
+                                 "subnormal inputs")
+    rows.append({"kernel": "ordered_bucket_stats",
+                 "agg": "subnormal, 3 buckets -> extended_stats",
+                 "B": B, "cap": cap, "max_abs_err": 0.0})
+    for r in rows:
+        log("kernel_sweep " + json.dumps(r))
     return rows
 
 
@@ -1944,24 +2549,29 @@ def capture_first_calls():
     return seen, current, {WRAPPERS[k]: shim(k) for k in orig}
 
 
-def profile_mixes(readers, mixes, out_dir: str | None) -> dict:
+def profile_mixes(readers, mixes, out_dir: str | None, names=MIXES,
+                  search=None, tag: str = "") -> dict:
     """One profiled batch per mix: wall time, device busy time (sum of the
     card's kernel and copy intervals, merged where they overlap) and the
-    ops that took the most device and host time. Tables go to out_dir."""
+    ops that took the most device and host time. Tables go to out_dir.
+    `search(bodies)` serves a batch (default: search_merged over
+    `readers`); `tag` prefixes the log lines and table files."""
     import cProfile
     import io
     import pstats
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if search is None:
+        search = functools.partial(search_merged, readers)
     out = {}
-    for name in MIXES:
+    for name in names:
         torch.cuda.synchronize()
         prof_py = cProfile.Profile()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             prof_py.enable()
-            search_merged(readers, mixes[name])
+            search(mixes[name])
             torch.cuda.synchronize()
             prof_py.disable()
             wall = (time.perf_counter() - t0) * 1e3
@@ -1990,12 +2600,14 @@ def profile_mixes(readers, mixes, out_dir: str | None) -> dict:
             "scatter_atomics_ms": sum(
                 e.self_device_time_total for e in ka
                 if "scatter_reduce" in e.key or "index_add" in e.key) / 1e3}
-        log("profile " + json.dumps({"mix": name, **out[name]}))
+        log(f"{tag}profile " + json.dumps({"mix": name, **out[name]}))
         if out_dir:
             buf = io.StringIO()
             pstats.Stats(prof_py, stream=buf).sort_stats(
                 "cumulative").print_stats(30)
-            with open(os.path.join(out_dir, f"profile_{name}.txt"),
+            stem = f"profile_{tag.strip().replace(' ', '_')}{name}" \
+                if tag else f"profile_{name}"
+            with open(os.path.join(out_dir, f"{stem}.txt"),
                       "w") as f:
                 f.write(ka.table(sort_by="self_cuda_time_total",
                                  row_limit=25))
@@ -2042,12 +2654,57 @@ def on_card(args) -> int:
             f"{time.perf_counter() - t_run:.1f} s")
         return 0
 
-    # phase 4a: build the index (started before the kernel sweep finishes
-    # would compete for host cores; it is cheap to keep them apart)
+    phase_s = {"build": time.perf_counter() - t_run}
+    mark = time.perf_counter()
+
+    def lap(name):
+        nonlocal mark
+        now = time.perf_counter()
+        phase_s[name] = now - mark
+        mark = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+
+    # phase 4a: the node path's ingest. A Node on the card behind a
+    # loopback RestServer takes index `logs` (2 shards, the streaming
+    # delta mode): shard s gets corpus.make_docs(docs, seed 42 + s, start
+    # s * docs), routed there, through node.bulk (one batch over HTTP
+    # _bulk); one refresh compacts each shard's delta into its base. The
+    # earlier paths search these bases: a compacted single delta is the
+    # SegmentBuilder's segment of the same docs, every array equal
+    # (tests/test_torch_engine.py)
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.rest.server import RestServer
+    node = Node({"node.name": "chip-smoke"}, device=dev)
+    server = RestServer(node, "127.0.0.1", 0).start()
+    url = f"http://127.0.0.1:{server.port}"
+    node.create_index("logs", {"number_of_shards": 2,
+                               "number_of_replicas": 0,
+                               "index.streaming.delta": True},
+                      corpus.MAPPING)
+    keys = routing_keys(2)
     t0 = time.perf_counter()
-    segs = build_shards(args.docs, 2, 1000, workers=2)
-    log(f"index: 2 shards x {args.docs} docs built in "
-        f"{time.perf_counter() - t0:.1f} s; capacity "
+    shard_docs = [corpus.make_docs(args.docs, seed=42 + s,
+                                   start=s * args.docs, long_every=1000)
+                  for s in range(2)]
+    gen_s = time.perf_counter() - t0
+    ingest = node_ingest(node, url, shard_docs, keys)
+    del shard_docs
+    t0 = time.perf_counter()
+    node.refresh("logs")
+    ingest["refresh_s"] = time.perf_counter() - t0
+    engines = list(node.indices["logs"].shards.values())
+    if any(len(e.segments) != 1 or e.segment_stats()["streaming"][
+            "compactions"] != 1 for e in engines):
+        raise AssertionError("node ingest: the refresh did not compact "
+                             "each shard into one base")
+    segs = [e.segments[0] for e in engines]
+    if [s.num_docs for s in segs] != [args.docs, args.docs]:
+        raise AssertionError(f"node ingest: {[s.num_docs for s in segs]}")
+    ingest.update({"docs_per_s": ingest["docs"] / ingest["s"],
+                   "generate_s": gen_s, "gpu": gpu_line()})
+    log("node ingest: " + json.dumps(ingest))
+    log(f"index: 2 shards x {args.docs} docs from the node; capacity "
         f"{[s.capacity for s in segs]}; message L "
         f"{[s.text['message'].fwd_tids.shape[1] for s in segs]}, P "
         f"{[s.text['message'].pos_width for s in segs]}; body "
@@ -2063,9 +2720,11 @@ def on_card(args) -> int:
     gc.collect()
     gc.freeze()
 
+    lap("node_ingest")
     # phase 3: kernels at the slice's shapes
     rng = np.random.default_rng(42)
     sweep, worst = kernel_sweep(dev, rng, old=old)
+    lap("kernel_sweep")
 
     # phase 4: main paths
     readers = make_readers(segs, dev)
@@ -2107,12 +2766,12 @@ def on_card(args) -> int:
                     "p50_ms": float(np.mean([r["p50_ms"] for r in v])),
                     "turns": v} for k, v in match_ab.items()}
     log("match fused vs unfused: " + json.dumps(match_ab))
-    # 64 positional requests on the host oracle (ES_TPU_POSITIONAL=0):
+    # 16 positional requests on the host oracle (ES_TPU_POSITIONAL=0):
     # the sloppy phrase and span_near ones it can afford, exact phrases
     # and cross_fields for the rest; every sloppy / span_near request of
     # the small index below as well
     pos_ab = {"main": positional_ab(
-        readers, positional_ab_subset(readers, mixes), sync)}
+        readers, positional_ab_subset(readers, mixes, 16), sync)}
     log("positional fused vs host oracle: " + json.dumps(pos_ab))
     out_dir = args.out_dir
     if out_dir:
@@ -2122,12 +2781,13 @@ def on_card(args) -> int:
         raise AssertionError("stats_aggs: scatter_reduce_ / index_add_ on "
                              "the card: " + json.dumps(profiles["stats_aggs"]))
 
+    lap("main_paths")
     # the card agrees with the CPU on a small index
     small = build_shards(args.small_docs, 2, 300, workers=2)
     # separate segment objects: each caches its own device columns
     on_gpu = make_readers(small, dev)
     on_cpu = make_readers([copy.copy(s) for s in small], "cpu")
-    small_mix = request_mixes(48, on_cpu, args.small_docs)
+    small_mix = request_mixes(24, on_cpu, args.small_docs)
     # every agg sum of the mixes (sorted layouts and views: terms and
     # date_histogram counts, sum and avg; the doc-space bucket sums of
     # terms -> stats / extended_stats; a stats agg's row sums) is taken in
@@ -2153,11 +2813,12 @@ def on_card(args) -> int:
         "the CPU, every agg sum exactly (stats and extended_stats "
         "included)")
     pos_ab["small"] = positional_ab(
-        on_gpu, {name: host_affordable(on_gpu, small_mix[name], 48)
+        on_gpu, {name: host_affordable(on_gpu, small_mix[name], 24)
                  for name in ("phrase_slop_aggs", "span_near")}, sync)
     log("positional fused vs host oracle, small index: "
         + json.dumps(pos_ab["small"]))
 
+    lap("small_index")
     # phase 5: the delta path (a 2^17-doc delta beside each shard)
     t0 = time.perf_counter()
     deltas = build_deltas(segs, args.docs, args.delta_docs, 1000, workers=2)
@@ -2182,9 +2843,10 @@ def on_card(args) -> int:
     if d_launches["bundle_topk_seeded"] <= 0:
         raise AssertionError("delta path: K3's seeded form never launched")
     check_responses(d_last)
-    d_ab = delta_ab(readers_d, dmix, d_last, args.reps, sync)
+    d_ab = delta_ab(readers_d, dmix, d_last, min(args.reps, 2), sync)
     log("delta pack vs per-segment: " + json.dumps(d_ab))
 
+    lap("delta_path")
     # phase 6: the resident path on the main index
     os.environ["ES_TPU_RESIDENT_LOOP"] = "1"
     try:
@@ -2197,6 +2859,7 @@ def on_card(args) -> int:
     res = run_resident_path(readers, mixes, last, args.reps, sync)
     log("resident: " + json.dumps(res))
 
+    lap("resident_path")
     # kernels on the main path's own inputs: K1 and K2 on the first call
     # of the run, K3 on the first call of each fused mix (the kernels
     # line takes the first positional one), the unfused leaf on its first
@@ -2288,12 +2951,56 @@ def on_card(args) -> int:
                         "ms": m["ms"], "plain_ms": m["plain_ms"],
                         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                         "library_ms": m["library_ms"], "call": call})
+    lap("main_path_kernels")
+    # phase 7: the node path. The earlier paths' readers go first, so
+    # that compaction can release the replaced segments' holds; then a
+    # delta per shard, every mix through node.msearch / HTTP _msearch /
+    # the engines' readers, deletes and updates, compaction
+    del readers, readers_d, segs, deltas, engines
+    gc.collect()
+    node_out, node_launches = node_phase(
+        args, node, url, sync,
+        profile=lambda search, m: profile_mixes(
+            None, m, out_dir, NODE_PROFILE_MIXES, search, "node "))
+    missing = [k for k in NODE_KERNELS if node_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the node path: "
+                             f"{missing}")
+    log("node launches: " + json.dumps(node_launches))
+    for k in kernels:
+        k["launches"] += node_launches[k["name"]]
+    server.stop()
+    node.close()
+    lap("node_path")
+    # the small node: the card against the CPU after every write step,
+    # Part A's subnormal docs and bodies included
+    node_out["small"] = small_node_check(args.small_docs, 8, dev, sync)
+    lap("small_node")
+    log("small node: " + json.dumps(node_out["small"]))
+    log("phase seconds: " + json.dumps(phase_s))
+    node_out["ingest"] = ingest
+    free, total = torch.cuda.mem_get_info(dev)
+    log("node summary: " + json.dumps({
+        "gpu": gpu_line(),
+        "ingest_docs_per_s": ingest["docs_per_s"],
+        "ingest_refresh_compaction_s": ingest["refresh_s"],
+        "delta_refresh_s": node_out["delta_refresh_s"],
+        "edits_refresh_s": node_out["edits_refresh_s"],
+        "compaction_s": node_out["compaction_s"],
+        "mixes": {name: {path: {"qps": v[path]["qps"],
+                                "p50_ms": v[path]["p50_ms"]}
+                         for path in ("node", "rest", "direct")}
+                  for name, v in node_out["mixes"].items()},
+        "device_idle_share": {name: v["device_idle_share"]
+                              for name, v in node_out["profiles"].items()},
+        "fielddata": node_out["fielddata"],
+        "mem_get_info": {"free": free, "total": total}}))
     report = {"gpu": gpu_line(), "build_s": build_s, "sweep": sweep,
               "mixes": stats, "match_fused_vs_unfused": match_ab,
               "positional_fused_vs_host": pos_ab,
               "delta": {"mixes": d_stats, "launches": d_launches,
                         "pack_vs_segments": d_ab},
-              "resident": res,
+              "resident": res, "node": node_out,
               "profiles": profiles, "kernels": kernels,
               "seconds": time.perf_counter() - t_run}
     if out_dir:

@@ -8,15 +8,19 @@ Device rule: entry points take a `device`; `None` means CUDA, and they
 raise when no CUDA device is present instead of carrying on on the CPU.
 Pass `device="cpu"` to run on the CPU (the tests do).
 
-This slice serves `_msearch` on the unfused path: BM25 match/term/prefix
-plus bool/range/terms filters, terms/date_histogram/metric aggregations
-and the shard reduce (`search/shard_searcher.ShardReader`,
-`search/controller.merge_shard_results`).
+The front door is the reference's: a `Node` (`node.py`) behind the REST
+handlers (`rest/server.py`, `python -m elasticsearch_tpu_torch.rest.
+server`), writing through `_bulk` / index, publishing through refresh
+(segments or a base + delta pack with compaction, `index/engine.py`) and
+reading through `_search` / `_msearch` on `search/shard_searcher.
+ShardReader` and the hand-written kernels of `ops/`.
 """
 
 from __future__ import annotations
 
 import torch
+
+__version__ = "0.1.0"
 
 
 def resolve_device(device=None) -> torch.device:

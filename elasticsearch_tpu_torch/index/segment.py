@@ -15,7 +15,10 @@ columns this slice of the port searches:
   * _id/_source   -> host-side.
 
 The layout pass is the host one (`_pack_layout_host`); vectors, geo,
-nested rows and the device-side build are not ported yet. A delta
+nested rows and the device-side build are not ported yet. The engine's
+two repacks are: `merge_segments` (a rebuild from the rows, impacts
+recomputed) and `concat_segments` (the streaming compaction: impacts
+preserved, so a search of the result equals one of its sources). A delta
 segment of the streaming write path (`delta_parent` set, shapes bucketed
 by `pad_delta_shapes`) keys its caches on its base generation
 (`cache_key`).
@@ -28,6 +31,7 @@ from __future__ import annotations
 import itertools
 import math
 from dataclasses import dataclass, field as dc_field
+from typing import Iterable
 
 import numpy as np
 
@@ -267,6 +271,10 @@ class Segment:
     # segments leave both at their defaults.
     delta_parent: str | None = None
     delta_epoch: int = 0
+    # True for concat_segments products: their eager impacts were
+    # preserved from the source segments' field stats and cannot be
+    # recomputed from this segment's own doc_count / avg_len
+    impacts_preserved: bool = False
 
     def primary_mask(self) -> np.ndarray:
         m = np.zeros(self.capacity, dtype=bool)
@@ -522,6 +530,24 @@ def _flat_impacts(pf: PostingsField, sim=None) -> np.ndarray:
                         doc_count=float(pf.doc_count),
                         avg_len=float(pf.avg_len), total_len=total_len)
         out[s:e] = sim.impacts(tf, pf.doc_len[docs].astype(np.float64), st)
+    return out
+
+
+def extract_flat_impacts(pf: PostingsField) -> np.ndarray:
+    """The [nnz] CSR-order impacts read back from the posting blocks:
+    the inverse of the layout's block fill, exact by construction
+    (blocks are contiguous BLOCK-lane slices of each term's run). The
+    streaming compaction reads impacts this way, so a compacted base
+    scores byte-identically to the packs it folded."""
+    nnz = len(pf.doc_ids)
+    out = np.empty(nnz, dtype=np.float32)
+    for t in range(len(pf.terms)):
+        s, e = int(pf.indptr[t]), int(pf.indptr[t + 1])
+        b0 = int(pf.block_start[t])
+        for off in range(0, e - s, BLOCK):
+            blk = b0 + off // BLOCK
+            ln = min(BLOCK, e - s - off)
+            out[s + off: s + off + ln] = pf.block_imps[blk, :ln]
     return out
 
 
@@ -786,3 +812,304 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
         sources=list(meta.get("sources") or [b"{}"] * n),
         versions=np.asarray(arrays.get("versions", np.ones(n)), dtype=np.int64),
         text=text, keywords=keywords, numerics=numerics)
+
+
+def concat_segments(segments: Iterable[Segment], seg_id: str | None = None,
+                    live_masks: dict[str, np.ndarray] | None = None
+                    ) -> Segment:
+    """Impact-PRESERVING columnar concatenation: the streaming write
+    path's compaction (delta folded into a new base while the old
+    generation keeps serving).
+
+    Unlike merge_segments (which re-derives the tokens and recomputes
+    impacts under the merged field stats), every surviving posting keeps
+    the impact its source pack scored it with: term dictionaries union,
+    doc rows renumber (dead rows drop), and the layouts rebuild from the
+    preserved impacts, so a search of the compacted base equals the same
+    search of the base + delta pair it folded."""
+    segs = [s for s in segments if s.num_docs > 0]
+    if seg_id is None:
+        SegmentBuilder._counter += 1
+        seg_id = f"seg_{SegmentBuilder._counter}"
+
+    # -- row survival + renumbering ---------------------------------------
+    keeps: list[np.ndarray] = []          # bool [num_docs] per seg
+    row_maps: list[np.ndarray] = []       # old row -> new row (-1 dead)
+    n = 0
+    for s in segs:
+        live = None if live_masks is None else live_masks.get(s.seg_id)
+        keep = (np.ones(s.num_docs, dtype=bool) if live is None
+                else np.array(live[: s.num_docs], dtype=bool, copy=True))
+        rm = np.full(s.num_docs, -1, dtype=np.int64)
+        rm[keep] = n + np.arange(int(keep.sum()))
+        keeps.append(keep)
+        row_maps.append(rm)
+        n += int(keep.sum())
+    cap = next_pow2(n, floor=BLOCK)
+
+    ids: list[str] = []
+    sources: list[bytes] = []
+    versions = np.ones(n, dtype=np.int64)
+    for s, keep, rm in zip(segs, keeps, row_maps):
+        for d in np.nonzero(keep)[0]:
+            d = int(d)
+            ids.append(s.ids[d])
+            sources.append(s.sources[d])
+            versions[rm[d]] = int(s.versions[d])
+
+    # -- text fields: CSR merge with preserved impacts --------------------
+    text: dict[str, PostingsField] = {}
+    for name in sorted({f for s in segs for f in s.text}):
+        all_terms = sorted({t for s in segs for t in
+                            (s.text[name].terms if name in s.text else ())})
+        t_index = {t: i for i, t in enumerate(all_terms)}
+        tid_parts, doc_parts, tf_parts, imp_parts = [], [], [], []
+        pos_parts, plen_parts = [], []
+        doc_len = np.zeros(cap, dtype=np.float32)
+        have_positions = all(s.text[name].pos_data is not None
+                             for s in segs if name in s.text)
+        for s, keep, rm in zip(segs, keeps, row_maps):
+            pf = s.text.get(name)
+            if pf is None:
+                continue
+            kept_rows = np.nonzero(keep)[0]
+            doc_len[rm[kept_rows]] += pf.doc_len[kept_rows]
+            if len(pf.doc_ids) == 0:
+                continue
+            sel = keep[pf.doc_ids]
+            if not sel.any():
+                continue
+            tids = np.repeat(np.arange(len(pf.terms), dtype=np.int64),
+                             np.diff(pf.indptr))
+            remap = np.asarray([t_index[t] for t in pf.terms],
+                               dtype=np.int64)
+            flat = extract_flat_impacts(pf)
+            tid_parts.append(remap[tids[sel]])
+            doc_parts.append(rm[pf.doc_ids[sel]])
+            tf_parts.append(pf.tfs[sel])
+            imp_parts.append(flat[sel])
+            if pf.pos_data is not None:
+                plen_parts.append(np.diff(pf.pos_indptr)[sel])
+                pos_sel = np.repeat(sel, np.diff(pf.pos_indptr))
+                pos_parts.append(pf.pos_data[pos_sel])
+            else:
+                plen_parts.append(np.zeros(int(sel.sum()), dtype=np.int64))
+                pos_parts.append(np.empty(0, dtype=np.int32))
+        if tid_parts:
+            tid_all = np.concatenate(tid_parts)
+            doc_all = np.concatenate(doc_parts)
+            tf_all = np.concatenate(tf_parts)
+            imp_all = np.concatenate(imp_parts)
+            plen_all = np.concatenate(plen_parts)
+            pos_all = (np.concatenate(pos_parts) if pos_parts
+                       else np.empty(0, dtype=np.int32))
+        else:
+            tid_all = doc_all = np.empty(0, dtype=np.int64)
+            tf_all = imp_all = np.empty(0, dtype=np.float32)
+            plen_all = np.empty(0, dtype=np.int64)
+            pos_all = np.empty(0, dtype=np.int32)
+        # stable (term, new-doc) order: per-seg runs are doc-ascending and
+        # the renumbering keeps order, so this is a fresh build's order
+        order = np.lexsort((doc_all, tid_all))
+        tid_all, doc_all = tid_all[order], doc_all[order]
+        tf_all, imp_all = tf_all[order], imp_all[order]
+        plen_all = plen_all[order]
+        # positions follow their posting through the permutation
+        pos_off = np.zeros(len(plen_all) + 1, dtype=np.int64)
+        if len(plen_all):
+            pre = np.concatenate(plen_parts)  # pre-permutation lengths
+            starts = np.zeros(len(pre) + 1, dtype=np.int64)
+            np.cumsum(pre, out=starts[1:])
+            chunks = [pos_all[starts[j]: starts[j + 1]] for j in order]
+            pos_all = (np.concatenate(chunks) if chunks
+                       else np.empty(0, dtype=np.int32))
+            np.cumsum(plen_all, out=pos_off[1:])
+        T = len(all_terms)
+        df = np.bincount(tid_all, minlength=T).astype(np.int32)
+        indptr = np.zeros(T + 1, dtype=np.int64)
+        np.cumsum(df, out=indptr[1:])
+        doc_count = int(np.count_nonzero(doc_len[:n])) or n
+        total_len = float(doc_len.sum())
+        avg_len = (total_len / doc_count) if doc_count else 1.0
+        pf_new = PostingsField(
+            name=name, terms=all_terms, term_index=t_index, df=df,
+            indptr=indptr, doc_ids=doc_all.astype(np.int32),
+            tfs=tf_all.astype(np.float32), doc_len=doc_len,
+            doc_count=doc_count, avg_len=max(avg_len, 1e-9),
+            pos_data=(pos_all.astype(np.int32) if have_positions
+                      else None),
+            pos_indptr=(pos_off if have_positions else None))
+        _pack_layout_host(pf_new, cap, imp_all.astype(np.float32))
+        text[name] = pf_new
+
+    # -- keyword columns ---------------------------------------------------
+    keywords: dict[str, KeywordColumn] = {}
+    for name in sorted({f for s in segs for f in s.keywords
+                        if f not in s.text}):
+        all_terms = sorted({t for s in segs
+                            for t in (s.keywords[name].terms
+                                      if name in s.keywords else ())})
+        t_index = {t: i for i, t in enumerate(all_terms)}
+        ords = np.full(cap, -1, dtype=np.int32)
+        mv_width = 0
+        per_seg_remap = []
+        for s in segs:
+            kc = s.keywords.get(name)
+            per_seg_remap.append(
+                None if kc is None else
+                np.asarray([t_index[t] for t in kc.terms], dtype=np.int32))
+            if kc is not None and kc.mv_ords is not None:
+                mv_width = max(mv_width, kc.mv_ords.shape[1])
+        mv = (np.full((cap, next_pow2(mv_width, floor=2)), -1,
+                      dtype=np.int32) if mv_width else None)
+        df = np.zeros(len(all_terms), dtype=np.int32)
+        for s, keep, rm, remap in zip(segs, keeps, row_maps,
+                                      per_seg_remap):
+            kc = s.keywords.get(name)
+            if kc is None or remap is None:
+                continue
+            rows = np.nonzero(keep)[0]
+            loc = kc.ords[rows]
+            has = loc >= 0
+            ords[rm[rows[has]]] = remap[loc[has]]
+            if kc.mv_ords is not None and mv is not None:
+                lmv = kc.mv_ords[rows]
+                hmv = lmv >= 0
+                vals = np.where(hmv, remap[np.clip(lmv, 0, None)], -1)
+                mv[rm[rows], : lmv.shape[1]] = vals
+                for row_vals in vals:
+                    df[np.unique(row_vals[row_vals >= 0])] += 1
+            else:
+                if mv is not None:
+                    mv[rm[rows[has]], 0] = remap[loc[has]]
+                u, c = np.unique(remap[loc[has]], return_counts=True)
+                df[u] += c.astype(np.int32)
+        keywords[name] = KeywordColumn(
+            name=name, terms=all_terms, term_index=t_index, ords=ords,
+            df=df, mv_ords=mv)
+
+    # -- numeric columns ---------------------------------------------------
+    numerics: dict[str, NumericColumn] = {}
+    for name in sorted({f for s in segs for f in s.numerics}):
+        kind = next(s.numerics[name].kind for s in segs
+                    if name in s.numerics)
+        is_int = all(s.numerics[name].raw.dtype == np.int64
+                     for s in segs if name in s.numerics)
+        dt = np.int64 if is_int else np.float64
+        raw = np.zeros(cap, dtype=dt)
+        exists = np.zeros(cap, dtype=bool)
+        mv_width = max((s.numerics[name].mv_raw.shape[1]
+                        for s in segs if name in s.numerics
+                        and s.numerics[name].mv_raw is not None),
+                       default=0)
+        mv_raw = (np.zeros((cap, mv_width), dtype=dt) if mv_width else None)
+        mv_exists = (np.zeros((cap, mv_width), dtype=bool)
+                     if mv_width else None)
+        bias = 1 << 31 if kind == IP else 0
+        for s, keep, rm in zip(segs, keeps, row_maps):
+            nc = s.numerics.get(name)
+            if nc is None:
+                continue
+            rows = np.nonzero(keep)[0]
+            raw[rm[rows]] = nc.raw[rows].astype(dt)
+            exists[rm[rows]] = nc.exists[rows]
+            if mv_raw is not None:
+                if nc.mv_raw is not None:
+                    w = nc.mv_raw.shape[1]
+                    mv_raw[rm[rows], :w] = nc.mv_raw[rows].astype(dt)
+                    mv_exists[rm[rows], :w] = nc.mv_exists[rows]
+                else:
+                    has = nc.exists[rows]
+                    mv_raw[rm[rows[has]], 0] = nc.raw[rows[has]].astype(dt)
+                    mv_exists[rm[rows[has]], 0] = True
+        numerics[name] = NumericColumn(
+            name=name, kind=kind,
+            values=_device_vals(raw, kind, bias, is_int),
+            exists=exists, raw=raw, bias=bias,
+            mv_values=(None if mv_raw is None
+                       else _device_vals(mv_raw, kind, bias, is_int)),
+            mv_raw=mv_raw, mv_exists=mv_exists)
+
+    return Segment(
+        seg_id=seg_id, num_docs=n, capacity=cap,
+        ids=ids, id_map={i: j for j, i in enumerate(ids)},
+        sources=sources, versions=versions,
+        text=text, keywords=keywords, numerics=numerics,
+        impacts_preserved=True)
+
+
+def merge_segments(segments: Iterable[Segment], seg_id: str | None = None,
+                   live_masks: dict[str, np.ndarray] | None = None,
+                   similarity=None) -> Segment:
+    """Merge segments into one, dropping deleted docs: a rebuild from
+    the rows (each doc's tokens recovered from the positions sidecar),
+    impacts recomputed under the merged field stats (ref: Lucene segment
+    merging driven by TieredMergePolicy)."""
+    from .mapping import ParsedField
+
+    builder = SegmentBuilder(similarity=similarity)
+    for seg in segments:
+        live = None if live_masks is None else live_masks.get(seg.seg_id)
+        # invert CSR once per text field: doc -> ordered token list
+        doc_terms: dict[str, list[list[str]]] = {}
+        for name, pf in seg.text.items():
+            per_doc: list[list[str]] = [
+                [None] * int(pf.doc_len[d]) for d in range(seg.num_docs)]
+            for t_idx, term in enumerate(pf.terms):
+                s, e = int(pf.indptr[t_idx]), int(pf.indptr[t_idx + 1])
+                for j in range(s, e):
+                    d = int(pf.doc_ids[j])
+                    if pf.pos_data is not None:
+                        ps, pe = (int(pf.pos_indptr[j]),
+                                  int(pf.pos_indptr[j + 1]))
+                        for p in pf.pos_data[ps:pe]:
+                            per_doc[d][int(p)] = term
+                    else:  # no positions: order unknown
+                        slots = per_doc[d]
+                        tf = int(pf.tfs[j])
+                        placed = 0
+                        for i, v in enumerate(slots):
+                            if v is None and placed < tf:
+                                slots[i] = term
+                                placed += 1
+            doc_terms[name] = per_doc
+
+        def row_fields(d: int) -> list[ParsedField]:
+            fields: list[ParsedField] = []
+            for name in seg.text:
+                toks = [t for t in doc_terms[name][d] if t is not None]
+                if toks:
+                    fields.append(ParsedField(name=name, type=TEXT,
+                                              tokens=toks))
+            for name, kc in seg.keywords.items():
+                if name in seg.text:
+                    continue
+                if kc.mv_ords is not None:
+                    for o in kc.mv_ords[d]:
+                        if o >= 0:
+                            fields.append(ParsedField(
+                                name=name, type=KEYWORD,
+                                value=kc.terms[int(o)]))
+                elif kc.ords[d] >= 0:
+                    fields.append(ParsedField(name=name, type=KEYWORD,
+                                              value=kc.terms[kc.ords[d]]))
+            for name, nc in seg.numerics.items():
+                if not nc.exists[d]:
+                    continue
+                vals = (nc.mv_raw[d][nc.mv_exists[d]]
+                        if nc.mv_raw is not None else [nc.raw[d]])
+                for v in vals:
+                    value = int(v) if nc.raw.dtype == np.int64 else float(v)
+                    if nc.kind == BOOLEAN:
+                        value = bool(v)
+                    fields.append(ParsedField(name=name, type=nc.kind,
+                                              value=value))
+            return fields
+
+        for d in range(seg.num_docs):
+            if live is not None and not live[d]:
+                continue
+            doc = ParsedDocument(doc_id=seg.ids[d], source=seg.sources[d],
+                                 fields=row_fields(d))
+            builder.add(doc, version=int(seg.versions[d]))
+    return builder.build(seg_id)

@@ -20,7 +20,10 @@ bucket_sum_sq, bucket_counts: `.at[ids].add`; bucket_min, bucket_max:
 ordered_bucket_stats`: the plain reduces on the CPU, one kernel on the
 card), so both give the reference's bits. Counts stay in int32 where
 the views take them; `bucket_counts` scatters its 1.0s with
-`index_add_`, exact in any order below 2^24 a bucket.
+`index_add_`, exact in any order below 2^24 a bucket. Each f32 add,
+subtract and multiply on agg values flushes subnormal results
+(`ordered.ftz`), as XLA's CPU runtime does; the value columns they read
+come flushed from `search/executor.device_arrays`.
 """
 
 from __future__ import annotations
@@ -116,11 +119,11 @@ def view_group_reduce(w: torch.Tensor, bounds: torch.Tensor,
                             ).sum(dim=-1, dtype=torch.int32)
     else:
         intra = cs.ordered_sum(torch.where(keep, rows, 0.0).contiguous())
-    return _diff(base + intra)
+    return _diff(ordered.ftz(base + intra))
 
 
 def _diff(pref: torch.Tensor) -> torch.Tensor:
-    return pref[:, 1:] - pref[:, :-1]
+    return ordered.ftz(pref[:, 1:] - pref[:, :-1])
 
 
 def sorted_group_reduce(perm: torch.Tensor, starts: torch.Tensor,
@@ -182,9 +185,10 @@ def fixed_histogram_bucket_ids(values: torch.Tensor, exists: torch.Tensor,
         q = torch.div(d, interval.to(torch.int32), rounding_mode="floor")
         bid = torch.where(d >= 0, q, -1)
     else:
-        v = values.to(torch.float32)
-        bid = torch.floor((v - origin.to(torch.float32))
-                          / interval.to(torch.float32)).to(torch.int32)
+        v = ordered.ftz(values.to(torch.float32))
+        d = ordered.ftz(v - origin.to(torch.float32))
+        bid = torch.floor(ordered.ftz(d / interval.to(torch.float32))
+                          ).to(torch.int32)
     ok = exists & (bid >= 0) & (bid < n_buckets)
     return torch.where(ok, bid, n_buckets).to(torch.int32)
 
@@ -202,13 +206,24 @@ def masked_stats(values: torch.Tensor, exists: torch.Tensor,
                  mask: torch.Tensor) -> dict:
     """count/sum/min/max/sum_sq of a numeric column under a match mask,
     as [B] arrays. sum and sum_sq take XLA's window tree: the
-    reference's bits at every length."""
+    reference's bits at every length. min / max are XLA's reduce min /
+    max of the flushed values: -0.0 below +0.0."""
     m = mask & exists[None, :]
-    v = values.to(torch.float32)[None, :]
+    v = ordered.ftz(values.to(torch.float32))[None, :]
+    mn = torch.where(m, v, F32_INF).amin(dim=-1)
+    mx = torch.where(m, v, -F32_INF).amax(dim=-1)
+    if values.is_floating_point():
+        zero = v == 0
+        neg = torch.signbit(v)
+        has_neg0 = (m & zero & neg).any(dim=-1)
+        has_pos0 = (m & zero & ~neg).any(dim=-1)
+        mn = torch.where(mn == 0, torch.where(has_neg0, -0.0, 0.0), mn)
+        mx = torch.where(mx == 0, torch.where(has_pos0, 0.0, -0.0), mx)
     return {
         "count": m.sum(dim=-1, dtype=torch.float32),
         "sum": cs.ordered_sum(torch.where(m, v, 0.0).contiguous()),
-        "sum_sq": cs.ordered_sum(torch.where(m, v * v, 0.0).contiguous()),
-        "min": torch.where(m, v, F32_INF).amin(dim=-1),
-        "max": torch.where(m, v, -F32_INF).amax(dim=-1),
+        "sum_sq": cs.ordered_sum(torch.where(m, ordered.ftz(v * v),
+                                             0.0).contiguous()),
+        "min": mn,
+        "max": mx,
     }

@@ -40,6 +40,12 @@
 //     rank keys over the same values, 32 lanes at a time (any order).
 // Every add is __fadd_rn and every square __fmul_rn.
 //
+// Subnormals as XLA's CPU runtime treats them: each value is flushed to
+// a zero of its sign as it is read (`flush`), so the sums, squares and
+// the min / max rank keys see the flushed value, and the source is built
+// with -ftz=true, so a subnormal add or square result flushes too
+// (ops/ordered.ftz; FADD.FTZ / FMUL.FTZ in the SASS).
+//
 // What bounds it: the hottest (row, bucket)'s chain, its matched docs
 // times the add's dependent latency; then the bytes (the [B, cap] mask
 // read through `order`, the compacted values written once and read once
@@ -49,6 +55,12 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// a subnormal -> a zero of its sign; any other value unchanged
+__device__ __forceinline__ float flush(float x) {
+  const unsigned u = __float_as_uint(x);
+  return (u & 0x7f800000u) ? x : __uint_as_float(u & 0x80000000u);
+}
 
 // entry `ordered_bucket_stats`'s arguments (cuda_scoring._BucketStatsArgs)
 struct BucketStatsArgs {
@@ -132,7 +144,7 @@ compact_kernel(const __grid_constant__ BucketStatsArgs a, Scratch s,
     const int p = w0 + i * 32 + lane;
     const bool ok = p < kept;
     doc[i] = ok ? __ldg(a.order + p) : -1;
-    v[i] = ok && want_vals ? __ldg(a.values + doc[i]) : 0.0f;
+    v[i] = ok && want_vals ? flush(__ldg(a.values + doc[i])) : 0.0f;
     if (ok && (p == tile0 ||
                __ldg(a.sorted_b + p) != __ldg(a.sorted_b + p - 1)))
       begins |= 1u << i;
@@ -215,8 +227,8 @@ __device__ __forceinline__ void fold_batch(const float4 (&r)[kBatch / 4],
   }
 }
 
-// the left fold of one piece of n compacted values (+0.0 past n up to the
-// piece's end: adding +0.0 changes no sum, which is never -0.0) in groups
+// the left fold of one piece of n compacted values (-0.0 past n up to the
+// piece's end: adding -0.0 changes no sum) in groups
 // of 64 without a branch inside, each batch of 16's loads issued before
 // the adds of the one before it (two register buffers in turn)
 __device__ __forceinline__ void fold_piece(const float* x, int n, float& s) {
@@ -453,7 +465,9 @@ fold_kernel(const __grid_constant__ BucketStatsArgs a, Scratch s) {
   int len;
   int cb = c0, ci = 0, off = 0;  // the cursor: chunk cb + ci, at off
   chunk_of(cb, src, len);
-  // the next piece's values (+0.0 past its count) and its count
+  // the next piece's values (-0.0 past its count: s + -0.0 == s for
+  // every s, -0.0 included, which a fold of flushed values can reach;
+  // squared it is +0.0, and a sum of squares is never -0.0) and its count
   auto load = [&](float (&st)[kPiece / 32], int& sn) {
     int n = 0;
     long long from = 0;
@@ -476,7 +490,7 @@ fold_kernel(const __grid_constant__ BucketStatsArgs a, Scratch s) {
 #pragma unroll
     for (int r = 0; r < kPiece / 32; ++r) {
       const int k = r * 32 + lane;
-      st[r] = k < n ? __ldg(vrow + from + k) : 0.0f;
+      st[r] = k < n ? __ldg(vrow + from + k) : -0.0f;
     }
     sn = n;
   };

@@ -48,11 +48,15 @@
 // take one launch; a row of 2^20 takes two (levels 1-2, then 3 and the
 // last).
 //
-// Zero padding, skipped or added, changes no sum: a sum started at
-// +0.0 is never -0.0 under round-to-nearest, and s + 0.0 == s otherwise.
+// Zero padding is added where XLA adds it and nowhere else: with
+// subnormals flushed a sum can be -0.0 (a negative result flushed), and
+// -0.0 + 0.0 is +0.0; otherwise s + 0.0 == s.
 // Every add is __fadd_rn (no FMA contraction; built without
 // --use_fast_math), no atomics: each output is the reference's bits,
-// deterministic.
+// deterministic. Built with -ftz=true: an add reads a subnormal as a
+// zero of its sign and flushes a subnormal result, as XLA's CPU runtime
+// does (ops/ordered.ftz; FADD.FTZ in the SASS); a row of one value is
+// returned as it is, a move, as XLA's cumsum returns it.
 //
 // What bounds it: bytes. ordered_prefix reads each weight once (the
 // level totals are 1/16 of that and smaller) plus perm: about 1 GiB at
@@ -298,7 +302,11 @@ scan_points_kernel(const __grid_constant__ ScanArgs a) {
         const float* v = lrow + level_off(a.n, l);
         for (int t = i0; t <= i; ++t) s = __fadd_rn(s, v[t]);
       }
-      r = l == top ? s : __fadd_rn(r, s);
+      // XLA adds each block's exclusive prefix, +0.0 for a level's first
+      // block, below the last level (one of 16 or fewer): at the top of
+      // the chain that add turns a flushed -0.0 into +0.0
+      r = l < top ? __fadd_rn(r, s)
+                  : level_len(a.n, l) > kBase ? __fadd_rn(0.0f, s) : s;
     }
   }
   a.out[static_cast<long long>(b) * a.P + g] = r;
@@ -364,17 +372,26 @@ tree_pair_kernel(const float* __restrict__ src, float* __restrict__ dst,
     }
   }
   __syncwarp();
+  // XLA pads a level of more than 32 values (its zeros are added) but not
+  // the last level, whose n values it adds alone: a zero added past them
+  // would turn a flushed -0.0 into +0.0. Level 1 is the last where a row
+  // holds 32 or fewer (a row of one value is moved, as XLA moves it);
+  // level 2 where k2 is 1, over the k1 real windows (one: the window's
+  // sum itself)
+  const int n1 = L.rp == 1 && L.k1 == 1 ? L.n : kWindow;
   float s = 0.0f;
 #pragma unroll
-  for (int k = 0; k < kWindow; ++k) s = __fadd_rn(s, x[lane][k]);
+  for (int k = 0; k < kWindow; ++k)
+    if (k < n1) s = n1 == 1 ? x[lane][k] : __fadd_rn(s, x[lane][k]);
   // level 2: lane groups of g windows (one row each with rp > 1)
   const int g = L.rp > 1 ? L.k1 : kWindow;
+  const int n2 = L.rp > 1 || L.k2 == 1 ? L.k1 : kWindow;
   const int head = lane & ~(g - 1);
   float tot = 0.0f;
 #pragma unroll
   for (int k = 0; k < kWindow; ++k) {
     const float y = __shfl_sync(~0u, s, head + (k & (g - 1)));
-    if (k < g) tot = __fadd_rn(tot, y);
+    if (k < n2) tot = n2 == 1 ? y : __fadd_rn(tot, y);
   }
   if (lane != head) return;
   if (L.rp > 1) {

@@ -33,6 +33,15 @@ itself, at lengths 1-40 and others off a power of two.
 `.at[ids].min / .max(mode="drop")` keep no sum; their result still
 depends on the order where NaN or signed zeros meet (`bucket_extreme`).
 
+XLA's CPU runtime computes with subnormals flushed: an f32 add,
+multiply or compare treats a subnormal input as a zero of its sign, and
+a subnormal result becomes a zero of its sign. Every add and multiply
+here flushes its result (`ftz`; left out where no sum of the values can
+be subnormal, `may_underflow`) and the values entering a sum or an
+extreme are flushed first, so the sums, squares, minima and maxima are
+XLA's; a pure move (`xla_cumsum` or `xla_block_sum` of one element)
+keeps its value as XLA does.
+
 `prefix_at` is the plain version of the card's scan kernel
 (`ops/cuda_scoring.ordered_prefix`), `xla_block_sum` of its tree entry
 (`ops/cuda_scoring.ordered_sum`), `bucket_fold`, `bucket_count` and
@@ -42,44 +51,88 @@ depends on the order where NaN or signed zeros meet (`bucket_extreme`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 SCAN_BASE = 16       # block of XLA's scan rewrite
 SUM_WINDOW = 32      # window of XLA's reduction tree
+F32_TINY = 2.0 ** -126   # the smallest normal f32
+SUM_SAFE = 2.0 ** -100   # summands at least this large never sum below
+                         # F32_TINY (may_underflow)
 
 
-def _seq_prefix(x: torch.Tensor) -> torch.Tensor:
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal f32 values -> zeros of their sign (XLA's flush on the
+    CPU); every other value, NaN and infinities included, unchanged."""
+    return torch.where(x.abs() < F32_TINY, x * 0, x)
+
+
+def ftz_np(a: np.ndarray) -> np.ndarray:
+    """`ftz` of a host array: float32 columns flushed, others (and a
+    float32 column without a subnormal) returned as they are."""
+    if a is None or a.dtype != np.float32:
+        return a
+    tiny = np.abs(a) < np.float32(F32_TINY)
+    if not tiny.any():
+        return a
+    return np.where(tiny, np.copysign(np.float32(0), a), a).astype(np.float32)
+
+
+def may_underflow(x: torch.Tensor) -> bool:
+    """Whether sums of the (flushed) values x can give a subnormal result:
+    only if one lies below 2^-100. Each value at least that large is a
+    multiple of 2^-123, so is each exact sum of them, and a nonzero sum
+    below 2^-100 is exact: no sum of them lands in the subnormal range,
+    and the flush after each add can be left out."""
+    a = x.abs()
+    return bool(((a > 0) & (a < SUM_SAFE)).any())
+
+
+def _seq_prefix(x: torch.Tensor, flush: bool = True) -> torch.Tensor:
     """Inclusive prefix over the last axis, sequential from +0.0."""
     acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
     cols = []
     for j in range(x.shape[-1]):
         acc = acc + x[..., j]
+        if flush:
+            acc = ftz(acc)
         cols.append(acc)
     return torch.stack(cols, dim=-1)
 
 
-def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+def _seq_sum(x: torch.Tensor, flush: bool = True) -> torch.Tensor:
     """Sum over the last axis, sequential from +0.0."""
     acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
     for j in range(x.shape[-1]):
         acc = acc + x[..., j]
+        if flush:
+            acc = ftz(acc)
     return acc
 
 
 def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
     """`jnp.cumsum(x, axis=-1)` of a float row, bit for bit."""
+    if x.shape[-1] <= 1:
+        return x.clone()
+    x = ftz(x)
+    return _cumsum(x, may_underflow(x))
+
+
+def _cumsum(x: torch.Tensor, flush: bool) -> torch.Tensor:
     n = x.shape[-1]
     if n <= 1:
         return x.clone()
     if n <= SCAN_BASE:
-        return _seq_prefix(x)
+        return _seq_prefix(x, flush)
     nb = -(-n // SCAN_BASE)
     blocks = torch.nn.functional.pad(x, (0, nb * SCAN_BASE - n)).reshape(
         *x.shape[:-1], nb, SCAN_BASE)
-    intra = _seq_prefix(blocks)
-    incl = xla_cumsum(intra[..., -1])
+    intra = _seq_prefix(blocks, flush)
+    incl = _cumsum(intra[..., -1], flush)
     excl = torch.nn.functional.pad(incl[..., :-1], (1, 0))
     out = excl[..., None] + intra
+    if flush:
+        out = ftz(out)
     return out.reshape(*x.shape[:-1], nb * SCAN_BASE)[..., :n]
 
 
@@ -98,12 +151,17 @@ def sum_windows(n: int) -> list[tuple[int, int]]:
 
 def xla_block_sum(x: torch.Tensor) -> torch.Tensor:
     """`x.sum(-1)` of a float row in XLA's order: centred windows of 32
-    summed in order, level by level, then the last ones in order."""
+    summed in order, level by level, then the last ones in order. A
+    row of one value is returned as it is (XLA's reduce moves it)."""
+    if x.shape[-1] == 1:
+        return x[..., 0].clone()
+    x = ftz(x)
+    flush = may_underflow(x)
     for lo, k in sum_windows(x.shape[-1]):
         n = x.shape[-1]
         w = SUM_WINDOW if k > 1 else n
         x = torch.nn.functional.pad(x, (lo, w * k - n - lo))
-        x = _seq_sum(x.reshape(*x.shape[:-1], k, w))
+        x = _seq_sum(x.reshape(*x.shape[:-1], k, w), flush)
     return x[..., 0]
 
 
@@ -129,9 +187,10 @@ def bucket_fold(bucket_ids: torch.Tensor, mask: torch.Tensor,
     B, cap = mask.shape
     dev = mask.device
     out = torch.zeros((B * n_buckets,), dtype=torch.float32, device=dev)
-    v = values.to(torch.float32)
+    v = ftz(values.to(torch.float32))
     if square:
-        v = v * v
+        v = ftz(v * v)
+    flush = may_underflow(v)
     ids = bucket_ids_kept(bucket_ids, n_buckets)
     rows, docs = torch.nonzero(mask & (ids < n_buckets)[None, :],
                                as_tuple=True)        # row-major: d ascends
@@ -149,7 +208,10 @@ def bucket_fold(bucket_ids: torch.Tensor, mask: torch.Tensor,
     tgt_r, val_r = st[by_rank], v[docs[order[by_rank]]]
     lo = 0
     for count in torch.bincount(rank).tolist():
-        out.index_add_(0, tgt_r[lo:lo + count], val_r[lo:lo + count])
+        t = tgt_r[lo:lo + count]
+        out.index_add_(0, t, val_r[lo:lo + count])
+        if flush:
+            out[t] = ftz(out[t])
         lo += count
     return out.reshape(B, n_buckets)
 
@@ -192,8 +254,9 @@ def float_order_bits(values: torch.Tensor) -> torch.Tensor:
 
 def extreme_keys(values: torch.Tensor, largest: bool) -> torch.Tensor:
     """The rank key of each doc's value for `bucket_extreme`, [cap] int64
-    (smaller wins; the doc breaks NaN ties)."""
-    v = values.to(torch.float32)
+    (smaller wins; the doc breaks NaN ties), taken from the flushed
+    value."""
+    v = ftz(values.to(torch.float32))
     cap = v.shape[0]
     doc = torch.arange(cap, dtype=torch.int64, device=v.device)
     neg = (v.contiguous().view(torch.int32) < 0)

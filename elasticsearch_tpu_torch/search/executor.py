@@ -43,8 +43,9 @@ pair of the streaming write path searches both in one dispatch
 collected back into per-segment lists). With `ES_TPU_RESIDENT_LOOP` set,
 fused plans go through pinned resident entries (`search/resident.py`)
 that run the stepped K3 walk with a per-chunk deadline check. The fused
-engine's backend autotuner, knn clauses, tiering and breaker holds are
-not ported yet.
+engine's backend autotuner, knn clauses and tiering are not ported yet.
+Uploaded columns and resident entries hold their bytes against the
+fielddata breaker (`utils/breaker.py`).
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ import math
 import os
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Sequence
 
@@ -65,7 +67,7 @@ from ..index.segment import (Segment, next_pow2, bm25_idf,
                              build_tile_minmax, BM25_B, BM25_K1,
                              POS_MAX_ENC)
 from ..ops import aggs as agg_ops
-from ..ops import cuda_scoring
+from ..ops import cuda_scoring, ordered
 # fused positional clause caps: n rides in the clause kind string
 # (phrase_pos:{n}:..., bm25f:{nf}:{nt}); wider shapes take the host path
 from ..ops.cuda_scoring import (POS_MAX_FIELDS as _POS_FIELDS_MAX,
@@ -78,8 +80,9 @@ from ..ops.scoring import (DENSE_CLAUSE_KINDS, RANGE_CLAUSE_KINDS,
                            score_terms_fused, span_kind)
 from ..ops.topk import (running_topk_init, top_k_hits, top_k_by_field,
                         top_k_values)
-from ..utils.errors import (QueryParsingError, SearchParseError,
-                            SearchTimeoutError)
+from ..utils.breaker import breaker_service
+from ..utils.errors import (CircuitBreakingError, QueryParsingError,
+                            SearchParseError, SearchTimeoutError)
 from . import resident as _resident
 from .query_dsl import (Query, MatchAllQuery, MatchNoneQuery, TermQuery,
                         RangeQuery, PrefixQuery, BoolQuery,
@@ -106,10 +109,25 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
     them: the columns the unfused path reads, plus each forward-indexed
     field's block-max summary `tile_max` for the fused engine and the
     positional pack (`fwd_pos` int16, `k1ln` / `lnorm` f32) where the
-    field has one."""
+    field has one.
+
+    Numeric `values` / `mv_values` are the values as XLA's arithmetic
+    and compares see them, subnormals flushed to zeros of their sign
+    (`ops/ordered.ftz`); a float column that holds a subnormal also gets
+    `sort_values`, the values as stored, which field sorts read (a sort
+    moves values and keeps them).
+
+    The upload is accounted against the fielddata breaker and released
+    when the segment is garbage collected, as the reference does."""
     cached = getattr(segment, "_device", None)
     if cached is not None and cached[0] == device:
         return cached[1]
+    old_hold = getattr(segment, "_breaker_hold", None)
+    hold = breaker_service().breaker("fielddata").hold(segment.nbytes())
+    if old_hold is not None:        # a re-upload to another device
+        old_hold.release()
+    weakref.finalize(segment, hold.release)
+    segment._breaker_hold = hold  # type: ignore[attr-defined]
     dev = {
         "_device": device,
         "text": {
@@ -133,17 +151,31 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
         "kw_mv": {name: _up(kc.mv_ords, device)
                   for name, kc in segment.keywords.items()
                   if kc.mv_ords is not None},
-        "num": {
-            name: {"values": _up(nc.values, device),
-                   "exists": _up(nc.exists, device),
-                   **({"mv_values": _up(nc.mv_values, device),
-                       "mv_exists": _up(nc.mv_exists, device)}
-                      if nc.mv_values is not None else {})}
-            for name, nc in segment.numerics.items()
-        },
+        "num": {name: _num_column(nc, device)
+                for name, nc in segment.numerics.items()},
     }
     segment._device = (device, dev)  # type: ignore[attr-defined]
     return dev
+
+
+def _num_column(nc, device: torch.device) -> dict:
+    vals = ordered.ftz_np(nc.values)
+    col = {"values": _up(vals, device), "exists": _up(nc.exists, device)}
+    if vals is not nc.values:
+        col["sort_values"] = _up(nc.values, device)
+    if nc.mv_values is not None:
+        col["mv_values"] = _up(ordered.ftz_np(nc.mv_values), device)
+        col["mv_exists"] = _up(nc.mv_exists, device)
+    return col
+
+
+def _f32_flushed(v: float) -> float:
+    """A float bound as XLA's compares see it: a value that is subnormal
+    in f32 becomes a zero of its sign; others are kept as given."""
+    f = np.float32(v)
+    if f != 0 and abs(f) < np.float32(ordered.F32_TINY):
+        return math.copysign(0.0, float(v))
+    return v
 
 
 def _host_perms(segment: Segment) -> dict:
@@ -164,7 +196,8 @@ def _host_extrema(segment: Segment, field: str):
     if field not in cache:
         nc = segment.numerics.get(field)
         cache[field] = (None if nc is None or nc.mv_values is not None
-                        else build_tile_minmax(nc.values, nc.exists,
+                        else build_tile_minmax(ordered.ftz_np(nc.values),
+                                               nc.exists,
                                                segment.capacity))
     return cache[field]
 
@@ -227,7 +260,7 @@ def ensure_num_sorted(segment: Segment, field: str,
     _host_perms(segment)[("num", field)] = perm
     dev.setdefault("num_sorted", {})[field] = {
         "perm": _up(perm, device),
-        "vals": _up(vals[perm], device),
+        "vals": _up(ordered.ftz_np(vals[perm]), device),
         "sexists": _up(nc.exists[perm], device)}
 
 
@@ -294,10 +327,11 @@ def ensure_agg_views(segment: Segment, bound: "Bound", agg_desc: tuple,
             nc = segment.numerics.get(f)
             if nc is None or f in vw_num:
                 continue
-            col = {"values": _up(nc.values[perm], device),
+            col = {"values": _up(ordered.ftz_np(nc.values[perm]), device),
                    "exists": _up(nc.exists[perm], device)}
             if nc.mv_values is not None:
-                col["mv_values"] = _up(nc.mv_values[perm], device)
+                col["mv_values"] = _up(ordered.ftz_np(nc.mv_values[perm]),
+                                       device)
                 col["mv_exists"] = _up(nc.mv_exists[perm], device)
             vw_num[f] = col
         vw_kw = store.setdefault("vw_kw", {})
@@ -515,7 +549,8 @@ class QueryBinder:
                 elif nc.kind == IP:
                     v = parse_ip(q.value) - nc.bias
                 else:
-                    v = (float(q.value) if nc.values.dtype == np.float32
+                    v = (_f32_flushed(float(q.value))
+                         if nc.values.dtype == np.float32
                          else int(q.value))
             except (ValueError, TypeError, MapperParsingError):
                 return self._no_match()
@@ -564,7 +599,8 @@ class QueryBinder:
                 hi if hi is not None
                 else np.nextafter(np.float32(hi_x), np.float32(-np.inf)))
             return Bound("range_f32", q.field,
-                         scalars={"lo": float(lo_f), "hi": float(hi_f),
+                         scalars={"lo": float(_f32_flushed(lo_f)),
+                                  "hi": float(_f32_flushed(hi_f)),
                                   "boost": q.boost})
         if kind == "keyword":
             kc = self.seg.keywords[q.field]
@@ -1345,7 +1381,7 @@ def _merge_metric_dicts(acc: dict, st: dict) -> dict:
         elif k == "max":
             acc[k] = torch.maximum(acc[k], v)
         else:
-            acc[k] = acc[k] + v
+            acc[k] = ordered.ftz(acc[k] + v)
     return acc
 
 
@@ -1583,7 +1619,7 @@ def _bucket_metrics(bucket_ids, mask, sub_metrics, seg, n_buckets):
                 elif key == "max":
                     entry[key] = torch.maximum(entry[key], arr)
                 else:
-                    entry[key] = entry[key] + arr
+                    entry[key] = ordered.ftz(entry[key] + arr)
         out[mname] = entry
     return out
 
@@ -2217,7 +2253,8 @@ def _segment_body_one(seg: dict, params: tuple, live: torch.Tensor,
             keys = s2g[local.clamp(min=0).to(torch.int64)]
             missing = local < 0
         elif kindtag == "num" and field in seg["num"]:
-            keys = seg["num"][field]["values"]
+            col = seg["num"][field]
+            keys = col.get("sort_values", col["values"])
             missing = ~seg["num"][field]["exists"]
         else:  # field absent from this whole segment
             keys = torch.zeros((cap,), dtype=torch.int32, device=device)
@@ -2953,7 +2990,11 @@ def _execute_resident(segment: Segment, live, desc: tuple, params: tuple,
             "agg_skel": _agg_skeleton(agg_out),
             "agg_shapes": [tuple(leaf.shape[1:]) for leaf in agg_leaves]}
     handle = _start_fetch(plan, buf)
-    entry.nbytes = _plan_bytes(plan)
+    try:
+        entry.account(_plan_bytes(plan))
+    except CircuitBreakingError:
+        # the entry cannot afford residency: serve this result, evict it
+        _resident.cache.evict(entry.key)
     return handle, {**plan["layout"], "resident": True,
                     "shard_key": shard_key}, n_real
 
@@ -3026,6 +3067,10 @@ def _execute_pack_resident(base: Segment, delta: Segment, live_b, live_d,
     if plan["layout"] is None:
         plan["layout"] = _pack_output_layout(body, cap_b)
     handle = _start_fetch(plan, _pack_wire(body, timed))
-    entry.nbytes = _plan_bytes(plan)
+    try:
+        entry.account(_plan_bytes(plan))
+    except CircuitBreakingError:
+        # the entry cannot afford residency: serve this result, evict it
+        _resident.cache.evict(entry.key)
     return handle, {**plan["layout"], "resident": True,
                     "shard_key": shard_key}, n_real

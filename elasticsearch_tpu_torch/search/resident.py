@@ -23,9 +23,10 @@ raises as SearchTimeoutError.
 
 Residency is opt-in via ``ES_TPU_RESIDENT_LOOP`` (unset => every response
 is the cold path's and all counters here read zero).
-``ES_TPU_RESIDENT_MAX_ENTRIES`` caps the pinned-entry LRU. The
-reference's fielddata-breaker accounting of entries is not ported (the
-port has no breaker service); `bytes` reports the pinned buffers.
+``ES_TPU_RESIDENT_MAX_ENTRIES`` caps the pinned-entry LRU. An entry's
+pinned buffers are accounted against the fielddata breaker for the life
+of the entry (`ResidentEntry.account`), as the reference does; `bytes`
+reports them.
 """
 
 from __future__ import annotations
@@ -92,11 +93,12 @@ class ResidentStats:
 class ResidentEntry:
     """One pinned plan: `plan` holds the executor's resolved dispatch
     state (chunk plan, output layout, pinned feed / fetch buffers);
-    `nbytes` the pinned buffers' size."""
+    `nbytes` the pinned buffers' size, held against the fielddata
+    breaker while the entry is cached."""
 
     __slots__ = ("key", "label", "plan", "seg_id", "fingerprint",
                  "seg_ref", "backend", "generation", "delta_epoch",
-                 "nbytes", "hits", "__weakref__")
+                 "nbytes", "hits", "_hold", "__weakref__")
 
     def __init__(self, key, label: str, plan, seg_id, fingerprint,
                  seg_ref, backend: str = "cuda",
@@ -118,6 +120,25 @@ class ResidentEntry:
         self.delta_epoch = delta_epoch
         self.nbytes = 0
         self.hits = 0
+        self._hold = 0
+
+    def account(self, nbytes: int) -> None:
+        """Record the entry's residency bytes (known after its first
+        dispatch) against the fielddata breaker; raises
+        CircuitBreakingError when they do not fit."""
+        if nbytes <= self._hold:
+            return
+        from ..utils.breaker import breaker_service
+        breaker_service().breaker("fielddata").add_estimate(
+            nbytes - self._hold)
+        self._hold = nbytes
+        self.nbytes = nbytes
+
+    def release(self) -> None:
+        if self._hold:
+            from ..utils.breaker import breaker_service
+            breaker_service().breaker("fielddata").release(self._hold)
+            self._hold = 0
 
 
 class ResidentCache:
@@ -156,7 +177,11 @@ class ResidentCache:
     def put(self, entry: ResidentEntry) -> None:
         with self._mx:
             self._sweep_locked()
-            self._entries.pop(entry.key, None)
+            # a displaced duplicate (two threads resolving the same plan)
+            # drops its breaker hold; the plan stays under the winner
+            old = self._entries.pop(entry.key, None)
+            if old is not None and old is not entry:
+                old.release()
             self._entries[entry.key] = entry
             self._trim_locked()
 
@@ -167,7 +192,9 @@ class ResidentCache:
     def _evict_locked(self, key) -> None:
         # drop the cache's reference only: a dispatch that looked the
         # entry up just before may still be using its buffers
-        if self._entries.pop(key, None) is not None:
+        e = self._entries.pop(key, None)
+        if e is not None:
+            e.release()
             stats.evictions.inc()
 
     def _trim_locked(self) -> None:

@@ -105,6 +105,26 @@ class ShardReader:
         self.mappers = mapper
         self.shard_id = shard_id
         self._global_ords: dict[str, tuple[list[str], list[np.ndarray]]] = {}
+        self._generation_key: tuple | None = None
+
+    def generation_key(self) -> tuple:
+        """Content-exact generation of this point-in-time view, the
+        request cache's invalidation signal (`index/cache.py`). Per
+        segment: `Segment.cache_key()`, the delta epoch (a refresh that
+        added docs re-keys though the delta's cache_key is epoch-stable)
+        and a digest of the live mask (deletes flip bits without
+        touching the segment). Memoized: the reader is immutable."""
+        if self._generation_key is None:
+            import hashlib
+            parts = []
+            for seg in self.segments:
+                h = hashlib.blake2b(digest_size=8)
+                h.update(self.live[seg.seg_id].tobytes())
+                parts.append((seg.cache_key(), int(seg.delta_epoch or 0),
+                              h.hexdigest()))
+            self._generation_key = (self.index_name, self.shard_id,
+                                    tuple(parts))
+        return self._generation_key
 
     # -- global ordinals ---------------------------------------------------
     def global_ords(self, field: str) -> tuple[list[str], list[np.ndarray]]:
@@ -147,8 +167,13 @@ class ShardReader:
         for the cross-shard reduce) instead of finalized "aggregations".
         `deadline` (absolute monotonic seconds): past it, the shard
         fails whole with SearchTimeoutError."""
-        return self.msearch_submit(bodies, with_partials,
-                                   deadline=deadline).finish()
+        pend = self.msearch_submit(bodies, with_partials, deadline=deadline)
+        out = pend.finish()
+        # stamped after finish(): the dispatch scheduler's sync path
+        # reads the stats of the call it made
+        from .dispatch import note_submit_stats
+        note_submit_stats(pend.group_sizes, pend.dispatch_count)
+        return out
 
     def msearch_submit(self, bodies: list[dict],
                        with_partials: bool = False,

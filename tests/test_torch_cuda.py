@@ -740,7 +740,8 @@ def test_register_and_spill_report(cuda, tmp_path):
     import subprocess
     for name, src in cs._SOURCES.items():
         out = subprocess.run(
-            [cs._nvcc(), *cs._NVCC_FLAGS, "-Xptxas", "-v", "-I",
+            [cs._nvcc(), *cs._NVCC_FLAGS, *cs._SOURCE_FLAGS.get(name, ()),
+             "-Xptxas", "-v", "-I",
              str(cs._CSRC), "-o", str(tmp_path / f"{name}.so"),
              str(cs._CSRC / src)], capture_output=True, text=True,
             check=True)
@@ -987,3 +988,133 @@ def test_timed_out_walk_launches_only_its_chunks(cuda):
     assert cs.LAUNCHES["bundle_topk"] == before + 4
     assert out[6] is True
     assert (out[3][:, 512:] == 1).all() and (out[2][:, 512:] == 0).all()
+
+
+# -- subnormals: the agg kernels flush as XLA's CPU runtime does ----------
+
+_SUBNORMALS = np.array([1e-40, -1e-40, 1e-45, -1e-45, 1e-38, 9.9e-39,
+                        -1e-38, -9.9e-39, 3e-39, -2e-39, 0.0, -0.0,
+                        1.5e-38, -1.4e-38, 1.2e-38, -1.19e-38, 1e-20,
+                        -1e-20, 1.5, -2.25], np.float32)
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_agg_kernels_flush_subnormals(cuda, seed):
+    """The scan, tree and bucket-stats kernels on rows of subnormals,
+    signed zeros and normal values whose sums cancel into the subnormal
+    range give their plain versions' bits (ops/ordered.ftz)."""
+    from elasticsearch_tpu_torch.ops import ordered
+    rng = np.random.default_rng(seed)
+    B, cap = 33, 5000
+    x = torch.from_numpy(rng.choice(_SUBNORMALS, size=(B, cap))).to(cuda)
+    perm = torch.from_numpy(rng.permutation(cap).astype(np.int32)).to(cuda)
+    pos = torch.from_numpy(np.sort(rng.integers(0, cap + 1, 200))
+                           .astype(np.int32)).to(cuda)
+    for p in (None, perm):
+        assert _bits_equal(cs.ordered_prefix(x, p, pos),
+                           ordered.prefix_at(x, p, pos))
+    for n in (1, 2, 33, 1000, cap):
+        xs = x[:, :n].contiguous()
+        assert _bits_equal(cs.ordered_sum(xs), ordered.xla_block_sum(xs)), n
+    ids = torch.from_numpy(rng.integers(-1, 5, cap).astype(np.int32)).to(
+        cuda)
+    mask = torch.from_numpy(rng.random((B, cap)) < 0.6).to(cuda)
+    got = cs.ordered_bucket_stats(ids, mask, x[0].contiguous(), 4)
+    want = cs.ordered_bucket_stats_ref(ids, mask, x[0].contiguous(), 4)
+    for st in cs.BUCKET_STATS:
+        assert _bits_equal(got[st], want[st]), st
+
+
+def test_agg_kernels_sass_flush(cuda, tmp_path):
+    """The agg reduces are built with -ftz=true: every f32 add, multiply,
+    min / max and compare in their SASS carries .FTZ."""
+    import re
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    f32_op = re.compile(r"\b(FADD|FMUL|FFMA|FMNMX|FSETP)\b[^;]*;")
+    for name in ("ordered_scan", "bucket_stats"):
+        lib = tmp_path / f"{name}.so"
+        subprocess.run([cs._nvcc(), *cs._NVCC_FLAGS, *cs._SOURCE_FLAGS[name],
+                        "-I", str(cs._CSRC), "-o", str(lib),
+                        str(cs._CSRC / cs._SOURCES[name])], check=True,
+                       capture_output=True, text=True)
+        sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                              capture_output=True, text=True).stdout
+        ops = [m.group(0) for m in f32_op.finditer(sass)]
+        assert any(op.startswith("FADD") for op in ops), name
+        plain = [op for op in ops if ".FTZ" not in op]
+        print(f"{name}: {len(ops)} f32 ops, {len(plain)} without .FTZ")
+        assert not plain, (name, plain[:5])
+
+
+# -- the breaker's device probe and a node on the card ---------------------
+
+def test_breaker_probe_reads_mem_get_info(cuda):
+    from elasticsearch_tpu_torch.utils import breaker
+    from elasticsearch_tpu_torch.utils.settings import Settings
+    total = torch.cuda.mem_get_info(cuda)[1]
+    assert breaker._device_memory_bytes(cuda) == total
+    svc = breaker.HierarchyCircuitBreakerService(Settings.EMPTY, device=cuda)
+    assert svc.total_memory == total
+    assert svc.breaker("fielddata").limit == int(total * 0.60)
+    assert breaker._device_memory_bytes("cpu") == breaker._DEFAULT_TOTAL
+
+
+def test_node_serves_on_the_card(cuda):
+    """A Node on the card (device=None) and one on the CPU take the same
+    writes (a base, a delta, deletes, compaction); every response of the
+    corpus mixes is the CPU's, agg sums included, and the card's node
+    reports its device and holds its columns against the breaker."""
+    import json
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    nodes = [Node({"node.name": "gpu"}), Node({"node.name": "cpu"},
+                                               device="cpu")]
+    try:
+        assert nodes[0].device.type == "cuda"
+        docs = corpus.make_docs(3000, seed=5, long_every=100)
+        mixes = corpus.request_mixes(6, seed=7, n_docs=3000, doc_seed=5)
+        bodies = [b for m in ("match", "bool_aggs", "prefix", "aggs_only",
+                              "match_range_aggs", "count_match",
+                              "stats_aggs")
+                  for b in mixes[m]]
+
+        def same():
+            got = [n.msearch([("logs", b) for b in bodies])["responses"]
+                   for n in nodes]
+            for r in got:
+                for x in r:
+                    x.pop("took", None)
+            assert json.dumps(got[0], sort_keys=True) \
+                == json.dumps(got[1], sort_keys=True)
+
+        for n in nodes:
+            n.create_index("logs", {"number_of_shards": 2,
+                                    "index.streaming.delta": True,
+                                    "index.delta.min_compact_docs": 64},
+                           corpus.MAPPING)
+            n.bulk([("index", {"_index": "logs", "_id": d, "doc": s})
+                    for d, s in docs[:2500]], refresh=True)
+        same()
+        for n in nodes:
+            n.bulk([("index", {"_index": "logs", "_id": d, "doc": s})
+                    for d, s in docs[2500:]]
+                   + [("delete", {"_index": "logs", "_id": docs[i][0]})
+                      for i in range(0, 200, 7)], refresh=True)
+        same()
+        for n in nodes:
+            for eng in n.indices["logs"].shards.values():
+                eng.compact()
+        same()
+        stats = nodes[0].nodes_stats()["nodes"]["gpu"]
+        assert stats["accelerator"]["count"] >= 1
+        assert stats["breakers"]["fielddata"]["estimated_size_in_bytes"] > 0
+    finally:
+        for n in nodes:
+            n.close()
