@@ -85,17 +85,46 @@ each of which fails the run on any error:
    variance derived from them), the
    positional mixes, which score with the segment's field statistics,
    by their totals) and the replaced segments' fielddata holds are
-   released; then a 20,000-doc node on the card and one on the CPU take
+   released; then a 12,000-doc node (SMALL_NODE_DOCS) on the card and
+   one on the CPU take
    the same writes, Part A's subnormal docs included (bulk + compaction,
    a delta, deletes and updates, compaction, _forcemerge), and give the
    same responses exactly after each; a `node summary` line with the
-   card's name and power limit;
-8. a `kernels` JSON line, then the result line
+   card's name and power limit. The node is durable: `path.data` (under
+   the checkout's git-ignored `smoke_data/`, removed at the end) and
+   the `async` translog (fsynced at flush; `request` mode fsyncs per op
+   and runs in the kill -9 rounds), its ingest rate printed beside the
+   rate measured before the node had a store;
+8. the restart: 2^14 new docs a shard, a refresh and a flush (the commit
+   holds each base and a delta), then 1,000 deletes, 1,000 updates and
+   2^12 new docs a shard in the translog only, a refresh; 64 requests of
+   every mix, each segment's fingerprint / cache key / live mask and
+   device columns recorded; the node closed and a new one booted on the
+   same path must equal it (keys, torch.equal columns, responses, the
+   fielddata held); a `durable` line (flush seconds, bytes on disk,
+   recovery seconds by part, ops replayed, fielddata);
+9. scroll / scan / dfs on the recovered node: a `match` scrolled in 16
+   pages of 1,000 equals one request of 16,000 hits (K3 at ck 1,024 on
+   the deep pages, held against its plain version and timed; a batch of
+   16 deep pages equals the pages one at a time); a `range` filter
+   scanned in 16 pages comes in doc order with the exact total; the
+   `match` and `phrase` mixes as dfs_query_then_fetch give the same
+   responses with the plain versions swapped in; a `scroll` line (page
+   p50 at from 0 and from 15,000);
+10. kill -9: a request-mode node (2 shards) in a subprocess (`python3
+   chip_smoke.py --durability-worker ...`) on the card, SIGKILLed once
+   at a random instant after 20,000 acked docs, once by
+   `crash_point:site=translog:phase=append:rate=0.05:seed=11:kill=1`,
+   once by `crash_point:site=store:phase=commit:kill=1`; after each, a
+   node booted on the card over its data recovers every acked doc
+   (through get and a term query), verifies clean and answers with the
+   kernels as with their plain versions (`kill -9` lines);
+11. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--rehearse` runs the main, delta and resident paths' checks on the CPU
-at a toy size (no build, no timings, no result line), to exercise this
-script without a card. `--ab-parent DIR` loads the K3 of an earlier
+`--rehearse` runs the main, delta, resident, node, restart, scroll and
+kill -9 paths' checks on the CPU at a toy size (no build, no timings, no
+result line), to exercise this script without a card. `--ab-parent DIR` loads the K3 of an earlier
 commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
 git-ignored `smoke_checkout/`) beside this one and times the two in turns
 on every K3 sweep and launch-form row, K1's, K2's, the unfused leaf's,
@@ -120,6 +149,7 @@ import io
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -512,6 +542,11 @@ def positional_ab(readers, subset: dict[str, list[dict]], sync) -> dict:
     return {**out, "fused_ms": fused["p50_ms"], "host_ms": host["p50_ms"]}
 
 
+# the main path's requests on the host oracle: cut from 16 (34 s of the
+# host's time) so that the durable phases fit the time limit
+POSITIONAL_AB = 8
+
+
 def positional_ab_subset(readers, mixes, n: int = 64) -> dict:
     """n requests of the positional mixes for the host A/B: the sloppy
     phrase and span_near requests the host can afford (up to n/4 each),
@@ -868,13 +903,17 @@ def rehearse(n_docs: int, batch: int) -> int:
 
 def rehearse_node(n_docs: int, batch: int) -> dict:
     """The node path's steps on the CPU at a toy size: ingest (one batch
-    over HTTP), refresh with compaction, a delta, every mix through
-    node.msearch / HTTP / the engines' readers, edits, compaction, and
-    the small node's steps (a CPU node against a CPU node)."""
+    over HTTP) into a durable node, refresh with compaction, a delta,
+    every mix through node.msearch / HTTP / the engines' readers, edits,
+    compaction, the restart, scroll / scan / dfs, the kill -9 rounds (a
+    CPU worker, 300 docs) and the small node's steps (a CPU node against
+    a CPU node)."""
     from elasticsearch_tpu_torch import corpus
     from elasticsearch_tpu_torch.node import Node
     from elasticsearch_tpu_torch.rest.server import RestServer
-    node = Node({"node.name": "rehearse"}, device="cpu")
+    data = data_dir("rehearse")
+    settings = node_settings(data)
+    node = Node(settings, device="cpu")
     server = RestServer(node, "127.0.0.1", 0).start()
     url = f"http://127.0.0.1:{server.port}"
     try:
@@ -891,13 +930,24 @@ def rehearse_node(n_docs: int, batch: int) -> dict:
         ns = argparse.Namespace(docs=n_docs, delta_docs=n_docs // 4,
                                 batch=batch, reps=1)
         out, launches = node_phase(ns, node, url, lambda: None)
+        server.stop()
+        node, durable, _ = restart_phase(ns, node, settings, "cpu",
+                                         lambda: None)
+        scroll_out, _, _ = scroll_phase(ns, node, "cpu", lambda: None,
+                                        on_card=False, pages=4, page=50)
     finally:
         server.stop()
         node.close()
+    kills = kill_rounds("cpu", lambda: None, "cpu", n_docs=300,
+                        flush_every=200)
     small = small_node_check(min(n_docs, 600), 4, "cpu", lambda: None)
     return {"ingest": ingest["docs"], "compaction_s": out["compaction_s"],
             "fielddata": out["fielddata"],
             "launched": sorted(k for k in NODE_KERNELS if launches[k] > 0),
+            "durable": {k: durable[k] for k in ("flush_s", "store_bytes",
+                                                "recovery", "segments")},
+            "scroll": {k: scroll_out[k] for k in ("scroll", "scan")},
+            "kill9_acked": [k["acked"] for k in kills],
             "small": small["steps"]}
 
 
@@ -917,6 +967,10 @@ NODE_KERNELS = ("dense_score", "scatter_add", "bundle_topk",
                 "bundle_topk_seeded", "positional_leaf", "ordered_prefix",
                 "ordered_sum", "ordered_bucket_stats")
 NODE_HTTP_SAMPLE = 32      # requests per mix also sent over HTTP _msearch
+# the node path's timed batches a mix; the small node's docs a shard, cut
+# from 20,000 so that the durable phases fit the time limit
+NODE_REPS = 3
+SMALL_NODE_DOCS = 12_000
 NODE_PROFILE_MIXES = ("match", "bool_aggs", "stats_aggs", "phrase")
 NODE_WRITE_BATCH = 16384   # documents per node.bulk call
 NODE_EDITS = 1000          # deletes and updates of the node path's step 4
@@ -1035,6 +1089,39 @@ def node_mixes(n: int, readers, n_docs: int) -> dict[str, list[dict]]:
     return out
 
 
+class FullCollections:
+    """The cyclic collector's full (generation 2) passes and their
+    milliseconds while `on`: one over the host heap of a 2^20-doc node
+    costs seconds on the card's host, and the node path's batches report
+    any that fell inside them."""
+
+    def __init__(self):
+        self.on = False
+        self.passes = 0
+        self.ms = 0.0
+        self._t0 = None
+
+    def __call__(self, phase, info):
+        if not self.on or info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.passes += 1
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+    @contextlib.contextmanager
+    def counting(self):
+        self.passes, self.ms, self.on = 0, 0.0, True
+        gc.callbacks.append(self)
+        try:
+            yield self
+        finally:
+            self.on = False
+            gc.callbacks.remove(self)
+
+
 def run_node_path(node, url: str, mixes, reps: int, sync) -> tuple:
     """Every mix through node.msearch (timed), a sample of each through
     HTTP POST /_msearch, and the same requests through the engines' own
@@ -1052,11 +1139,12 @@ def run_node_path(node, url: str, mixes, reps: int, sync) -> tuple:
             before = dict(counts)
             t0 = time.perf_counter()
             lat = []
-            for _ in range(reps):
-                t1 = time.perf_counter()
-                resps = node_search(node, bodies, batch)
-                sync()
-                lat.append((time.perf_counter() - t1) * 1e3)
+            with FullCollections().counting() as full_gc:
+                for _ in range(reps):
+                    t1 = time.perf_counter()
+                    resps = node_search(node, bodies, batch)
+                    sync()
+                    lat.append((time.perf_counter() - t1) * 1e3)
             wall = time.perf_counter() - t0
             d = {k: counts[k] - before[k] for k in counts}
             # an unfused plan is refused by the pack and goes per segment
@@ -1083,7 +1171,9 @@ def run_node_path(node, url: str, mixes, reps: int, sync) -> tuple:
             stats[name] = {
                 "requests": len(bodies), "msearch_batch": batch or len(bodies),
                 "node": {"qps": len(bodies) * reps / wall,
-                         "p50_ms": float(np.percentile(lat, 50))},
+                         "p50_ms": float(np.percentile(lat, 50)),
+                         "full_gc": {"passes": full_gc.passes,
+                                     "ms": full_gc.ms}},
                 "rest": {"requests": len(sample),
                          "qps": len(sample) / (float(np.median(lat_h)) / 1e3),
                          "p50_ms": float(np.percentile(lat_h, 50))},
@@ -1302,6 +1392,11 @@ def node_phase(args, node, url: str, sync, profile=None) -> tuple:
     if any(len(x) != 2 for x in segs):
         raise AssertionError(f"node path: not a base + delta: {segs}")
     log("node delta: " + json.dumps({**out, "segments": segs}))
+    # the delta's host side (its docs' parsed fields, kept for the next
+    # rebuild: ~9 tracked objects a doc) joins the frozen index, so that
+    # no full collection over it lands inside a timed batch
+    gc.collect()
+    gc.freeze()
     # 3. serve
     readers = node_readers(node)
     mixes = node_mixes(args.batch, readers, args.docs)
@@ -1310,7 +1405,7 @@ def node_phase(args, node, url: str, sync, profile=None) -> tuple:
         node_search(node, mixes[name], NODE_BATCH.get(name))
     sync()
     stats, last, launches = run_node_path(node, url, mixes,
-                                          min(args.reps, 3), sync)
+                                          min(args.reps, NODE_REPS), sync)
     out["mixes"] = stats
     if profile is not None:
         out["profiles"] = profile(
@@ -1379,6 +1474,558 @@ def node_phase(args, node, url: str, sync, profile=None) -> tuple:
     log("node compaction: " + json.dumps(
         {"s": out["compaction_s"], "fielddata": out["fielddata"]}))
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# the durable node: a full-scale restart, kill -9 rounds, and scroll /
+# scan / dfs on the recovered node
+# ---------------------------------------------------------------------------
+
+# the node's data directories: under the checkout, git-ignored, removed
+# at the end of the run (a failed run removes them too)
+DATA_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "smoke_data")
+# the node ingest on the H100 before the node had a store (PERF.md §5)
+NO_TRANSLOG_INGEST_DOCS_PER_S = 14153.0
+RESTART_NEW_DOCS = 1 << 14        # per shard, flushed with the base
+RESTART_TAIL_DOCS = 1 << 12       # per shard, the translog only
+RESTART_EDITS = 1000              # deletes and updates, the translog only
+RESTART_REQUESTS = 64             # requests of each mix held across it
+SCROLL_PAGES = 16
+SCROLL_PAGE = 1000
+DFS_PLAIN = 16                    # dfs requests a mix held against plain
+KILL_DOCS = 20_000                # the kill -9 node's docs before a kill
+KILL_BATCH = 100                  # docs per node.bulk while loading
+KILL_FAULT_BATCH = 5              # docs per node.bulk in the fault rounds
+KILL_FLUSH_EVERY = 2000           # the worker flushes every this many
+KILL_MAPPING = {"properties": {**{
+    "message": {"type": "text"}, "status": {"type": "keyword"},
+    "size": {"type": "long"}, "@timestamp": {"type": "date"},
+    "body": {"type": "text"}}, "key": {"type": "keyword"}}}
+# the kill -9 rounds: (fault spec, seconds after the load to SIGKILL)
+KILL_ROUNDS = (
+    (None, "random"),
+    ("crash_point:site=translog:phase=append:rate=0.05:seed=11:kill=1",
+     None),
+    ("crash_point:site=store:phase=commit:kill=1", None),
+)
+
+
+def remove_data() -> None:
+    """Remove this process's data directories (and the root, if empty)."""
+    if not os.path.isdir(DATA_ROOT):
+        return
+    for name in os.listdir(DATA_ROOT):
+        if name.endswith(f"-{os.getpid()}"):
+            shutil.rmtree(os.path.join(DATA_ROOT, name), ignore_errors=True)
+    with contextlib.suppress(OSError):
+        os.rmdir(DATA_ROOT)
+
+
+def data_dir(tag: str) -> str:
+    path = os.path.join(DATA_ROOT, f"{tag}-{os.getpid()}")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def node_settings(path: str, **extra) -> dict:
+    """The durable node: path.data and the async translog (the ingest
+    fsyncs at flush, not per op; `request` mode runs in the kill -9
+    rounds)."""
+    return {"node.name": "chip-smoke", "path.data": path,
+            "index.translog.durability": "async", **extra}
+
+
+def dir_bytes(path: str) -> int:
+    total = 0
+    for root, _dirs, files in os.walk(path):
+        for f in files:
+            try:
+                total += os.path.getsize(os.path.join(root, f))
+            except OSError:
+                pass
+    return total
+
+
+def dev_tree_diff(a, b, path="dev") -> list[str]:
+    """Paths where two device-column trees differ (torch.equal per
+    tensor)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        if not isinstance(b, torch.Tensor) or a.dtype != b.dtype \
+                or not torch.equal(a, b):
+            return [path]
+        return []
+    if isinstance(a, dict):
+        out = [f"{path}.{k} (one side only)"
+               for k in sorted(set(a) ^ set(b), key=str)]
+        for k in a:
+            if k in b:
+                out += dev_tree_diff(a[k], b[k], f"{path}.{k}")
+        return out
+    return [] if a == b else [path]
+
+
+def segment_state(node, dev, index: str = "logs") -> list:
+    """Per shard, per segment: fingerprint, cache key, delta epoch, live
+    mask and device columns (uploaded when not yet)."""
+    from elasticsearch_tpu_torch.search import executor
+    return [[{"fingerprint": seg.fingerprint(), "cache_key": seg.cache_key(),
+              "delta_epoch": seg.delta_epoch, "num_docs": seg.num_docs,
+              "live": eng.live[seg.seg_id].copy(),
+              "dev": executor.device_arrays(seg, dev)}
+             for seg in eng.segments]
+            for eng in node.indices[index].shards.values()]
+
+
+def recovery_parts(node, index: str = "logs") -> dict:
+    """The engines' recovery seconds by part, summed over the shards."""
+    out: dict = {}
+    for eng in node.indices[index].shards.values():
+        for k, v in eng.recovery_stats.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def restart_phase(args, node, settings: dict, dev, sync) -> tuple:
+    """A full-scale restart of the durable node. Writes 2^14 new docs a
+    shard, refreshes and flushes (the commit holds each base and a
+    non-empty delta); then deletes, updates and 2^12 new docs a shard that
+    only the translog holds, and a refresh. Records 64 requests of every
+    mix, each segment's fingerprint / cache key / live mask / device
+    columns, closes the node and boots a new one on the same path, which
+    must equal the state before the close: equal keys, torch.equal
+    columns, equal responses. Returns (the new node, report, launches of
+    the serve after the restart)."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    keys = routing_keys(2)
+    index_dir = os.path.join(settings["path.data"], "logs")
+    n_new = min(RESTART_NEW_DOCS, max(args.docs // 4, 1))
+    n_tail = min(RESTART_TAIL_DOCS, max(args.docs // 8, 1))
+    n_edits = min(RESTART_EDITS, max(args.docs // 8, 1))
+    start = 2 * args.docs + 2 * args.delta_docs
+    new = [list(corpus.make_docs(n_new, seed=342 + s,
+                                 start=start + s * n_new, long_every=1000))
+           for s in range(2)]
+    node_ingest(node, None, new, keys, http_docs=0)
+    node.refresh("logs")
+    segs = [[s.num_docs for s in eng.segments]
+            for eng in node.indices["logs"].shards.values()]
+    if any(len(x) != 2 for x in segs):
+        raise AssertionError(f"restart: not a base + delta before the "
+                             f"flush: {segs}")
+    t0 = time.perf_counter()
+    r = node.flush("logs")
+    out = {"flush_s": time.perf_counter() - t0,
+           "flushed_segments": segs}
+    if r["_shards"]["failed"]:
+        raise AssertionError("restart: flush failed: " + json.dumps(r))
+    out["store_bytes"] = dir_bytes(index_dir)
+    # the translog tail: deletes and updates of base docs, new docs
+    rng = np.random.default_rng(177)
+    tail_start = start + 2 * n_new
+    ops = []
+    for s in range(2):
+        # live base docs (the node phase deleted some)
+        base_ids = []
+        for i in rng.permutation(args.docs):
+            did = str(s * args.docs + int(i))
+            try:
+                node.get_doc("logs", did, routing=keys[s])
+            except Exception:  # noqa: BLE001 — deleted earlier
+                continue
+            base_ids.append(did)
+            if len(base_ids) == 2 * n_edits:
+                break
+        ops += [("delete", {"_index": "logs", "_id": d, "_routing": keys[s]})
+                for d in base_ids[:n_edits]]
+        ops += [("update", {"_index": "logs", "_id": d, "_routing": keys[s],
+                            "doc": {"doc": {"size": 11}}})
+                for d in base_ids[n_edits:]]
+        ops += _bulk_ops(corpus.make_docs(
+            n_tail, seed=442 + s, start=tail_start + s * n_tail,
+            long_every=1000), keys[s])
+    r = node.bulk(ops)
+    if r["errors"]:
+        raise AssertionError("restart: tail writes failed")
+    node.refresh("logs")
+    out["translog_ops"] = len(ops)
+    mixes = node_mixes(min(RESTART_REQUESTS, args.batch),
+                       node_readers(node), args.docs)
+    want = {name: node_search(node, mixes[name], NODE_BATCH.get(name))
+            for name in MIXES}
+    sync()
+    before = segment_state(node, dev)
+    gens = [eng.base_generation()
+            for eng in node.indices["logs"].shards.values()]
+    out["fielddata_before"] = fielddata_bytes()
+    out["bytes_before_close"] = dir_bytes(index_dir)
+    node.close()
+    gc.collect()
+    out["fielddata_after_close"] = fielddata_bytes()
+    t0 = time.perf_counter()
+    node = Node(settings, device=dev)
+    out["boot_s"] = time.perf_counter() - t0
+    out["recovery"] = recovery_parts(node)
+    engines = list(node.indices["logs"].shards.values())
+    if any(e.failed is not None for e in engines):
+        raise AssertionError("restart: a shard failed its recovery: "
+                             + json.dumps([e.failed for e in engines]))
+    if [e.base_generation() for e in engines] != gens:
+        raise AssertionError("restart: base generations differ")
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = {name: node_search(node, mixes[name], NODE_BATCH.get(name))
+           for name in MIXES}
+    sync()
+    out["first_serve_s"] = time.perf_counter() - t0
+    launches = _read_counts()
+    # the recovered node's host side joins the frozen heap, as the
+    # ingested one's did
+    gc.collect()
+    gc.freeze()
+    for name in MIXES:
+        if _node_strip(got[name]) != _node_strip(want[name]):
+            raise AssertionError(f"restart, {name}: responses differ "
+                                 f"from those before the close")
+    after = segment_state(node, dev)
+    diffs = []
+    for s, (pre, post) in enumerate(zip(before, after)):
+        if len(pre) != len(post):
+            raise AssertionError(f"restart: shard {s} has {len(post)} "
+                                 f"segments, had {len(pre)}")
+        for i, (a, b) in enumerate(zip(pre, post)):
+            for k in ("fingerprint", "cache_key", "delta_epoch",
+                      "num_docs"):
+                if a[k] != b[k]:
+                    raise AssertionError(f"restart: shard {s} segment {i} "
+                                         f"{k} {b[k]!r} != {a[k]!r}")
+            if not np.array_equal(a["live"], b["live"]):
+                raise AssertionError(f"restart: shard {s} segment {i} "
+                                     "live mask differs")
+            diffs += [f"shard {s} segment {i} {p}"
+                      for p in dev_tree_diff(a["dev"], b["dev"])]
+    if diffs:
+        raise AssertionError("restart: device columns differ: "
+                             + json.dumps(diffs[:20]))
+    out["fielddata_after"] = fielddata_bytes()
+    if out["fielddata_after"] != out["fielddata_before"]:
+        raise AssertionError("restart: fielddata " + json.dumps(out))
+    out["segments"] = [[{"num_docs": x["num_docs"],
+                         "delta_epoch": x["delta_epoch"]} for x in shard]
+                       for shard in after]
+    out["responses_equal"] = {name: len(mixes[name]) for name in MIXES}
+    del before, after
+    return node, out, launches
+
+
+def _page_p50(node, body, reps: int, sync) -> float:
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        node.search("logs", copy.deepcopy(body))
+        sync()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(lat, 50))
+
+
+def doc_positions(node, index: str = "logs") -> dict:
+    """id -> (shard, segment, local doc): the scan's doc order."""
+    pos = {}
+    for sid, eng in node.indices[index].shards.items():
+        for si, seg in enumerate(eng.segments):
+            for d in range(seg.num_docs):
+                pos[seg.ids[d]] = (sid, si, d)
+    return pos
+
+
+def scroll_phase(args, node, dev, sync, on_card: bool = True,
+                 pages: int = SCROLL_PAGES,
+                 page: int = SCROLL_PAGE) -> tuple:
+    """Scroll, scan and dfs on the node. A `match` scrolled in `pages`
+    pages of `page` must equal one request of pages * page hits (K3
+    runs deep pages at ck = min(from + size, 1,024)); a `range` filter
+    scanned the same way must come in doc order with the exact total;
+    the `match` and `phrase` mixes as dfs_query_then_fetch must give the
+    same responses with the plain versions swapped in. Returns (report,
+    launches, K3's deep-page call measured against its plain version or
+    None off the card)."""
+    out: dict = {}
+    mixes = node_mixes(min(64, args.batch), node_readers(node), args.docs)
+    window = pages * page
+    # the match request with the most hits of the first sixteen
+    totals = [(node.search("logs", {"query": b["query"], "size": 0})
+               ["hits"]["total"], i) for i, b in enumerate(mixes["match"][:16])]
+    total, i = max(totals)
+    if total < window:
+        raise AssertionError(f"scroll: no match request has {window} hits "
+                             f"({total})")
+    body = {"query": mixes["match"][i]["query"], "size": page}
+    _zero_counts()
+    t0 = time.perf_counter()
+    first = node.search("logs", copy.deepcopy(body), scroll="5m")
+    got = [first] + [node.scroll(first["_scroll_id"], "5m")
+                     for _ in range(pages - 1)]
+    sync()
+    out["scroll_s"] = time.perf_counter() - t0
+    launches = _read_counts()
+    node.clear_scroll([first["_scroll_id"]])
+    whole = node.search("logs", {**body, "size": window})
+    pairs = [(h["_id"], h["_score"]) for p in got for h in p["hits"]["hits"]]
+    if pairs != [(h["_id"], h["_score"]) for h in whole["hits"]["hits"]] \
+            or any(p["hits"]["total"] != total for p in got):
+        raise AssertionError("scroll: the pages differ from one request of "
+                             "the whole window")
+    out["scroll"] = {"hits": total, "pages": pages, "page": page,
+                     "launches": launches}
+    if on_card and launches["bundle_topk"] <= 0:
+        raise AssertionError("scroll: K3 never launched")
+    k3 = None
+    if on_card:
+        out["page_p50_ms"] = {
+            "from_0": _page_p50(node, {**body, "from": 0}, 5, sync),
+            f"from_{window - page}": _page_p50(
+                node, {**body, "from": window - page}, 5, sync)}
+        # K3's first call of the deepest page: the base's walk
+        seen, current, shims = capture_first_calls()
+        current["mix"] = "deep"
+        with swapped_kernels(**shims):
+            node.search("logs", {**body, "from": window - page})
+        a, kw = seen["deep"]["bundle_topk"]
+        if kw["ck"] != min(window, 1024):
+            raise AssertionError(f"scroll: K3's deep page ran ck {kw['ck']}")
+        k3 = measure_bundle(a, kw, reps=10)
+        k3["call"] = {"path": "scroll", "from": window - page, "size": page,
+                      "B": a[4].shape[0], "ck": kw["ck"],
+                      "cap": a[6].shape[0],
+                      "clauses": [[r, kd] for r, kd, _f, _w in a[2]]}
+        log("scroll K3 deep page: " + json.dumps(k3))
+    # a batch of deep pages splits under the transient budget
+    deep = [{"query": b["query"], "from": window - page, "size": page}
+            for b in mixes["match"][:16]]
+    batch = node_search(node, deep)
+    one = [node.search("logs", copy.deepcopy(b)) for b in deep[:4]]
+    if _node_strip(batch[:4]) != _node_strip(one):
+        raise AssertionError("scroll: a batch of deep pages differs from "
+                             "the pages one at a time")
+    # scan: a range filter in doc order, the total exact
+    scan_body = {"query": {"range": {"size": {"gte": 50_000}}}, "size": page}
+    count = node.count("logs", {"query": scan_body["query"]})["count"]
+    first = node.search("logs", copy.deepcopy(scan_body), scroll="5m",
+                        search_type="scan")
+    if first["hits"]["hits"] or first["hits"]["total"] != count:
+        raise AssertionError("scan: the first response " + json.dumps(
+            first["hits"])[:300])
+    t0 = time.perf_counter()
+    spages = [node.scroll(first["_scroll_id"], "5m") for _ in range(pages)]
+    sync()
+    out["scan_s"] = time.perf_counter() - t0
+    node.clear_scroll([first["_scroll_id"]])
+    ids = [h["_id"] for p in spages for h in p["hits"]["hits"]]
+    pos = doc_positions(node)
+    order = [pos[i] for i in ids]
+    if len(ids) != min(window, count) or order != sorted(order) \
+            or any(p["hits"]["total"] != count for p in spages) \
+            or {h["_score"] for p in spages for h in p["hits"]["hits"]} \
+            != {1.0}:
+        raise AssertionError("scan: pages not in doc order, or totals off")
+    out["scan"] = {"hits": count, "docs_read": len(ids)}
+    # dfs: the match and phrase mixes, kernels against plain versions on
+    # the first DFS_PLAIN requests (the plain K3 walk takes seconds a call
+    # over a 2^21-doc base)
+    for name in ("match", "phrase"):
+        items = [("logs", b, "dfs_query_then_fetch") for b in mixes[name]]
+        dfs = node.msearch(items)["responses"]
+        with swapped_kernels(**plain_versions()):
+            plain = node.msearch(items[:DFS_PLAIN])["responses"]
+        if _node_strip(dfs[:DFS_PLAIN]) != _node_strip(plain) \
+                or any(r.get("status") != 200 for r in dfs):
+            raise AssertionError(f"dfs {name}: the plain versions differ")
+        qtf = node_search(node, mixes[name])
+        out[f"dfs_{name}"] = {
+            "requests": len(items),
+            "hits": sum(r["hits"]["total"] for r in dfs),
+            "scores_changed": sum(
+                [h["_score"] for h in a["hits"]["hits"]]
+                != [h["_score"] for h in b["hits"]["hits"]]
+                for a, b in zip(dfs, qtf))}
+    return out, launches, k3
+
+
+def kill_settings(path: str) -> dict:
+    return {"node.name": "kill-9", "path.data": path,
+            "index.number_of_shards": 2,
+            "index.translog.durability": "request",
+            "index.shard.check_on_startup": True}
+
+
+def durability_worker(argv) -> int:
+    """`--durability-worker DATA SEED START DEVICE DOCS FLUSH_EVERY
+    BATCH`: a request-mode node writing batches of BATCH docs (`ACK
+    <ids>` printed after each bulk returned), flushing every FLUSH_EVERY
+    docs, `LOADED` printed once DOCS are acked; it runs until it is
+    killed."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    data, seed, start, device = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    n_docs, flush_every, batch = int(argv[4]), int(argv[5]), int(argv[6])
+    node = Node(kill_settings(data), device=device)
+    if "soak" not in node.indices:
+        node.create_index("soak", {"number_of_shards": 2}, KILL_MAPPING)
+    i = start
+    next_flush = (start // flush_every + 1) * flush_every
+    loaded = False
+    while True:
+        docs = corpus.make_docs(batch, seed=seed * 100_000 + i,
+                                start=i, long_every=1000)
+        r = node.bulk([("index", {"_index": "soak", "_id": did,
+                                  "doc": {**d, "key": did}})
+                       for did, d in docs])
+        if r["errors"]:
+            raise AssertionError("worker bulk failed")
+        print("ACK " + " ".join(did for did, _ in docs), flush=True)
+        i += batch
+        if i >= next_flush:
+            node.flush("soak")
+            next_flush += flush_every
+        if not loaded and i - start >= n_docs:
+            print("LOADED", flush=True)
+            loaded = True
+
+
+def kill_round(data: str, seed: int, start: int, fault: str | None,
+               kill_after: float | None, device: str, n_docs: int,
+               flush_every: int, batch: int,
+               timeout_s: float = 600.0) -> dict:
+    import signal
+    env = dict(os.environ)
+    env.pop("ES_TPU_FAULT_INJECT", None)
+    if fault:
+        env["ES_TPU_FAULT_INJECT"] = fault
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--durability-worker",
+         data, str(seed), str(start), device, str(n_docs),
+         str(flush_every), str(batch)],
+        stdout=subprocess.PIPE, text=True, env=env)
+    acked: list[int] = []
+    kill_at = None
+    loaded_s = None
+    try:
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            if kill_at is not None and time.time() >= kill_at:
+                os.kill(proc.pid, signal.SIGKILL)
+                break
+            line = proc.stdout.readline()
+            if not line:
+                break          # the injected kill=1 crash point fired
+            if line.startswith("ACK "):
+                acked += [int(x) for x in line.split()[1:]]
+            elif line.startswith("LOADED") and kill_after is not None:
+                loaded_s = time.perf_counter() - t0
+                kill_at = time.time() + kill_after
+    finally:
+        try:
+            os.kill(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        rest, _ = proc.communicate(timeout=60)
+    for line in (rest or "").splitlines():
+        if line.startswith("ACK "):
+            acked += [int(x) for x in line.split()[1:]]
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"kill round: the worker exited "
+                             f"{proc.returncode}, not by SIGKILL")
+    if not acked:
+        raise AssertionError("kill round: the worker acked nothing")
+    return {"acked": acked, "s": time.perf_counter() - t0,
+            "loaded_s": loaded_s}
+
+
+def kill_verify(data: str, acked: set, dev, sync) -> dict:
+    """Boot the node on `dev` over the killed one's data: the store
+    verifies clean, every acked doc comes back through get and a term
+    query, and responses with the plain versions swapped in equal the
+    kernels'."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    t0 = time.perf_counter()
+    node = Node(kill_settings(data), device=dev)
+    try:
+        boot_s = time.perf_counter() - t0
+        rep = node.verify_integrity()
+        if not rep["clean"]:
+            raise AssertionError("kill -9: integrity " + json.dumps(rep)[:500])
+        dur = node.nodes_stats()["nodes"]["kill-9"]["indices"]["durability"]
+        if dur["shards_failed_corrupt"]:
+            raise AssertionError("kill -9: a shard was contained")
+        missing = []
+        for i in sorted(acked):
+            try:
+                node.get_doc("soak", str(i))
+            except Exception:  # noqa: BLE001 — a missing doc
+                missing.append(i)
+        ids = sorted(acked)
+        found = 0
+        for lo in range(0, len(ids), 4096):
+            bodies = [{"query": {"term": {"key": str(i)}}, "size": 1,
+                       "_source": False} for i in ids[lo:lo + 4096]]
+            for i, r in zip(ids[lo:lo + 4096],
+                            node_search(node, bodies, index="soak")):
+                hits = r["hits"]["hits"]
+                if r["hits"]["total"] == 1 and hits[0]["_id"] == str(i):
+                    found += 1
+                else:
+                    missing.append(i)
+        if missing:
+            raise AssertionError(f"kill -9: acked docs lost: "
+                                 f"{sorted(set(missing))[:20]}")
+        mixes = corpus.request_mixes(16, seed=9, n_docs=1000)
+        bodies = [b for m in ("match", "bool_aggs", "match_range_aggs",
+                              "phrase", "stats_aggs") for b in mixes[m]]
+        got = node_search(node, bodies, index="soak")
+        with swapped_kernels(**plain_versions()):
+            plain = node_search(node, bodies, index="soak")
+        if _node_strip(got) != _node_strip(plain):
+            raise AssertionError("kill -9: the plain versions differ")
+        return {"boot_s": boot_s, "docs": node.indices["soak"].doc_count(),
+                "acked": len(acked), "found_by_term": found,
+                "recovery": recovery_parts(node, "soak"),
+                "durability": dur}
+    finally:
+        node.close()
+
+
+def kill_rounds(dev, sync, device_arg: str, seed: int = 7,
+                n_docs: int = KILL_DOCS,
+                flush_every: int = KILL_FLUSH_EVERY) -> list:
+    """The kill -9 rounds: a request-mode node in a subprocess, killed
+    once at a random instant after `n_docs` acked docs, once by a crash
+    point at a translog append, once at a commit; after each, a restart
+    on `dev` recovers every acked doc."""
+    data = data_dir("kill")
+    rng = np.random.default_rng(seed)
+    acked_all: set[int] = set()
+    start = 0
+    out = []
+    for n, (fault, kill_after) in enumerate(KILL_ROUNDS):
+        delay = float(rng.uniform(0.2, 1.5)) if kill_after else None
+        r = kill_round(data, 1000 + n, start, fault, delay, device_arg,
+                       n_docs, flush_every,
+                       KILL_FAULT_BATCH if fault else KILL_BATCH)
+        acked_all.update(r["acked"])
+        start = max(r["acked"]) + 1
+        v = kill_verify(data, acked_all, dev, sync)
+        rec = {"round": n, "fault": fault, "kill_after_s": delay,
+               "worker_s": r["s"], "loaded_s": r["loaded_s"],
+               "acked_this_round": len(r["acked"]), **v}
+        log("kill -9: " + json.dumps(rec))
+        out.append(rec)
+    shutil.rmtree(data, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2675,7 +3322,9 @@ def on_card(args) -> int:
     from elasticsearch_tpu_torch import corpus
     from elasticsearch_tpu_torch.node import Node
     from elasticsearch_tpu_torch.rest.server import RestServer
-    node = Node({"node.name": "chip-smoke"}, device=dev)
+    data = data_dir("node")
+    settings = node_settings(data)
+    node = Node(settings, device=dev)
     server = RestServer(node, "127.0.0.1", 0).start()
     url = f"http://127.0.0.1:{server.port}"
     node.create_index("logs", {"number_of_shards": 2,
@@ -2702,6 +3351,10 @@ def on_card(args) -> int:
     if [s.num_docs for s in segs] != [args.docs, args.docs]:
         raise AssertionError(f"node ingest: {[s.num_docs for s in segs]}")
     ingest.update({"docs_per_s": ingest["docs"] / ingest["s"],
+                   "translog": settings["index.translog.durability"],
+                   "docs_per_s_without_translog":
+                       NO_TRANSLOG_INGEST_DOCS_PER_S,
+                   "translog_bytes": dir_bytes(data),
                    "generate_s": gen_s, "gpu": gpu_line()})
     log("node ingest: " + json.dumps(ingest))
     log(f"index: 2 shards x {args.docs} docs from the node; capacity "
@@ -2766,12 +3419,12 @@ def on_card(args) -> int:
                     "p50_ms": float(np.mean([r["p50_ms"] for r in v])),
                     "turns": v} for k, v in match_ab.items()}
     log("match fused vs unfused: " + json.dumps(match_ab))
-    # 16 positional requests on the host oracle (ES_TPU_POSITIONAL=0):
-    # the sloppy phrase and span_near ones it can afford, exact phrases
-    # and cross_fields for the rest; every sloppy / span_near request of
-    # the small index below as well
+    # POSITIONAL_AB positional requests on the host oracle
+    # (ES_TPU_POSITIONAL=0): the sloppy phrase and span_near ones it can
+    # afford, exact phrases and cross_fields for the rest; every sloppy /
+    # span_near request of the small index below as well
     pos_ab = {"main": positional_ab(
-        readers, positional_ab_subset(readers, mixes, 16), sync)}
+        readers, positional_ab_subset(readers, mixes, POSITIONAL_AB), sync)}
     log("positional fused vs host oracle: " + json.dumps(pos_ab))
     out_dir = args.out_dir
     if out_dir:
@@ -2970,11 +3623,39 @@ def on_card(args) -> int:
     for k in kernels:
         k["launches"] += node_launches[k["name"]]
     server.stop()
-    node.close()
     lap("node_path")
+    # the durable node: a full-scale restart, then scroll / scan / dfs on
+    # the recovered node
+    node, durable, restart_launches = restart_phase(args, node, settings,
+                                                    dev, sync)
+    durable["gpu"] = gpu_line()
+    log("durable: " + json.dumps(durable))
+    lap("restart")
+    scroll_out, scroll_launches, k3_deep = scroll_phase(args, node, dev,
+                                                        sync)
+    scroll_out["gpu"] = gpu_line()
+    log("scroll: " + json.dumps(scroll_out))
+    node.close()
+    shutil.rmtree(data, ignore_errors=True)
+    missing = [k for k in ("bundle_topk",) if scroll_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the scroll path: "
+                             f"{missing}")
+    for k in kernels:
+        k["launches"] += (restart_launches[k["name"]]
+                          + scroll_launches[k["name"]])
+        if k["name"] == "bundle_topk":
+            k["scroll_call"] = {key: k3_deep[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "call")}
+            k["max_abs_err"] = max(k["max_abs_err"], k3_deep["max_abs_err"])
+    lap("scroll")
+    kills = kill_rounds(dev, sync, "cuda")
+    lap("kill9")
     # the small node: the card against the CPU after every write step,
     # Part A's subnormal docs and bodies included
-    node_out["small"] = small_node_check(args.small_docs, 8, dev, sync)
+    node_out["small"] = small_node_check(
+        min(args.small_docs, SMALL_NODE_DOCS), 8, dev, sync)
     lap("small_node")
     log("small node: " + json.dumps(node_out["small"]))
     log("phase seconds: " + json.dumps(phase_s))
@@ -2994,13 +3675,19 @@ def on_card(args) -> int:
         "device_idle_share": {name: v["device_idle_share"]
                               for name, v in node_out["profiles"].items()},
         "fielddata": node_out["fielddata"],
+        "durable": {k: durable[k] for k in (
+            "flush_s", "store_bytes", "boot_s", "recovery",
+            "first_serve_s", "fielddata_before", "fielddata_after")},
+        "scroll_page_p50_ms": scroll_out["page_p50_ms"],
+        "kill9_acked": [k["acked"] for k in kills],
         "mem_get_info": {"free": free, "total": total}}))
     report = {"gpu": gpu_line(), "build_s": build_s, "sweep": sweep,
               "mixes": stats, "match_fused_vs_unfused": match_ab,
               "positional_fused_vs_host": pos_ab,
               "delta": {"mixes": d_stats, "launches": d_launches,
                         "pack_vs_segments": d_ab},
-              "resident": res, "node": node_out,
+              "resident": res, "node": node_out, "durable": durable,
+              "scroll": scroll_out, "kill9": kills,
               "profiles": profiles, "kernels": kernels,
               "seconds": time.perf_counter() - t_run}
     if out_dir:
@@ -3036,7 +3723,13 @@ def main(argv=None) -> int:
                         "is timed in turns against this one")
     p.add_argument("--kernels-only", action="store_true",
                    help="stop after the kernel sweeps (no result line)")
+    p.add_argument("--durability-worker", nargs=7, default=None,
+                   metavar=("DATA", "SEED", "START", "DEVICE", "DOCS",
+                            "FLUSH_EVERY", "BATCH"),
+                   help="run the kill -9 rounds' writer (internal)")
     args = p.parse_args(argv)
+    if args.durability_worker:
+        return durability_worker(args.durability_worker)
     try:
         import torch
     except ImportError:
@@ -3049,7 +3742,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     if args.rehearse:
-        return rehearse(min(args.docs, 1500), min(args.batch, 8))
+        try:
+            return rehearse(min(args.docs, 1500), min(args.batch, 8))
+        finally:
+            remove_data()
     if args.out_dir:
         global _log_file
         os.makedirs(args.out_dir, exist_ok=True)
@@ -3058,7 +3754,10 @@ def main(argv=None) -> int:
         print("chip_smoke: needs a CUDA device "
               "(torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    return on_card(args)
+    try:
+        return on_card(args)
+    finally:
+        remove_data()
 
 
 if __name__ == "__main__":

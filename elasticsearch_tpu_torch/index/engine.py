@@ -21,12 +21,25 @@ delta half:
   * `acquire_searcher`: the port's `ShardReader` over the last refresh,
     on the engine's device.
 
-A store (`path`: translog, recovery, `flush`'s commit) and the device
-build (`index.build.device`) raise NotImplementedError.
+  * the store half (`path`): translog appends in `index` / `delete`
+    (`index.translog.durability`, `request` by default), `flush` (the
+    commit of changed live masks only, the translog generation it
+    covers, cleanup, then sync and rotate), recovery from the newest
+    lossless commit plus translog replay (`_salvage_commit` /
+    `_recover`; a recovered delta stays the delta),
+    `index.shard.check_on_startup`, and containment: a corruption that
+    salvage cannot prove lossless fails the shard (`ShardFailedError`,
+    503) and drops its segments and their fielddata holds, while the
+    node serves its other shards.
+
+The device build (`index.build.device`) raises NotImplementedError;
+replication (`apply_replicated`, `snapshot_docs`) and peer recovery are
+cluster code and are not ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import os
 import threading
@@ -38,13 +51,19 @@ import torch
 from .. import resolve_device
 from ..parallel.repack import run_build_aside
 from ..search import resident
+from ..search.executor import release_device_arrays
 from ..search.shard_searcher import ShardReader
 from ..utils.errors import (DocumentMissingError, IllegalArgumentError,
-                            ShardNotFoundError, VersionConflictError)
+                            ShardFailedError, ShardNotFoundError,
+                            VersionConflictError)
 from ..utils.settings import Settings
+from . import durability
 from .mapping import MapperService
 from .segment import (Segment, SegmentBuilder, concat_segments,
                       merge_segments, pad_delta_shapes)
+from .store import CorruptIndexError, Store
+from .translog import (OP_DELETE, OP_INDEX, Translog,
+                       TranslogCorruptedError, TranslogOp)
 
 _TRUE = ("1", "true", "on", "yes")
 
@@ -57,6 +76,19 @@ def delta_pack_default() -> bool:
 
 
 _seg_counter = itertools.count(1)
+_seg_counter_mx = threading.Lock()
+
+
+def _ensure_seg_counter_above(n: int) -> None:
+    """Advance the process-wide segment-id counter past `n`. Recovery
+    calls this with the highest recovered sid ordinal: a restarted
+    process would otherwise count from 1 again, and a new segment would
+    collide with a committed one's seg_id (the live-mask dict and the
+    commit's file map are sid-keyed)."""
+    global _seg_counter
+    with _seg_counter_mx:
+        cur = next(_seg_counter)
+        _seg_counter = itertools.count(max(cur, n + 1))
 
 _MERGE_POOL = None
 _MERGE_POOL_LOCK = threading.Lock()
@@ -98,10 +130,6 @@ class Engine:
     def __init__(self, index_name: str, shard_id: int, mapper: MapperService,
                  path: str | None = None, settings: Settings = Settings.EMPTY,
                  device=None):
-        if path is not None:
-            raise NotImplementedError(
-                "Engine store (translog, recovery, flush commit) is not "
-                "ported: path must be None")
         if settings.get_bool("index.build.device", False) \
                 or os.environ.get("ES_TPU_DEVICE_BUILD", "").strip().lower() \
                 in _TRUE:
@@ -150,6 +178,50 @@ class Engine:
         self._dirty = True
         self._engine_closed = False
         self._merge_inflight = False
+        self._commit_gen = 0
+        # contained-shard state: `failed` carries the structured reason;
+        # every write / search then answers ShardFailedError (503)
+        self.failed: dict | None = None
+        self._durability = settings.get_str("index.translog.durability",
+                                            "request")
+        self._check_on_startup = settings.get_bool(
+            "index.shard.check_on_startup", False)
+        self.store = Store(path, index=index_name, shard=shard_id) \
+            if path else None
+        self.translog = None
+        # seg_ids of the last durable commit: their files outlive
+        # refresh / compaction until the next commit's cleanup
+        self._committed_seg_ids: set[str] = set()
+        # sid -> (write-once stem, live-mask hash) as of the last commit:
+        # a flush re-saves a segment only when its live mask changed
+        self._committed_files: dict[str, tuple[str, str]] = {}
+        # what the last recovery did, by part (seconds, ops replayed)
+        self.recovery_stats: dict = {}
+        if self.store is not None:
+            # recovery errors never escape __init__: what salvage cannot
+            # prove lossless becomes a contained shard failure.
+            # PowerLossError (an injected crash) is not caught: a crashed
+            # process runs no handlers
+            try:
+                marker = self.store.corruption_marker()
+                if marker is not None:
+                    raise CorruptIndexError(
+                        f"corruption marker present: {marker}")
+                if self._check_on_startup:
+                    t0 = time.monotonic()
+                    report = self.store.verify_integrity()
+                    self.recovery_stats["check_s"] = time.monotonic() - t0
+                    if not report["clean"]:
+                        raise CorruptIndexError(
+                            "check_on_startup failed: "
+                            f"{report['failures']}")
+                self.translog = Translog(
+                    f"{path}/translog", durability=self._durability,
+                    index=index_name, shard=shard_id)
+                self._recover()
+            except (CorruptIndexError, TranslogCorruptedError,
+                    OSError) as e:
+                self._contain(e, during="recovery")
 
     # -- version map helpers ----------------------------------------------
     def _segment_version(self, doc_id: str) -> int | None:
@@ -166,13 +238,15 @@ class Engine:
         return self._segment_version(doc_id)
 
     def _check_open(self) -> None:
-        """Writes racing close surface as shard-not-found."""
+        """Writes racing close surface as shard-not-found; a contained
+        shard answers 503."""
         if self._engine_closed:
             raise ShardNotFoundError(self.index_name, self.shard_id)
+        self._check_failed()
 
     # -- write path (ref: InternalEngine.index :340) -----------------------
     def index(self, doc_id: str, source: dict | bytes | str,
-              version: int | None = None,
+              version: int | None = None, _replay: bool = False,
               version_type: str = "internal") -> dict:
         with self._lock:
             self._check_open()
@@ -189,6 +263,9 @@ class Engine:
                 self._delta_docs[doc_id] = (parsed, new_version)
             self.versions[doc_id] = (new_version, False)
             self._tombstone_ts.pop(doc_id, None)
+            if self.translog is not None and not _replay:
+                self.translog.add(TranslogOp(OP_INDEX, doc_id, new_version,
+                                             parsed.source))
             self._dirty = True
             return {"_id": doc_id, "_version": new_version,
                     "created": current is None}
@@ -215,6 +292,7 @@ class Engine:
         return version
 
     def delete(self, doc_id: str, version: int | None = None,
+               _replay: bool = False,
                version_type: str = "internal") -> dict:
         with self._lock:
             self._check_open()
@@ -230,6 +308,8 @@ class Engine:
             self._delete_everywhere(doc_id)
             self.versions[doc_id] = (new_version, True)
             self._tombstone_ts[doc_id] = time.monotonic()
+            if self.translog is not None and not _replay:
+                self.translog.add(TranslogOp(OP_DELETE, doc_id, new_version))
             self._dirty = True
             return {"_id": doc_id, "found": True, "_version": new_version}
 
@@ -251,6 +331,7 @@ class Engine:
     # -- realtime get (ref: index/get/ShardGetService.java) ----------------
     def get(self, doc_id: str, realtime: bool = True) -> dict:
         with self._lock:
+            self._check_failed()
             if realtime:
                 v = self.versions.get(doc_id)
                 if v is not None and v[1]:
@@ -271,6 +352,8 @@ class Engine:
     # -- refresh (ref: InternalEngine.refresh :549) ------------------------
     def refresh(self) -> None:
         with self._lock:
+            if self.failed is not None:
+                return  # a contained shard has nothing to publish
             if not self._dirty:
                 return
             if self._delta_enabled:
@@ -304,7 +387,6 @@ class Engine:
         cache keys ride on. Changes only at compaction / force-merge,
         never at refresh."""
         if self._base_gen is None:
-            import hashlib
             h = hashlib.blake2b(digest_size=8)
             for s in self.segments:
                 if s is not self._delta_seg:
@@ -344,7 +426,15 @@ class Engine:
         if old in self.segments:
             self.segments.remove(old)
         self.live.pop(old.seg_id, None)
+        self._drop_uncommitted_files(old.seg_id)
         self._delta_seg = None
+
+    def _drop_uncommitted_files(self, seg_id: str) -> None:
+        """Delete a retired segment's store files unless the last commit
+        lists it: a committed file outlives the segment until the next
+        commit's cleanup, since the translog rotated at that commit."""
+        if self.store is not None and seg_id not in self._committed_seg_ids:
+            self.store.delete_segment(seg_id)
 
     def _maybe_compact(self) -> None:
         """Schedule (or, with the sync merge scheduler, run) compaction
@@ -431,6 +521,7 @@ class Engine:
                 old_gen = self.base_generation()
                 for old in snapshot:
                     self.live.pop(old.seg_id, None)
+                    self._drop_uncommitted_files(old.seg_id)
                 self.segments = [merged]
                 self.live[merged.seg_id] = m_live
                 self._delta_seg = None
@@ -483,6 +574,7 @@ class Engine:
         new reader over the same base segment object, whose uploaded
         columns (cached on the segment) are reused."""
         with self._lock:
+            self._check_failed()
             if self._reader is None:
                 self._reader = ShardReader(
                     self.index_name, list(self._view_segments),
@@ -517,6 +609,7 @@ class Engine:
         i = self.segments.index(pair[0])
         for old in pair:
             self.live.pop(old.seg_id, None)
+            self._drop_uncommitted_files(old.seg_id)
         live = np.zeros(merged.capacity, dtype=bool)
         live[: merged.num_docs] = True
         self.segments[i: i + 2] = [merged]
@@ -584,6 +677,8 @@ class Engine:
                     live_masks=self.live, similarity=self._sim_for)
                 old_gen = self.base_generation()
                 old_segs = list(self.segments)
+                for old in old_segs:
+                    self._drop_uncommitted_files(old.seg_id)
                 live = np.zeros(merged.capacity, dtype=bool)
                 live[: merged.num_docs] = True
                 self.segments = [merged]
@@ -598,9 +693,236 @@ class Engine:
                 resident.evict_generation(f"delta({old_gen})")
                 resident.evict_segments(s.seg_id for s in old_segs)
 
+    # -- flush = commit + translog rotation (ref: :574+) -------------------
     def flush(self) -> None:
-        raise NotImplementedError(
-            "Engine.flush (store commit + translog rotation) is not ported")
+        with self._lock:
+            if self.failed is not None:
+                return  # a contained shard has nothing durable to add
+            self.refresh()
+            if self.store is None:
+                return
+            try:
+                stems: dict[str, str] = {}
+                hashes: dict[str, str] = {}
+                for seg in self.segments:
+                    live = self.live[seg.seg_id]
+                    h = hashlib.blake2b(live.tobytes(),
+                                        digest_size=8).hexdigest()
+                    hashes[seg.seg_id] = h
+                    prev = self._committed_files.get(seg.seg_id)
+                    if prev is not None and prev[1] == h:
+                        # unchanged since the last commit: the
+                        # write-once pair on disk stays authoritative
+                        stems[seg.seg_id] = prev[0]
+                    else:
+                        stems[seg.seg_id] = self.store.save_segment(
+                            seg, live, suffix=self._commit_gen + 1)
+                self._commit_gen += 1
+                # the commit records the exact stems plus the translog
+                # generation active at commit time: every op acked after
+                # it lands in generations >= it, so recovery can prove
+                # whether a fallback to this commit is lossless
+                self.store.write_commit(
+                    self._commit_gen, [s.seg_id for s in self.segments],
+                    extra={"files": stems,
+                           "translog_gen": (self.translog.generation
+                                            if self.translog is not None
+                                            else 0)})
+                self._committed_seg_ids = {s.seg_id for s in self.segments}
+                self._committed_files = {
+                    sid: (stems[sid], hashes[sid]) for sid in stems}
+                self.store.cleanup_uncommitted(set(stems.values()))
+                if self.translog is not None:
+                    self.translog.sync()
+                    self.translog.rotate()
+            except OSError as e:
+                # a flush that cannot make writes durable fails the shard;
+                # PowerLossError is not an OSError and propagates
+                self._contain(e, during="flush")
+                raise ShardFailedError(self.index_name, self.shard_id,
+                                       self.failed["reason"]) from e
+
+    # -- recovery (ref: IndexShardGateway translog replay) -----------------
+    def _salvage_commit(self) -> tuple[dict | None, list[tuple]]:
+        """Pick the commit point recovery serves: walk generations newest
+        to oldest, skipping torn / corrupt commit files and commits whose
+        segments fail their checksums (each skip counted under
+        `commits_fell_back`). A fallback is accepted only when the
+        translog still covers every op acked since it (oldest on-disk
+        translog generation <= recorded generation + 1); otherwise
+        CorruptIndexError, and the shard is contained. Returns (commit,
+        [(sid, segment, live), ...])."""
+        gens = self.store.commit_generations()
+        fell_back = False
+        last_err: Exception | None = None
+        for gen in gens:
+            try:
+                commit = self.store.read_commit(gen)
+            except CorruptIndexError as e:
+                durability.on_commit_fell_back()
+                fell_back = True
+                last_err = e
+                continue
+            if fell_back:
+                tl_gen = commit.get("translog_gen")
+                min_gen = (self.translog.min_generation()
+                           if self.translog is not None else None)
+                if tl_gen is None or min_gen is None \
+                        or min_gen > int(tl_gen) + 1:
+                    raise CorruptIndexError(
+                        f"newest commit unusable ({last_err}) and the "
+                        f"translog no longer covers commit [{gen}] "
+                        "(rotated since) — refusing a fallback that "
+                        "would silently lose acked writes")
+            files = commit.get("files") or {}
+            try:
+                loaded = [(sid, *self.store.load_segment(
+                              sid, stem=files.get(sid)))
+                          for sid in commit["segments"]]
+            except CorruptIndexError as e:
+                durability.on_commit_fell_back()
+                fell_back = True
+                last_err = e
+                continue
+            # segment files no readable commit references are crash
+            # residue; their docs re-enter through translog replay
+            orphans = (self.store.seg_stems_on_disk()
+                       - self.store.referenced_stems())
+            durability.on_segments_salvaged(len(orphans))
+            for stem in orphans:
+                for path in self.store._stem_paths(stem):
+                    try:
+                        os.remove(path)
+                    except OSError:
+                        pass
+            return commit, loaded
+        if gens:
+            raise CorruptIndexError(
+                f"no usable commit point among generations {gens}: "
+                f"{last_err}")
+        return None, []
+
+    def _recover(self) -> None:
+        st = self.recovery_stats
+        t0 = time.monotonic()
+        layout0 = self.store.layout_seconds
+        commit, loaded = self._salvage_commit()
+        if commit:
+            self._commit_gen = int(commit["generation"])
+            self._committed_seg_ids = set(commit["segments"])
+            tails = [sid.rsplit("_", 1)[-1] for sid in commit["segments"]]
+            ordinals = [int(t) for t in tails if t.isdigit()]
+            if ordinals:
+                _ensure_seg_counter_above(max(ordinals))
+            files = commit.get("files") or {}
+            self._committed_files = {
+                sid: (files.get(sid, f"seg_{sid}"),
+                      hashlib.blake2b(live.tobytes(),
+                                      digest_size=8).hexdigest())
+                for sid, seg, live in loaded}
+            for sid, seg, live in loaded:
+                self.segments.append(seg)
+                self.live[sid] = live
+                for d in range(seg.num_docs):
+                    if live[d]:
+                        self.versions[seg.ids[d]] = (int(seg.versions[d]),
+                                                     False)
+                if self._delta_enabled and seg.delta_parent is not None:
+                    # a recovered delta stays THE delta: its docs
+                    # re-enter the rebuild set (re-parsed from source)
+                    self._delta_seg = seg
+                    self._delta_epoch = int(seg.delta_epoch)
+                    for d in range(seg.num_docs):
+                        if live[d]:
+                            self._delta_docs[seg.ids[d]] = (
+                                self.mappers.parse(seg.ids[d],
+                                                   seg.sources[d]),
+                                int(seg.versions[d]))
+        t1 = time.monotonic()
+        st["layout_s"] = self.store.layout_seconds - layout0
+        st["load_s"] = (t1 - t0) - st["layout_s"]
+        st["segments"] = len(loaded)
+        n_ops = 0
+        if self.translog is not None:
+            for op in self.translog.snapshot():
+                n_ops += 1
+                if op.op == OP_INDEX:
+                    self.index(op.doc_id, op.source, _replay=True)
+                    self.versions[op.doc_id] = (op.version, False)
+                    self._buffer_docs[op.doc_id] = (op.version, op.source)
+                    self.buffer.versions[-1] = op.version
+                    if op.doc_id in self._delta_docs:
+                        # replays carry the persisted version, which must
+                        # survive the next delta rebuild too
+                        self._delta_docs[op.doc_id] = (
+                            self._delta_docs[op.doc_id][0], op.version)
+                elif op.op == OP_DELETE:
+                    if self._current_version(op.doc_id) is not None:
+                        self.delete(op.doc_id, _replay=True)
+                    self.versions[op.doc_id] = (op.version, True)
+        t2 = time.monotonic()
+        st["replay_s"] = t2 - t1
+        st["ops_replayed"] = n_ops
+        # replayed ops become searchable
+        self.refresh()
+        st["refresh_s"] = time.monotonic() - t2
+
+    # -- shard-level containment (ref: Store.markStoreCorrupted +
+    # IndexShard.failShard: corruption fails the shard, never the node) ----
+    def _contain(self, exc: BaseException, during: str) -> None:
+        """Fail this shard: drop every in-memory structure (the data on
+        disk stays) and its segments' device columns and fielddata
+        holds, and answer ShardFailedError (503) from here on. The
+        corruption marker is written only for verified corruption
+        (checksum / crc); a transient OSError (EIO) fails the shard for
+        this process without branding an intact store."""
+        reason = f"{type(exc).__name__}: {exc}"
+        marker = None
+        if self.store is not None and isinstance(
+                exc, (CorruptIndexError, TranslogCorruptedError)):
+            try:
+                marker = self.store.write_corruption_marker(reason)
+            except OSError:
+                pass
+        self.failed = {"reason": reason, "during": during,
+                       "marker": marker}
+        self._release_segments()
+        self.buffer = SegmentBuilder(similarity=self._sim_for)
+        self._buffer_docs = {}
+        self.versions = {}
+        self._tombstone_ts = {}
+        self._delta_docs = {}
+        if self.translog is not None:
+            self.translog.close()
+            self.translog = None
+        durability.on_shard_failed_corrupt()
+
+    def _release_segments(self) -> None:
+        """Forget every segment and view, and give back the device
+        columns of those no older reader still serves."""
+        segs = {id(s): s for s in self.segments + self._view_segments}
+        self.segments = []
+        self.live = {}
+        self._delta_seg = None
+        self._view_segments = []
+        self._view_live = {}
+        self._reader = None
+        for seg in segs.values():
+            release_device_arrays(seg)
+
+    def fail_shard(self, reason: str, exc: BaseException | None = None,
+                   during: str = "runtime") -> None:
+        """Public containment entry (corruption detected outside
+        recovery). Idempotent."""
+        with self._lock:
+            if self.failed is not None:
+                return
+            self._contain(exc or CorruptIndexError(reason), during)
+
+    def _check_failed(self) -> None:
+        if self.failed is not None:
+            raise ShardFailedError(self.index_name, self.shard_id,
+                                   self.failed["reason"])
 
     # -- stats / lifecycle -------------------------------------------------
     def doc_count(self) -> int:
@@ -618,6 +940,8 @@ class Engine:
                 "memory_in_bytes": sum(s.nbytes() for s in self.segments),
                 "buffered_docs": len(self.buffer),
             }
+            if self.failed is not None:
+                out["failed"] = dict(self.failed)
             if self._delta_enabled:
                 d = self._delta_seg
                 out["streaming"] = {
@@ -629,10 +953,16 @@ class Engine:
             return out
 
     def close(self) -> None:
+        """Close without flushing (the translog holds what the last
+        commit does not): the translog is closed and the segments, with
+        their device columns and fielddata holds, are let go."""
         with self._lock:
             self._engine_closed = True
+            if self.translog is not None:
+                self.translog.close()
             gen = self.base_generation() if self.segments else None
             seg_ids = [s.seg_id for s in self.segments]
+            self._release_segments()
         if self._delta_enabled and gen is not None:
             # delta entries carry no segment weakref: only an explicit
             # generation eviction reclaims them

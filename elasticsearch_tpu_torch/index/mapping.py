@@ -105,6 +105,28 @@ class FieldMapper:
     ignore_malformed: bool = False
     similarity: str = ""   # text: similarity name ("" = index default)
 
+    def to_dict(self) -> dict:
+        """The field's mapping as the reference renders it (persisted in
+        an index's `_meta.json`), plus the keys the reference drops."""
+        d: dict = {"type": self.type}
+        if self.type == TEXT and self.analyzer != "standard":
+            d["analyzer"] = self.analyzer
+        if self.type == TEXT and self.similarity not in ("", "cosine"):
+            d["similarity"] = self.similarity
+        if not self.index:
+            d["index"] = False
+        if self.boost != 1.0:
+            d["boost"] = self.boost
+        if self.search_analyzer is not None:
+            d["search_analyzer"] = self.search_analyzer
+        if self.fmt is not None:
+            d["format"] = self.fmt
+        if self.ignore_malformed:
+            d["ignore_malformed"] = True
+        if not self.doc_values:
+            d["doc_values"] = False
+        return d
+
 
 @dataclass
 class ParsedField:
@@ -201,6 +223,23 @@ class DocumentMapper:
 
     def merge(self, mapping: dict) -> None:
         self._parse_mapping(mapping)
+
+    def to_dict(self) -> dict:
+        """{"properties": ...}, multi-field subs under their parent's
+        "fields" (ref: DocumentMapper.to_dict)."""
+        sub_names = {s for subs in self._multi_fields.values() for s in subs}
+        props = {}
+        for n, f in sorted(self._fields.items()):
+            if n in sub_names:
+                continue
+            d = f.to_dict()
+            subs = self._multi_fields.get(n)
+            if subs:
+                d["fields"] = {
+                    s.rsplit(".", 1)[-1]: self._fields[s].to_dict()
+                    for s in sorted(subs) if s in self._fields}
+            props[n] = d
+        return {"properties": props}
 
     def field(self, name: str) -> FieldMapper | None:
         return self._fields.get(name)
@@ -337,6 +376,9 @@ class MapperService:
 
     def merge_mapping(self, mapping: dict) -> None:
         self.mapper.merge(mapping)
+
+    def mapping_dict(self) -> dict:
+        return self.mapper.to_dict()
 
     def field(self, name: str) -> FieldMapper | None:
         return self.mapper.field(name)

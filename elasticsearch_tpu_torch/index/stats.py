@@ -2,7 +2,7 @@
 
 Counterpart of `elasticsearch_tpu/index/stats.py` (host code), trimmed
 to the counters the engine and the node bump: indexing, get, search,
-pack builds, refresh and merge (ref: CommonStats.java, with per-type
+pack builds, refresh, flush and merge (ref: CommonStats.java, with per-type
 indexing and per-group search counters). Counters live at the
 index-service level, not per shard, as in the reference.
 """
@@ -56,6 +56,8 @@ class IndexOpStats:
         # maintenance
         self.refresh_total = 0
         self.refresh_time_ms = 0
+        self.flush_total = 0
+        self.flush_time_ms = 0
         self.merge_total = 0
         self.merge_time_ms = 0
 
@@ -108,6 +110,11 @@ class IndexOpStats:
         with self._lock:
             self.refresh_total += 1
             self.refresh_time_ms += int(took_ms)
+
+    def on_flush(self, took_ms: float = 0.0) -> None:
+        with self._lock:
+            self.flush_total += 1
+            self.flush_time_ms += int(took_ms)
 
     def on_merge(self, took_ms: float = 0.0) -> None:
         with self._lock:

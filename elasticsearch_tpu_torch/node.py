@@ -13,20 +13,43 @@ Device rule: `Node(settings, device=None)` serves on CUDA and raises
 without it; `device="cpu"` serves on the CPU (the tests). The device
 reaches every IndexService -> Engine -> ShardReader.
 
-Not ported (NotImplementedError): scroll, `dfs_query_*`, `scan`,
-suggest, significant-terms sub-aggs, aliases, index templates, warmers,
-snapshots, scripts (update scripts included), percolation, `path.data`
-(store, translog, flush), TTL and the rest of the admin and stats APIs.
+Durability: with `path.data` the node takes the exclusive `node.lock`,
+persists each index's metadata (`<path.data>/<index>/_meta.json`), loads
+every index found there at boot (each shard recovering from its store
+and translog), and `flush` commits; `close` persists the metadata and
+closes the engines without flushing. A contained shard (corruption that
+recovery could not salvage) answers writes with 503 and enters searches
+as a structured `_shards.failures` entry (or fails the request when
+`allow_partial_search_results` is false); `recovery_status`,
+`verify_integrity` and the `durability` block of `nodes_stats` report
+it.
+
+Search types: `dfs_query_then_fetch` / `dfs_query_and_fetch` (global
+term statistics summed over the shards, `_aggregate_dfs`), `scan`
+(the query wrapped in `constant_score`, pages in doc order) and scroll
+contexts over point-in-time readers (`scroll`, `clear_scroll`, reaped
+at their keepalive).
+
+Not ported (NotImplementedError): suggest, significant-terms sub-aggs,
+aliases, index templates, warmers, snapshots, scripts (update scripts
+included), percolation, TTL, the autotuner store, scripts and hunspell
+dictionaries under `path.data`, and the rest of the admin and stats
+APIs.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
 import threading
 import time
+import uuid
 
 import torch
 
 from . import resolve_device
+from .index import durability as _durability
 from .index.index_service import IndexService
 from .search.aggregations import parse_aggs
 from .search.controller import (merge_shard_results, shard_failure,
@@ -34,12 +57,12 @@ from .search.controller import (merge_shard_results, shard_failure,
 from .search.dispatch import DispatchScheduler
 from .search.shard_searcher import ShardReader
 from .search.traffic import controller_from_settings
-from .utils import monitor
+from .utils import faults, monitor
 from .utils.breaker import breaker_service
 from .utils.errors import (ElasticsearchTpuError, IllegalArgumentError,
                            IndexAlreadyExistsError, IndexNotFoundError,
-                           SearchTimeoutError, TrafficRejectedError,
-                           VersionConflictError)
+                           SearchTimeoutError, ShardFailedError,
+                           TrafficRejectedError, VersionConflictError)
 from .utils.metrics import MetricsRegistry
 from .utils.settings import Settings, parse_time_value as _parse_time_value
 from .utils.threadpool import ThreadPoolService
@@ -57,9 +80,6 @@ class Node:
     def __init__(self, settings: Settings | dict | None = None, device=None):
         self.settings = (settings if isinstance(settings, Settings)
                          else Settings(settings or {}))
-        if self.settings.get_str("path.data"):
-            raise NotImplementedError(
-                "path.data (store, translog, recovery) is not ported")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -69,7 +89,27 @@ class Node:
         self.name = self.settings.get_str("node.name", "node-0")
         self.cluster_name = self.settings.get_str("cluster.name",
                                                   "elasticsearch-tpu")
+        self.data_path = self.settings.get_str("path.data")
+        self._node_lock_fh = None
+        if self.data_path:
+            os.makedirs(self.data_path, exist_ok=True)
+            # exclusive node lock: two nodes never share a data dir
+            # (ref: env/NodeEnvironment.java's node.lock)
+            import fcntl
+            fh = open(os.path.join(self.data_path, "node.lock"), "a+")
+            try:
+                fcntl.flock(fh, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except OSError:
+                fh.close()
+                raise IllegalArgumentError(
+                    f"failed to obtain node lock on [{self.data_path}]: "
+                    f"is another node using the same data path?")
+            self._node_lock_fh = fh
         self.indices: dict[str, IndexService] = {}
+        # scroll contexts: id -> {"readers", "body", "pos", "expires_at"}
+        # (ref: SearchService.activeContexts + the keepalive reaper)
+        self._scrolls: dict[str, dict] = {}
+        self._scrolls_mx = threading.Lock()
         self.metrics = MetricsRegistry()
         self._started_at = time.time()
         # named host pools (ref: threadpool/ThreadPool.java)
@@ -87,6 +127,18 @@ class Node:
         max_entries = self.settings.get_int("search.resident.max_entries")
         if max_entries is not None:
             _resident.configure(max_entries=max_entries)
+        # durability counters, installed before the indices load so
+        # recovery-time salvage / containment events land in this node's
+        # block; close() resets them only while they are still its own
+        self._durability_stats = _durability.install_process_stats()
+        # the storage fault registry this node installs (cleared on close
+        # only while it is still the installed one)
+        self._fault_registry = None
+        fault_spec = self.settings.get_str("search.fault_injection")
+        if fault_spec is not None:
+            self._fault_registry = faults.configure(fault_spec)
+        if self.data_path:
+            self._load_existing_indices()
 
     # -- index admin -------------------------------------------------------
     def create_index(self, name: str, settings: dict | None = None,
@@ -112,15 +164,59 @@ class Node:
                 raise NotImplementedError(
                     "typed mappings ({type: {properties}}) are not ported")
             mapping = mappings
-        self.indices[name] = IndexService(name, idx_settings, mapping,
-                                          device=self.device)
+        svc = IndexService(name, idx_settings, mapping,
+                           data_path=self.data_path, device=self.device)
+        svc.meta_settings = settings
+        self.indices[name] = svc
+        if self.data_path:
+            self._persist_index_meta(svc)
         return {"acknowledged": True, "index": name}
 
     def delete_index(self, name: str) -> dict:
         svc = self._index(name)
         svc.close()
         del self.indices[name]
+        if self.data_path:
+            shutil.rmtree(os.path.join(self.data_path, name),
+                          ignore_errors=True)
         return {"acknowledged": True}
+
+    # -- persistence of index metadata (gateway analog) --------------------
+    def _persist_index_meta(self, svc: IndexService) -> None:
+        """`<path.data>/<index>/_meta.json`: the index settings it was
+        created with, its shard count and its mapping (dynamic fields
+        included)."""
+        meta = {"settings": {**getattr(svc, "meta_settings", {}),
+                             "index.number_of_shards": svc.num_shards},
+                "mappings": svc.mappers.mapping_dict(),
+                "types": {}, "warmers": {}}
+        path = os.path.join(self.data_path, svc.name, "_meta.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, path)
+
+    def _load_existing_indices(self) -> None:
+        """Boot: open every index whose metadata is under path.data; each
+        shard recovers from its store and translog (a shard that cannot
+        is contained, and the node boots all the same)."""
+        for name in sorted(os.listdir(self.data_path)):
+            meta_path = os.path.join(self.data_path, name, "_meta.json")
+            if not os.path.exists(meta_path):
+                continue
+            with open(meta_path) as f:
+                meta = json.load(f)
+            if meta.get("types") or meta.get("warmers"):
+                raise NotImplementedError(
+                    f"index [{name}] has typed mappings or warmers, "
+                    "which are not ported")
+            settings = meta.get("settings") or {}
+            svc = IndexService(name, self.settings.merged_with(settings),
+                               meta.get("mappings"),
+                               data_path=self.data_path, device=self.device)
+            svc.meta_settings = settings
+            self.indices[name] = svc
 
     def _index(self, name: str) -> IndexService:
         svc = self.indices.get(name)
@@ -273,8 +369,20 @@ class Node:
         TransportBulkAction). Per-item errors, not a failed batch."""
         started = time.monotonic()
         items = []
-        errors = False
         touched: set[str] = set()
+        # the request's ops are acked together when it returns: their
+        # `async` translog records reach the page cache once, at its end
+        with _durability.acked_together():
+            errors = self._bulk_items(operations, items, touched)
+        if refresh:
+            for idx in touched:
+                self.indices[idx].refresh()
+        return {"took": int((time.monotonic() - started) * 1000),
+                "errors": errors, "items": items}
+
+    def _bulk_items(self, operations, items: list, touched: set) -> bool:
+        """Apply each op, appending its item; True if any failed."""
+        errors = False
         for action, payload in operations:
             try:
                 idx = payload["_index"]
@@ -308,11 +416,7 @@ class Node:
                 errors = True
                 items.append({action: {"error": e.to_dict(),
                                        "status": e.status}})
-        if refresh:
-            for idx in touched:
-                self.indices[idx].refresh()
-        return {"took": int((time.monotonic() - started) * 1000),
-                "errors": errors, "items": items}
+        return errors
 
     # -- search (ref: TransportSearchAction QUERY_THEN_FETCH) --------------
     def _on_device(self, fn, *args):
@@ -357,18 +461,35 @@ class Node:
         """Resolve + bind + enqueue the fan-out of one search onto a
         dispatch batch without collecting, so msearch and concurrent
         callers coalesce identical plans and pipeline the rest."""
-        if scroll is not None:
-            raise NotImplementedError("scroll is not ported")
-        if search_type not in (None, "query_then_fetch"):
-            raise NotImplementedError(
-                f"search_type [{search_type}] is not ported")
         body = body or {}
         if body.get("suggest") is not None:
             raise NotImplementedError("suggest is not ported")
         services = self._resolve(index)
-        shard_readers: list[tuple[str, ShardReader]] = [
-            (svc.name, eng.acquire_searcher())
-            for svc in services for eng in svc.shards.values()]
+        shard_readers: list[tuple[str, ShardReader]] = []
+        # a contained shard becomes a structured `_shards.failures` entry
+        # and the search reduces over the survivors
+        prefailed: list[tuple[str, int, Exception]] = []
+        for svc in services:
+            for sid, eng in svc.shards.items():
+                try:
+                    shard_readers.append((svc.name, eng.acquire_searcher()))
+                except ShardFailedError as e:
+                    prefailed.append((svc.name, sid, e))
+        if search_type in ("dfs_query_then_fetch", "dfs_query_and_fetch"):
+            # DFS pre-phase: every shard scores with the global term
+            # statistics (ref: DfsPhase + SearchPhaseController.
+            # aggregateDfs)
+            stats = self._aggregate_dfs(shard_readers, services, body)
+            if stats:
+                body = dict(body)
+                body["_dfs_stats"] = stats
+        scan_mode = search_type == "scan"
+        if scan_mode:
+            # scan: doc-order export without scoring (ref: ScanContext);
+            # the first response carries only the cursor and the total
+            body = dict(body)
+            body["query"] = {"constant_score": {
+                "filter": body.get("query") or {"match_all": {}}}}
         started = time.monotonic()
         # per-request deadline: body timeout, else the node's
         # search.default_search_timeout; -1 disables
@@ -380,12 +501,16 @@ class Node:
             deadline = started + parse_time_value(timeout, 0) / 1000.0
         exec_st = self._submit_on_readers(shard_readers, body, batch,
                                           deadline=deadline)
-        return {"services": services, "body": body, "started": started,
-                "exec": exec_st}
+        if prefailed:
+            exec_st["prefailed"] = prefailed
+        return {"services": services, "shard_readers": shard_readers,
+                "body": body, "scan_mode": scan_mode, "scroll": scroll,
+                "started": started, "exec": exec_st}
 
     def _search_finish(self, st: dict) -> dict:
         services = st["services"]
         body = st["body"]
+        scroll = st["scroll"]
         result = self._finish_on_readers(st["exec"])
         took_ms = (time.monotonic() - st["started"]) * 1000.0
         for svc in services:
@@ -398,7 +523,118 @@ class Node:
                 svc = by_name.get(hit.get("_index"))
                 if svc is not None and svc.doc_types:
                     hit["_type"] = svc.doc_type_of(hit["_id"])
+        if scroll is not None:
+            # the context keeps its point-in-time readers (and with them
+            # their segments' device columns and fielddata holds) until
+            # it is cleared or reaped
+            scroll_id = uuid.uuid4().hex
+            keepalive_ms = parse_time_value(scroll, 60_000)
+            self._reap_scrolls()
+            with self._scrolls_mx:
+                self._scrolls[scroll_id] = {
+                    "readers": st["shard_readers"], "body": dict(body),
+                    # scan: the first response returns no hits and the
+                    # cursor starts at 0; a scroll continues after page 1
+                    "pos": 0 if st["scan_mode"] else
+                           int(body.get("from", 0))
+                           + int(body.get("size", 10)),
+                    "keepalive_ms": keepalive_ms,
+                    "expires_at": time.time() + keepalive_ms / 1000.0,
+                }
+            result["_scroll_id"] = scroll_id
+            if st["scan_mode"]:
+                result["hits"]["hits"] = []
         return result
+
+    def _aggregate_dfs(self, shard_readers, services, body: dict) -> dict:
+        """Collect the query's (field, term) pairs and sum df and
+        doc_count over every shard (the aggregateDfs merge)."""
+        from .search.highlight import collect_terms
+        from .search.query_dsl import QueryParser
+        if not services or body.get("query") is None:
+            return {}
+        try:
+            ast = QueryParser(services[0].mappers).parse(body["query"])
+        except ElasticsearchTpuError:
+            return {}
+        pairs = [(f, t) for f, terms in collect_terms(ast).items()
+                 for t in terms]
+        stats: dict[str, list] = {}
+        for _, reader in shard_readers:
+            for key, (df, n) in reader.term_stats(pairs).items():
+                cur = stats.setdefault(key, [0, 0])
+                cur[0] += df
+                cur[1] += n
+        return {k: v for k, v in stats.items() if v[1] > 0}
+
+    def scroll(self, scroll_id: str, scroll: str | None = None,
+               tenant: str | None = None) -> dict:
+        """Next page over the stored point-in-time readers (ref:
+        TransportSearchScrollAction + the keepalive). Pages ride the
+        `scroll` lane and pay admission like any other search."""
+        ticket = self.traffic.admit(tenant, "scroll")
+        try:
+            self._reap_scrolls()
+            with self._scrolls_mx:
+                ctx = self._scrolls.get(scroll_id)
+                if ctx is None:
+                    err = ElasticsearchTpuError(
+                        f"No search context found for id [{scroll_id}]")
+                    err.status = 404
+                    raise err
+                body = dict(ctx["body"])
+                size = int(body.get("size", 10))
+                body["from"] = ctx["pos"]
+                ctx["pos"] += size
+                if scroll is not None:
+                    ctx["keepalive_ms"] = parse_time_value(scroll, 60_000)
+                ctx["expires_at"] = (time.time()
+                                     + ctx["keepalive_ms"] / 1000.0)
+                readers = ctx["readers"]
+            if threading.current_thread().name.startswith("pool-search"):
+                result = self._execute_on_readers(readers, body,
+                                                  ticket.lane)
+            else:
+                pool = self.thread_pool.executor("search")
+                result = pool.submit(self._on_device,
+                                     self._execute_on_readers, readers,
+                                     body, ticket.lane).result()
+            result["_scroll_id"] = scroll_id
+            return result
+        finally:
+            ticket.release()
+
+    def clear_scroll(self, scroll_ids: list[str] | None = None) -> dict:
+        """Free scroll contexts (all with None or ["_all"]); their
+        readers, and the holds they keep, go with them."""
+        with self._scrolls_mx:
+            if scroll_ids is None or scroll_ids == ["_all"]:
+                n = len(self._scrolls)
+                self._scrolls.clear()
+            else:
+                n = 0
+                for sid in scroll_ids:
+                    if self._scrolls.pop(sid, None) is not None:
+                        n += 1
+                if n == 0:
+                    # ref: RestClearScrollAction, nothing freed is a 404
+                    return {"succeeded": True, "num_freed": 0,
+                            "_missing": True}
+        return {"succeeded": True, "num_freed": n}
+
+    def _reap_scrolls(self) -> None:
+        now = time.time()
+        with self._scrolls_mx:
+            for sid in [s for s, c in self._scrolls.items()
+                        if c["expires_at"] < now]:
+                del self._scrolls[sid]
+
+    def _execute_on_readers(self, shard_readers: list[tuple[str, ShardReader]],
+                            body: dict, lane: str = "interactive") -> dict:
+        batch = self._dispatch.batch(lane=lane)
+        st = self._submit_on_readers(shard_readers, body, batch)
+        batch.dispatch()
+        return self._finish_on_readers(st)
 
     def _submit_on_readers(self, shard_readers: list[tuple[str, ShardReader]],
                            body: dict, batch,
@@ -457,7 +693,8 @@ class Node:
 
     def _finish_on_readers(self, st: dict) -> dict:
         body = st["body"]
-        if st.get("empty"):
+        prefailed = st.get("prefailed") or []
+        if st.get("empty") and not prefailed:
             return merge_shard_results([], [], [], 0,
                                        int(body.get("size", 10)))
         agg_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
@@ -469,6 +706,13 @@ class Node:
         failures = []
         hard_errors = []
         timed_out = False
+        # contained shards never produced a reader: they enter the reduce
+        # as structured failures, and fail-fast requests re-raise
+        for name, sid, exc in prefailed:
+            if not allow_partial:
+                raise exc
+            hard_errors.append(exc)
+            failures.append(shard_failure(sid, name, exc, node=self.name))
         for kind, svc, reader, cache_key, payload in st.get("entries", ()):
             if kind == "job":
                 # per-shard failure isolation: a failing shard becomes a
@@ -531,7 +775,8 @@ class Node:
                                    frm=frm, size=size, descending=descending,
                                    score_sort=score_sort,
                                    multi_orders=multi_orders,
-                                   total_shards=len(st.get("entries", ())),
+                                   total_shards=(len(st.get("entries", ()))
+                                                 + len(prefailed)),
                                    failures=failures, timed_out=timed_out)
 
     def msearch(self, requests: list[tuple],
@@ -629,32 +874,130 @@ class Node:
         return self._broadcast_per_index(self._resolve(index),
                                          lambda svc: svc.refresh())
 
+    def flush(self, index: str | None = None) -> dict:
+        return self._broadcast_per_index(self._resolve(index),
+                                         lambda svc: svc.flush())
+
     def force_merge(self, index: str | None = None,
                     max_num_segments: int = 1) -> dict:
         for svc in self._resolve(index):
             svc.force_merge(max_num_segments)
         return {"acknowledged": True}
 
+    def recovery_status(self, index: str | None = None) -> dict:
+        """Per-shard recovery info (ref: the indices recovery API): every
+        shard of a single node recovered from its local store and
+        translog, or stands FAILED with its containment reason."""
+        out = {}
+        for svc in self._resolve(index):
+            shards = []
+            for sid, eng in svc.shards.items():
+                if eng.failed is not None:
+                    shards.append({
+                        "id": sid,
+                        "type": "GATEWAY", "stage": "FAILED",
+                        "primary": True,
+                        "failure": {
+                            "reason": eng.failed["reason"],
+                            "during": eng.failed["during"],
+                            "corruption_marker": eng.failed["marker"],
+                        },
+                    })
+                    continue
+                size = eng.segment_stats()["memory_in_bytes"]
+                shards.append({
+                    "id": sid,
+                    "type": "GATEWAY", "stage": "DONE",
+                    "primary": True,
+                    "source": {"name": self.name, "ip": "127.0.0.1",
+                               "host": "127.0.0.1"},
+                    "target": {"name": self.name, "ip": "127.0.0.1",
+                               "host": "127.0.0.1"},
+                    "index": {
+                        "size": {"total_in_bytes": size,
+                                 "reused_in_bytes": size,
+                                 "recovered_in_bytes": 0,
+                                 "percent": "100.0%"},
+                        "files": {"total": len(eng.segments),
+                                  "reused": len(eng.segments),
+                                  "recovered": 0,
+                                  "percent": "100.0%"},
+                        "source_throttle_time_in_millis": 0,
+                        "target_throttle_time_in_millis": 0,
+                        "total_time_in_millis": 0},
+                    "translog": {"recovered": 0, "total": -1,
+                                 "total_on_start": 0,
+                                 "total_time_in_millis": 0},
+                    "start": {"check_index_time_in_millis": 0,
+                              "total_time_in_millis": 0},
+                })
+            out[svc.name] = {"shards": shards}
+        return out
+
+    def verify_integrity(self, index: str | None = None) -> dict:
+        """Per-shard store audit (the `index.shard.check_on_startup`
+        pass, on demand): commit readability, segment checksums and
+        corruption markers. Pure reads."""
+        out: dict = {"clean": True, "indices": {}}
+        for svc in self._resolve(index):
+            shards = {}
+            for sid, eng in svc.shards.items():
+                if eng.store is None:
+                    continue
+                rep = eng.store.verify_integrity()
+                if eng.failed is not None:
+                    rep["failed"] = dict(eng.failed)
+                    rep["clean"] = False
+                shards[str(sid)] = rep
+                out["clean"] &= rep["clean"]
+            if shards:
+                out["indices"][svc.name] = {"shards": shards}
+        return out
+
     def nodes_stats(self) -> dict:
         """The node stats (ref: NodesStatsResponse) trimmed to the
-        indices, the breakers, the device (`accelerator`), the thread
-        pools, the dispatch scheduler and the node's counters."""
+        indices (with the process-wide `durability` counter block), the
+        breakers, the device (`accelerator`), the thread pools, the
+        dispatch scheduler, the storage fault rules and the node's
+        counters."""
         return {"cluster_name": self.cluster_name, "nodes": {self.name: {
             "name": self.name,
             "timestamp": int(time.time() * 1000),
-            "indices": {name: svc.stats()
-                        for name, svc in self.indices.items()},
+            "indices": {**{name: svc.stats()
+                           for name, svc in self.indices.items()},
+                        "durability": _durability.snapshot()},
             "accelerator": monitor.device_stats(),
             "thread_pool": self.thread_pool.stats(),
             "breakers": breaker_service().stats(),
             "dispatch": self._dispatch.stats.snapshot(),
+            "fault_injection": faults.snapshot(),
             "metrics": self.metrics.snapshot(),
         }}}
 
     def close(self) -> None:
+        """Persist each index's metadata and close the engines without
+        flushing (the translog holds what the last commit does not); the
+        scroll contexts go, and the node lock is released."""
+        if self._durability_stats is not None:
+            _durability.reset_process_stats(if_owner=self._durability_stats)
+            self._durability_stats = None
+        if self._fault_registry is not None:
+            if faults.active() is self._fault_registry:
+                faults.clear()
+            self._fault_registry = None
+        self.clear_scroll()
         for svc in self.indices.values():
+            if self.data_path:
+                self._persist_index_meta(svc)
             svc.close()
         self.thread_pool.shutdown()
+        if self._node_lock_fh is not None:
+            import fcntl
+            try:
+                fcntl.flock(self._node_lock_fh, fcntl.LOCK_UN)
+            finally:
+                self._node_lock_fh.close()
+                self._node_lock_fh = None
 
 
 def _legacy_error_string(e: ElasticsearchTpuError) -> str:

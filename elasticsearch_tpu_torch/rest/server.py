@@ -5,8 +5,9 @@ PathTrie dispatch + the rest/action handlers), trimmed to the write and
 search path: `GET /`, `PUT` / `DELETE /{index}`, documents
 (`PUT|POST /{index}/_doc|{type}/{id}`, `POST /{index}/_doc`,
 `GET|DELETE /{index}/_doc|{type}/{id}`, `POST /{index}/_update/{id}`),
-`_bulk`, `_refresh`, `_forcemerge`, `_search`, `_msearch`, `_count` and
-`GET /_nodes/stats`. `_bulk` and `_msearch` take NDJSON bodies; other
+`_bulk`, `_refresh`, `_flush`, `_forcemerge`, `_recovery`, `_search`
+(with `scroll` and `search_type`), `GET|POST /_search/scroll`,
+`DELETE /_search/scroll`, `_msearch`, `_count` and `GET /_nodes/stats`. `_bulk` and `_msearch` take NDJSON bodies; other
 bodies are JSON. The server is the standard library's
 ThreadingHTTPServer: the control plane is host Python, the card does the
 searching.
@@ -174,6 +175,25 @@ def register_routes(d: RestDispatcher) -> None:
                 r["nodes"][nid] = base
         return r
 
+    # -- scroll (ref: RestSearchScrollAction / RestClearScrollAction) -----
+    @d.route("POST", "/_search/scroll")
+    @d.route("GET", "/_search/scroll")
+    def scroll(node, params, body, **kw):
+        body = body or {}
+        sid = body.get("scroll_id") or params.get("scroll_id")
+        keepalive = body.get("scroll") or params.get("scroll")
+        return node.scroll(sid, keepalive, tenant=params.get("tenant_id"))
+
+    @d.route("DELETE", "/_search/scroll")
+    def clear_scroll(node, params, body, **kw):
+        ids = (body or {}).get("scroll_id")
+        if isinstance(ids, str):
+            ids = [ids]
+        r = node.clear_scroll(ids)
+        if r.pop("_missing", False):
+            return RestStatus(404, r)
+        return r
+
     # -- search (registered before the /{index} wildcards) ----------------
     @d.route("GET", "/_search")
     @d.route("POST", "/_search")
@@ -246,6 +266,16 @@ def register_routes(d: RestDispatcher) -> None:
     @d.route("GET", "/{index}/_refresh")
     def refresh(node, params, body, index=None):
         return node.refresh(index)
+
+    @d.route("POST", "/_flush")
+    @d.route("POST", "/{index}/_flush")
+    def flush(node, params, body, index=None):
+        return node.flush(index)
+
+    @d.route("GET", "/_recovery")
+    @d.route("GET", "/{index}/_recovery")
+    def recovery(node, params, body, index=None):
+        return node.recovery_status(index)
 
     @d.route("POST", "/{index}/_forcemerge")
     @d.route("POST", "/{index}/_optimize")  # legacy 2.x name

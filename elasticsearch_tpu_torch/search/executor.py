@@ -158,6 +158,18 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
     return dev
 
 
+def release_device_arrays(segment: Segment) -> None:
+    """Drop a segment's device columns and give back their fielddata
+    hold now, not at garbage collection: a closed engine or a contained
+    shard serves the segment no more. A reader that still holds the
+    segment (a scroll context) uploads it again at its next search."""
+    hold = getattr(segment, "_breaker_hold", None)
+    if hold is not None:
+        hold.release()
+    for attr in ("_device", "_live_dev", "_live_view_cache"):
+        segment.__dict__.pop(attr, None)
+
+
 def _num_column(nc, device: torch.device) -> dict:
     vals = ordered.ftz_np(nc.values)
     col = {"values": _up(vals, device), "exists": _up(nc.exists, device)}
@@ -473,10 +485,27 @@ class QueryBinder:
     Weight creation per IndexReader)."""
 
     def __init__(self, segment: Segment, mapper: MapperService,
-                 live: np.ndarray | None = None):
+                 live: np.ndarray | None = None,
+                 dfs: dict | None = None):
         self.seg = segment
         self.mappers = mapper
         self.live = live
+        # {"field\x00term": [global_df, global_N]} from the DFS pre-phase
+        self.dfs = dfs
+
+    def _dfs_ratio(self, field: str, term: str, df_local: float,
+                   n_local: float) -> float:
+        """Scale turning a locally idf'd eager impact into the globally
+        idf'd score, from the field's Similarity (idf_global / idf_local
+        for BM25)."""
+        if not self.dfs:
+            return 1.0
+        entry = self.dfs.get(f"{field}\x00{term}")
+        if not entry or entry[1] <= 0:
+            return 1.0
+        sim = self.mappers.similarity_for(field)
+        return sim.df_scale(df_local, n_local,
+                            float(entry[0]), float(entry[1]))
 
     def bind(self, q: Query) -> Bound:
         m = getattr(self, f"_bind_{type(q).__name__}", None)
@@ -506,6 +535,11 @@ class QueryBinder:
         else:
             lo = int(pf.block_start[t])
             nb = int(pf.block_start[t + 1]) - lo
+            if self.dfs:
+                # the global-df ratio goes on the clause boost, in the
+                # reference's op order (one f32 weight per clause)
+                boost = boost * self._dfs_ratio(
+                    field, term, float(pf.df[t]), float(pf.doc_count))
         kind = "term_text" if pf.fwd_tids is not None else "term_text_sc"
         return Bound(kind, field,
                      scalars={"block_lo": lo, "nb": nb, "tid": t,
@@ -536,6 +570,11 @@ class QueryBinder:
             if o >= 0:
                 # keyword fields carry no norms: BM25 degenerates to idf
                 score = float(bm25_idf(float(kc.df[o]), self.seg.num_docs))
+                if self.dfs:
+                    entry = self.dfs.get(f"{q.field}\x00{q.value}")
+                    if entry and entry[1] > 0:
+                        score = float(bm25_idf(float(entry[0]),
+                                               float(entry[1])))
             return Bound("term_kw", q.field,
                          scalars={"ord": o, "score": max(score * q.boost,
                                                          _F32_MIN_WEIGHT)})

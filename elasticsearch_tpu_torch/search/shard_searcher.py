@@ -18,9 +18,13 @@ pack dispatch (`executor.execute_pack_async`), unless
 cooperative search deadline, checked before each group's collect, and
 arms the per-chunk check of resident dispatches (`ES_TPU_RESIDENT_LOOP`).
 
+`term_stats` is the shard half of the DFS phase; a body's `_dfs_stats`
+(the node's global statistics) reaches the binder.
+
 Trimmed to this slice: request keys outside `query`, `aggs` /
 `aggregations`, `size`, `from`, `sort` (one key: `_score`, a keyword or
-a numeric field), `_source` and `version` raise NotImplementedError, as
+a numeric field), `_source`, `version` and `_dfs_stats` raise
+NotImplementedError, as
 do knn, multi-key sorts, rescore, highlight, suggest and derived aggs.
 """
 
@@ -45,7 +49,7 @@ from .executor import (QueryBinder, collect_pack_result,
 from .query_dsl import QueryParser
 
 _REQUEST_KEYS = frozenset(("query", "aggs", "aggregations", "size", "from",
-                           "sort", "_source", "version"))
+                           "sort", "_source", "version", "_dfs_stats"))
 
 
 def _pack_dispatch_enabled() -> bool:
@@ -150,6 +154,32 @@ class ShardReader:
         self._global_ords[field] = result
         return result
 
+    def term_stats(self, pairs: list[tuple[str, str]]
+                   ) -> dict[str, tuple[int, int]]:
+        """(field, term) -> (df, doc_count) summed over this shard's
+        segments: the per-shard half of the DFS phase (ref:
+        search/dfs/DfsPhase.java termStatistics)."""
+        out: dict[str, tuple[int, int]] = {}
+        for f, t in pairs:
+            df = 0
+            n = 0
+            for seg in self.segments:
+                pf = seg.text.get(f)
+                if pf is not None:
+                    tid = pf.lookup(str(t))
+                    if tid >= 0:
+                        df += int(pf.df[tid])
+                    n += pf.doc_count
+                    continue
+                kc = seg.keywords.get(f)
+                if kc is not None:
+                    o = kc.lookup(str(t))
+                    if o >= 0:
+                        df += int(kc.df[o])
+                    n += seg.num_docs
+            out[f"{f}\x00{t}"] = (df, n)
+        return out
+
     # -- search ------------------------------------------------------------
     def search(self, body: dict) -> dict:
         return self.msearch([body])[0]
@@ -194,8 +224,8 @@ class ShardReader:
         bound_per_req: dict[int, list] = {}
         for i, p in enumerate(parsed):
             per_seg_bounds = [
-                QueryBinder(seg, self.mappers,
-                            live=self.live[seg.seg_id]).bind(p["query"])
+                QueryBinder(seg, self.mappers, live=self.live[seg.seg_id],
+                            dfs=p["dfs_stats"]).bind(p["query"])
                 for seg in self.segments]
             bound_per_req[i] = per_seg_bounds
             sig = (tuple(b.signature() for b in per_seg_bounds),
@@ -350,7 +380,8 @@ class ShardReader:
                 "from": frm, "sort_spec": sort_spec,
                 "source_filter": body.get("_source", True),
                 "static_sig": static_sig,
-                "want_version": bool(body.get("version", False))}
+                "want_version": bool(body.get("version", False)),
+                "dfs_stats": body.get("_dfs_stats")}
 
     def _keyword_fallback(self, field: str) -> str:
         """Aggregating/sorting on a text field falls back to its .keyword
