@@ -113,29 +113,54 @@ each of which fails the run on any error:
    p50 at from 0 and from 15,000);
 10. kill -9: a request-mode node (2 shards) in a subprocess (`python3
    chip_smoke.py --durability-worker ...`) on the card, SIGKILLed once
-   at a random instant after 20,000 acked docs, once by
+   at a random instant after 10,000 acked docs, once by
    `crash_point:site=translog:phase=append:rate=0.05:seed=11:kill=1`,
    once by `crash_point:site=store:phase=commit:kill=1`; after each, a
    node booted on the card over its data recovers every acked doc
    (through get and a term query), verifies clean and answers with the
    kernels as with their plain versions (`kill -9` lines);
-11. a `kernels` JSON line, then the result line
+11. vectors (path t): two shards of 2^19 passages (BASELINE config 5's
+   2^20 x 256 over two shards: a `passage` text field and a 256-dim
+   cosine `embedding`, Gaussian around seeded centers, seeds 23 and 24)
+   with a 2^15-doc delta each, built in the background from the end of
+   the scroll phase on; the IVF build timed apart, its assignment also
+   on the card; four mixes of 256 requests through the base + delta
+   readers, the counts zeroed just before: `knn` (a top-level knn
+   section, k 10, the IVF probe on the bases), `knn_exact` (the same on
+   copies whose IVF build is refused: the exact scan), `hybrid` (knn + a
+   match on passage, K3 with a knn_vec clause, 128 requests an msearch:
+   one base + delta pack; also timed as one msearch of 256, per segment,
+   answering the same) and `knn_rescore` (a knn query node rescored over
+   a window of 100 by a match); req/s, p50, the IVF probe's host syncs
+   per batch and its
+   cluster counters, a profiled batch per mix; IVF recall@10 >= 0.95
+   against knn_exact and knn_exact's >= 0.99 against a float64 top-10
+   of its similarity (the bf16-rounded vectors and queries, the stored
+   norms); the plain versions swapped in
+   give identical hybrid responses; K3 on the hybrid path's knn_vec walk
+   equal to its plain version in the single, stepped and seeded forms
+   (timed, with its bound); the similarity column timed beside its bound;
+   a small dyadic index answering all four mixes on the card exactly as
+   on the CPU; a small node with path.data taking vector docs through
+   _bulk, restarting and answering as before;
+12. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--rehearse` runs the main, delta, resident, node, restart, scroll and
-kill -9 paths' checks on the CPU at a toy size (no build, no timings, no
+`--rehearse` runs the main, delta, resident, node, restart, scroll,
+kill -9 and vectors paths' checks on the CPU at a toy size (no build, no timings, no
 result line), to exercise this script without a card. `--ab-parent DIR` loads the K3 of an earlier
 commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
 git-ignored `smoke_checkout/`) beside this one and times the two in turns
 on every K3 sweep and launch-form row, K1's, K2's, the unfused leaf's,
 the scan's, the tree's and the bucket stats' sweep rows and, in a whole
-run, their main-path calls (`ab`; the bucket stats against the earlier
+run, their main-path calls, K3's in each form (`ab`; the bucket stats against the earlier
 commit's two bucket sums plus the library calls it made for counts,
 min and max);
 `tools/k3_variants.py`
 builds patched copies of this checkout's K3 (a design step undone, or a
 probe) under DIR and times them this way. `--kernels-only` stops after
-the kernel phase (no result line).
+the kernel phase, `--vectors-only` runs the build and path (t) alone (no
+result line either).
 """
 
 from __future__ import annotations
@@ -898,6 +923,23 @@ def rehearse(n_docs: int, batch: int) -> int:
         "resident": {"hits": res["stats"]["resident_hits"],
                      "preemption": res["preemption"]},
         "node": node_out}))
+    # the vectors path at a toy size: passages of 2,000 docs a shard with
+    # an IVF index each (ES_TPU_ANN_MIN_DOCS lowered: the small checks'
+    # own settings come and go before the bases build), 32 dims
+    os.environ["ES_TPU_ANN_MIN_DOCS"] = "256"
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            vec, _entry = vector_phase(argparse.Namespace(
+                batch=batch, small_docs=2000), "cpu", lambda: None,
+                on_card=False, n=2000, nd=256, D=32)
+    finally:
+        del os.environ["ES_TPU_ANN_MIN_DOCS"]
+    log("rehearse vectors: " + json.dumps({
+        "recall": vec["recall"], "small": vec["small"], "node": vec["node"],
+        **{k: {"hits": v["hits"], "ivf_host_syncs_per_batch":
+               v["ivf_host_syncs_per_batch"],
+               "knn_admission": v["fused"]["admission"]["knn"]}
+           for k, v in vec["mixes"].items()}}))
     return 0
 
 
@@ -967,8 +1009,8 @@ NODE_KERNELS = ("dense_score", "scatter_add", "bundle_topk",
                 "bundle_topk_seeded", "positional_leaf", "ordered_prefix",
                 "ordered_sum", "ordered_bucket_stats")
 NODE_HTTP_SAMPLE = 32      # requests per mix also sent over HTTP _msearch
-# the node path's timed batches a mix; the small node's docs a shard, cut
-# from 20,000 so that the durable phases fit the time limit
+# the node path's timed batches a mix; the small node's docs a shard,
+# cut from 20,000 so that the durable phases fit
 NODE_REPS = 3
 SMALL_NODE_DOCS = 12_000
 NODE_PROFILE_MIXES = ("match", "bool_aggs", "stats_aggs", "phrase")
@@ -1494,7 +1536,7 @@ RESTART_REQUESTS = 64             # requests of each mix held across it
 SCROLL_PAGES = 16
 SCROLL_PAGE = 1000
 DFS_PLAIN = 16                    # dfs requests a mix held against plain
-KILL_DOCS = 20_000                # the kill -9 node's docs before a kill
+KILL_DOCS = 10_000                # the kill -9 node's docs before a kill
 KILL_BATCH = 100                  # docs per node.bulk while loading
 KILL_FAULT_BATCH = 5              # docs per node.bulk in the fault rounds
 KILL_FLUSH_EVERY = 2000           # the worker flushes every this many
@@ -2334,7 +2376,17 @@ def measure_bucket_stats(ids, mask, values, n_buckets, stats, reps,
          "hottest": bucket_hottest(ids, mask, n_buckets),
          "max_abs_err": max(float((got[st] - want[st]).abs().nan_to_num()
                                   .max()) for st in stats)}
-    if old is not None:
+    if old is not None and hasattr(old, "ordered_bucket_stats"):
+        # a parent that has this kernel already: the two in turns
+        prev = old.ordered_bucket_stats(*args)
+        for st in stats:
+            if not _same_bits(prev[st], got[st]):
+                raise AssertionError(f"ordered_bucket_stats {st} != the "
+                                     f"previous kernel's")
+        m["ab"] = ab_turns(lambda: cs.ordered_bucket_stats(*args),
+                           lambda: old.ordered_bucket_stats(*args),
+                           max(2, reps // 4))
+    elif old is not None:
         sums = [st for st in ("sum", "sum_sq") if st in stats]
         for st in sums:
             prev = old.ordered_bucket_sum(ids, mask, values, n_buckets,
@@ -2541,11 +2593,13 @@ def _bound(nbytes: float, ops: float):
 def bundle_bound(args, kw):
     """Least time of one K3 walk: the larger of (a) the bytes it must
     move, the live flags and the columns of _doc_bytes for the tiles
-    some row can match (each read once), the per-row inputs, and the
+    some row can match (each read once), the per-row inputs (a knn_vec
+    clause's B x cap f32 similarity column among them), and the
     outputs, over the HBM rate,
     and (b) its work, a compare and an add per slot and term plus a
     multiply and add per term of each dense clause, 3 ops per range
-    clause, a positional clause's decode (_pos_ops), 2 for the combine
+    clause, an add per knn_vec clause, a positional clause's decode
+    (_pos_ops), 2 for the combine
     and 1 for the selection, for every doc of every (row, tile) that can
     match, over the f32 rate (integer ops counted at the same rate: the
     data sheet lists no int32 rate)."""
@@ -2561,10 +2615,15 @@ def bundle_bound(args, kw):
              if kd in DENSE_CLAUSE_KINDS]
     n_range = sum(kd in RANGE_CLAUSE_KINDS for _r, kd, _f, _w in clauses)
     doc_bytes = 1 + _doc_bytes(clauses, text_cols, num_cols)
-    in_row = sum(t.numel() * 4 for inp in cl_inputs for t in inp) + B * 8
+    # per-row inputs, a knn_vec clause's [B, cap] similarity column and
+    # its exists flags included
+    in_row = sum(t.numel() * t.element_size() for inp in cl_inputs
+                 for t in inp) + B * 8
+    n_vec = sum(kd == "knn_vec" for _r, kd, _f, _w in clauses)
     nbytes = (int(can.any(dim=0).sum()) * tile * doc_bytes + in_row
               + B * J * 5 + B * J * (8 + 8 * ck) + (B * cap if emit else 0))
     per_doc = (sum(q * (2 * L + 2) for q, L in dense) + 3 * n_range + 2
+               + n_vec
                + (1 if ck else 0)
                + sum(_pos_ops(kd, f, inp, text_cols)
                      for (_r, kd, f, _w), inp in zip(clauses, cl_inputs)
@@ -3196,57 +3255,91 @@ def capture_first_calls():
     return seen, current, {WRAPPERS[k]: shim(k) for k in orig}
 
 
+def _merged_span(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, cur = 0.0, None
+    for a, b in sorted(spans):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return busy + (cur[1] - cur[0] if cur is not None else 0.0)
+
+
 def profile_mixes(readers, mixes, out_dir: str | None, names=MIXES,
-                  search=None, tag: str = "") -> dict:
+                  search=None, tag: str = "", host_ops: bool = True
+                  ) -> dict:
     """One profiled batch per mix: wall time, device busy time (sum of the
     card's kernel and copy intervals, merged where they overlap) and the
     ops that took the most device and host time. Tables go to out_dir.
     `search(bodies)` serves a batch (default: search_merged over
-    `readers`); `tag` prefixes the log lines and table files."""
+    `readers`); `tag` prefixes the log lines and table files. Without
+    `host_ops` the profiler records the card's activity alone and its raw
+    device events are read without building the host-op tree: the top
+    device ops are kernels, and a batch of a million host ops (the IVF
+    probe's) costs seconds, not most of a minute. The profiler's own
+    seconds (start, stop, event list, averages) are reported beside the
+    batch."""
     import cProfile
+    import collections
     import io
     import pstats
     import torch
     from torch.profiler import ProfilerActivity, profile
     if search is None:
         search = functools.partial(search_merged, readers)
+    cuda = torch.autograd.DeviceType.CUDA
     out = {}
     for name in names:
         torch.cuda.synchronize()
         prof_py = cProfile.Profile()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        t_start = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if host_ops else [])) as prof:
             t0 = time.perf_counter()
             prof_py.enable()
             search(mixes[name])
             torch.cuda.synchronize()
             prof_py.disable()
-            wall = (time.perf_counter() - t0) * 1e3
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy_us, cur = 0.0, None
-        for a, b in spans:
-            if cur is None or a > cur[1]:
-                if cur is not None:
-                    busy_us += cur[1] - cur[0]
-                cur = [a, b]
-            else:
-                cur[1] = max(cur[1], b)
-        if cur is not None:
-            busy_us += cur[1] - cur[0]
-        ka = prof.key_averages()
-        top_dev = sorted(ka, key=lambda e: -e.self_device_time_total)[:6]
+            t1 = time.perf_counter()
+            wall = (t1 - t0) * 1e3
+        t_stop = time.perf_counter()
+        ka = None
+        if host_ops:
+            spans = [(e.time_range.start, e.time_range.end)
+                     for e in prof.events() if e.device_type == cuda]
+            t_events = time.perf_counter()
+            ka = prof.key_averages()
+            top = sorted(((e.key, e.self_device_time_total) for e in ka),
+                         key=lambda kv: -kv[1])[:6]
+            atomics = sum(
+                e.self_device_time_total for e in ka
+                if "scatter_reduce" in e.key or "index_add" in e.key) / 1e3
+        else:
+            dev = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda]
+            spans = [(e.start_ns() / 1e3,
+                      (e.start_ns() + e.duration_ns()) / 1e3) for e in dev]
+            t_events = time.perf_counter()
+            by_kernel = collections.Counter()
+            for e in dev:
+                by_kernel[e.name()] += e.duration_ns() / 1e3
+            top = by_kernel.most_common(6)
+            atomics = None                   # no host ops recorded
+        t_end = time.perf_counter()
+        busy_us = _merged_span(spans)
         out[name] = {
             "wall_ms": wall, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall),
-            "top_device_ops_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                                  for e in top_dev},
+            "top_device_ops_ms": {k[:60]: v / 1e3 for k, v in top},
             # the atomics the doc-space metrics took before the bucket
             # stats kernel
-            "scatter_atomics_ms": sum(
-                e.self_device_time_total for e in ka
-                if "scatter_reduce" in e.key or "index_add" in e.key) / 1e3}
+            "scatter_atomics_ms": atomics,
+            "profiler_s": {"start": t0 - t_start, "stop": t_stop - t1,
+                           "events": t_events - t_stop,
+                           "averages": t_end - t_events}}
         log(f"{tag}profile " + json.dumps({"mix": name, **out[name]}))
         if out_dir:
             buf = io.StringIO()
@@ -3257,10 +3350,594 @@ def profile_mixes(readers, mixes, out_dir: str | None, names=MIXES,
             with open(os.path.join(out_dir, f"{stem}.txt"),
                       "w") as f:
                 f.write(ka.table(sort_by="self_cuda_time_total",
-                                 row_limit=25))
+                                 row_limit=25) if ka is not None else
+                        "".join(f"{v / 1e3:12.3f} ms  {k}\n" for k, v
+                                in by_kernel.most_common(25)))
                 f.write("\n\nhost (cProfile, cumulative)\n")
                 f.write(buf.getvalue())
     return out
+
+
+# -- path (t): vectors -----------------------------------------------------
+
+VEC_DOCS = 1 << 19        # per shard: config 5's 2^20 x 256 over 2 shards
+VEC_DELTA_DOCS = 1 << 15  # per shard, the streaming delta beside each base
+VEC_DIMS = 256
+VEC_MIXES = ("knn", "knn_exact", "hybrid", "knn_rescore")
+# requests per msearch: the hybrid mix as one base + delta pack (its
+# similarity columns, [B, cap] each, fit the transient budget at 128
+# rows, not at 256)
+VEC_BATCH = {"hybrid": 128}
+# the hybrid mix sent as one msearch of all its requests
+HYBRID_WHOLE = "hybrid_one_msearch"
+VEC_REPS = 3
+VEC_SMALL_DOCS = 4000     # per shard of the card-vs-CPU dyadic index
+VEC_SMALL_DIMS = 16
+VEC_NODE_DOCS = 3000
+H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
+VEC_K3_SOURCE = ("elasticsearch_tpu_torch/ops/csrc/bundle_topk.cu",
+                 "elasticsearch_tpu/ops/pallas_scoring.py:337 (K3; its "
+                 "knn clause is the XLA engine's, ops/scoring.py:872)")
+
+
+def _build_passage_shard(job):
+    """Worker: one shard of passages, the text through the port's
+    builder, the embeddings attached as the builder's vector column
+    (`vector_column`: the same values, exists flags and norms); with
+    `ivf`, its IVF index built here on the host (`index/ann.ensure_ann`:
+    the k-means and the assignment on the CPU), timed on the segment's
+    `ivf_build_s`, the assignment's part on `ivf_assign_host_s`."""
+    name, n_docs, start, seed, dims, dyadic, ivf = job
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.index.segment import (SegmentBuilder,
+                                                       vector_column)
+    # about 512 docs a center at full size, at least 8 centers
+    texts, emb, _c = corpus.passage_columns(
+        n_docs, dims, seed=seed, dyadic=dyadic, center_seed=23,
+        n_centers=min(1024, max(8, n_docs // 512)))
+    svc = MapperService(mapping={"properties": {"passage": {"type": "text"}}})
+    builder = SegmentBuilder()
+    for i, text in enumerate(texts):
+        builder.add(svc.parse(str(start + i), {"passage": text}))
+    seg = builder.build(name)
+    vals = np.zeros((seg.capacity, dims), np.float32)
+    vals[:n_docs] = emb
+    exists = np.zeros(seg.capacity, bool)
+    exists[:n_docs] = True
+    seg.vectors["embedding"] = vector_column("embedding", vals, exists)
+    if ivf:
+        from elasticsearch_tpu_torch.index import ann
+        assign = ann._assign_full
+        seg.ivf_assign_host_s = 0.0
+
+        def timed_assign(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return assign(*a, **kw)
+            finally:
+                seg.ivf_assign_host_s += time.perf_counter() - t
+        ann._assign_full = timed_assign      # this worker process only
+        t0 = time.perf_counter()
+        try:
+            ann.ensure_ann(seg, "embedding", "cosine")
+        finally:
+            ann._assign_full = assign
+        seg.ivf_build_s = time.perf_counter() - t0
+    return seg
+
+
+def _passage_jobs(n_docs: int, n_delta: int, dims: int, dyadic: bool,
+                  ivf: bool = False):
+    """Two shards of passages (seeds 23, 24; ids s * n_docs + i; with
+    `ivf`, their IVF indexes built with them) and a delta of n_delta docs
+    beside each (seeds 123, 124)."""
+    return ([(f"vec{s}", n_docs, s * n_docs, 23 + s, dims, dyadic, ivf)
+             for s in range(2)]
+            + [(f"vec{s}d", n_delta, 2 * n_docs + s * n_delta, 123 + s,
+                dims, dyadic, False) for s in range(2)])
+
+
+def start_passage_build():
+    """The full-size passages and the bases' IVF indexes built in 4
+    worker processes in the background: (pool, pending result, start
+    time)."""
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool(4)
+    return (pool, pool.map_async(_build_passage_shard,
+                                 _passage_jobs(VEC_DOCS, VEC_DELTA_DOCS,
+                                               VEC_DIMS, False, ivf=True)),
+            time.perf_counter())
+
+
+def _pair_deltas(segs) -> tuple[list, list]:
+    """(bases, deltas), each delta keyed on its base and padded as the
+    streaming write path pads it."""
+    from elasticsearch_tpu_torch.index.segment import pad_delta_shapes
+    bases, deltas = segs[:2], segs[2:]
+    for b, d in zip(bases, deltas):
+        d.delta_parent = b.cache_key()
+        pad_delta_shapes(d)
+    return bases, deltas
+
+
+def build_passage_shards(n_docs: int, n_delta: int, dims: int,
+                         dyadic: bool) -> tuple[list, list]:
+    """`_passage_jobs`' segments, built here."""
+    return _pair_deltas([_build_passage_shard(j) for j in
+                         _passage_jobs(n_docs, n_delta, dims, dyadic)])
+
+
+def make_vec_readers(bases, deltas, device, dims: int):
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.search.shard_searcher import ShardReader
+    svc = MapperService(mapping=corpus.passage_mapping(dims))
+    return [ShardReader("passages", [b, d], {}, svc, shard_id=s,
+                        device=device)
+            for s, (b, d) in enumerate(zip(bases, deltas))]
+
+
+def exact_scan_readers(bases, deltas, device, dims: int, probe_body):
+    """Readers over copies of the segments (made before any search, so
+    they hold no device columns; their IVF indexes left behind) whose IVF
+    build is refused once (ES_TPU_ANN_MIN_DOCS above the segment size,
+    sticky), so that they serve the exact scan."""
+    def copy_of(seg):
+        c = copy.copy(seg)
+        c.ann = {}
+        return c
+
+    readers = make_vec_readers([copy_of(b) for b in bases],
+                               [copy_of(d) for d in deltas], device, dims)
+    prior = os.environ.get("ES_TPU_ANN_MIN_DOCS")
+    os.environ["ES_TPU_ANN_MIN_DOCS"] = str(1 << 62)
+    try:
+        search_merged(readers, [probe_body])
+    finally:
+        if prior is None:
+            del os.environ["ES_TPU_ANN_MIN_DOCS"]
+        else:
+            os.environ["ES_TPU_ANN_MIN_DOCS"] = prior
+    return readers
+
+
+def capture_vec_walk():
+    """A shim of `bundle_walk_steps` remembering the first walk that
+    carries a knn_vec clause: seen["walk"] = (args, kw)."""
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    seen: dict = {}
+    orig = cs.bundle_walk_steps
+
+    def shim(walk, *args, **kw):
+        if any(kd == "knn_vec" for _r, kd, _f, _w in args[2]):
+            seen.setdefault("walk", (args, kw))
+        return orig(walk, *args, **kw)
+
+    return seen, shim
+
+
+def _zero_vec_counts() -> None:
+    from elasticsearch_tpu_torch.ops import ann as ann_ops
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    for counts in (cs.LAUNCHES, cs.BUNDLE_FORMS, cs.BUNDLE_VEC_FORMS,
+                   ann_ops.HOST_SYNCS):
+        for k in counts:
+            counts[k] = 0
+
+
+def run_vector_path(readers, readers_x, mixes, reps, sync) -> tuple:
+    """Each vector mix timed, with the launch, K3-form and host-sync
+    counts zeroed just before the path and read per mix."""
+    from elasticsearch_tpu_torch.ops import ann as ann_ops
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.search import executor
+    stats, last = {}, {}
+    _zero_vec_counts()
+    # the hybrid mix also as one msearch of all its requests, the route a
+    # user's msearch of that size takes (B-chunked, per segment)
+    for name, mix, batch in [*((m, m, VEC_BATCH.get(m)) for m in VEC_MIXES),
+                             (HYBRID_WHOLE, "hybrid", None)]:
+        before = {"launches": dict(cs.LAUNCHES),
+                  "vec_forms": dict(cs.BUNDLE_VEC_FORMS),
+                  "syncs": ann_ops.HOST_SYNCS["ivf_slot"]}
+        executor._fused_stats.reset()
+        rs = readers_x if name == "knn_exact" else readers
+        st, last[name] = time_mix(rs, mixes[mix], reps, sync, batch=batch)
+        stats[name] = {
+            **st,
+            "launches": {k: cs.LAUNCHES[k] - before["launches"][k]
+                         for k in cs.LAUNCHES},
+            "knn_vec_forms": {k: cs.BUNDLE_VEC_FORMS[k]
+                              - before["vec_forms"][k]
+                              for k in cs.BUNDLE_VEC_FORMS},
+            "ivf_host_syncs_per_batch": (ann_ops.HOST_SYNCS["ivf_slot"]
+                                         - before["syncs"]) / reps,
+            "hits": sum(r["hits"]["total"] for r in last[name]),
+            "fused": executor.fused_scoring_stats(),
+        }
+    return stats, last
+
+
+def check_vector_path(stats, last, batch: int, on_card: bool) -> None:
+    """Each mix served as its route says: the IVF probe (clusters
+    probed), the exact scan, the fused engine (K3 with a knn_vec clause
+    on the card); every request answered with its 10 hits."""
+    knn = stats["knn"]["fused"]
+    if knn["admission"]["knn"].get("ivf", 0) <= 0 \
+            or knn["ann"]["clusters_probed"] <= 0:
+        raise AssertionError(f"knn: the IVF probe never served: {knn}")
+    ex = stats["knn_exact"]["fused"]["admission"]["knn"]
+    if set(ex) != {"exact"}:
+        raise AssertionError(f"knn_exact: served by {ex}")
+    for name in ("hybrid", HYBRID_WHOLE):
+        hy = stats[name]
+        if on_card and sum(hy["knn_vec_forms"].values()) <= 0:
+            raise AssertionError(f"{name}: K3 never launched with a "
+                                 "knn_vec clause")
+        if hy["fused"]["admission"]["knn"].get("query_rewrite", 0) <= 0:
+            raise AssertionError(f"{name}: {hy['fused']['admission']}")
+    if _strip(last[HYBRID_WHOLE]) != _strip(last["hybrid"]):
+        raise AssertionError("hybrid: one msearch and msearches of "
+                             f"{VEC_BATCH['hybrid']} answer differently")
+    for name in (*VEC_MIXES, HYBRID_WHOLE):
+        if len(last[name]) != batch or any(
+                len(r["hits"]["hits"]) != 10 for r in last[name]):
+            raise AssertionError(f"{name}: a response without 10 hits")
+
+
+def score_recall(got, want) -> float:
+    """recall@10 by score (ids are arbitrary among equal scores): a hit
+    counts when it reaches the reference list's 10th score."""
+    hits = total = 0
+    for g, w in zip(got, want):
+        floor = w["hits"]["hits"][-1]["_score"]
+        hits += sum(h["_score"] >= floor - 1e-6 for h in g["hits"]["hits"])
+        total += len(w["hits"]["hits"])
+    return hits / total
+
+
+def oracle_recall(bases, deltas, queries, resps, dev) -> float:
+    """recall@10 of the exact scan's responses against the float64 top-10
+    of the similarity it computes: the dot of the bf16-rounded operands
+    it multiplies (each normalised query, every segment's vectors) over
+    the stored vectors' f32 norms (the reference's definition)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import knn
+    q = torch.from_numpy(queries).to(dev)
+    q = (q / knn.query_norm(q).clamp_min(1e-12)).to(torch.bfloat16).to(
+        torch.float64)
+    best_s, best_id = [], []
+    for seg in [*bases, *deltas]:
+        vc = seg.vectors["embedding"]
+        n = seg.num_docs
+        v = torch.from_numpy(vc.values[:n]).to(dev).to(
+            torch.bfloat16).to(torch.float64)
+        norms = torch.from_numpy(vc.norms[:n]).to(dev, torch.float64)
+        s = (q @ v.t()) / norms.clamp_min(1e-12)[None, :]
+        top = torch.topk(s, 10, dim=1)
+        best_s.append(top.values)
+        best_id.append(torch.tensor([[int(seg.ids[j]) for j in row]
+                                     for row in top.indices.tolist()],
+                                    device=dev))
+    s, ids = torch.cat(best_s, 1), torch.cat(best_id, 1)
+    order = torch.topk(s, 10, dim=1).indices
+    want = ids.gather(1, order).tolist()
+    hits = sum(len({int(h["_id"]) for h in r["hits"]["hits"]} & set(w))
+               for r, w in zip(resps, want))
+    return hits / (10 * len(resps))
+
+
+def column_bound(B: int, cap: int, dims: int):
+    """Least time of the similarity column: its bf16 vectors, f32 norms,
+    exists flags and queries read once and the [B, cap] f32 column
+    written, over the HBM rate; 2 B cap D operations over the dense bf16
+    rate."""
+    nbytes = cap * (dims * 2 + 4 + 1) + B * (dims * 4 + cap * 4)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 2 * B * cap * dims / H100_BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def measure_column(readers, queries, dev, B: int = 128) -> dict:
+    """The similarity column of the hybrid walks (ops/knn, a cuBLAS bf16
+    product with f32 accumulation plus the transform's elementwise
+    passes) on a base segment, and the product alone, beside the bound."""
+    import torch
+    from elasticsearch_tpu_torch.ops import knn
+    from elasticsearch_tpu_torch.search.executor import device_arrays
+    seg = readers[0].segments[0]
+    v = device_arrays(seg, dev)["vec"]["embedding"]
+    q = torch.from_numpy(queries[:B]).to(dev)
+    cap, dims = v["values"].shape
+    bound_ms, bound_by = column_bound(B, cap, dims)
+    qb = q.to(torch.bfloat16)
+    return {"B": B, "cap": cap, "dims": dims,
+            "ms": cuda_ms(lambda: knn.knn_score_column(
+                v["values"], v["norms"], v["exists"], q,
+                similarity="cosine"), 10),
+            "product_ms": cuda_ms(lambda: knn.bf16_dots(q, v["values"]), 10),
+            # yardstick: the same product rounded to bf16
+            "library_ms": cuda_ms(lambda: torch.matmul(qb, v["values"].t()),
+                                  10),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def measure_vec_forms(seen) -> dict:
+    """K3 with the hybrid path's knn_vec walk, held against its plain
+    version in its three launch forms: single, stepped (8 launches, the
+    threshold carried) and seeded (opened at the single walk's final
+    threshold)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    args, kw = seen["walk"]
+    base = {k: kw[k] for k in ("ck", "update_thr", "emit_match")}
+    out = {"single": measure_bundle(args, base, reps=10)}
+    n_tiles = args[7].shape[1]
+    out["stepped"] = measure_bundle(
+        args, {**base, "step": (-(-n_tiles // FORM_CHUNKS), None,
+                                _never_late)}, reps=5)
+    thr = cs.bundle_walk(*args, **base)[5]
+    torch.cuda.synchronize()
+    seed = thr if thr is not None else None
+    out["seeded"] = measure_bundle(args, {**base, "thr_init": seed}, reps=10)
+    return out
+
+
+def small_vector_check(n_docs: int, dev, sync) -> dict:
+    """A small dyadic passages index (every dot product exact) searched
+    on the card and on the CPU: the four mixes give the same responses
+    exactly. Both probe one IVF index (built on the CPU) over every
+    cluster, so the probe's answer is the exact top-k on both."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index import ann
+    D = VEC_SMALL_DIMS
+    bases, deltas = build_passage_shards(n_docs, n_docs // 8, D, True)
+    cpu_b = [copy.copy(b) for b in bases]
+    cpu_d = [copy.copy(d) for d in deltas]
+    q = corpus.passage_queries(32, D, dyadic=True, seed=5)
+    mixes = corpus.knn_mixes(q, 32)
+    sides = [(bases, deltas, dev), (cpu_b, cpu_d, "cpu")]
+    exact = [exact_scan_readers(bs, ds, device, D, mixes["knn"][0])
+             for bs, ds, device in sides]
+    tok = ann.configure(min_docs=256, nprobe=1 << 20)
+    try:
+        for b, cb in zip(bases, cpu_b):
+            ann.ensure_ann(cb, "embedding", "cosine")
+            b.ann = dict(cb.ann)
+        out = []
+        for (bs, ds, device), rx in zip(sides, exact):
+            rs = make_vec_readers(bs, ds, device, D)
+            out.append({name: _strip(search_merged(
+                rx if name == "knn_exact" else rs,
+                mixes["knn" if name == "knn_exact" else name]))
+                for name in VEC_MIXES})
+        sync()
+    finally:
+        ann.reset(if_current=tok)
+    sides = out
+    for name in VEC_MIXES:
+        assert_close_responses(sides[0][name], sides[1][name], rtol=0.0)
+    return {"docs_per_shard": n_docs, "requests_per_mix": 32,
+            "ivf_clusters": bases[0].ann["embedding"].n_clusters}
+
+
+def vector_node_check(n_docs: int, dev) -> dict:
+    """A small node with path.data takes dyadic vector docs through
+    _bulk (2 shards, two refreshes), searches (each segment builds its
+    IVF index), flushes, closes and boots; the responses before and
+    after are equal, and the IVF indexes came back from the store."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    D = VEC_SMALL_DIMS
+    data = data_dir("vec_node")
+    settings = node_settings(data, **{"index.ann.min_docs": 256})
+    q = corpus.passage_queries(16, D, dyadic=True, seed=7)
+    mixes = corpus.knn_mixes(q, 16)
+    bodies = [b for name in ("knn", "hybrid", "knn_rescore")
+              for b in mixes[name]]
+    docs = corpus.make_passages(n_docs, D, seed=9, dyadic=True,
+                                missing_every=40)
+    node = Node(settings, device=dev)
+    node.create_index("vec", {"number_of_shards": 2},
+                      corpus.passage_mapping(D))
+    half = n_docs // 2
+    for part in (docs[:half], docs[half:]):
+        node.bulk([("index", {"_index": "vec", "_id": did, "doc": d})
+                   for did, d in part])
+        node.refresh("vec")
+    before = node.msearch([("vec", b) for b in bodies])["responses"]
+    node.flush("vec")
+    node.close()
+    node = Node(settings, device=dev)
+    try:
+        segs = [s for e in node.indices["vec"].shards.values()
+                for s in e.acquire_searcher().segments]
+        after = node.msearch([("vec", b) for b in bodies])["responses"]
+    finally:
+        node.close()
+        shutil.rmtree(data, ignore_errors=True)
+    assert_close_responses(_node_strip(after), _node_strip(before), rtol=0.0)
+    if not any("embedding" in s.ann for s in segs):
+        raise AssertionError("vector node: no IVF index came back")
+    if not all(len(r["hits"]["hits"]) == 10 for r in before):
+        raise AssertionError("vector node: a response without 10 hits")
+    return {"docs": n_docs, "requests": len(bodies),
+            "segments": len(segs),
+            "ivf_segments": sum("embedding" in s.ann for s in segs)}
+
+
+def card_assignment(bases, dev) -> dict:
+    """The IVF build's assignment (index/ann._assign_full, the step a
+    node's build runs on its card) at the bases' full size, on the
+    centroids the build workers' host k-means found: seconds a base
+    beside the workers' host build and host assignment, and the rows the
+    card assigns to another cluster than the host did (near-ties within
+    the f32 rounding of the product)."""
+    from elasticsearch_tpu_torch.index import ann
+    out = []
+    for b in bases:
+        ai, vc = b.ann["embedding"], b.vectors["embedding"]
+        ords = np.nonzero(vc.exists)[0]
+        host = np.full(b.capacity, -1, np.int64)
+        keep = ai.members >= 0
+        host[ai.members[keep]] = np.nonzero(keep)[0]
+        x = ann._working_space(vc.values[ords], "cosine")
+        t0 = time.perf_counter()
+        assign, _radii = ann._assign_full(x, ai.centroids, dev)
+        card_s = time.perf_counter() - t0
+        out.append({"docs": int(ords.size), "clusters": ai.n_clusters,
+                    "host_build_s": b.ivf_build_s,
+                    "host_assign_s": b.ivf_assign_host_s,
+                    "card_assign_s": card_s,
+                    "rows_assigned_otherwise": int(
+                        (assign != host[ords]).sum())})
+    return {"bases": out}
+
+
+def vector_phase(args, dev, sync, out_dir=None, on_card=True,
+                 build=None, n: int = VEC_DOCS, nd: int = VEC_DELTA_DOCS,
+                 D: int = VEC_DIMS) -> tuple:
+    """Path (t): dense vectors, hybrid bundles and rescore over 2 shards
+    of n passages (D dims) with a delta of nd each. `build` is
+    `start_passage_build`'s handle (None: build here); the small dyadic
+    index and the small node run first, while it builds. Returns (the
+    report, the kernels line's knn_vec entry or None off the card)."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index import ann
+    t_phase = time.perf_counter()
+    laps = {}
+    mark = time.perf_counter()
+
+    def lap(name):
+        nonlocal mark
+        now = time.perf_counter()
+        laps[name] = now - mark
+        mark = now
+    report = {}
+    report["small"] = small_vector_check(
+        min(args.small_docs, VEC_SMALL_DOCS) if on_card else n, dev, sync)
+    log("vector small index: " + json.dumps(report["small"]))
+    lap("small_index")
+    report["node"] = vector_node_check(VEC_NODE_DOCS if on_card else n, dev)
+    log("vector node: " + json.dumps(report["node"]))
+    lap("node")
+    if build is None:
+        t0 = time.perf_counter()
+        bases, deltas = build_passage_shards(n, nd, D, False)
+        build_s = time.perf_counter() - t0
+    else:
+        pool, pending, t0 = build
+        segs = pending.get()
+        build_s = time.perf_counter() - t0
+        pool.close()
+        pool.join()
+        bases, deltas = _pair_deltas(segs)
+    lap("build_wait")
+    queries = corpus.passage_queries(
+        args.batch, D, seed=29, near=bases[0].vectors["embedding"].values[:n])
+    mixes = corpus.knn_mixes(queries, args.batch)
+    mixes["knn_exact"] = copy.deepcopy(mixes["knn"])
+    readers_x = exact_scan_readers(bases, deltas, dev, D, mixes["knn"][0])
+    readers = make_vec_readers(bases, deltas, dev, D)
+    # the IVF build (in the build workers where they built it), timed
+    # apart from the first batch, and its upload
+    t0 = time.perf_counter()
+    for b in bases:
+        if ann.ensure_ann_device(b, "embedding", "cosine", dev) is None:
+            raise AssertionError("vectors: no IVF index was built")
+    sync()
+    ivf_s = [getattr(b, "ivf_build_s", None) for b in bases]
+    if None in ivf_s:
+        ivf_s = time.perf_counter() - t0
+    lap("ivf_build")
+    ai = bases[0].ann["embedding"]
+    setup = {"docs_per_shard": n, "delta_docs_per_shard": nd, "dims": D,
+             "build_s": build_s, "ivf_build_s": ivf_s,
+             "clusters": ai.n_clusters, "cluster_cap": ai.cluster_cap,
+             "nprobe": ann.default_nprobe(ai.n_clusters),
+             "text_L": bases[0].text["passage"].fwd_tids.shape[1]}
+    if on_card:
+        setup["ivf_assignment"] = card_assignment(bases, dev)
+        lap("card_assignment")
+    log("vectors setup: " + json.dumps(setup))
+    seen, shim = capture_vec_walk()
+    with swapped_kernels(bundle_walk_steps=shim):
+        for name in VEC_MIXES:                    # warm-up: uploads
+            time_mix(readers_x if name == "knn_exact" else readers,
+                     mixes[name], 1, sync, batch=VEC_BATCH.get(name))
+        time_mix(readers, mixes["hybrid"], 1, sync)
+    sync()
+    lap("warm_up")
+    stats, last = run_vector_path(readers, readers_x, mixes,
+                                  VEC_REPS if on_card else 1, sync)
+    lap("timed_mixes")
+    for name in stats:
+        log("vector mix " + json.dumps({"mix": name, **stats[name]}))
+    check_vector_path(stats, last, len(mixes["knn"]), on_card)
+    recall = {"ivf_vs_exact": score_recall(last["knn"], last["knn_exact"]),
+              "exact_vs_f64_oracle": oracle_recall(
+                  bases, deltas, queries, last["knn_exact"], dev)}
+    log("vector recall@10: " + json.dumps(recall))
+    if recall["ivf_vs_exact"] < ann.DEFAULT_RECALL:
+        raise AssertionError(f"IVF recall@10 {recall['ivf_vs_exact']}")
+    if recall["exact_vs_f64_oracle"] < 0.99:
+        raise AssertionError(f"exact recall@10 {recall}")
+    n_swap = min(64, len(mixes["hybrid"]))
+    with swapped_kernels(**plain_versions()):
+        plain = search_merged(readers, mixes["hybrid"][:n_swap])
+    if _strip(plain) != _strip(last["hybrid"][:n_swap]):
+        raise AssertionError("hybrid: responses with the plain versions "
+                             "swapped in differ")
+    log(f"vector plain swap: {n_swap} hybrid responses identical")
+    lap("checks")
+    report.update({"setup": setup, "mixes": stats, "recall": recall,
+                   "laps": laps})
+    entry = None
+    if on_card:
+        report["profiles"] = {}
+        for name in VEC_MIXES:
+            rs = readers_x if name == "knn_exact" else readers
+            step = VEC_BATCH.get(name) or len(mixes[name])
+            report["profiles"].update(profile_mixes(
+                None, mixes, out_dir, (name,),
+                lambda bodies, rs=rs, step=step: [
+                    r for i in range(0, len(bodies), step)
+                    for r in search_merged(rs, bodies[i:i + step])],
+                "vector ", host_ops=False))
+        lap("profiles")
+        report["column"] = measure_column(readers, queries, dev)
+        log("similarity column: " + json.dumps(
+            {**report["column"], "gpu": gpu_line()}))
+        forms = measure_vec_forms(seen)
+        report["knn_vec_forms"] = forms
+        args_w, kw_w = seen["walk"]
+        call = {"mix": "hybrid", "B": args_w[4].shape[0], "ck": kw_w["ck"],
+                "cap": args_w[6].shape[0],
+                "clauses": [[r, kd] for r, kd, _f, _w in args_w[2]]}
+        for form, m in forms.items():
+            log(f"knn_vec {form}: " + json.dumps({**call, **m}))
+        path_forms = {f: sum(stats[h]["knn_vec_forms"][f]
+                             for h in ("hybrid", HYBRID_WHOLE))
+                      for f in forms}
+        m = forms["single"]
+        entry = {"name": "bundle_topk_knn_vec", "route": "cuda",
+                 "source": VEC_K3_SOURCE[0], "replaces": VEC_K3_SOURCE[1],
+                 "launches": sum(path_forms.values()),
+                 "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
+                 "ms": m["ms"], "plain_ms": m["plain_ms"],
+                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                 "library_ms": None, "call": call,
+                 "forms": {f: {k: v[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms",
+                                                 "launches_per_walk")}
+                           for f, v in forms.items()},
+                 "path_forms": path_forms}
+        lap("column_and_forms")
+    report["seconds"] = time.perf_counter() - t_phase
+    report["gpu"] = gpu_line() if on_card else "cpu"
+    return report, entry
 
 
 def gpu_line() -> str:
@@ -3294,6 +3971,16 @@ def on_card(args) -> int:
                 log(f"ptxas {name}: {line.strip()}")
     log("ptxas bundle_topk_kernel: " + json.dumps(k3_ptxas()))
     old = load_parent_k3(args.ab_parent) if args.ab_parent else None
+    if args.vectors_only:
+        vectors, vec_entry = vector_phase(
+            args, dev, torch.cuda.synchronize, args.out_dir,
+            build=start_passage_build())
+        log("vectors: " + json.dumps({k: vectors[k] for k in (
+            "setup", "recall", "small", "node", "laps", "seconds",
+            "gpu")}))
+        log("knn_vec kernel: " + json.dumps(vec_entry))
+        log(f"vectors only: {time.perf_counter() - t_run:.1f} s")
+        return 0
     if args.kernels_only:
         rng = np.random.default_rng(42)
         _sweep, worst = kernel_sweep(dev, rng, old=old)
@@ -3559,6 +4246,8 @@ def on_card(args) -> int:
     for name in FUSED_MIXES:
         a, kw = seen[name]["bundle_topk"]
         m = measure_bundle(a, kw, reps=20)
+        if old is not None:
+            m["ab"] = k3_ab(a, kw, old)
         k3_err = max(k3_err, m["max_abs_err"])
         log(f"main-path inputs bundle_topk ({name}): " + json.dumps({
             "B": a[4].shape[0], "cap": a[6].shape[0],
@@ -3575,6 +4264,8 @@ def on_card(args) -> int:
         a, kw = form_seen[form]
         pos = any(":" in kd for _r, kd, _f, _w in a[2])
         m = measure_bundle(a, kw, reps=10, rows=PLAIN_ROWS if pos else None)
+        if old is not None:
+            m["ab"] = k3_ab(a, kw, old)
         name = f"bundle_topk_{form}"
         meas[name] = m
         first[name] = (path, (a, kw))
@@ -3650,6 +4341,9 @@ def on_card(args) -> int:
                 "call")}
             k["max_abs_err"] = max(k["max_abs_err"], k3_deep["max_abs_err"])
     lap("scroll")
+    # path (t)'s passages build in the background from here on, while the
+    # kill -9 rounds, the small node and path (t)'s small checks run
+    vec_build = start_passage_build()
     kills = kill_rounds(dev, sync, "cuda")
     lap("kill9")
     # the small node: the card against the CPU after every write step,
@@ -3658,6 +4352,13 @@ def on_card(args) -> int:
         min(args.small_docs, SMALL_NODE_DOCS), 8, dev, sync)
     lap("small_node")
     log("small node: " + json.dumps(node_out["small"]))
+    # path (t): vectors, hybrid bundles and rescore
+    vectors, vec_entry = vector_phase(args, dev, sync, out_dir,
+                                      build=vec_build)
+    kernels.append(vec_entry)
+    lap("vectors")
+    log("vectors: " + json.dumps({k: vectors[k] for k in (
+        "setup", "recall", "small", "node", "laps", "seconds", "gpu")}))
     log("phase seconds: " + json.dumps(phase_s))
     node_out["ingest"] = ingest
     free, total = torch.cuda.mem_get_info(dev)
@@ -3687,7 +4388,7 @@ def on_card(args) -> int:
               "delta": {"mixes": d_stats, "launches": d_launches,
                         "pack_vs_segments": d_ab},
               "resident": res, "node": node_out, "durable": durable,
-              "scroll": scroll_out, "kill9": kills,
+              "scroll": scroll_out, "kill9": kills, "vectors": vectors,
               "profiles": profiles, "kernels": kernels,
               "seconds": time.perf_counter() - t_run}
     if out_dir:
@@ -3707,7 +4408,7 @@ def main(argv=None) -> int:
                    help="docs per shard on the main path")
     p.add_argument("--batch", type=int, default=256,
                    help="requests per mix")
-    p.add_argument("--reps", type=int, default=5,
+    p.add_argument("--reps", type=int, default=3,
                    help="timed repetitions of each mix")
     p.add_argument("--small-docs", type=int, default=20_000,
                    help="docs per shard of the card-vs-CPU check")
@@ -3723,6 +4424,9 @@ def main(argv=None) -> int:
                         "is timed in turns against this one")
     p.add_argument("--kernels-only", action="store_true",
                    help="stop after the kernel sweeps (no result line)")
+    p.add_argument("--vectors-only", action="store_true",
+                   help="build, then the vectors path alone (no result "
+                        "line)")
     p.add_argument("--durability-worker", nargs=7, default=None,
                    metavar=("DATA", "SEED", "START", "DEVICE", "DOCS",
                             "FLUSH_EVERY", "BATCH"),

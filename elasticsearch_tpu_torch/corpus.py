@@ -9,6 +9,19 @@ document in `long_every` has a `body` of more than 256 distinct terms, so
 the `body` field gets no forward index and its term queries take the
 posting-scatter path. `message` carries positions, so its phrase, span
 and cross_fields queries score on the positional pack.
+
+The passages corpus (`passage_columns`, `make_passages`) is the shape of
+BASELINE.json's fifth config, dense_vector kNN + BM25 rescore over
+msmarco-v2 passages: a `passage` text field of 20-60 tokens over the
+same Zipf vocabulary (the repository benchmark's msmarco passages) and
+an `embedding` dense_vector. Embeddings are Gaussian, drawn around
+Gaussian centers with Gaussian noise (the repository benchmark's IVF
+corpus: vectors concentrate around semantic centers, which is what gives
+a coarse quantizer something to find), and queries lie near members.
+The dyadic option draws small integers in [-4, 4] for the docs and, for
+the queries, +-1 on 4^m coordinates (m = 1 below 16 dims, else 2), so
+every f32 partial sum of a dot product is exact and a query's norm is a
+power of two: any summation order gives the same bits.
 """
 
 from __future__ import annotations
@@ -287,3 +300,114 @@ def synthetic_positions(rng: np.random.Generator, tids: np.ndarray, P: int
     doc_len = rng.integers(1, 4 * L, size=cap).astype(np.float32)
     lnorm, k1ln = bm25_norms(doc_len, float(doc_len.mean()))
     return fwd_pos, k1ln, lnorm
+
+
+def passage_mapping(dims: int, similarity: str = "cosine") -> dict:
+    return {"properties": {
+        "passage": {"type": "text"},
+        "embedding": {"type": "dense_vector", "dims": dims,
+                      "similarity": similarity},
+    }}
+
+
+def _dyadic_queries(rng: np.random.Generator, n: int, dims: int
+                    ) -> np.ndarray:
+    m = 1 if dims < 16 else 2
+    q = np.zeros((n, dims), dtype=np.float32)
+    for i in range(n):
+        idx = rng.choice(dims, size=4 ** m, replace=False)
+        q[i, idx] = rng.choice([-1.0, 1.0], size=4 ** m)
+    return q
+
+
+def passage_columns(n: int, dims: int, seed: int = 23,
+                    dyadic: bool = False, n_centers: int = 1024,
+                    center_seed: int | None = None
+                    ) -> tuple[list[str], np.ndarray, np.ndarray]:
+    """`n` passages as columns: (texts, embeddings f32 [n, dims], centers
+    f32 [n_centers, dims]; empty when dyadic). The centers come from
+    `center_seed` (default `seed`): shards drawn with one center seed
+    share one embedding space."""
+    rng = np.random.default_rng(seed)
+    words = np.asarray(vocab())
+    w = zipf_weights(len(words))
+    lens = rng.integers(20, 61, size=n)
+    toks = rng.choice(len(words), size=int(lens.sum()), p=w)
+    ends = np.cumsum(lens)
+    texts = [" ".join(words[toks[e - ln:e]]) for e, ln in zip(ends, lens)]
+    if dyadic:
+        emb = rng.integers(-4, 5, size=(n, dims)).astype(np.float32)
+        return texts, emb, np.zeros((0, dims), np.float32)
+    centers = (rng if center_seed is None
+               else np.random.default_rng(center_seed)).standard_normal(
+        (n_centers, dims)).astype(np.float32)
+    emb = np.empty((n, dims), dtype=np.float32)
+    for lo in range(0, n, 1 << 18):
+        hi = min(lo + (1 << 18), n)
+        emb[lo:hi] = centers[rng.integers(0, n_centers, hi - lo)] \
+            + rng.standard_normal((hi - lo, dims)).astype(np.float32) \
+            * np.float32(0.2)
+    return texts, emb, centers
+
+
+def make_passages(n: int, dims: int, seed: int = 23, start: int = 0,
+                  dyadic: bool = False, n_centers: int = 1024,
+                  missing_every: int = 0) -> list[tuple[str, dict]]:
+    """`n` passage documents with ids start..start+n-1; with
+    `missing_every`, every such doc has no embedding."""
+    texts, emb, _c = passage_columns(n, dims, seed, dyadic, n_centers)
+    docs = []
+    for i in range(n):
+        doc = {"passage": texts[i]}
+        if not (missing_every and (start + i) % missing_every
+                == missing_every - 1):
+            doc["embedding"] = [float(x) for x in emb[i]]
+        docs.append((str(start + i), doc))
+    return docs
+
+
+def passage_queries(n: int, dims: int, seed: int = 29,
+                    dyadic: bool = False, near: np.ndarray | None = None
+                    ) -> np.ndarray:
+    """`n` query vectors [n, dims] f32: dyadic, or rows of `near` (a
+    corpus's embeddings) plus Gaussian noise, or plain Gaussian."""
+    rng = np.random.default_rng(seed)
+    if dyadic:
+        return _dyadic_queries(rng, n, dims)
+    if near is not None:
+        rows = near[rng.integers(0, near.shape[0], n)]
+        return (rows + rng.standard_normal((n, dims)).astype(np.float32)
+                * np.float32(0.1)).astype(np.float32)
+    return rng.standard_normal((n, dims)).astype(np.float32)
+
+
+def knn_mixes(queries: np.ndarray, n: int, seed: int = 31
+              ) -> dict[str, list[dict]]:
+    """The vector request mixes, `n` requests each, query vector i from
+    `queries` (cycled):
+    (a) knn: a top-level `knn` section, k 10 (pure knn: the IVF probe or
+        the exact scan);
+    (b) hybrid: the same beside a `match` on `passage` of 1-3 head terms
+        (rewritten into a bool of the match and a knn clause: K3 with a
+        knn_vec clause);
+    (c) knn_rescore: a `knn` query node, size 10, rescored over a window
+        of 100 by a `match` on `passage` (BASELINE config 5's shape)."""
+    rng = np.random.default_rng(seed)
+    texts = head_terms(rng, 2 * n)
+    qs = [[float(x) for x in queries[i % len(queries)]] for i in range(n)]
+    mixes: dict[str, list[dict]] = {"knn": [], "hybrid": [],
+                                    "knn_rescore": []}
+    for i in range(n):
+        spec = {"field": "embedding", "query_vector": qs[i], "k": 10}
+        mixes["knn"].append({"knn": dict(spec), "size": 10})
+        mixes["hybrid"].append({
+            "knn": dict(spec),
+            "query": {"match": {"passage": texts[i]}}, "size": 10})
+        mixes["knn_rescore"].append({
+            "query": {"knn": {"field": "embedding",
+                              "query_vector": qs[i]}},
+            "size": 10,
+            "rescore": {"window_size": 100, "query": {
+                "rescore_query": {"match": {"passage": texts[n + i]}},
+                "query_weight": 1.0, "rescore_query_weight": 1.0}}})
+    return mixes

@@ -2,11 +2,12 @@
 
 Counterpart of `elasticsearch_tpu/index/mapping.py`, trimmed to the
 field types this slice of the port serves: `text`, `keyword`, the
-integer and float numerics, `date`, `boolean` and `ip`. A parsed
-document becomes columnar contributions (term lists per text field,
-values per keyword/numeric field) that `index/segment.py` packs into
-columns. Vectors, geo, join, completion and nested objects are not
-ported yet and raise.
+integer and float numerics, `date`, `boolean`, `ip` and `dense_vector`
+(`dims`, `similarity` cosine | dot_product | l2_norm, cosine when
+unset). A parsed document becomes columnar contributions (term lists per
+text field, values per keyword/numeric field, one float list per vector
+field) that `index/segment.py` packs into columns. Geo, join,
+completion and nested objects are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -32,12 +33,13 @@ FLOAT = "float"
 DATE = "date"
 BOOLEAN = "boolean"
 IP = "ip"
+DENSE_VECTOR = "dense_vector"  # [dims] float embedding -> device matrix
 
 NUMERIC_TYPES = {LONG, INTEGER, SHORT, BYTE, DOUBLE, FLOAT}
-ALL_TYPES = NUMERIC_TYPES | {TEXT, KEYWORD, DATE, BOOLEAN, IP}
+ALL_TYPES = NUMERIC_TYPES | {TEXT, KEYWORD, DATE, BOOLEAN, IP, DENSE_VECTOR}
 # types the reference maps that this slice does not carry yet
-_UNPORTED_TYPES = {"dense_vector", "geo_point", "geo_shape", "join",
-                   "completion", "nested"}
+_UNPORTED_TYPES = {"geo_point", "geo_shape", "join", "completion",
+                   "nested"}
 _LEGACY_STRING = "string"
 
 _EPOCH = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
@@ -103,7 +105,10 @@ class FieldMapper:
     boost: float = 1.0
     fmt: str | None = None
     ignore_malformed: bool = False
-    similarity: str = ""   # text: similarity name ("" = index default)
+    # text: similarity name ("" = index default); dense_vector: cosine |
+    # dot_product | l2_norm ("" = cosine, the reference's default)
+    similarity: str = ""
+    dims: int | None = None   # dense_vector dimensionality
 
     def to_dict(self) -> dict:
         """The field's mapping as the reference renders it (persisted in
@@ -117,6 +122,9 @@ class FieldMapper:
             d["index"] = False
         if self.boost != 1.0:
             d["boost"] = self.boost
+        if self.type == DENSE_VECTOR:
+            d["dims"] = self.dims
+            d["similarity"] = self.similarity or "cosine"
         if self.search_analyzer is not None:
             d["search_analyzer"] = self.search_analyzer
         if self.fmt is not None:
@@ -208,6 +216,8 @@ class DocumentMapper:
             fmt=spec.get("format"),
             ignore_malformed=bool(spec.get("ignore_malformed", False)),
             similarity="" if sim == "cosine" else sim,
+            dims=(int(spec["dims"]) if spec.get("dims") is not None
+                  else None),
         )
         for sub_name, sub_spec in (spec.get("fields") or {}).items():
             sub = self._add_field(f"{name}.{sub_name}", sub_spec)
@@ -308,6 +318,11 @@ class DocumentMapper:
             if isinstance(value, dict):
                 self._parse_object(f"{name}.", value, out)
                 continue
+            if isinstance(value, list):
+                fm = self._fields.get(name)
+                if fm is not None and fm.type == DENSE_VECTOR:
+                    self._parse_value(name, value, out)
+                    continue
             values = value if isinstance(value, list) else [value]
             for v in values:
                 if v is None:
@@ -347,6 +362,17 @@ class DocumentMapper:
                                           tokens=analyzer.analyze(str(value))))
         elif not fm.index and not fm.doc_values:
             return
+        elif fm.type == DENSE_VECTOR:
+            if not isinstance(value, list):
+                raise MapperParsingError(
+                    f"dense_vector [{fm.name}] requires an array of floats")
+            vec = [float(x) for x in value]
+            if fm.dims is not None and len(vec) != fm.dims:
+                raise MapperParsingError(
+                    f"dense_vector [{fm.name}] has {len(vec)} dims, "
+                    f"mapping expects {fm.dims}")
+            out.fields.append(ParsedField(name=fm.name, type=DENSE_VECTOR,
+                                          value=vec))
         elif fm.type == KEYWORD:
             if len(str(value)) <= 256 or "." not in fm.name:  # ignore_above on subs
                 out.fields.append(ParsedField(name=fm.name, type=KEYWORD,

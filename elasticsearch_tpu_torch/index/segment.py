@@ -12,10 +12,14 @@ columns this slice of the port searches:
                      `k1ln`) for phrase, span and BM25F scoring;
   * keyword field -> int32 ordinal column + sorted term dictionary;
   * numeric/date  -> int32/float32 doc-value columns + exists mask;
+  * dense_vector  -> float32 [cap, dims] values, exists mask and L2
+                     norms (`VectorColumn`), plus the segment's IVF
+                     coarse indexes (`ann`, built lazily by
+                     `index/ann.ensure_ann` or restored by the store);
   * _id/_source   -> host-side.
 
-The layout pass is the host one (`_pack_layout_host`); vectors, geo,
-nested rows and the device-side build are not ported yet. The engine's
+The layout pass is the host one (`_pack_layout_host`); geo, nested rows
+and the device-side build are not ported yet. The engine's
 two repacks are: `merge_segments` (a rebuild from the rows, impacts
 recomputed) and `concat_segments` (the streaming compaction: impacts
 preserved, so a search of the result equals one of its sources). A delta
@@ -36,7 +40,7 @@ from typing import Iterable
 import numpy as np
 
 from .mapping import (ParsedDocument, TEXT, KEYWORD, DATE, BOOLEAN, IP,
-                      LONG, INTEGER, SHORT, BYTE)
+                      LONG, INTEGER, SHORT, BYTE, DENSE_VECTOR)
 
 BLOCK = 128           # posting block width (doc, impact) lanes
 MAX_FWD_SLOTS = 256   # forward-index width limit (beyond: scatter path)
@@ -251,6 +255,24 @@ class NumericColumn:
 
 
 @dataclass
+class VectorColumn:
+    """Dense embedding column: [capacity, dims] float32 (the device holds
+    it in bf16, search/executor.device_arrays)."""
+
+    name: str
+    values: np.ndarray                     # float32 [cap, dims]
+    exists: np.ndarray                     # bool [cap]
+    norms: np.ndarray                      # float32 [cap] L2 norms (0 if absent)
+
+    @property
+    def dims(self) -> int:
+        return self.values.shape[1]
+
+    def nbytes(self) -> int:
+        return self.values.nbytes + self.exists.nbytes + self.norms.nbytes
+
+
+@dataclass
 class Segment:
     """One immutable columnar segment."""
 
@@ -264,6 +286,11 @@ class Segment:
     text: dict[str, PostingsField]
     keywords: dict[str, KeywordColumn]
     numerics: dict[str, NumericColumn]
+    vectors: dict[str, VectorColumn] = dc_field(default_factory=dict)
+    # IVF coarse indexes per dense_vector field (index/ann.AnnIndex),
+    # built lazily at the first eligible search (index/ann.ensure_ann) or
+    # restored by the store; delta segments never carry one
+    ann: dict[str, object] = dc_field(default_factory=dict)
     # streaming write path: a DELTA segment is the small append-only pack
     # rebuilt at every refresh on top of an immutable base generation.
     # `delta_parent` is the base generation key it rides on;
@@ -325,8 +352,11 @@ class Segment:
                 f"c{next_pow2(self.capacity, floor=BLOCK)}")
 
     def nbytes(self) -> int:
+        # the lazily built IVF indexes (self.ann) are left out: their
+        # upload is held against the breaker on its own
+        # (index/ann.ensure_ann_device)
         return sum(f.nbytes() for group in (self.text, self.keywords,
-                                            self.numerics)
+                                            self.numerics, self.vectors)
                    for f in group.values())
 
     def field_kind(self, name: str) -> str | None:
@@ -336,6 +366,8 @@ class Segment:
             return "keyword"
         if name in self.numerics:
             return "numeric"
+        if name in self.vectors:
+            return "vector"
         return None
 
 
@@ -377,6 +409,7 @@ class SegmentBuilder:
         text_doclen: dict[str, np.ndarray] = {}
         kw_values: dict[str, dict[int, list[str]]] = {}
         num_values: dict[str, tuple[str, dict[int, list]]] = {}
+        vec_values: dict[str, dict[int, list[float]]] = {}
         for d, doc in enumerate(self.docs):
             ids.append(doc.doc_id)
             id_map[doc.doc_id] = d
@@ -388,6 +421,10 @@ class SegmentBuilder:
                 elif pf.type == KEYWORD:
                     kw_values.setdefault(pf.name, {}).setdefault(d, []).append(
                         str(pf.value))
+                elif pf.type == DENSE_VECTOR:
+                    vcol = vec_values.setdefault(pf.name, {})
+                    if d not in vcol:
+                        vcol[d] = pf.value
                 else:
                     _kind, col = num_values.setdefault(pf.name, (pf.type, {}))
                     col.setdefault(d, []).append(pf.value)
@@ -413,10 +450,13 @@ class SegmentBuilder:
                     for name, col in kw_values.items()}
         numerics = {name: _build_numeric(name, kind, col, cap)
                     for name, (kind, col) in num_values.items()}
+        vectors = {name: _build_vector(name, col, cap)
+                   for name, col in vec_values.items()}
         return Segment(seg_id=seg_id, num_docs=n, capacity=cap, ids=ids,
                        id_map=id_map, sources=sources,
                        versions=np.asarray(self.versions, dtype=np.int64),
-                       text=text, keywords=keywords, numerics=numerics)
+                       text=text, keywords=keywords, numerics=numerics,
+                       vectors=vectors)
 
     def _sim_for(self, field: str):
         if self.similarity is None:
@@ -506,6 +546,28 @@ def _build_numeric(name: str, kind: str, col: dict[int, list],
     return NumericColumn(name=name, kind=kind, values=vals, exists=exists,
                          raw=raw, bias=bias, mv_values=mv_vals,
                          mv_raw=mv_raw, mv_exists=mv_exists)
+
+
+def _build_vector(name: str, col: dict[int, list[float]], cap: int
+                  ) -> VectorColumn:
+    dims = len(next(iter(col.values())))
+    values = np.zeros((cap, dims), dtype=np.float32)
+    exists = np.zeros(cap, dtype=bool)
+    for d, vec in col.items():
+        values[d, : len(vec)] = np.asarray(vec, dtype=np.float32)
+        exists[d] = True
+    return vector_column(name, values, exists)
+
+
+def vector_column(name: str, values: np.ndarray,
+                  exists: np.ndarray) -> VectorColumn:
+    """A VectorColumn over f32 [cap, dims] values, norms as the
+    reference's builder computes them (np.linalg.norm per row)."""
+    values = np.asarray(values, dtype=np.float32)
+    return VectorColumn(name=name, values=values,
+                        exists=np.asarray(exists, dtype=bool),
+                        norms=np.linalg.norm(values, axis=1)
+                        .astype(np.float32))
 
 
 def _flat_impacts(pf: PostingsField, sim=None) -> np.ndarray:
@@ -767,6 +829,7 @@ _TEXT_COLS = ("df", "indptr", "doc_ids", "tfs", "doc_len", "block_docs",
               "pos_data", "pos_indptr", "fwd_pos", "lnorm", "k1ln")
 _KW_COLS = ("ords", "df", "mv_ords")
 _NUM_COLS = ("values", "exists", "raw", "mv_values", "mv_raw", "mv_exists")
+_VEC_COLS = ("values", "exists", "norms")
 
 
 def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
@@ -777,10 +840,11 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
     optional fwd_tids, fwd_imps, tile_max, pos_data, pos_indptr, fwd_pos,
     lnorm, k1ln), `kw.<field>.<col>` (ords, df,
     optional mv_ords), `num.<field>.<col>` (values, exists, raw, optional
-    mv_values, mv_raw, mv_exists) and `versions`. `meta` holds seg_id,
-    num_docs, capacity, ids, optional sources, and per field:
-    text -> {terms, doc_count, avg_len}, keywords -> {terms},
-    numerics -> {kind, bias}."""
+    mv_values, mv_raw, mv_exists), `vec.<field>.<col>` (values, exists,
+    norms) and `versions`. `meta` holds seg_id, num_docs, capacity, ids,
+    optional sources, and per field: text -> {terms, doc_count,
+    avg_len}, keywords -> {terms}, numerics -> {kind, bias}, vectors ->
+    {}."""
     def cols(prefix: str, names: tuple) -> dict:
         return {c: (np.array(arrays[f"{prefix}.{c}"], copy=True)
                     if f"{prefix}.{c}" in arrays else None) for c in names}
@@ -804,6 +868,8 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
     numerics = {f: NumericColumn(name=f, kind=m["kind"], bias=int(m.get("bias", 0)),
                                  **cols(f"num.{f}", _NUM_COLS))
                 for f, m in meta.get("numerics", {}).items()}
+    vectors = {f: VectorColumn(name=f, **cols(f"vec.{f}", _VEC_COLS))
+               for f in meta.get("vectors", {})}
     n = int(meta["num_docs"])
     ids = list(meta["ids"])
     return Segment(
@@ -811,7 +877,7 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
         ids=ids, id_map={i: j for j, i in enumerate(ids)},
         sources=list(meta.get("sources") or [b"{}"] * n),
         versions=np.asarray(arrays.get("versions", np.ones(n)), dtype=np.int64),
-        text=text, keywords=keywords, numerics=numerics)
+        text=text, keywords=keywords, numerics=numerics, vectors=vectors)
 
 
 def concat_segments(segments: Iterable[Segment], seg_id: str | None = None,
@@ -1030,12 +1096,44 @@ def concat_segments(segments: Iterable[Segment], seg_id: str | None = None,
                        else _device_vals(mv_raw, kind, bias, is_int)),
             mv_raw=mv_raw, mv_exists=mv_exists)
 
+    # -- vector columns ----------------------------------------------------
+    vectors: dict[str, VectorColumn] = {}
+    for name in sorted({f for s in segs for f in s.vectors}):
+        dims = next(s.vectors[name].dims for s in segs if name in s.vectors)
+        vals = np.zeros((cap, dims), dtype=np.float32)
+        exists = np.zeros(cap, dtype=bool)
+        for s, keep, rm in zip(segs, keeps, row_maps):
+            vc = s.vectors.get(name)
+            if vc is None:
+                continue
+            rows = np.nonzero(keep)[0]
+            vals[rm[rows]] = vc.values[rows]
+            exists[rm[rows]] = vc.exists[rows]
+        vectors[name] = vector_column(name, vals, exists)
+
+    # the IVF index carries over where the merged column equals its one
+    # source column row for row (a deletes-free fold of a single vector
+    # segment); else the new base builds its own at its first search
+    ann_carry: dict[str, object] = {}
+    for name in vectors:
+        srcs = [(s, keep, rm) for s, keep, rm
+                in zip(segs, keeps, row_maps) if name in s.vectors]
+        if len(srcs) != 1:
+            continue
+        s0, keep0, rm0 = srcs[0]
+        src_ai = s0.ann.get(name)
+        if src_ai is None or not bool(keep0.all()):
+            continue
+        if not np.array_equal(rm0, np.arange(s0.num_docs)):
+            continue
+        ann_carry[name] = src_ai
+
     return Segment(
         seg_id=seg_id, num_docs=n, capacity=cap,
         ids=ids, id_map={i: j for j, i in enumerate(ids)},
         sources=sources, versions=versions,
-        text=text, keywords=keywords, numerics=numerics,
-        impacts_preserved=True)
+        text=text, keywords=keywords, numerics=numerics, vectors=vectors,
+        ann=ann_carry, impacts_preserved=True)
 
 
 def merge_segments(segments: Iterable[Segment], seg_id: str | None = None,
@@ -1104,6 +1202,11 @@ def merge_segments(segments: Iterable[Segment], seg_id: str | None = None,
                         value = bool(v)
                     fields.append(ParsedField(name=name, type=nc.kind,
                                               value=value))
+            for name, vc in seg.vectors.items():
+                if vc.exists[d]:
+                    fields.append(ParsedField(
+                        name=name, type=DENSE_VECTOR,
+                        value=[float(x) for x in vc.values[d]]))
             return fields
 
         for d in range(seg.num_docs):

@@ -29,9 +29,11 @@ columns the search path reads are derived at upload
 (`search/executor.device_arrays`), never saved. A compacted base
 (`impacts_preserved`) persists its per-posting impacts and reloads
 through `_pack_layout_host(pf, cap, imps)`; a delta reloads as the delta
-(`delta_parent`, `delta_epoch`, `pad_delta_shapes`). The port's Segment
-has no vector, ann, geo, completion or parent columns: a file holding
-one raises NotImplementedError on load.
+(`delta_parent`, `delta_epoch`, `pad_delta_shapes`). Vector columns
+are saved as their f32 values and exists mask (`vec__<field>__*`, norms
+recomputed on load) and IVF indexes as their arrays (`ann__<field>__*`),
+in the reference's format. The port's Segment has no geo, completion or
+parent columns: a file holding one raises NotImplementedError on load.
 
 Every write / read boundary is hooked into `utils/faults.py`.
 """
@@ -50,9 +52,10 @@ import numpy as np
 from ..utils import faults
 from ..utils.errors import ElasticsearchTpuError
 from . import durability
+from .ann import AnnIndex
 from .segment import (KeywordColumn, NumericColumn, PostingsField, Segment,
                       _device_vals, _flat_impacts, _pack_layout_host,
-                      extract_flat_impacts, pad_delta_shapes)
+                      extract_flat_impacts, pad_delta_shapes, vector_column)
 
 
 class CorruptIndexError(ElasticsearchTpuError):
@@ -88,7 +91,7 @@ def _commit_checksum(commit: dict) -> str:
 
 def _not_ported_columns(meta: dict, files) -> list[str]:
     out = [f"{k} {sorted(meta[k]) if isinstance(meta[k], dict) else meta[k]}"
-           for k in ("vectors", "ann", "geos", "completions") if meta.get(k)]
+           for k in ("geos", "completions") if meta.get(k)]
     if "parent_of" in files:
         out.append("parent_of")
     return out
@@ -191,7 +194,19 @@ class Store:
                 arrays[f"{key}__mv_raw"] = nc.mv_raw
                 arrays[f"{key}__mv_exists"] = nc.mv_exists
             meta["numerics"][name] = {"kind": nc.kind, "bias": nc.bias}
+        for name, vc in seg.vectors.items():
+            key = f"vec__{name}"
+            arrays[f"{key}__values"] = vc.values
+            arrays[f"{key}__exists"] = vc.exists
+            meta["vectors"].append(name)
+        # the IVF indexes are pack artifacts: a restart serves the same
+        # clusters without re-clustering
         meta["ann"] = {}
+        for name, ai in seg.ann.items():
+            key = f"ann__{name}"
+            for aname, arr in ai.arrays().items():
+                arrays[f"{key}__{aname}"] = arr
+            meta["ann"][name] = {"similarity": ai.similarity}
         meta["geos"] = []
         meta["completions"] = {}
 
@@ -315,12 +330,27 @@ class Store:
                 nc.mv_values = _device_vals(nc.mv_raw, nc.kind, bias,
                                             nc.mv_raw.dtype == np.int64)
             numerics[name] = nc
+        vectors = {}
+        for name in meta.get("vectors", []):
+            key = f"vec__{name}"
+            vectors[name] = vector_column(name, z[f"{key}__values"],
+                                          z[f"{key}__exists"])
+        ann = {}
+        for name, m in meta.get("ann", {}).items():
+            key = f"ann__{name}"
+            if name not in vectors or f"{key}__centroids" not in z.files:
+                continue
+            ann[name] = AnnIndex.from_arrays(
+                m["similarity"],
+                {a: z[f"{key}__{a}"]
+                 for a in ("centroids", "radii", "members", "counts")})
         seg = Segment(
             seg_id=meta["seg_id"], num_docs=int(meta["num_docs"]),
             capacity=cap, ids=meta["ids"],
             id_map={t: i for i, t in enumerate(meta["ids"])},
             sources=sources, versions=z["versions"],
             text=text, keywords=keywords, numerics=numerics,
+            vectors=vectors, ann=ann,
             delta_parent=meta.get("delta_parent"),
             delta_epoch=int(meta.get("delta_epoch", 0)),
             impacts_preserved=impacts_preserved,

@@ -24,6 +24,12 @@ as a structured `_shards.failures` entry (or fails the request when
 `verify_integrity` and the `durability` block of `nodes_stats` report
 it.
 
+Vectors: `dense_vector` fields take vector docs through `_bulk`; a
+body's `knn` section and `rescore` reach every shard (`ShardReader`);
+`index.ann.min_docs` / `nprobe` / `recall` configure the IVF probe
+(`index/ann.configure`), and `nodes_stats` carries the fused engine's
+counters (`fused_scoring`: top-level knn admission, IVF clusters).
+
 Search types: `dfs_query_then_fetch` / `dfs_query_and_fetch` (global
 term statistics summed over the shards, `_aggregate_dfs`), `scan`
 (the query wrapped in `constant_score`, pages in doc order) and scroll
@@ -49,12 +55,14 @@ import uuid
 import torch
 
 from . import resolve_device
+from .index import ann as _ann
 from .index import durability as _durability
 from .index.index_service import IndexService
 from .search.aggregations import parse_aggs
 from .search.controller import (merge_shard_results, shard_failure,
                                 shards_header)
 from .search.dispatch import DispatchScheduler
+from .search.executor import fused_scoring_stats
 from .search.shard_searcher import ShardReader
 from .search.traffic import controller_from_settings
 from .utils import faults, monitor
@@ -127,6 +135,17 @@ class Node:
         max_entries = self.settings.get_int("search.resident.max_entries")
         if max_entries is not None:
             _resident.configure(max_entries=max_entries)
+        # IVF vector search (index/ann.py): the exact-scan -> IVF
+        # crossover, nprobe and declared recall. Process-global, like the
+        # reference's; close() resets it only while it is this node's
+        self._ann_cfg = None
+        a_min = self.settings.get_int("index.ann.min_docs")
+        a_nprobe = self.settings.get_int("index.ann.nprobe")
+        a_recall = self.settings.get_float("index.ann.recall")
+        if a_min is not None or a_nprobe is not None \
+                or a_recall is not None:
+            self._ann_cfg = _ann.configure(
+                min_docs=a_min, nprobe=a_nprobe, recall=a_recall)
         # durability counters, installed before the indices load so
         # recovery-time salvage / containment events land in this node's
         # block; close() resets them only while they are still its own
@@ -958,8 +977,9 @@ class Node:
         """The node stats (ref: NodesStatsResponse) trimmed to the
         indices (with the process-wide `durability` counter block), the
         breakers, the device (`accelerator`), the thread pools, the
-        dispatch scheduler, the storage fault rules and the node's
-        counters."""
+        dispatch scheduler, the fused engine's admission and prune
+        counters (top-level knn admission and the IVF cluster counters
+        included), the storage fault rules and the node's counters."""
         return {"cluster_name": self.cluster_name, "nodes": {self.name: {
             "name": self.name,
             "timestamp": int(time.time() * 1000),
@@ -970,6 +990,7 @@ class Node:
             "thread_pool": self.thread_pool.stats(),
             "breakers": breaker_service().stats(),
             "dispatch": self._dispatch.stats.snapshot(),
+            "fused_scoring": fused_scoring_stats(),
             "fault_injection": faults.snapshot(),
             "metrics": self.metrics.snapshot(),
         }}}
@@ -985,6 +1006,9 @@ class Node:
             if faults.active() is self._fault_registry:
                 faults.clear()
             self._fault_registry = None
+        if self._ann_cfg is not None:
+            _ann.reset(if_current=self._ann_cfg)
+            self._ann_cfg = None
         self.clear_scroll()
         for svc in self.indices.values():
             if self.data_path:

@@ -3,9 +3,10 @@
 // Replaces: elasticsearch_tpu/ops/pallas_scoring.py:_make_bundle_kernel
 //           (launched by _bundle_chunk_call from fused_topk_bundle_pallas,
 //           match_mask_bundle_pallas and fused_topk_dense_pallas), for
-//           dense text clauses, numeric range masks and the positional
+//           dense text clauses, numeric range masks, the positional
 //           clauses (phrase, span_near, BM25F; the leaf is in
-//           positional_leaf.cuh). A second entry, `positional_leaf`,
+//           positional_leaf.cuh) and vector similarity clauses
+//           (`knn_vec`, below). A second entry, `positional_leaf`,
 //           evaluates one positional clause over the whole capacity for
 //           the unfused path (executor.eval_node).
 //
@@ -126,6 +127,21 @@
 //      A persistent grid (one or two CTAs an SM taking items from an
 //      atomic counter) was built and measured 0-2% slower than one CTA
 //      per item, whose scheduling the hardware does for free: not kept.
+//   6. Vector clauses (kVec, the hybrid BM25+kNN bundle). The
+//      reference's Pallas kernel has no such clause: its XLA engine slices
+//      a precomputed similarity column per tile (ops/scoring.py:872-875).
+//      Here the clause reads that column, f32 [B, cap] with the clause
+//      boost folded in (a cuBLAS product plus elementwise transforms,
+//      search/executor._vec_clause_inputs), at (row, doc), and the
+//      field's exists mask at doc: its match is exists, and a must /
+//      should clause adds sel(exists, col) in clause order, the plain
+//      walk's score + where(m, s, 0). A warp's 32 lanes read 32
+//      consecutive docs of one row: one 128-byte line per (row, chunk).
+//      The column is read once per (row, tile) the walk does not skip;
+//      its bytes, B * cap * 4, add to the walk's bound. Scores and
+//      bounds may be negative (dot_product): thresholds start at -inf
+//      and candidates are ordered by the order-preserving key, so
+//      nothing here assumes a sign.
 // tools/k3_variants.py times steps 2, 3 and 5 undone, each in a patched
 // copy of the port's ops.
 
@@ -175,6 +191,10 @@ struct BundleArgs {
   // set by the entry on its copy of the arguments: positional clauses,
   // sub-chunks of the span
   int n_pos, n_sub;
+  // vector clauses, by the clause's slot: the similarity column [B, cap]
+  // (boost folded in) and the field's exists mask [cap]
+  const float* vcol[8];
+  const unsigned char* vexists[8];
 };
 
 // The unfused path's positional clause over the whole capacity (entry
@@ -204,10 +224,17 @@ constexpr int kSlots = 8;         // forward slots held in registers
 constexpr int kHeads = 4;         // sorted best keys per lane in selection
 constexpr int kMust = 0, kFilter = 1, kMustNot = 2;  // else should (3)
 constexpr int kDense = 0, kRangeInt = 1;
+constexpr int kVec = 8;           // cuda_scoring._VEC_KIND
 constexpr int kStealCk = 32;      // ck above which warps steal doc chunks
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float sel(bool m, float v) { return m ? v : 0.0f; }
+
+// a positional clause kind (the leaf's kinds, posleaf::kPhraseExact ..
+// kBm25f)
+__host__ __device__ __forceinline__ bool is_pos(int kind) {
+  return kind >= posleaf::kPhraseExact && kind <= posleaf::kBm25f;
+}
 
 // hit + select(t == tq, v): the add only where the ids match, as one
 // predicated instruction (a compare and an add, no select). Exact: the
@@ -571,7 +598,7 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
           int pc = 0;
           for (int c2 = 0; c2 < a.n_clauses; ++c2) {
             const int kind = a.clause[c2][1];
-            if (kind < posleaf::kPhraseExact) continue;
+            if (!is_pos(kind)) continue;
             const int slot = a.clause[c2][3];
             const int n = a.clause[c2][4], ntm = a.clause[c2][5];
             const int tail = slot + posleaf::param_tail(kind, n, ntm);
@@ -689,7 +716,23 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
                     acc[r], sel(mr, __fmul_rn(sel(m_leaf, s_leaf[r]),
                                               __int_as_float(mbc.y))));
             }
-          } else if (kPos && kind >= posleaf::kPhraseExact) {
+          } else if (kind == kVec) {
+            // the clause's match is the exists mask, for every row; its
+            // score the column at (row, doc), rows past B reading the
+            // last row as the parameters do
+            const bool ex = a.vexists[slot][doc] != 0;
+            m = ex ? (1u << kBT) - 1u : 0u;
+            if (adds) {
+              const float* col = a.vcol[slot];
+              const int row0 = s_row0, n_rows = s_nrows;
+#pragma unroll
+              for (int r = 0; r < kBT; ++r) {
+                const size_t b = row0 + min(r, n_rows - 1);
+                acc[r] = __fadd_rn(acc[r],
+                                   sel(ex, __ldg(col + b * a.cap + doc)));
+              }
+            }
+          } else if (kPos && is_pos(kind)) {
             m = static_cast<unsigned>(s_pm[pc * kThreads + tid]);
             const float* ps = s_ps + pc * kBT * kThreads + tid;
             if (adds) {
@@ -1192,7 +1235,7 @@ extern "C" int bundle_topk(const BundleArgs* args, void* stream) {
   // a positional clause always brings parameter rows (pw > 0)
   a.n_pos = 0;
   for (int c = 0; c < a.n_clauses; ++c)
-    a.n_pos += a.clause[c][1] >= posleaf::kPhraseExact ? 1 : 0;
+    a.n_pos += is_pos(a.clause[c][1]) ? 1 : 0;
   if ((a.n_pos > 0) != (a.pw > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   a.n_sub = (a.nt + a.chunk_tiles - 1) / a.chunk_tiles;

@@ -15,7 +15,9 @@ Pallas kernel:
 * K3 `bundle_topk` (csrc/bundle_topk.cu) replaces `_make_bundle_kernel`
   / `fused_topk_bundle_pallas` / `match_mask_bundle_pallas`: the fused
   block-max walk over a bool clause bundle (dense text clauses, numeric
-  range masks, positional phrase / span / BM25F clauses), per doc tile
+  range masks, positional phrase / span / BM25F clauses, and `knn_vec`
+  clauses that read a precomputed [B, cap] similarity column), per doc
+  tile
   the exact match count, a prune flag, the ck best candidates (ck > 0)
   and the match mask (emit_match). Its entries are `fused_topk_bundle`,
   `match_mask_bundle` (the ck == 0 grid) and `fused_topk_dense`. A
@@ -71,6 +73,9 @@ LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0,
 # of the whole grid), a seeded single launch (thr_init given: a delta
 # walk chained onto its base), the plain single launch
 BUNDLE_FORMS = {"single": 0, "stepped": 0, "seeded": 0}
+# K3's launches that carry a knn_vec clause (a hybrid BM25+vector plan),
+# by the same launch forms
+BUNDLE_VEC_FORMS = {"single": 0, "stepped": 0, "seeded": 0}
 # the scan's launches by route: no perm, gathers straight from the rows
 # (a key sort), the doc-major copy first (a scattered perm)
 SCAN_ROUTES = {"none": 0, "rows": 0, "doc_major": 0}
@@ -650,6 +655,7 @@ _BUNDLE_CHUNK_TILES = 8
 _BUNDLE_MIN_ITEMS = 512
 _ROLES = {"must": 0, "filter": 1, "must_not": 2, "should": 3}
 _KINDS = {"terms_dense": 0, "term_text": 0, "range_int": 1, "range_f32": 2}
+_VEC_KIND = 8            # knn_vec (kVec of csrc/bundle_topk.cu)
 # positional kinds of the descriptor table (posleaf::kPhraseExact ...)
 _POS_KINDS = {("phrase_pos", "e"): 3, ("phrase_pos", "s"): 4,
               ("span_pos", "o"): 5, ("span_pos", "u"): 6}
@@ -660,6 +666,8 @@ def _kind_code(kind: str) -> int:
     from .scoring import parse_positional_kind, positional_prefix
     if kind in _KINDS:
         return _KINDS[kind]
+    if kind == "knn_vec":
+        return _VEC_KIND
     head = positional_prefix(kind)
     if head is None:
         raise ValueError(f"clause kind [{kind}] has no bundle form")
@@ -703,7 +711,8 @@ def _stack_bundle_inputs(clauses: tuple, cl_inputs: tuple):
     """Clause-stacked walk inputs: every dense clause padded to qm = the
     widest clause (tid -1 / weight 0 padding adds an exact +0.0); range
     clauses contribute their (lo, hi) pairs in clause order; positional
-    clauses ride their own parameter rows (_pos_param_rows). Returns
+    clauses ride their own parameter rows (_pos_param_rows) and knn_vec
+    clauses their column pointers. Returns
     (qm, qt [B, Cd*qm] i32, wq f32, msmc [B, Cd] i32, boostc f32,
     ranges ((lo [B], hi [B]), ...)); Cd may be 0."""
     from .scoring import positional_prefix
@@ -714,7 +723,7 @@ def _stack_bundle_inputs(clauses: tuple, cl_inputs: tuple):
     qm = max((inp[0].shape[1] for inp in dense), default=1)
     qts, wqs, msmcs, boostcs, ranges = [], [], [], [], []
     for (_r, kind, _f, _w), inp in zip(clauses, cl_inputs):
-        if positional_prefix(kind):
+        if positional_prefix(kind) or kind == "knn_vec":
             continue
         if kind not in _KINDS:
             raise ValueError(f"clause kind [{kind}] has no bundle form")
@@ -857,8 +866,9 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
     Returns (cs [B, J*ck] f32, ci [B, J*ck] i32, cnt [B, J] i32, flags
     [B, J] i32, match [B, cap] bool or None, thr [B] f32: the row max of
     the sub-chunks' final thresholds); cs/ci/thr are None at ck 0."""
-    from .scoring import (bundle_num_fields, bundle_pos_fields,
-                          bundle_text_fields, bundle_tile_eval)
+    from .scoring import (VEC_CLAUSE_KINDS, bundle_num_fields,
+                          bundle_pos_fields, bundle_text_fields,
+                          bundle_tile_eval)
     from .topk import top_k_values
     B = msm.shape[0]
     cap = live.shape[0]
@@ -907,7 +917,11 @@ def bundle_walk_ref(text_cols: dict, num_cols: dict, clauses: tuple,
                         ("values", "exists"), docs),
             msm, boost, live[docs],
             pos_tiles=_walk_tiles(text_cols, bundle_pos_fields(clauses),
-                                  ("fwd_pos", "k1ln", "lnorm"), docs))
+                                  ("fwd_pos", "k1ln", "lnorm"), docs),
+            vec_tiles={ci: (inp[0][:, docs], inp[1][docs])
+                       for ci, ((_r, kd, _f, _w), inp)
+                       in enumerate(zip(clauses, cl_inputs))
+                       if kd in VEC_CLAUSE_KINDS})
         score = score.reshape(B, nc, tile)
         can_j = can[:, tiles]                                # [B, nc]
         any_hit = tile_vote(can_j)
@@ -962,7 +976,8 @@ class _BundleArgs(ctypes.Structure):
                 ("qm", _I), ("n_dense", _I), ("n_range", _I), ("ck", _I),
                 ("update_thr", _I), ("chunk_tiles", _I),
                 ("emit_match", _I), ("thr_in", _P), ("thr_out", _P),
-                ("t0", _I), ("nt", _I), ("n_pos", _I), ("n_sub", _I)]
+                ("t0", _I), ("nt", _I), ("n_pos", _I), ("n_sub", _I),
+                ("vcol", _P * 8), ("vexists", _P * 8)]
 
 
 class _PosLeafArgs(ctypes.Structure):
@@ -1056,7 +1071,7 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
                          f"parameters per row, got {pw}")
     a = _BundleArgs()
     text_fields, num_fields, pos_fields, pos_clauses = [], [], [], []
-    dc = ri = 0
+    dc = ri = vi = 0
     for c, ((role, kind, field, _w), inp) in enumerate(zip(clauses,
                                                            cl_inputs)):
         code = _kind_code(kind)
@@ -1092,6 +1107,16 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
                 num_fields.append(field)
             slot, fidx = ri, num_fields.index(field)
             ri += 1
+        elif code == _VEC_KIND:
+            col, v_exists = inp[0], inp[1]
+            _check(col, f"{field}.similarity", torch.float32, 2, dev)
+            _check(v_exists, f"{field}.exists", torch.bool, 1, dev)
+            if tuple(col.shape) != (B, cap) or v_exists.shape[0] != cap:
+                raise ValueError(f"{field}: similarity column "
+                                 f"{tuple(col.shape)} != {(B, cap)}")
+            a.vcol[vi], a.vexists[vi] = col.data_ptr(), v_exists.data_ptr()
+            slot, fidx = vi, vi
+            vi += 1
         else:
             pos_clauses.append(c)
             n_pos, nt_pos = _check_pos_shape(kind, field, inp)
@@ -1182,8 +1207,11 @@ def bundle_walk(text_cols: dict, num_cols: dict, clauses: tuple,
     err = fn(ctypes.byref(a), _stream(dev))
     _raise_on(err, "bundle_topk")
     LAUNCHES["bundle_topk"] += 1
-    BUNDLE_FORMS["stepped" if nt < n_tiles else
-                 "seeded" if thr_in is not None else "single"] += 1
+    form = ("stepped" if nt < n_tiles else
+            "seeded" if thr_in is not None else "single")
+    BUNDLE_FORMS[form] += 1
+    if vi:
+        BUNDLE_VEC_FORMS[form] += 1
     thr = None if thr_out is None else thr_out.max(dim=1).values
     return cs, ci, cnt, flags, match, thr
 

@@ -8,8 +8,9 @@ Counterpart of `elasticsearch_tpu/ops/scoring.py`:
   and vectorized over the 128-lane posting blocks. The gathers stay in
   torch; the scatter is the hand-written kernel
   `ops/cuda_scoring.scatter_add` (its plain version on the CPU).
-* the bundle leaf functions (:147-983) for the dense-text, numeric-range
-  and positional (phrase / span / BM25F) clause kinds: per-tile bounds
+* the bundle leaf functions (:147-983) for the dense-text, numeric-range,
+  vector (`knn_vec`) and positional (phrase / span / BM25F) clause
+  kinds: per-tile bounds
   (`bundle_tile_bounds`, computed outside the kernel and shared by the
   plain walk and the kernel, so both prune identically) and the per-tile
   bundle evaluation (`bundle_tile_eval` / `bundle_tile_match`). The walk
@@ -23,7 +24,11 @@ Counterpart of `elasticsearch_tpu/ops/scoring.py`:
 A clause bundle is a static tuple of (role, kind, field, wrapped) in
 eval_node order (must, filter, must_not, should); its per-clause inputs
 are (qt [B, Q] i32, wq [B, Q] f32, msm_c [B] i32, boost_c [B] f32) for a
-dense clause, (lo [B], hi [B]) in the column's dtype for a range, and
+dense clause, (lo [B], hi [B]) in the column's dtype for a range,
+(col [B, cap] f32, exists [cap] bool, ub [B, J] f32) for a knn_vec
+clause (the similarity column with the boost folded in, 0 where the doc
+has no vector; its exists mask, which is the clause's match; the
+column's per-tile max, BOUND_SLACK-inflated: an exact tile bound), and
 for the positional kinds
 
   phrase_pos:{n}:{e|s} / span_pos:{n}:{o|u}: (qt [B, n] i32, wb [B, n]
@@ -114,6 +119,7 @@ BOUND_SLACK = 1.0 + 32 * float(np.finfo(np.float32).eps)
 
 DENSE_CLAUSE_KINDS = ("terms_dense", "term_text")
 RANGE_CLAUSE_KINDS = ("range_int", "range_f32")
+VEC_CLAUSE_KINDS = ("knn_vec",)
 POSITIONAL_PREFIXES = ("phrase_pos", "span_pos", "bm25f")
 
 # decoded-position pad: far above any real position (POS_MAX_ENC 32767
@@ -528,6 +534,18 @@ def bundle_tile_bounds(clauses: tuple, cl_inputs: tuple, text_cols: dict,
                 possible = possible & p
             elif role == "should":
                 pos_cnt = pos_cnt + p.to(torch.int32)
+        elif kind in VEC_CLAUSE_KINDS:
+            # the executor supplies the exact per-tile bound (the tile
+            # max of the similarity column); can-match is "some doc in
+            # the tile has a vector"
+            _col, v_exists, ub = inp
+            p = v_exists.reshape(n_tiles, -1).any(dim=1)[None, :] \
+                .expand(b, n_tiles)
+            bound = bound + ub
+            if role == "must":
+                possible = possible & p
+            else:                           # should
+                pos_cnt = pos_cnt + p.to(torch.int32)
         elif role != "must_not":            # range mask: no bound to
             lo, hi = inp                    # prune on for exclusions
             tl = num_cols[field]["tile_lo"]
@@ -537,20 +555,31 @@ def bundle_tile_bounds(clauses: tuple, cl_inputs: tuple, text_cols: dict,
     can_match = possible & (pos_cnt >= msm[:, None])
     if boost is not None:
         bound = bound * boost[:, None]
+    # sign-guarded combine slack: a knn clause's bound can be negative
+    # (dot_product on non-unit vectors), and scaling a negative total
+    # up would lower it below the tile's best score
+    return can_match, slack_bound(bound)
+
+
+def slack_bound(bound: torch.Tensor) -> torch.Tensor:
+    """BOUND_SLACK inflation, conservative on both signs: a nonnegative
+    bound scales up, a negative one shrinks toward zero."""
     slack = np.float32(BOUND_SLACK)
-    return can_match, torch.where(bound >= 0.0, bound * slack,
-                                  bound / slack)
+    return torch.where(bound >= 0.0, bound * slack, bound / slack)
 
 
 def bundle_tile_eval(clauses: tuple, cl_inputs: tuple, text_tiles: dict,
                      num_tiles: dict, msm: torch.Tensor,
                      boost: torch.Tensor | None, t_live: torch.Tensor,
-                     pos_tiles: dict | None = None
+                     pos_tiles: dict | None = None,
+                     vec_tiles: dict | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Evaluate a clause bundle over a set of docs -> (score [B, n]
     post-boost, match [B, n] incl. live). `text_tiles[f]` = (tids
     [n, L], imps [n, L]), `num_tiles[f]` = (values [n], exists [n]),
-    `pos_tiles[f]` = (pos [n, L*P] i16, k1ln [n], lnorm [n]).
+    `pos_tiles[f]` = (pos [n, L*P] i16, k1ln [n], lnorm [n]),
+    `vec_tiles[ci]` = (col [B, n], exists [n]), knn clause ci's slice of
+    its similarity column.
     Every op is per doc, so any doc set (one tile, or several tiles side
     by side) gives the same numbers. The op order is eval_node's bool
     branch: clause scores where-masked and added in clause order, a
@@ -562,7 +591,8 @@ def bundle_tile_eval(clauses: tuple, cl_inputs: tuple, text_tiles: dict,
     must_ok = torch.ones((b, n), dtype=torch.bool, device=dev)
     not_any = torch.zeros((b, n), dtype=torch.bool, device=dev)
     cnt = torch.zeros((b, n), dtype=torch.int32, device=dev)
-    for (role, kind, field, _w), inp in zip(clauses, cl_inputs):
+    for ci, ((role, kind, field, _w), inp) in enumerate(
+            zip(clauses, cl_inputs)):
         if kind in DENSE_CLAUSE_KINDS:
             qt, wq, msm_c, boost_c = inp
             t_tids, t_imps = text_tiles[field]
@@ -578,6 +608,10 @@ def bundle_tile_eval(clauses: tuple, cl_inputs: tuple, text_tiles: dict,
             msm_c, boost_c = inp[-2], inp[-1]
             m = (m_leaf | (msm_c <= 0)[:, None]) & (msm_c <= 1)[:, None]
             s = torch.where(m_leaf, s_leaf, 0.0) * boost_c[:, None]
+        elif kind in VEC_CLAUSE_KINDS:
+            t_col, t_exists = vec_tiles[ci]
+            m = t_exists[None, :].expand(b, n)
+            s = t_col                        # boost already folded in
         else:
             lo, hi = inp
             t_vals, t_exists = num_tiles[field]
@@ -603,23 +637,28 @@ def bundle_tile_eval(clauses: tuple, cl_inputs: tuple, text_tiles: dict,
 def bundle_tile_match(clauses: tuple, cl_inputs: tuple, text_tiles: dict,
                       num_tiles: dict, msm: torch.Tensor,
                       t_live: torch.Tensor,
-                      pos_tiles: dict | None = None) -> torch.Tensor:
+                      pos_tiles: dict | None = None,
+                      vec_tiles: dict | None = None) -> torch.Tensor:
     """Mask-only bundle_tile_eval -> match [B, n]. A dense clause's match
     is `score > 0`; impacts of real postings are positive and clause
     weights are clamped positive at bind time, so that equals "some
     query term (qt >= 0) sits in a slot with positive impact", which is
     what this membership test computes without the multiply-adds. A
     bm25f clause's match is the same test over its (field, term) pairs;
-    a phrase / span clause's needs its frequency."""
+    a phrase / span clause's needs its frequency; a knn clause's is the
+    exists mask of its vector field."""
     b = msm.shape[0]
     n = t_live.shape[0]
     dev = t_live.device
     must_ok = torch.ones((b, n), dtype=torch.bool, device=dev)
     not_any = torch.zeros((b, n), dtype=torch.bool, device=dev)
     cnt = torch.zeros((b, n), dtype=torch.int32, device=dev)
-    for (role, kind, field, _w), inp in zip(clauses, cl_inputs):
+    for ci, ((role, kind, field, _w), inp) in enumerate(
+            zip(clauses, cl_inputs)):
         head = positional_prefix(kind)
-        if head == "bm25f":
+        if kind in VEC_CLAUSE_KINDS:
+            m = vec_tiles[ci][1][None, :].expand(b, n)
+        elif head == "bm25f":
             qt, _idf, _wf, _pboost, msm_c, _boost_c = inp
             nf, nt = qt.shape[1], qt.shape[2]
             m_leaf = torch.zeros((b, n), dtype=torch.bool, device=dev)

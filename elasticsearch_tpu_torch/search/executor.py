@@ -42,8 +42,18 @@ pair of the streaming write path searches both in one dispatch
 (`execute_pack_async`: the delta walk chained onto the base's top-k,
 collected back into per-segment lists). With `ES_TPU_RESIDENT_LOOP` set,
 fused plans go through pinned resident entries (`search/resident.py`)
-that run the stepped K3 walk with a per-chunk deadline check. The fused
-engine's backend autotuner, knn clauses and tiering are not ported yet.
+that run the stepped K3 walk with a per-chunk deadline check.
+
+Vectors. A `knn` query node binds to the `knn_vec` kind: the similarity
+column of `ops/knn.knn_score_column` (bf16 values resident on the
+device, f32 norms) times the clause boost, matching every doc with a
+vector. Unfused it is an eval_node leaf; in a bool beside a text clause
+it is a bundle clause of K3 (`knn_vec`), whose per-tile bound is the
+column's exact tile max (`_vec_clause_inputs`). The reference serves
+such hybrid bundles on its XLA engine only (its Pallas kernel rejects
+them as `knn_clause`); the port has one engine, K3, so they run there,
+and a plan that K3 cannot take raises rather than falling back. The
+fused engine's backend autotuner and tiering are not ported yet.
 Uploaded columns and resident entries hold their bytes against the
 fielddata breaker (`utils/breaker.py`).
 """
@@ -68,16 +78,17 @@ from ..index.segment import (Segment, next_pow2, bm25_idf,
                              POS_MAX_ENC)
 from ..ops import aggs as agg_ops
 from ..ops import cuda_scoring, ordered
+from ..ops.knn import SIMILARITIES as _KNN_SIMILARITIES, knn_score_column
 # fused positional clause caps: n rides in the clause kind string
 # (phrase_pos:{n}:..., bm25f:{nf}:{nt}); wider shapes take the host path
 from ..ops.cuda_scoring import (POS_MAX_FIELDS as _POS_FIELDS_MAX,
                                 POS_MAX_TERMS as _POS_CLAUSE_TERMS_MAX)
 from ..ops.scoring import (DENSE_CLAUSE_KINDS, RANGE_CLAUSE_KINDS,
-                           bm25f_kind, bundle_num_fields,
+                           VEC_CLAUSE_KINDS, bm25f_kind, bundle_num_fields,
                            bundle_primary_field, bundle_text_fields,
                            clause_fields, parse_positional_kind,
                            phrase_kind, positional_prefix, score_term,
-                           score_terms_fused, span_kind)
+                           score_terms_fused, slack_bound, span_kind)
 from ..ops.topk import (running_topk_init, top_k_hits, top_k_by_field,
                         top_k_values)
 from ..utils.breaker import breaker_service
@@ -86,7 +97,7 @@ from ..utils.errors import (CircuitBreakingError, QueryParsingError,
 from . import resident as _resident
 from .query_dsl import (Query, MatchAllQuery, MatchNoneQuery, TermQuery,
                         RangeQuery, PrefixQuery, BoolQuery,
-                        ConstantScoreQuery)
+                        ConstantScoreQuery, KnnQuery)
 
 _F32_MIN_WEIGHT = 1e-30  # keeps score>0 as the match signal even at boost~0
 _DENSE_GROUP_MAX = 8     # should-groups up to this many terms take the
@@ -109,7 +120,9 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
     them: the columns the unfused path reads, plus each forward-indexed
     field's block-max summary `tile_max` for the fused engine and the
     positional pack (`fwd_pos` int16, `k1ln` / `lnorm` f32) where the
-    field has one.
+    field has one, and per vector field its values in bf16 (the
+    reference's residency: the product reads bf16 anyway), f32 norms and
+    the exists mask.
 
     Numeric `values` / `mv_values` are the values as XLA's arithmetic
     and compares see them, subnormals flushed to zeros of their sign
@@ -153,6 +166,11 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
                   if kc.mv_ords is not None},
         "num": {name: _num_column(nc, device)
                 for name, nc in segment.numerics.items()},
+        "vec": {name: {"values": _up(ordered.ftz_np(vc.values), device)
+                       .to(torch.bfloat16),
+                       "exists": _up(vc.exists, device),
+                       "norms": _up(ordered.ftz_np(vc.norms), device)}
+                for name, vc in segment.vectors.items()},
     }
     segment._device = (device, dev)  # type: ignore[attr-defined]
     return dev
@@ -166,7 +184,9 @@ def release_device_arrays(segment: Segment) -> None:
     hold = getattr(segment, "_breaker_hold", None)
     if hold is not None:
         hold.release()
-    for attr in ("_device", "_live_dev", "_live_view_cache"):
+    for entry in (getattr(segment, "_ann_device", None) or {}).values():
+        entry["_breaker_hold"].release()
+    for attr in ("_device", "_live_dev", "_live_view_cache", "_ann_device"):
         segment.__dict__.pop(attr, None)
 
 
@@ -1041,6 +1061,30 @@ class QueryBinder:
         return Bound("const", scalars={"boost": q.boost},
                      children={"q": [self.bind(q.query)]})
 
+    def _bind_KnnQuery(self, q: KnnQuery) -> Bound:
+        """Vector similarity as a scoring clause: every live doc with a
+        vector matches, scored by the field similarity's transform times
+        boost. The similarity rides the desc; the query vector and boost
+        are params."""
+        vc = self.seg.vectors.get(q.field)
+        if vc is None:
+            return self._no_match()
+        fm = self.mappers.field(q.field)
+        sim = fm.similarity if fm is not None and fm.similarity else "cosine"
+        if sim not in _KNN_SIMILARITIES:
+            raise QueryParsingError(
+                f"[knn] unsupported similarity [{sim}] on [{q.field}]")
+        qv = np.asarray(q.vector, dtype=np.float32)
+        if qv.shape[0] != vc.dims:
+            raise QueryParsingError(
+                f"[knn] query_vector has {qv.shape[0]} dims, field "
+                f"[{q.field}] has {vc.dims}")
+        return Bound("knn_vec", q.field,
+                     scalars={"boost": max(float(q.boost),
+                                           _F32_MIN_WEIGHT),
+                              "sim": sim},
+                     arrays={"qv": qv})
+
 
 # ---------------------------------------------------------------------------
 # finalize: Bound trees (a batch with identical structure) -> (desc, params)
@@ -1131,6 +1175,12 @@ def _finalize_node(bounds: Sequence[Bound]) -> tuple[tuple, tuple]:
     if kind == "range_kw":
         return (("range_kw", b0.field),
                 (stack_scalar("lo", np.int32), stack_scalar("hi", np.int32),
+                 stack_scalar("boost", np.float32)))
+    if kind == "knn_vec":
+        # the similarity is static (in the desc); the query vector and
+        # boost are params, so searches with other vectors batch together
+        return (("knn_vec", b0.field, b0.scalars["sim"]),
+                (np.stack([b.arrays["qv"] for b in bounds]),
                  stack_scalar("boost", np.float32)))
     if kind == "docs_w":
         n_pad = next_pow2(max(b.arrays["docs"].size for b in bounds), floor=1)
@@ -1303,6 +1353,17 @@ def eval_node(desc: tuple, params: tuple, seg: dict, cap: int, B: int
             kind, field, tuple(params) + (ones_i, ones_f),
             {f: seg["text"][f] for f in clause_fields(field)})
         return torch.where(m_leaf, s_leaf, 0.0), m_leaf
+    if kind == "knn_vec":
+        # one whole-capacity similarity column: the same one the fused
+        # bundle walk reads (_vec_clause_inputs), so fused and unfused
+        # hybrid scores are equal
+        _, field, sim = desc
+        qv, boost = params                          # [B, D], [B]
+        v = seg["vec"][field]
+        col = knn_score_column(v["values"], v["norms"], v["exists"], qv,
+                               similarity=sim)
+        match = v["exists"][None, :].expand(B, cap)
+        return col * boost[:, None], match
     if kind == "term_kw":
         _, field = desc
         ordv, scorev = params
@@ -1879,8 +1940,10 @@ def _fused_plan_bundle(desc: tuple, k: int, agg_desc, sort_spec: tuple,
     bundle in eval_node order (must, filter, must_not, should), or
     (None, reject reason). Needs a pure score sort; k == 0 plans only
     where the caller runs the mask-only grid (allow_k0). Clause kinds
-    the bundle has no form for (keyword sets, posting-scatter terms,
-    knn, positional) are rejected by reason, never half-run."""
+    the bundle has no form for (keyword sets, posting-scatter terms)
+    are rejected by reason, never half-run. A knn clause rides as a
+    must or should `knn_vec` clause beside a text clause (a hybrid
+    BM25+vector plan)."""
     if not fused_enabled():
         return None, "disabled"
     if k <= 0 and not allow_k0:
@@ -1903,6 +1966,11 @@ def _fused_plan_bundle(desc: tuple, k: int, agg_desc, sort_spec: tuple,
                 clauses.append((role,) + leaf)
             elif role in ("filter", "must_not") \
                     and c[0] in RANGE_CLAUSE_KINDS:
+                clauses.append((role, c[0], c[1], False))
+            elif role in ("must", "should") \
+                    and c[0] in VEC_CLAUSE_KINDS:
+                # hybrid BM25+knn: scored per tile from the similarity
+                # column
                 clauses.append((role, c[0], c[1], False))
             else:
                 return None, f"clause:{c[0]}"
@@ -1938,6 +2006,11 @@ def _bundle_inputs(desc: tuple, params: tuple, bundle: tuple, B: int,
         if kind in RANGE_CLAUSE_KINDS:
             lo, hi, _boost_r = p
             out.append((lo, hi))
+        elif kind in VEC_CLAUSE_KINDS:
+            # (qv [B, D], boost [B], similarity): the raw clause inputs,
+            # which eval_fused_topk / match turn into (col, exists, ub)
+            qv, boost_c = p
+            out.append((qv, boost_c, d[2]))
         elif wrapped:
             _, _cm, c_should, _cn, _cf = d
             _pm, pc_should, _pn, _pf, msm_c, boost_c = p
@@ -1973,6 +2046,9 @@ def _fused_pack_ok(segment: Segment, bundle: tuple,
                 if pf is None or pf.fwd_tids is None \
                         or pf.fwd_pos is None or pf.tile_max is None:
                     return "missing_positions_pack"
+        elif kind in VEC_CLAUSE_KINDS:
+            if segment.vectors.get(field) is None:
+                return "missing_vector_column"
         elif not ensure_num_tiles(segment, field, device):
             return "missing_tile_minmax"
     return None
@@ -1988,25 +2064,35 @@ def _fused_params_ok(desc: tuple, params: tuple, bundle: tuple) -> bool:
     p_groups = {"must": params[0], "should": params[1],
                 "must_not": params[2], "filter": params[3]}
     nxt = {r: 0 for r in p_groups}
-    for role, _kind, _field, wrapped in bundle:
+    for role, kind, _field, wrapped in bundle:
         p = p_groups[role][nxt[role]]
         nxt[role] += 1
         if wrapped and not bool((np.asarray(p[5]) > 0).all()):
+            return False
+        # a knn clause's tile bound is the max of its boost-folded
+        # column: monotone only for a positive boost
+        if kind in VEC_CLAUSE_KINDS \
+                and not bool((np.asarray(p[1]) > 0).all()):
             return False
     return True
 
 
 def _fused_row_elems(cap: int, n_tiles: int, k: int,
-                     emit_match: bool = False, pos_width: int = 0) -> int:
+                     emit_match: bool = False, vec_clauses: int = 0,
+                     pos_width: int = 0) -> int:
     """Per-row transient of a fused dispatch in elements: one [*, tile]
     scoring slab, the [*, n_tiles*ck] candidate strip, the [*, cap]
-    match mask in emit-match mode, and the decoded [*, tile, n*P]
-    position slab of the widest positional clause (pos_width = n * P)
-    that the plain walk builds. The batch chunking sizes from it, as the
-    reference's does."""
+    match mask in emit-match mode, one [*, cap] similarity column per
+    knn clause, and the decoded [*, tile, n*P] position slab of the
+    widest positional clause (pos_width = n * P) that the plain walk
+    builds. The batch chunking sizes from it, as the reference's does."""
     tile = cap // n_tiles
     return tile + n_tiles * min(k, tile) + (cap if emit_match else 0) \
-        + pos_width * tile
+        + vec_clauses * cap + pos_width * tile
+
+
+def _vec_clauses(bundle: tuple) -> int:
+    return sum(kd in VEC_CLAUSE_KINDS for _r, kd, _f, _w in bundle)
 
 
 def _bundle_pos_width(bundle: tuple, text_cols: dict) -> int:
@@ -2034,8 +2120,8 @@ def _bundle_positional(bundle: tuple) -> bool:
 class _FusedScoringStats:
     """Admission (admitted, rejected by reason), positional admission
     (plans carrying positional clauses, queries bound on the host path
-    by reason) and block-prune counters of the fused engine, in doc-tile
-    units."""
+    by reason), top-level `knn` admission by reason, and the block-prune
+    (doc-tile units) and IVF cluster-prune counters."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -2049,6 +2135,8 @@ class _FusedScoringStats:
             self._rejected: dict[str, int] = {}
             self._positional: dict[str, int] = {}
             self._positional_admitted = 0
+            self._knn: dict[str, int] = {}
+            self._ann_probed = self._ann_pruned = self._ann_scored = 0
 
     def record_admit(self, positional: bool = False) -> None:
         with self._lock:
@@ -2065,6 +2153,23 @@ class _FusedScoringStats:
         path, by reason."""
         with self._lock:
             self._positional[reason] = self._positional.get(reason, 0) + 1
+
+    def record_knn(self, reason: str) -> None:
+        """How one top-level `knn` search section was served:
+        "query_rewrite" (a bundle clause beside the query), "ivf" (the
+        IVF probe), "exact" (the exact scan) or "host_fallback:<why>"."""
+        with self._lock:
+            self._knn[reason] = self._knn.get(reason, 0) + 1
+
+    def record_ann_prune(self, probed: int, pruned: int,
+                         scored: int) -> None:
+        """IVF probe counters (ops/ann.ivf_topk stats, per (query,
+        cluster)): `pruned` counts probed clusters whose bound could not
+        beat the running k-th best, skipped without scoring."""
+        with self._lock:
+            self._ann_probed += int(probed)
+            self._ann_pruned += int(pruned)
+            self._ann_scored += int(scored)
 
     def record_prune(self, hard: float, thresholded: float,
                      examined: float) -> None:
@@ -2085,9 +2190,13 @@ class _FusedScoringStats:
                           "thresholded": round(self._thresholded, 3)},
                 "prune_rate": (pruned / self._examined
                                if self._examined else 0.0),
+                "ann": {"clusters_probed": self._ann_probed,
+                        "clusters_pruned": self._ann_pruned,
+                        "clusters_scored": self._ann_scored},
                 "admission": {
                     "admitted": self._admitted,
                     "rejected": dict(self._rejected),
+                    "knn": dict(self._knn),
                     "positional_fallbacks": dict(self._positional),
                     "positional_admitted": self._positional_admitted,
                     "rate": (self._admitted / considered
@@ -2108,6 +2217,34 @@ def _bundle_cols(seg: dict, bundle: tuple) -> tuple[dict, dict]:
             {f: seg["num"][f] for f in bundle_num_fields(bundle)})
 
 
+def _vec_clause_inputs(seg: dict, bundle: tuple, cl_inputs: tuple) -> tuple:
+    """Each knn clause's raw (qv, boost, similarity) input -> the (col,
+    exists, ub) triple the bundle walk reads:
+
+      col -- the whole-capacity similarity column with the boost folded
+             in, the very ops of eval_node's knn_vec leaf in its order,
+             so fused and unfused hybrid scores are equal;
+      ub  -- the per-tile max of col, BOUND_SLACK-inflated with the sign
+             guard (dot_product can give negative scores, whose bound
+             must shrink toward zero): an exact query-time tile bound."""
+    if not any(kd in VEC_CLAUSE_KINDS for _r, kd, _f, _w in bundle):
+        return cl_inputs
+    n_tiles = seg["text"][bundle_primary_field(bundle)]["tile_max"].shape[1]
+    out = []
+    for (_role, kind, field, _w), inp in zip(bundle, cl_inputs):
+        if kind not in VEC_CLAUSE_KINDS:
+            out.append(inp)
+            continue
+        qv, boost_c, sim = inp
+        v = seg["vec"][field]
+        col = knn_score_column(v["values"], v["norms"], v["exists"], qv,
+                               similarity=sim) * boost_c[:, None]
+        b, cap = col.shape
+        ub = col.reshape(b, n_tiles, cap // n_tiles).amax(dim=2)
+        out.append((col, v["exists"], slack_bound(ub)))
+    return tuple(out)
+
+
 def eval_fused_topk(seg: dict, desc: tuple, params: tuple,
                     live: torch.Tensor, k: int, bundle: tuple, B: int,
                     emit_match: bool = False, step=None,
@@ -2120,6 +2257,7 @@ def eval_fused_topk(seg: dict, desc: tuple, params: tuple,
     pack)."""
     cl_inputs, msm, boost = _bundle_inputs(desc, params, bundle, B,
                                            seg["_device"])
+    cl_inputs = _vec_clause_inputs(seg, bundle, cl_inputs)
     if boost is None:
         boost = torch.ones_like(msm, dtype=torch.float32)
     text_cols, num_cols = _bundle_cols(seg, bundle)
@@ -2137,6 +2275,7 @@ def eval_fused_match(seg: dict, desc: tuple, params: tuple,
     timed_out when stepped."""
     cl_inputs, msm, boost = _bundle_inputs(desc, params, bundle, B,
                                            seg["_device"])
+    cl_inputs = _vec_clause_inputs(seg, bundle, cl_inputs)
     text_cols, num_cols = _bundle_cols(seg, bundle)
     return cuda_scoring.match_mask_bundle(
         text_cols, num_cols, bundle, cl_inputs, msm, boost, live,
@@ -2186,6 +2325,7 @@ def _segment_body(seg: dict, params: tuple, live: torch.Tensor,
             "tile_max"].shape[1]
         row_elems = _fused_row_elems(
             cap, n_tiles, k, emit_match=bool(agg_desc),
+            vec_clauses=_vec_clauses(fused),
             pos_width=_bundle_pos_width(fused, seg["text"]))
     else:
         row_elems = cap
@@ -2636,7 +2776,7 @@ def _pack_admit(base: Segment, delta: Segment, bounds_b, bounds_d, k: int,
         text = device_arrays(seg, device)["text"]
         row_elems += _fused_row_elems(
             seg.capacity, seg.text[f0].tile_max.shape[1], k_eff,
-            emit_match=bool(agg_desc),
+            emit_match=bool(agg_desc), vec_clauses=_vec_clauses(bundle),
             pos_width=_bundle_pos_width(bundle, text))
     if _chunk_b(b_pad, row_elems) < b_pad:
         # a batch this wide needs the per-segment path's B-chunked body

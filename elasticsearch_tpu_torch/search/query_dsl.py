@@ -7,7 +7,7 @@ queries this slice of the port serves: `match` (with `operator` /
 `constant_score`, the positional `match_phrase` / `match_phrase_prefix`,
 `span_term` / `span_near` / `span_or` / `span_first` / `span_not`, and
 `multi_match` (`cross_fields` as BM25F, the other types as a bool of
-per-field matches). Compound queries desugar exactly as in the
+per-field matches) and `knn` (a vector similarity clause). Compound queries desugar exactly as in the
 reference (`match` -> bool over analyzed terms, `terms` -> bool should,
 a one-term phrase -> term), so both packages bind the same plans. Every
 other query of the reference raises NotImplementedError.
@@ -143,13 +143,27 @@ class ConstantScoreQuery(Query):
     boost: float = 1.0
 
 
+@dataclass(frozen=True)
+class KnnQuery(Query):
+    """Vector similarity as a scoring clause: every live doc carrying a
+    vector matches, scored by the field similarity's transformed value
+    (ops/knn.knn_score_column) times `boost`. Composable in a bool, so a
+    hybrid BM25+vector search is one fused bundle (the `knn_vec` clause
+    kind, search/executor._fused_plan_bundle); the top-level `knn`
+    search section rewrites onto it (shard_searcher.rewrite_knn_body)."""
+
+    field: str
+    vector: tuple[float, ...] = ()
+    boost: float = 1.0
+
+
 # queries the reference parses that this slice does not carry yet
 _NOT_PORTED = frozenset((
     "exists", "missing", "ids", "wildcard", "fuzzy", "regexp", "span_multi",
     "more_like_this", "mlt", "common", "nested", "_parents_match",
     "wrapper", "indices", "type", "limit", "template", "filtered",
     "boosting", "dis_max", "and", "or", "not", "query_string",
-    "simple_query_string", "function_score", "knn", "geo_distance",
+    "simple_query_string", "function_score", "geo_distance",
     "geo_distance_range", "geo_bounding_box", "geo_polygon", "geo_shape",
     "script", "has_child", "has_parent", "parent_id"))
 
@@ -201,6 +215,16 @@ class QueryParser:
 
     def _parse_match_none(self, body) -> Query:
         return MatchNoneQuery()
+
+    def _parse_knn(self, body) -> Query:
+        if not isinstance(body, dict) or "field" not in body:
+            raise QueryParsingError("[knn] requires [field]")
+        vec = body.get("query_vector")
+        if not isinstance(vec, (list, tuple)) or not vec:
+            raise QueryParsingError("[knn] requires [query_vector]")
+        return KnnQuery(field=str(body["field"]),
+                        vector=tuple(float(x) for x in vec),
+                        boost=float(body.get("boost", 1.0)))
 
     @staticmethod
     def _no_ids(fld: str) -> None:

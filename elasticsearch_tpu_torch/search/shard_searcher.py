@@ -21,11 +21,20 @@ arms the per-chunk check of resident dispatches (`ES_TPU_RESIDENT_LOOP`).
 `term_stats` is the shard half of the DFS phase; a body's `_dfs_stats`
 (the node's global statistics) reaches the binder.
 
-Trimmed to this slice: request keys outside `query`, `aggs` /
-`aggregations`, `size`, `from`, `sort` (one key: `_score`, a keyword or
-a numeric field), `_source`, `version` and `_dfs_stats` raise
-NotImplementedError, as
-do knn, multi-key sorts, rescore, highlight, suggest and derived aggs.
+Vectors. A top-level `knn` section beside a `query` is rewritten into a
+bool should of the query and a `knn` clause (`rewrite_knn_body`), which
+joins the grouped path: a hybrid plan runs on K3 with its `knn_vec`
+clause. A pure `knn` section dispatches its per-segment candidates at
+submit (`_knn_candidates_submit`: the IVF probe where the segment has or
+builds an index, the exact scan otherwise) and combines them at finish
+in Python floats, as the reference does. `rescore` rescores the response
+window with a second query (`_apply_rescore`, five score modes).
+
+Trimmed to this slice: request keys outside `query`, `knn`, `rescore`,
+`aggs` / `aggregations`, `size`, `from`, `sort` (one key: `_score`, a
+keyword or a numeric field), `_source`, `version` and `_dfs_stats` raise
+NotImplementedError, as do multi-key sorts, highlight, suggest and
+derived aggs.
 """
 
 from __future__ import annotations
@@ -43,13 +52,62 @@ from ..index.segment import Segment
 from ..utils.errors import SearchParseError, SearchTimeoutError
 from .aggregations import (AggSpec, ShardAggContext, finalize_partials,
                            parse_aggs, reduce_aggs, shard_partials)
-from .executor import (QueryBinder, collect_pack_result,
-                       collect_segment_result, ensure_agg_views,
-                       execute_pack_async, execute_segment_async)
+from ..ops.knn import SIMILARITIES
+from .executor import (QueryBinder, _device_live, _fused_stats,
+                       collect_pack_result, collect_segment_result,
+                       device_arrays, ensure_agg_views, execute_pack_async,
+                       execute_segment_async)
 from .query_dsl import QueryParser
 
 _REQUEST_KEYS = frozenset(("query", "aggs", "aggregations", "size", "from",
-                           "sort", "_source", "version", "_dfs_stats"))
+                           "sort", "_source", "version", "_dfs_stats",
+                           "rescore"))
+
+
+def rewrite_knn_body(body: dict) -> dict:
+    """Top-level hybrid `knn` section -> plain query DSL: the knn spec
+    becomes a `knn` scoring clause in a bool should beside the query
+    section (minimum_should_match 1: a hit matches either side), summed
+    by ES's hybrid rule. As a plain query it rides the fused bundle
+    engine (K3's knn_vec clause) and the pack dispatch."""
+    spec = body["knn"]
+    knn_node = {"knn": {"field": spec["field"],
+                        "query_vector": spec["query_vector"],
+                        "boost": float(spec.get("boost", 1.0))}}
+    q = body.get("query")
+    if q:
+        new_q = {"bool": {"should": [q, knn_node],
+                          "minimum_should_match": 1}}
+    else:
+        new_q = knn_node
+    out = {k: v for k, v in body.items() if k not in ("knn", "query")}
+    out["query"] = new_q
+    return out
+
+
+def knn_body_mode(body: dict, mappers: MapperService) -> tuple[str, str]:
+    """(mode, admission reason) of a top-level `knn` section:
+    "rewrite" (a `query` rides along: rewrite_knn_body), "candidates"
+    (pure knn: per-segment candidates at submit, counted as "ivf" or
+    "exact" by what served them) or "host" (an unmapped field, an
+    unsupported similarity, a nonpositive boost: the synchronous host
+    combine, counted as host_fallback:<why>)."""
+    spec = body.get("knn") or {}
+    field = spec.get("field")
+    fm = mappers.field(field) if field else None
+    if fm is None or fm.type != "dense_vector":
+        return "host", "host_fallback:unmapped_field"
+    sim = fm.similarity if fm.similarity else "cosine"
+    if sim not in SIMILARITIES:
+        return "host", f"host_fallback:similarity:{sim}"
+    try:
+        if float(spec.get("boost", 1.0)) <= 0.0:
+            return "host", "host_fallback:nonpositive_boost"
+    except (TypeError, ValueError):
+        return "host", "host_fallback:bad_boost"
+    if body.get("query"):
+        return "rewrite", "query_rewrite"
+    return "candidates", "candidates"
 
 
 def _pack_dispatch_enabled() -> bool:
@@ -66,17 +124,23 @@ class _PendingMsearch:
     and builds the responses. `group_sizes` (queries per signature group)
     and `dispatch_count` (dispatches enqueued) describe the submit."""
 
-    __slots__ = ("reader", "bodies", "with_partials", "started", "parsed",
-                 "groups", "no_segments", "group_sizes", "dispatch_count",
-                 "deadline")
+    __slots__ = ("reader", "bodies", "with_partials", "started", "knn_idx",
+                 "knn_sub", "parsed", "main", "groups", "no_segments",
+                 "group_sizes", "dispatch_count", "deadline")
 
     def __init__(self, reader: "ShardReader", bodies: list[dict],
-                 with_partials: bool, started: float, parsed: list[dict]):
+                 with_partials: bool, started: float, knn_idx: list[int],
+                 parsed: dict[int, dict]):
         self.reader = reader
         self.bodies = bodies
         self.with_partials = with_partials
         self.started = started
+        self.knn_idx = knn_idx
+        # per-knn-item candidate dispatches (enqueued at submit; None =
+        # the synchronous host path)
+        self.knn_sub: dict[int, dict | None] = {}
         self.parsed = parsed
+        self.main: list[int] = []
         self.groups: list[dict] = []
         self.no_segments = False
         self.group_sizes: list[int] = []
@@ -213,16 +277,56 @@ class ShardReader:
         collecting. `.finish()` collects in submission order and builds
         the responses."""
         started = time.monotonic()
-        parsed = [self._parse_request(b) for b in bodies]
-        pend = _PendingMsearch(self, bodies, with_partials, started, parsed)
+        n = len(bodies)
+        bodies = list(bodies)
+        knn_idx = []
+        knn_modes: dict[int, str] = {}
+        for i, b in enumerate(bodies):
+            if not (b or {}).get("knn"):
+                continue
+            mode, reason = knn_body_mode(b, self.mappers)
+            if mode != "candidates":
+                # candidates items record "ivf" / "exact" at their submit
+                _fused_stats.record_knn(reason)
+            if mode == "rewrite" and self.segments:
+                # hybrid BM25+knn joins the grouped path as a plain query
+                bodies[i] = rewrite_knn_body(b)
+            else:
+                knn_idx.append(i)
+                knn_modes[i] = mode
+        knn_set = set(knn_idx)
+        parsed = {i: self._parse_request(bodies[i])
+                  for i in range(n) if i not in knn_set}
+        pend = _PendingMsearch(self, bodies, with_partials, started,
+                               knn_idx, parsed)
         pend.deadline = deadline
         if not self.segments:
             pend.no_segments = True
             return pend
+        # pure-knn items enqueue their per-segment candidates here, so
+        # they pipeline with every other dispatch; items of one (field,
+        # k) go as the rows of one dispatch a segment (each row's result
+        # is its own)
+        knn_groups: dict[tuple, list[int]] = {}
+        for i in knn_idx:
+            if knn_modes[i] != "candidates":
+                pend.knn_sub[i] = None
+                continue
+            field, _qv, k, _boost, sim = self._knn_spec(bodies[i])
+            knn_groups.setdefault((field, k, sim), []).append(i)
+        for idxs in knn_groups.values():
+            group = self._knn_candidates_submit([bodies[i] for i in idxs])
+            kind = "ivf" if any(kd == "ivf" for _o, kd, _p
+                                in group["pending"]) else "exact"
+            for row, i in enumerate(idxs):
+                _fused_stats.record_knn(kind)
+                pend.knn_sub[i] = {"group": group, "row": row}
+        pend.main = [i for i in range(n) if i not in knn_set]
         # group request indices by (plan signature per segment, agg/sort/k sig)
         groups: dict[tuple, list[int]] = {}
         bound_per_req: dict[int, list] = {}
-        for i, p in enumerate(parsed):
+        for i in pend.main:
+            p = parsed[i]
             per_seg_bounds = [
                 QueryBinder(seg, self.mappers, live=self.live[seg.seg_id],
                             dfs=p["dfs_stats"]).bind(p["query"])
@@ -240,8 +344,9 @@ class ShardReader:
                                       self.device)
             agg_desc, agg_params = agg_ctx.build(p0["agg_specs"])
             k = p0["from"] + p0["size"]
-            if k == 0 and p0["sort_spec"][0] != "_score":
-                k = 1  # sorted requests keep k >= 1
+            if k == 0 and (p0["sort_spec"][0] != "_score"
+                           or p0["rescore"] is not None):
+                k = 1  # sorted and rescored requests keep k >= 1
             sort_spec = p0["sort_spec"]
             if p0["agg_specs"]:
                 for si, seg in enumerate(self.segments):
@@ -297,9 +402,21 @@ class ShardReader:
     def _msearch_finish(self, pend: _PendingMsearch) -> list[dict]:
         parsed = pend.parsed
         responses: list[dict | None] = [None] * len(pend.bodies)
+        for i in pend.knn_idx:
+            self._deadline_check(pend)
+            sub = pend.knn_sub.get(i)
+            if sub is None:
+                responses[i] = self._knn_search(pend.bodies[i], pend.started,
+                                                pend.with_partials)
+            else:
+                responses[i] = self._knn_collect(pend.bodies[i], sub,
+                                                 pend.started,
+                                                 pend.with_partials)
         if pend.no_segments:
-            return [self._empty_response(p, pend.started, pend.with_partials)
-                    for p in parsed]
+            for i, p in parsed.items():
+                responses[i] = self._empty_response(p, pend.started,
+                                                    pend.with_partials)
+            return responses  # type: ignore[return-value]
         for g in pend.groups:
             # deadline passed before this group's collect: the shard
             # fails whole by timeout. Fully-resident groups skip this
@@ -345,7 +462,224 @@ class ShardReader:
                     sort_terms=g["sort_terms"])
                 if part_json is not None:
                     responses[i]["_agg_partials"] = part_json[bi]
+        # rescoring runs one more search a request, all of them as one
+        # msearch (a request's response does not depend on its batch); a
+        # shard that finishes it past the deadline is a laggard too
+        rescored = [i for i in pend.main if parsed[i]["rescore"] is not None]
+        if rescored:
+            self._deadline_check(pend)
+            subs = self.msearch([self._rescore_body(parsed[i])
+                                 for i in rescored])
+            for i, sub in zip(rescored, subs):
+                self._apply_rescore(responses[i], parsed[i], sub)
         return responses  # type: ignore[return-value]
+
+    # -- knn ---------------------------------------------------------------
+    def _knn_spec(self, body: dict) -> tuple:
+        spec = body["knn"]
+        field = spec["field"]
+        qv = np.asarray(spec["query_vector"], dtype=np.float32)
+        k = int(spec.get("k", spec.get("num_candidates", 10)))
+        boost = float(spec.get("boost", 1.0))
+        fm = self.mappers.field(field)
+        similarity = (fm.similarity if fm is not None and fm.similarity
+                      else "cosine")
+        return field, qv, k, boost, similarity
+
+    def _knn_exact_dispatch(self, seg: Segment, field: str, qv: np.ndarray,
+                            k: int, similarity: str):
+        """Exact-scan candidates of one segment for the query rows qv
+        [r, D], enqueued. Segments of 2^18 docs and more take a window of
+        max(4k, 100) candidates, as the reference's (whose TPU path
+        selects that window with approx_max_k); the selection here is
+        exact, so the combine's top k is the exact top k."""
+        from ..ops.knn import knn_topk
+        dev = device_arrays(seg, self.device)["vec"][field]
+        live = _device_live(seg, self.live[seg.seg_id], self.device)
+        window = (min(max(4 * k, 100), seg.capacity)
+                  if seg.capacity >= (1 << 18) else min(k, seg.capacity))
+        q = torch.from_numpy(np.ascontiguousarray(qv)).to(self.device)
+        return knn_topk(dev["values"], dev["norms"], dev["exists"], live, q,
+                        similarity=similarity, k=window)
+
+    def _knn_candidates_submit(self, bodies: list[dict]) -> dict:
+        """Dispatch half of pure-knn searches of one (field, k): the
+        per-segment candidate top-k of every body, one row each,
+        enqueued here and collected in finish. Segments that carry (or
+        build, index/ann.ensure_ann) an IVF index serve the probe
+        (ops/ann.ivf_topk); the rest the exact scan."""
+        from ..index import ann as ann_idx
+        from ..ops import ann as ann_ops
+        field, _qv, k, _boost, similarity = self._knn_spec(bodies[0])
+        qv = np.stack([self._knn_spec(b)[1] for b in bodies])
+        pending = []
+        for seg_ord, seg in enumerate(self.segments):
+            if seg.vectors.get(field) is None:
+                continue
+            ann = ann_idx.ensure_ann_device(seg, field, similarity,
+                                            self.device)
+            if ann is None:
+                pending.append((seg_ord, "exact", self._knn_exact_dispatch(
+                    seg, field, qv, k, similarity)))
+                continue
+            ai, adev = ann
+            dev = device_arrays(seg, self.device)["vec"][field]
+            live = _device_live(seg, self.live[seg.seg_id], self.device)
+            out = ann_ops.ivf_topk(
+                dev["values"], dev["norms"], dev["exists"], live,
+                adev["members"], adev["centroids"], adev["radii"],
+                torch.from_numpy(qv).to(self.device),
+                similarity=similarity, k=min(k, seg.capacity),
+                nprobe=ann_idx.default_nprobe(ai.n_clusters))
+            pending.append((seg_ord, "ivf", out))
+        return {"pending": pending, "k": k, "host": None}
+
+    def _knn_collect(self, body: dict, sub: dict, started: float,
+                     with_partials: bool) -> dict:
+        """Collect half: read the group's candidates (once, with its IVF
+        counters), merge this row's across segments (score desc, then
+        (segment, doc)), build the response."""
+        group = sub["group"]
+        if group["host"] is None:
+            host = []
+            for seg_ord, kind, out in group["pending"]:
+                if kind == "ivf":
+                    st = out[2].cpu().numpy()
+                    _fused_stats.record_ann_prune(int(st[0]), int(st[1]),
+                                                  int(st[2]))
+                host.append((seg_ord, out[0].cpu().numpy(),
+                             out[1].cpu().numpy()))
+            group["host"] = host
+        row = sub["row"]
+        cands: list[tuple[float, int, int]] = []
+        for seg_ord, scores, idx in group["host"]:
+            s, ix = scores[row], idx[row]
+            for j in range(s.shape[0]):
+                if np.isfinite(s[j]):
+                    cands.append((float(s[j]), seg_ord, int(ix[j])))
+        cands.sort(key=lambda c: (-c[0], c[1], c[2]))
+        return self._knn_build_response(body, cands[: group["k"]], started,
+                                        with_partials)
+
+    def _knn_search(self, body: dict, started: float,
+                    with_partials: bool = False) -> dict:
+        """The synchronous host path, for the shapes the device paths
+        decline (knn_body_mode "host") and for readers with no
+        segments: the exact scan per segment, combined here."""
+        field, qv, k, _boost, similarity = self._knn_spec(body)
+        cands: list[tuple[float, int, int]] = []
+        for seg_ord, seg in enumerate(self.segments):
+            if seg.vectors.get(field) is None:
+                continue
+            scores, idx = self._knn_exact_dispatch(seg, field, qv[None, :],
+                                                   k, similarity)
+            s = scores[0].cpu().numpy()
+            ix = idx[0].cpu().numpy()
+            for j in range(s.shape[0]):
+                if np.isfinite(s[j]):
+                    cands.append((float(s[j]), seg_ord, int(ix[j])))
+        cands.sort(key=lambda c: (-c[0], c[1], c[2]))
+        return self._knn_build_response(body, cands[:k], started,
+                                        with_partials)
+
+    def _knn_build_response(self, body: dict,
+                            cands: list[tuple[float, int, int]],
+                            started: float, with_partials: bool) -> dict:
+        spec = body["knn"]
+        k = int(spec.get("k", spec.get("num_candidates", 10)))
+        knn_boost = float(spec.get("boost", 1.0))
+        p = self._parse_request({kk: vv for kk, vv in body.items()
+                                 if kk != "knn"})
+        combined: dict[str, float] = {}
+        locate: dict[str, tuple[int, int]] = {}
+        for score, seg_ord, local in cands:
+            did = self.segments[seg_ord].ids[local]
+            combined[did] = score * knn_boost
+            locate[did] = (seg_ord, local)
+        if body.get("query"):
+            qboost = 1.0
+            sub = self.msearch([{"query": body["query"],
+                                 "size": max(k, p["from"] + p["size"]),
+                                 "_source": False}])[0]
+            for h in sub["hits"]["hits"]:
+                did = h["_id"]
+                combined[did] = combined.get(did, 0.0) + \
+                    (h["_score"] or 0.0) * qboost
+                if did not in locate:
+                    seg, local = self._locate(did)
+                    if seg is not None:
+                        locate[did] = (self.segments.index(seg), local)
+        ranked = sorted(combined.items(), key=lambda kv: (-kv[1], kv[0]))
+        window = ranked[p["from"]: p["from"] + p["size"]]
+        hits = []
+        for did, score in window:
+            seg_ord, local = locate[did]
+            seg = self.segments[seg_ord]
+            hit = {"_index": self.index_name, "_type": "_doc",
+                   "_id": did, "_score": float(score)}
+            if p["want_version"]:
+                hit["_version"] = int(seg.versions[local])
+            if p["source_filter"] is not False:
+                src = filter_source(_load_source(seg.sources[local]),
+                                    p["source_filter"])
+                if src is not None:
+                    hit["_source"] = src
+            hits.append(hit)
+        resp = {
+            "took": int((time.monotonic() - started) * 1000),
+            "timed_out": False,
+            "_shards": {"total": 1, "successful": 1, "failed": 0},
+            "hits": {"total": len(ranked),
+                     "max_score": ranked[0][1] if ranked else None,
+                     "hits": hits},
+        }
+        if p["agg_specs"] and with_partials:
+            resp["_agg_partials"] = {}
+        return resp
+
+    def _locate(self, doc_id: str) -> tuple[Segment | None, int]:
+        for seg in self.segments:
+            d = seg.id_map.get(doc_id)
+            if d is not None and self.live[seg.seg_id][d]:
+                return seg, d
+        return None, -1
+
+    # -- rescore -----------------------------------------------------------
+    @staticmethod
+    def _rescore_body(p: dict) -> dict:
+        """The rescore query's search over the window."""
+        spec = p["rescore"]
+        return {"query": spec["query"],
+                "size": max(spec["window_size"], p["from"] + p["size"]),
+                "_source": False}
+
+    def _apply_rescore(self, resp: dict, p: dict, sub: dict) -> None:
+        """Query rescorer over the response window (ref:
+        search/rescore/QueryRescorer.java): combine the original and the
+        rescore query's scores (`sub`, the response of `_rescore_body`)
+        of the window's docs, re-sort."""
+        spec = p["rescore"]
+        re_scores = {h["_id"]: h["_score"] for h in sub["hits"]["hits"]}
+        w1, w2, mode = (spec["query_weight"], spec["rescore_query_weight"],
+                        spec["score_mode"])
+        for h in resp["hits"]["hits"]:
+            orig = h.get("_score") or 0.0
+            rs = re_scores.get(h["_id"])
+            if rs is None:
+                h["_score"] = orig * w1
+            elif mode == "multiply":
+                h["_score"] = (orig * w1) * (rs * w2)
+            elif mode == "avg":
+                h["_score"] = (orig * w1 + rs * w2) / 2.0
+            elif mode == "max":
+                h["_score"] = max(orig * w1, rs * w2)
+            elif mode == "min":
+                h["_score"] = min(orig * w1, rs * w2)
+            else:  # total
+                h["_score"] = orig * w1 + rs * w2
+        resp["hits"]["hits"].sort(key=lambda h: -(h["_score"] or 0.0))
+        if resp["hits"]["hits"]:
+            resp["hits"]["max_score"] = resp["hits"]["hits"][0]["_score"]
 
     # -- internals ---------------------------------------------------------
     def _ords_for(self, specs: list[AggSpec]) -> dict:
@@ -369,6 +703,21 @@ class ShardReader:
         if size < 0 or frm < 0:
             raise SearchParseError("[from] and [size] must be >= 0")
         sort_spec = self._parse_sort(body.get("sort"))
+        rescore = body.get("rescore")
+        if isinstance(rescore, list):
+            rescore = rescore[0] if rescore else None
+        if rescore is not None:
+            q = rescore.get("query") or {}
+            rescore = {
+                "window_size": int(rescore.get("window_size", 10)),
+                "query": q.get("rescore_query"),
+                "query_weight": float(q.get("query_weight", 1.0)),
+                "rescore_query_weight": float(
+                    q.get("rescore_query_weight", 1.0)),
+                "score_mode": str(q.get("score_mode", "total")),
+            }
+            if rescore["query"] is None:
+                raise SearchParseError("[rescore] requires [rescore_query]")
         static_sig = (
             tuple((s.name, s.kind, s.field, s.interval, s.size,
                    s.min_doc_count, s.order,
@@ -381,6 +730,7 @@ class ShardReader:
                 "source_filter": body.get("_source", True),
                 "static_sig": static_sig,
                 "want_version": bool(body.get("version", False)),
+                "rescore": rescore,
                 "dfs_stats": body.get("_dfs_stats")}
 
     def _keyword_fallback(self, field: str) -> str:

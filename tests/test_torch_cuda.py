@@ -990,6 +990,174 @@ def test_timed_out_walk_launches_only_its_chunks(cuda):
     assert (out[3][:, 512:] == 1).all() and (out[2][:, 512:] == 0).all()
 
 
+# -- K3's knn_vec clause (hybrid BM25 + vector bundles) -------------------
+
+# base bundle of _bundle_case, role of the knn clause appended to it
+_KNN_CASES = {"knn_should": ("single", "should"),
+              "knn_must": ("main", "must"),
+              "knn_bundle": ("bundle", "should")}
+
+
+def _knn_case(name, cap, tile, B, dev, seed=0, sim="cosine", D=64):
+    """_bundle_case's inputs with a knn_vec clause appended: the
+    similarity column of Gaussian vectors (boost folded in, 0 without a
+    vector) and its slack-inflated tile max. dot_product vectors are
+    scaled so that many scores and tile bounds are negative."""
+    from elasticsearch_tpu_torch.ops.knn import knn_score_column
+    from elasticsearch_tpu_torch.ops.scoring import slack_bound
+    base, role = _KNN_CASES[name]
+    text, num, clauses, cl, msm, boost, live = _bundle_case(
+        base, cap, tile, B, dev, seed)
+    rng = np.random.default_rng(seed + 7)
+    v = rng.standard_normal((cap, D)).astype(np.float32)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    if sim == "dot_product":
+        v, q = -np.abs(v) * 0.5, np.abs(q)
+    ex = rng.random(cap) > 0.1
+    ex[tile: 2 * tile] = False                 # a tile without vectors
+    v[~ex] = 0.0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    boost_c = t((rng.integers(1, 5, size=B) / 2).astype(np.float32))
+    col = (knn_score_column(t(v).to(torch.bfloat16),
+                            t(np.linalg.norm(v, axis=1).astype(np.float32)),
+                            t(ex), t(q), similarity=sim)
+           * boost_c[:, None]).contiguous()
+    ub = slack_bound(col.reshape(B, cap // tile, tile).amax(dim=2))
+    return (text, num, clauses + ((role, "knn_vec", "e", False),),
+            cl + ((col, t(ex), ub),), msm, boost, live)
+
+
+_KNN_K3 = [("knn_should", 4096, 1024, 16, 10, False, "cosine"),
+           ("knn_must", 4096, 256, 12, 10, True, "dot_product"),
+           ("knn_bundle", 4096, 256, 9, 1, True, "cosine"),
+           ("knn_should", 1 << 19, 1024, 64, 100, False, "cosine"),
+           ("knn_must", 1 << 18, 1024, 20, 33, True, "dot_product"),
+           ("knn_should", 4096, 1024, 33, 0, True, "cosine")]
+
+
+@pytest.mark.parametrize("name,cap,tile,B,k,emit,sim", _KNN_K3)
+def test_knn_vec_walk_equals_plain(cuda, name, cap, tile, B, k, emit, sim):
+    """The single launch form with a knn_vec clause: every output of K3
+    equal to the plain walk's, and the fused entries' hits."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    args = _knn_case(name, cap, tile, B, cuda, seed=B + k, sim=sim)
+    text, num, clauses, cl, msm, boost, live = args
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    ck = min(k, tile)
+    before = dict(cs.BUNDLE_VEC_FORMS)
+    got = cs.bundle_walk(*args, can, ub, ck=ck, update_thr=True,
+                         emit_match=emit)
+    torch.cuda.synchronize()
+    assert cs.BUNDLE_VEC_FORMS["single"] == before["single"] + 1
+    want = cs.bundle_walk_ref(*args, can, ub, ck=ck, update_thr=True,
+                              emit_match=emit)
+    for what, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert (g is None and w is None) or torch.equal(g, w), what
+    assert int(got[2].sum()) > 0
+    if k == 0:
+        g, w = (cs.match_mask_bundle(*args, emit_match=emit),
+                cs.match_mask_bundle_ref(*args, emit_match=emit))
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+        return
+    g = cs.fused_topk_bundle(*args, k, emit_match=emit)
+    w = cs.fused_topk_bundle_ref(*args, k, emit_match=emit)
+    for i in range(4):
+        assert torch.equal(g[i], w[i]), i
+    if sim == "dot_product":
+        assert bool((g[0][torch.isfinite(g[0])] < 0).any())
+
+
+@pytest.mark.parametrize("name,cap,tile,B,k,emit,sim,chunk", [
+    ("knn_should", 4096, 256, 12, 10, True, "cosine", 5),
+    ("knn_must", 1 << 18, 1024, 24, 16, False, "dot_product", 100)])
+def test_knn_vec_stepped_equals_plain(cuda, name, cap, tile, B, k, emit,
+                                      sim, chunk):
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    args = _knn_case(name, cap, tile, B, cuda, seed=5 * B + k, sim=sim)
+    text, num, clauses, cl, msm, boost, live = args
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    step = (chunk, None, _never)
+    before = dict(cs.BUNDLE_VEC_FORMS)
+    got = cs.bundle_walk_steps(cs.bundle_walk, *args, can, ub, ck=min(k, tile),
+                               update_thr=True, emit_match=emit, step=step)
+    torch.cuda.synchronize()
+    assert cs.BUNDLE_VEC_FORMS["stepped"] \
+        == before["stepped"] + -(-(cap // tile) // chunk)
+    want = cs.bundle_walk_steps(cs.bundle_walk_ref, *args, can, ub,
+                                ck=min(k, tile), update_thr=True,
+                                emit_match=emit, step=step)
+    for what, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert (g is None and w is None) or torch.equal(g, w), what
+    one = cs.fused_topk_bundle(*args, k, emit_match=emit)
+    st = cs.fused_topk_bundle(*args, k, emit_match=emit, step=step)
+    for i in (0, 1, 2):
+        assert torch.equal(st[i], one[i]), i
+
+
+@pytest.mark.parametrize("sim,k", [("cosine", 10), ("dot_product", 33)])
+def test_knn_vec_seeded_equals_plain(cuda, sim, k):
+    """A delta walk with a knn_vec clause seeded with its base walk's
+    top-k: the seeded launch and the chained top-k equal their plain
+    versions."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    base = _knn_case("knn_must", 1 << 18, 1024, 32, cuda, seed=k, sim=sim)
+    delta = _knn_case("knn_must", 1 << 17, 1024, 32, cuda, seed=k + 1,
+                      sim=sim)
+    delta = delta[:4] + (base[4], base[5], delta[6])
+    init = cs.fused_topk_bundle(*base, k)[:2]
+    text, num, clauses, cl, msm, boost, live = delta
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    before = dict(cs.BUNDLE_VEC_FORMS)
+    got = cs.bundle_walk(*delta, can, ub, ck=k, update_thr=True,
+                         emit_match=True, thr_init=init[0][:, -1])
+    torch.cuda.synchronize()
+    assert cs.BUNDLE_VEC_FORMS["seeded"] == before["seeded"] + 1
+    want = cs.bundle_walk_ref(*delta, can, ub, ck=k, update_thr=True,
+                              emit_match=True, thr_init=init[0][:, -1])
+    for what, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert torch.equal(g, w), what
+    chained = cs.fused_topk_bundle(*delta, k, init_topk=init,
+                                   idx_offset=1 << 18)
+    want_c = cs.fused_topk_bundle_ref(*delta, k, init_topk=init,
+                                      idx_offset=1 << 18)
+    for i in range(4):
+        assert torch.equal(chained[i], want_c[i]), i
+
+
+def test_similarity_column_f32_accumulation(cuda):
+    """The card's bf16 product returns f32 sums of exact bf16 products:
+    on vectors whose every partial sum is exact it equals the CPU's
+    column bit for bit, and it is not the bf16-rounded product."""
+    from elasticsearch_tpu_torch.ops import knn
+    rng = np.random.default_rng(3)
+    v = rng.integers(-4, 5, size=(70_001, 256)).astype(np.float32)
+    q = np.zeros((9, 256), np.float32)
+    for b in range(9):
+        q[b, rng.choice(256, 16, replace=False)] = rng.choice([-1, 1], 16)
+    ex = rng.random(70_001) > 0.1
+    norms = np.linalg.norm(v, axis=1).astype(np.float32)
+    for sim in ("cosine", "dot_product", "l2_norm"):
+        args = [torch.from_numpy(a) for a in (v, norms, ex, q)]
+        args[0] = args[0].to(torch.bfloat16)
+        want = knn.knn_score_column(*args, similarity=sim)
+        got = knn.knn_score_column(*(a.to(cuda) for a in args),
+                                   similarity=sim)
+        assert got.dtype == torch.float32
+        assert torch.equal(got.cpu(), want), sim
+    # components up to 64 (exact in bf16): dots up to 1,024, odd ones past
+    # 256 not representable in bf16, exact in f32
+    w = rng.integers(-64, 65, size=(4096, 256)).astype(np.float32)
+    dots = knn.bf16_dots(torch.from_numpy(q).to(cuda),
+                         torch.from_numpy(w).to(cuda).to(torch.bfloat16))
+    assert dots.dtype == torch.float32
+    assert torch.equal(dots.cpu(), torch.from_numpy(q @ w.T))
+    assert bool(((dots.abs() > 256) & (dots % 2 == 1)).any())
+
+
 # -- subnormals: the agg kernels flush as XLA's CPU runtime does ----------
 
 _SUBNORMALS = np.array([1e-40, -1e-40, 1e-45, -1e-45, 1e-38, 9.9e-39,

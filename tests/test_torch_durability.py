@@ -486,18 +486,33 @@ def _assert_same_tree(a, b, path="dev"):
 
 
 def test_unported_columns_raise_on_load(tmp_path):
-    path = str(tmp_path / "vec")
+    """A reference store holding a column the port lacks (geo points)
+    raises on load; vector columns, ported since, load."""
+    path = str(tmp_path / "geo")
     mapping = {"properties": {"msg": {"type": "text"},
+                              "g": {"type": "geo_point"},
                               "v": {"type": "dense_vector", "dims": 4}}}
+    e = new_engine("ref", path, None, mapping)
+    e.index("1", {"msg": "a", "g": {"lat": 1.0, "lon": 2.0},
+                  "v": [1.0, 0.0, 0.0, 0.0]})
+    e.flush()
+    e.close()
+    store = Store(path)
+    stem = sorted(store.seg_stems_on_disk())[0]
+    with pytest.raises(NotImplementedError, match="geos"):
+        store.load_segment(stem[len("seg_"):].split("@")[0], stem=stem)
+    assert durability.snapshot()["corruptions_detected"] == 0
+    path = str(tmp_path / "vec")
+    del mapping["properties"]["g"]
     e = new_engine("ref", path, None, mapping)
     e.index("1", {"msg": "a", "v": [1.0, 0.0, 0.0, 0.0]})
     e.flush()
     e.close()
     store = Store(path)
     stem = sorted(store.seg_stems_on_disk())[0]
-    with pytest.raises(NotImplementedError, match="vectors"):
-        store.load_segment(stem[len("seg_"):].split("@")[0], stem=stem)
-    assert durability.snapshot()["corruptions_detected"] == 0
+    seg, _live = store.load_segment(stem[len("seg_"):].split("@")[0],
+                                    stem=stem)
+    assert seg.vectors["v"].values[0].tolist() == [1.0, 0.0, 0.0, 0.0]
 
 
 # ---------------------------------------------------------------------------
