@@ -68,6 +68,22 @@ each of which fails the run on any error:
    timed in turns with the cold path; then a batch whose deadline has
    passed and one whose poll flips at chunk 4 must each raise
    SearchTimeoutError and count as preempted;
+6b. the query DSL (path u), on the main index: eight mixes of
+   `corpus.dsl_mixes` (query_string, compound, multi_term,
+   function_score, exists_ids, more_like_this, bucket_aggs with 10
+   derived buckets a request, 64 requests an msearch, top_hits_sig), a
+   warm-up batch and one timed batch each inside one profiler session
+   (the card's activity alone, split at marker kernels: a `dsl mix` line
+   with req/s, p50, device busy ms and idle share), the launch counts
+   zeroed just before; K3, K1, K2 and the scan must launch, query_string
+   and more_like_this must be admitted to K3 and function_score rejected
+   as `clause:fnscore`; the first 32 requests of each mix with the plain
+   versions swapped in give identical responses; 16 requests a mix on
+   the small index give the CPU's responses exactly (function_score's
+   exp / log are XLA's, computed op by op: ops/xla_math); a 2-shard
+   node of 3,000 docs a shard answers query_string, function_score and
+   bucket_aggs over HTTP _msearch and `GET /logs/_search?q=` as its
+   engines' readers do;
 7. the node path: the main path's index comes from a `Node` on the card
    behind a loopback `RestServer` (index `logs`, 2 shards, the streaming
    delta mode): shard s takes corpus.make_docs(2^20, seed 42 + s, start
@@ -146,8 +162,8 @@ each of which fails the run on any error:
 12. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--rehearse` runs the main, delta, resident, node, restart, scroll,
-kill -9 and vectors paths' checks on the CPU at a toy size (no build, no timings, no
+`--rehearse` runs the main, delta, resident, query DSL, node, restart,
+scroll, kill -9 and vectors paths' checks on the CPU at a toy size (no build, no timings, no
 result line), to exercise this script without a card. `--ab-parent DIR` loads the K3 of an earlier
 commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
 git-ignored `smoke_checkout/`) beside this one and times the two in turns
@@ -159,8 +175,9 @@ min and max);
 `tools/k3_variants.py`
 builds patched copies of this checkout's K3 (a design step undone, or a
 probe) under DIR and times them this way. `--kernels-only` stops after
-the kernel phase, `--vectors-only` runs the build and path (t) alone (no
-result line either).
+the kernel phase, `--vectors-only` runs the build and path (t) alone,
+`--dsl-only` the build, two 2^20-doc shards built in workers and path
+(u) alone (no result line either).
 """
 
 from __future__ import annotations
@@ -934,6 +951,21 @@ def rehearse(n_docs: int, batch: int) -> int:
                 on_card=False, n=2000, nd=256, D=32)
     finally:
         del os.environ["ES_TPU_ANN_MIN_DOCS"]
+    # path (u): the query DSL's mixes on the main readers, a 600-doc
+    # small index (the CPU against the CPU) and a 400-doc node over HTTP
+    small = build_shards(min(n_docs, 600), 2, 200, workers=1)
+    with contextlib.redirect_stdout(io.StringIO()):
+        dsl, _ = dsl_phase(argparse.Namespace(
+            batch=batch, docs=n_docs, small_docs=min(n_docs, 600)), readers,
+            make_readers(small, "cpu"),
+            make_readers([copy.copy(s) for s in small], "cpu"), "cpu",
+            lambda: None, on_card=False)
+    log("rehearse dsl: " + json.dumps({
+        "small": dsl["small"], "node": dsl["node"],
+        **{k: {"hits": v["hits"],
+               "fused_admitted": v["fused"]["admission"]["admitted"],
+               "rejected": v["fused"]["admission"]["rejected"]}
+           for k, v in dsl["mixes"].items()}}))
     log("rehearse vectors: " + json.dumps({
         "recall": vec["recall"], "small": vec["small"], "node": vec["node"],
         **{k: {"hits": v["hits"], "ivf_host_syncs_per_batch":
@@ -3940,6 +3972,270 @@ def vector_phase(args, dev, sync, out_dir=None, on_card=True,
     return report, entry
 
 
+# -- path (u): the query DSL ------------------------------------------------
+
+# path (u) budgets 60 s of the run: a warm-up batch a mix, then ONE timed
+# batch a mix, recorded in one profiler session (the card's activity
+# alone, split between marker kernels) for its device busy time
+DSL_MARKER_CYCLES = 1000
+# requests per msearch of a mix: bucket_aggs' requests spawn 10
+# auxiliary requests each (one a bucket), sent back through msearch
+DSL_BATCH = {"bucket_aggs": 64}
+DSL_SWAP = 32             # requests a mix with the plain versions swapped in
+DSL_SMALL = 16            # requests a mix on the card-vs-CPU small index
+DSL_NODE_DOCS = 3000      # per shard of the HTTP node
+DSL_NODE_MIXES = ("query_string", "function_score", "bucket_aggs")
+DSL_NODE_REQUESTS = 8
+DSL_Q = ("message:images AND message:french", "message:news OR message:sport",
+         "message:torch NOT message:images", "venues")
+# mixes whose plans the fused engine admits (K3), and the kernels path
+# (u) must launch on the card
+DSL_FUSED = ("query_string", "more_like_this")
+DSL_KERNELS = ("bundle_topk", "dense_score", "scatter_add", "ordered_prefix")
+
+
+def dsl_search(readers, name):
+    """search_merged over `readers`, DSL_BATCH requests at a time."""
+    step = DSL_BATCH.get(name)
+
+    def run(bodies):
+        n = step or len(bodies)
+        return [r for i in range(0, len(bodies), n)
+                for r in search_merged(readers, bodies[i:i + n])]
+    return run
+
+
+def _dsl_marker_spans(prof, n: int) -> list[list[tuple]]:
+    """The card's events of a profiler session split at the last n + 1
+    marker kernels (`torch.cuda._sleep`) launched around n batches (a
+    primer marker goes first: the session may miss its first event): per
+    batch the (start, end) microseconds of its kernels and copies."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = sorted(((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns())
+                   / 1e3, e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda), key=lambda x: x[0])
+    marks = [i for i, (_a, _b, name) in enumerate(dev)
+             if "spin" in name][-(n + 1):]
+    if len(marks) != n + 1:
+        raise AssertionError(f"dsl profile: {len(marks)} marker kernels, "
+                             f"{n + 2} launched")
+    return [[(a, b) for a, b, _n in dev[marks[i] + 1: marks[i + 1]]]
+            for i in range(n)]
+
+
+def run_dsl_path(readers, mixes, sync, on_card: bool) -> tuple:
+    """One timed batch of each DSL mix (after the warm-up), with the
+    launch counts zeroed just before the path and read per mix and after
+    it. On the card the batches run inside one profiler session that
+    records the card's activity alone; marker kernels between them give
+    each batch's device busy time."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.search import executor
+    stats, last = {}, {}
+    _zero_counts()
+    names = list(mixes)
+    ctx = contextlib.nullcontext()
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+        ctx = profile(activities=[ProfilerActivity.CUDA])
+    with ctx as prof:
+        if on_card:                              # the primer marker
+            torch.cuda._sleep(DSL_MARKER_CYCLES)
+            sync()
+        for name in names:
+            if on_card:
+                torch.cuda._sleep(DSL_MARKER_CYCLES)
+            sync()
+            before = dict(cs.LAUNCHES)
+            executor._fused_stats.reset()
+            st, last[name] = time_mix(readers, mixes[name], 1, sync,
+                                      batch=DSL_BATCH.get(name))
+            stats[name] = {
+                **st, "batch": DSL_BATCH.get(name) or len(mixes[name]),
+                "launches": {k: cs.LAUNCHES[k] - before[k]
+                             for k in cs.LAUNCHES},
+                "hits": sum(r["hits"]["total"] for r in last[name]),
+                "fused": executor.fused_scoring_stats()}
+        if on_card:
+            torch.cuda._sleep(DSL_MARKER_CYCLES)
+            sync()
+    launches = dict(cs.LAUNCHES)
+    if on_card:
+        for name, spans in zip(names, _dsl_marker_spans(prof, len(names))):
+            busy = _merged_span(spans) / 1e3
+            stats[name]["device_busy_ms"] = busy
+            stats[name]["device_idle_share"] = max(
+                0.0, 1.0 - busy / stats[name]["p50_ms"])
+    return stats, last, launches
+
+
+def check_dsl_path(stats, last, on_card: bool) -> None:
+    """Admission as each mix's plans say: K3 for query_string and
+    more_like_this, function_score rejected as `clause:fnscore`; every
+    response well formed, and hits in every mix."""
+    for name in DSL_FUSED:
+        adm = stats[name]["fused"]["admission"]
+        if adm["admitted"] <= 0 or (on_card and stats[name]["launches"][
+                "bundle_topk"] <= 0):
+            raise AssertionError(f"{name}: not on K3: {adm}")
+    adm = stats["function_score"]["fused"]["admission"]
+    if adm["admitted"] or adm["rejected"].get("clause:fnscore", 0) <= 0:
+        raise AssertionError(f"function_score: admission {adm}")
+    for name, resps in last.items():
+        if sum(r["hits"]["total"] for r in resps) <= 0:
+            raise AssertionError(f"{name}: no hits in the mix")
+        for r in resps:
+            if not all(np.isfinite(h["_score"]) for h in r["hits"]["hits"]
+                       if h["_score"] is not None):
+                raise AssertionError(f"{name}: a score is not finite")
+    for r in last["bucket_aggs"]:
+        a = r["aggregations"]
+        if sorted(a) != ["all", "by_status", "days", "no_body", "sizes"] \
+                or len(a["sizes"]["buckets"]) != 3 \
+                or a["all"]["doc_count"] < r["hits"]["total"]:
+            raise AssertionError("bucket_aggs: " + json.dumps(a)[:300])
+    for r in last["top_hits_sig"]:
+        a = r["aggregations"]
+        if len(a["top"]["hits"]["hits"]) != min(3, r["hits"]["total"]) \
+                or a["sig"]["doc_count"] != r["hits"]["total"]:
+            raise AssertionError("top_hits_sig: " + json.dumps(a)[:300])
+
+
+def dsl_small_check(on_gpu, on_cpu, n_ids: int) -> dict:
+    """Every DSL mix on a small index: the card gives the CPU's responses
+    exactly (function_score included: XLA's exp / log are computed op by
+    op on both, ops/xla_math)."""
+    from elasticsearch_tpu_torch import corpus
+    mixes = corpus.dsl_mixes(DSL_SMALL, seed=13, n_ids=n_ids)
+    hits = {}
+    for name, bodies in mixes.items():
+        got = _strip(dsl_search(on_gpu, name)(bodies))
+        want = _strip(dsl_search(on_cpu, name)(bodies))
+        if json.dumps(got, sort_keys=True) != json.dumps(want,
+                                                         sort_keys=True):
+            raise AssertionError(f"dsl small index, {name}: the card != "
+                                 "the CPU")
+        hits[name] = sum(r["hits"]["total"] for r in want)
+    return {"requests_per_mix": DSL_SMALL, "hits": hits}
+
+
+def dsl_node_check(n_docs: int, dev) -> dict:
+    """A 2-shard node on `dev` behind a loopback RestServer: mixes
+    DSL_NODE_MIXES over HTTP POST /_msearch and `GET
+    /logs/_search?q=...` (the URI query_string) answer as the engines'
+    readers do (took aside)."""
+    import urllib.parse
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.rest.server import RestServer
+    node = Node({"node.name": "dsl-node"}, device=dev)
+    server = RestServer(node, "127.0.0.1", 0).start()
+    url = f"http://127.0.0.1:{server.port}"
+    try:
+        node.create_index("logs", {"number_of_shards": 2}, corpus.MAPPING)
+        keys = routing_keys(2)
+        for s in range(2):
+            r = node.bulk(_bulk_ops(corpus.make_docs(
+                n_docs, seed=52 + s, start=s * n_docs, long_every=300),
+                keys[s]))
+            if r["errors"]:
+                raise AssertionError("dsl node: bulk failed")
+        node.refresh("logs")
+        readers = node_readers(node)
+        mixes = corpus.dsl_mixes(DSL_NODE_REQUESTS, seed=17,
+                                 n_ids=2 * n_docs)
+        out = {}
+        for name in DSL_NODE_MIXES:
+            bodies = mixes[name]
+            lines = [x for b in bodies for x in ({"index": "logs"}, b)]
+            over_http = http_call(url, "POST", "/_msearch",
+                                  lines=lines)["responses"]
+            if _node_strip(over_http) != _strip(
+                    dsl_search(readers, name)(bodies)):
+                raise AssertionError(f"dsl node, {name}: HTTP _msearch != "
+                                     "the engines' readers")
+            out[name] = sum(r["hits"]["total"] for r in over_http)
+        for q in DSL_Q:
+            got = http_call(url, "GET", "/logs/_search?q="
+                            + urllib.parse.quote(q))
+            want = search_merged(readers, [{"query": {"query_string": {
+                "query": q}}}])[0]
+            if {k: v for k, v in got.items() if k != "took"} \
+                    != _strip([want])[0]:
+                raise AssertionError(f"dsl node: GET _search?q={q} != the "
+                                     "engines' readers")
+            out[f"q={q}"] = got["hits"]["total"]
+    finally:
+        server.stop()
+        node.close()
+    return {"docs_per_shard": n_docs, "hits": out}
+
+
+def dsl_phase(args, readers, on_gpu, on_cpu, dev, sync,
+              on_card: bool = True) -> tuple:
+    """Path (u): the query DSL's eight mixes on the main path's readers
+    (args.batch requests each), then their checks: admission, the plain
+    swap, the card against the CPU on the small index, a node over HTTP.
+    Returns (the report, the path's launch counts)."""
+    from elasticsearch_tpu_torch import corpus
+    t_phase = time.perf_counter()
+    laps = {}
+    mark = time.perf_counter()
+
+    def lap(name):
+        nonlocal mark
+        now = time.perf_counter()
+        laps[name] = now - mark
+        mark = now
+    mixes = corpus.dsl_mixes(args.batch, n_ids=2 * args.docs)
+    for name in corpus.DSL_MIXES:                # warm-up: uploads, layouts
+        dsl_search(readers, name)(mixes[name])
+    sync()
+    lap("warm_up")
+    stats, last, launches = run_dsl_path(readers, mixes, sync, on_card)
+    lap("timed_mixes")
+    if on_card:
+        missing = [k for k in DSL_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on path (u): "
+                                 f"{missing}")
+    check_dsl_path(stats, last, on_card)
+    with swapped_kernels(**plain_versions()):
+        for name, bodies in mixes.items():
+            if _strip(dsl_search(readers, name)(bodies[:DSL_SWAP])) \
+                    != _strip(last[name][:DSL_SWAP]):
+                raise AssertionError(f"dsl {name}: responses with the "
+                                     "plain versions swapped in differ")
+    lap("plain_swap")
+    for name in corpus.DSL_MIXES:
+        log("dsl mix " + json.dumps({
+            "mix": name, "requests": stats[name]["requests"],
+            "batch": stats[name]["batch"], "qps": stats[name]["qps"],
+            "p50_ms": stats[name]["p50_ms"], "hits": stats[name]["hits"],
+            "device_busy_ms": stats[name].get("device_busy_ms"),
+            "device_idle_share": stats[name].get("device_idle_share"),
+            "launches": {k: v for k, v in stats[name]["launches"].items()
+                         if v},
+            "admission": stats[name]["fused"]["admission"],
+            "gpu": gpu_line() if on_card else "cpu"}))
+    small = dsl_small_check(on_gpu, on_cpu, 2 * args.small_docs)
+    log("dsl small index: " + json.dumps(small))
+    lap("small_index")
+    node = dsl_node_check(DSL_NODE_DOCS if on_card else 400, dev)
+    log("dsl node: " + json.dumps(node))
+    lap("node")
+    report = {"mixes": stats, "small": small,
+              "node": node, "launches": launches, "laps": laps,
+              "seconds": time.perf_counter() - t_phase,
+              "gpu": gpu_line() if on_card else "cpu"}
+    log("dsl: " + json.dumps({k: report[k] for k in (
+        "launches", "laps", "seconds", "gpu")}))
+    return report, launches
+
+
 def gpu_line() -> str:
     try:
         out = subprocess.run(
@@ -3980,6 +4276,18 @@ def on_card(args) -> int:
             "gpu")}))
         log("knn_vec kernel: " + json.dumps(vec_entry))
         log(f"vectors only: {time.perf_counter() - t_run:.1f} s")
+        return 0
+    if args.dsl_only:
+        t0 = time.perf_counter()
+        segs = build_shards(args.docs, 2, 1000, workers=2)
+        small = build_shards(args.small_docs, 2, 300, workers=2)
+        log(f"dsl only: shards built in {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        gc.freeze()
+        dsl_phase(args, make_readers(segs, dev), make_readers(small, dev),
+                  make_readers([copy.copy(s) for s in small], "cpu"), dev,
+                  torch.cuda.synchronize)
+        log(f"dsl only: {time.perf_counter() - t_run:.1f} s")
         return 0
     if args.kernels_only:
         rng = np.random.default_rng(42)
@@ -4296,6 +4604,13 @@ def on_card(args) -> int:
                         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                         "library_ms": m["library_ms"], "call": call})
     lap("main_path_kernels")
+    # path (u): the query DSL on the main path's bases, the small index of
+    # phase 4 and a node over HTTP; its launches join the kernels line
+    dsl, dsl_launches = dsl_phase(args, readers, on_gpu, on_cpu, dev, sync)
+    for k in kernels:
+        k["launches"] += dsl_launches.get(k["name"], 0)
+    del on_gpu, on_cpu, small
+    lap("dsl")
     # phase 7: the node path. The earlier paths' readers go first, so
     # that compaction can release the replaced segments' holds; then a
     # delta per shard, every mix through node.msearch / HTTP _msearch /
@@ -4389,6 +4704,7 @@ def on_card(args) -> int:
                         "pack_vs_segments": d_ab},
               "resident": res, "node": node_out, "durable": durable,
               "scroll": scroll_out, "kill9": kills, "vectors": vectors,
+              "dsl": dsl,
               "profiles": profiles, "kernels": kernels,
               "seconds": time.perf_counter() - t_run}
     if out_dir:
@@ -4427,6 +4743,9 @@ def main(argv=None) -> int:
     p.add_argument("--vectors-only", action="store_true",
                    help="build, then the vectors path alone (no result "
                         "line)")
+    p.add_argument("--dsl-only", action="store_true",
+                   help="build, then path (u), the query DSL, alone on "
+                        "shards built in workers (no result line)")
     p.add_argument("--durability-worker", nargs=7, default=None,
                    metavar=("DATA", "SEED", "START", "DEVICE", "DOCS",
                             "FLUSH_EVERY", "BATCH"),

@@ -411,3 +411,124 @@ def knn_mixes(queries: np.ndarray, n: int, seed: int = 31
                 "rescore_query": {"match": {"passage": texts[n + i]}},
                 "query_weight": 1.0, "rescore_query_weight": 1.0}}})
     return mixes
+
+
+DSL_MIXES = ("query_string", "compound", "multi_term", "function_score",
+             "exists_ids", "more_like_this", "bucket_aggs", "top_hits_sig")
+
+
+def dsl_mixes(n: int, seed: int = 11, n_ids: int = 1 << 21
+              ) -> dict[str, list[dict]]:
+    """The query-DSL mixes, `n` requests each, over make_docs corpora
+    whose ids lie in [0, n_ids):
+    query_string: `message:` terms joined by AND / OR / NOT (bools over
+        message terms: the fused engine);
+    compound: filtered / and / or / not / dis_max / boosting over
+        message matches and size ranges (fused and unfused plans);
+    multi_term: wildcard / regexp / fuzzy on message (term expansions:
+        posting scatter) and wildcard / regexp on status (keyword
+        ordinal sets); fuzzy, which runs an edit distance against every
+        term, is one request in sixteen;
+    function_score: a message match under field_value_factor on size
+        (log1p), gauss on @timestamp with an explicit origin, a filtered
+        weight and random_score, score_mode sum (unfused);
+    exists_ids: exists / missing on body and size, and ids of 100 ids;
+    more_like_this: like-text only, at most 6 query terms (a one-clause
+        should: the fused engine);
+    bucket_aggs: size 0 under a message match: filters on status, range
+        on size, date_range on @timestamp, missing on body and global,
+        each with a terms or avg sub-aggregation;
+    top_hits_sig: a message match with top_hits (3) and
+        significant_terms on status."""
+    rng = np.random.default_rng(seed)
+    words = vocab()
+    head = words[: max(len(words) // 8, 30)]
+    w = zipf_weights(len(head))
+
+    def pick(k: int) -> list[str]:
+        return [head[j] for j in rng.choice(len(head), size=k, replace=False,
+                                            p=w)]
+
+    mixes: dict[str, list[dict]] = {k: [] for k in DSL_MIXES}
+    for i in range(n):
+        a, b, c = pick(3)
+        form = i % 3
+        q = (f"message:{a} AND message:{b}" if form == 0 else
+             f"message:{a} OR message:{b}" if form == 1 else
+             f"message:{a} OR message:{b} NOT message:{c}")
+        mixes["query_string"].append(
+            {"query": {"query_string": {"query": q}}, "size": 10})
+        lo = int(rng.integers(100, 60_000))
+        rng_q = {"range": {"size": {"gte": lo, "lte": lo + 40_000}}}
+        match = {"match": {"message": f"{a} {b}"}}
+        form = i % 6
+        q = ({"filtered": {"query": match, "filter": rng_q}} if form == 0 else
+             {"and": [match, rng_q]} if form == 1 else
+             {"or": [{"match": {"message": a}}, rng_q]} if form == 2 else
+             {"bool": {"must": [match], "must_not": [
+                 {"not": {"range": {"size": {"gte": lo}}}}]}} if form == 3
+             else {"dis_max": {"queries": [{"match": {"message": a}},
+                                           {"match": {"message": b}}]}}
+             if form == 4 else
+             {"boosting": {"positive": match, "negative": rng_q,
+                           "negative_boost": 0.25}})
+        mixes["compound"].append({"query": q, "size": 10})
+        d1, d2 = (int(x) for x in rng.integers(0, 10, size=2))
+        st = STATUS[int(rng.integers(0, len(STATUS)))]
+        form = i % 16
+        q = ({"wildcard": {"message": f"p0{d1}{d2}*"}} if form < 4 else
+             {"regexp": {"message": f"p00{d1}[0-9]{d2}"}} if form < 8
+             else {"fuzzy": {"message": {"value": f"p00{d1}{d2}7",
+                                         "fuzziness": 1}}} if form == 8
+             else {"wildcard": {"status": f"{st[0]}*"}} if form < 13
+             else {"regexp": {"status": f"{st[0]}0[0-9]"}})
+        mixes["multi_term"].append({"query": q, "size": 10})
+        day = int(rng.integers(1, 29))
+        mixes["function_score"].append({"query": {"function_score": {
+            "query": {"match": {"message": f"{a} {b}"}},
+            "functions": [
+                {"field_value_factor": {"field": "size", "factor": 0.001,
+                                        "modifier": "log1p"}},
+                {"gauss": {"@timestamp": {
+                    "origin": f"2015-01-{day:02d}T12:00:00",
+                    "scale": "3d", "decay": 0.5}}},
+                {"filter": {"term": {"status": "404"}},
+                 "weight": float(1 + i % 4)},
+                {"random_score": {"seed": int(rng.integers(0, 2 ** 32))}}],
+            "score_mode": "sum"}}, "size": 10})
+        form = i % 5
+        field = "body" if i % 2 else "size"
+        q = ({"exists": {"field": field}} if form in (0, 1) else
+             {"missing": {"field": field}} if form in (2, 3) else
+             {"ids": {"values": [str(int(x)) for x in
+                                 rng.integers(0, n_ids, size=100)]}})
+        mixes["exists_ids"].append({"query": q, "size": 10})
+        mixes["more_like_this"].append({"query": {"more_like_this": {
+            "fields": ["message"], "like": " ".join(pick(5)),
+            "min_term_freq": 1, "min_doc_freq": 1, "max_query_terms": 6}},
+            "size": 10})
+        mixes["bucket_aggs"].append({
+            "query": {"match": {"message": a}}, "size": 0, "aggs": {
+                "by_status": {"filters": {"filters": {
+                    s: {"term": {"status": s}} for s in ("200", "404",
+                                                         "500")}},
+                    "aggs": {"avg_size": {"avg": {"field": "size"}}}},
+                "sizes": {"range": {"field": "size", "ranges": [
+                    {"to": lo}, {"from": lo, "to": lo + 40_000},
+                    {"from": lo + 40_000}]},
+                    "aggs": {"st": {"terms": {"field": "status"}}}},
+                "days": {"date_range": {"field": "@timestamp", "ranges": [
+                    {"to": f"2015-01-{day:02d}"},
+                    {"from": f"2015-01-{day:02d}"}]},
+                    "aggs": {"avg_size": {"avg": {"field": "size"}}}},
+                "no_body": {"missing": {"field": "body"},
+                            "aggs": {"avg_size": {"avg": {
+                                "field": "size"}}}},
+                "all": {"global": {},
+                        "aggs": {"st": {"terms": {"field": "status"}}}}}})
+        mixes["top_hits_sig"].append({
+            "query": {"match": {"message": f"{a} {b}"}}, "size": 10,
+            "aggs": {"top": {"top_hits": {"size": 3}},
+                     "sig": {"significant_terms": {"field": "status",
+                                                   "min_doc_count": 1}}}})
+    return mixes

@@ -790,13 +790,36 @@ class Node:
         if failures:
             self.metrics.counter("search.shard_failures_total").inc(
                 len(failures))
-        return merge_shard_results(responses, agg_specs, partials,
-                                   frm=frm, size=size, descending=descending,
-                                   score_sort=score_sort,
-                                   multi_orders=multi_orders,
-                                   total_shards=(len(st.get("entries", ()))
-                                                 + len(prefailed)),
-                                   failures=failures, timed_out=timed_out)
+        out = merge_shard_results(responses, agg_specs, partials,
+                                  frm=frm, size=size, descending=descending,
+                                  score_sort=score_sort,
+                                  multi_orders=multi_orders,
+                                  total_shards=(len(st.get("entries", ()))
+                                                + len(prefailed)),
+                                  failures=failures, timed_out=timed_out)
+        self._apply_sig_subs(out, agg_specs, body, st["shard_readers"])
+        return out
+
+    def _apply_sig_subs(self, out: dict, agg_specs, body: dict,
+                        shard_readers) -> None:
+        """significant_terms nested under a terms agg, over the same
+        shard set and scored at the coordinator (see
+        aggregations.apply_sig_subs); the enclosing query's foreground is
+        a capped (10k) matching-id set."""
+        if not any(spec.sig_subs for spec in agg_specs):
+            return
+        from .search.aggregations import apply_sig_subs
+
+        def search_ids(query: dict) -> set:
+            r = self._execute_on_readers(
+                shard_readers, {"query": query, "size": 10_000,
+                                "_source": False})
+            return {h["_id"] for h in r["hits"]["hits"]}
+
+        apply_sig_subs(agg_specs, out.get("aggregations", {}),
+                       [reader for _, reader in shard_readers],
+                       raw_query=body.get("query"),
+                       search_ids=search_ids)
 
     def msearch(self, requests: list[tuple],
                 tenant: str | None = None) -> dict:

@@ -8,8 +8,18 @@ sub-aggregations of a bucket agg. The device part is the desc tree that
 `search/executor.eval_aggs` interprets; per-segment partial arrays are
 reduced host-side by numpy addition/min/max keyed on shard-global
 ordinals or histogram bucket keys, and shards merge by bucket KEY.
-Derived bucket aggs, percentiles, cardinality, geo and scripted aggs
-raise NotImplementedError.
+
+Derived bucket aggs (`filter`, `filters`, `range`, `date_range`,
+`missing`, `global`, `top_hits`, `significant_terms`; DERIVED_KINDS) have
+no device desc: the shard searcher runs each bucket as an auxiliary
+filtered size-0 (top_hits: size-n) request through the same batched
+executor (`ShardReader._apply_derived`), whose sub-aggregations of any
+kind recurse; their partials merge by bucket key (`merge_derived`) and
+finalize by kind (`finalize_derived`). `significant_terms` scores
+foreground against background term counts with JLH, top-level or as a
+sub of `terms` (`apply_sig_subs`). Nested / reverse_nested / children,
+percentiles, cardinality, geo and scripted aggs raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,11 +35,13 @@ from ..utils.errors import SearchParseError
 
 METRIC_KINDS = ("avg", "sum", "min", "max", "stats", "extended_stats",
                 "value_count")
-_NOT_PORTED = ("filter", "filters", "range", "date_range", "missing",
-               "global", "top_hits", "nested", "reverse_nested", "children",
-               "significant_terms", "percentiles", "percentile_ranks",
-               "cardinality", "geo_bounds", "geo_centroid", "geohash_grid",
-               "scripted_metric")
+# derived bucket aggs run as auxiliary filtered sub-requests over the
+# same readers: each bucket IS a filtered query
+DERIVED_KINDS = ("filter", "filters", "range", "date_range", "missing",
+                 "global", "top_hits", "significant_terms")
+_NOT_PORTED = ("nested", "reverse_nested", "children", "percentiles",
+               "percentile_ranks", "cardinality", "geo_bounds",
+               "geo_centroid", "geohash_grid", "scripted_metric")
 _FIXED_UNITS_S = {
     "second": 1, "1s": 1, "minute": 60, "1m": 60, "hour": 3600, "1h": 3600,
     "day": 86400, "1d": 86400, "week": 604800, "1w": 604800,
@@ -49,6 +61,15 @@ class AggSpec:
     order: tuple[str, str] = ("_count", "desc")
     sub_metrics: list["AggSpec"] = dc_field(default_factory=list)
     fmt: str | None = None          # histogram key format pattern
+    # derived kinds: [(bucket_key, filter_query_dict|None, extra_json)]
+    buckets: list = dc_field(default_factory=list)
+    mode: str = "and"               # and (filter query) | ignore_query
+    sub_raw: dict = dc_field(default_factory=dict)   # nested aggs, re-parsed
+    top_hits_size: int = 3
+    top_hits_source: object = True
+    # significant_terms subs of a terms agg: {name: raw conf}, computed
+    # host-side per bucket after the main program
+    sig_subs: dict = dc_field(default_factory=dict)
 
 
 def _not_ported(kind: str) -> NotImplementedError:
@@ -72,6 +93,9 @@ def parse_aggs(body: dict | None) -> list[AggSpec]:
         conf = spec[kind]
         if kind in _NOT_PORTED:
             raise _not_ported(kind)
+        if kind in DERIVED_KINDS:
+            specs.append(_parse_special(name, kind, conf, sub))
+            continue
         if kind not in ("terms", "date_histogram", "histogram", *METRIC_KINDS):
             raise SearchParseError(f"unknown aggregation type [{kind}]")
         if conf.get("script") is not None:
@@ -91,11 +115,93 @@ def parse_aggs(body: dict | None) -> list[AggSpec]:
         )
         if agg.field is None:
             raise SearchParseError(f"aggregation [{name}] requires [field]")
+        if kind == "terms" and sub:
+            # significant_terms under terms runs as per-bucket aux
+            # requests after the main program; strip it before the
+            # metric-only sub parse
+            sub = dict(sub)
+            for sname in list(sub):
+                sk = [k for k in sub[sname]
+                      if k not in ("aggs", "aggregations", "meta")]
+                if sk == ["significant_terms"]:
+                    agg.sig_subs[sname] = sub.pop(sname)[
+                        "significant_terms"]
         if kind == "histogram" and conf.get("format"):
             agg.fmt = str(conf["format"])
         agg.sub_metrics.extend(parse_sub_metrics(name, sub).values())
         specs.append(agg)
     return specs
+
+
+def _range_key(frm, to) -> str:
+    """ES range bucket keys: "a-b" with * for open ends."""
+    return f"{frm if frm is not None else '*'}-{to if to is not None else '*'}"
+
+
+def _parse_special(name: str, kind: str, conf, sub: dict) -> AggSpec:
+    """Derived bucket aggs (see DERIVED_KINDS)."""
+    spec = AggSpec(name=name, kind=kind, field=None, sub_raw=dict(sub))
+    if kind == "filter":
+        spec.buckets = [(name, conf if conf else {"match_all": {}}, {})]
+    elif kind == "filters":
+        raw = conf.get("filters")
+        if isinstance(raw, dict):
+            spec.buckets = [(k, q, {}) for k, q in raw.items()]
+        elif isinstance(raw, list):
+            spec.buckets = [(f"_{i}", q, {}) for i, q in enumerate(raw)]
+        else:
+            raise SearchParseError(
+                f"[filters] agg [{name}] requires [filters]")
+    elif kind in ("range", "date_range"):
+        field = conf.get("field")
+        if field is None:
+            raise SearchParseError(f"[{kind}] agg [{name}] requires [field]")
+        spec.field = field
+        for r in conf.get("ranges") or []:
+            frm, to = r.get("from"), r.get("to")
+            rq: dict = {}
+            if frm is not None:
+                rq["gte"] = frm
+            if to is not None:
+                rq["lt"] = to
+            key = r.get("key") or _range_key(frm, to)
+            spec.buckets.append((key, {"range": {field: rq}} if rq
+                                 else {"exists": {"field": field}},
+                                 {"from": frm, "to": to}))
+        if not spec.buckets:
+            raise SearchParseError(f"[{kind}] agg [{name}] requires [ranges]")
+    elif kind == "missing":
+        field = conf.get("field")
+        if field is None:
+            raise SearchParseError(f"[missing] agg [{name}] requires [field]")
+        spec.field = field
+        spec.buckets = [(name, {"bool": {"must_not": [
+            {"exists": {"field": field}}]}}, {})]
+    elif kind == "global":
+        spec.buckets = [(name, None, {})]
+        spec.mode = "ignore_query"
+    elif kind == "top_hits":
+        spec.buckets = [(name, {"match_all": {}}, {})]
+        spec.top_hits_size = int(conf.get("size", 3))
+        spec.top_hits_source = conf.get("_source", True)
+    elif kind == "significant_terms":
+        # foreground (query) vs background (index) term frequencies via
+        # two terms aux requests, scored with JLH
+        field = conf.get("field")
+        if field is None:
+            raise SearchParseError(
+                f"[significant_terms] agg [{name}] requires [field]")
+        if sub:
+            raise SearchParseError(
+                f"[significant_terms] agg [{name}]: sub-aggregations are "
+                f"not supported yet")
+        spec.field = field
+        spec.size = int(conf.get("size", 10) or 10)
+        spec.min_doc_count = int(conf.get("min_doc_count", 3))
+        spec.buckets = [("fg", None, {}), ("bg", None, {})]
+        spec.sub_raw = {"__sig_terms": {
+            "terms": {"field": field, "size": 10_000}}}
+    return spec
 
 
 def parse_sub_metrics(parent: str, sub: dict) -> dict[str, AggSpec]:
@@ -317,6 +423,10 @@ class ShardAggContext:
                 descs.append((spec.name, ("stats", spec.field)))
                 for i in range(len(self.segments)):
                     per_seg[i].append(())
+            elif spec.kind in DERIVED_KINDS:
+                raise SearchParseError(
+                    f"derived aggregation [{spec.kind}] cannot build a "
+                    f"device desc (route through the reader)")
             else:
                 raise _not_ported(spec.kind)
         return tuple(descs), [tuple(p) for p in per_seg]
@@ -468,7 +578,9 @@ def merge_shard_partials(specs: list[AggSpec], parts: list[dict]) -> dict:
         entries = [p[name] for p in parts if name in p]
         if not entries:
             continue
-        if "buckets" in entries[0]:
+        if "derived" in entries[0]:
+            merged[name] = {"derived": merge_derived(spec, entries)}
+        elif "buckets" in entries[0]:
             buckets: dict = {}
             for e in entries:
                 for key, bk in e["buckets"].items():
@@ -506,6 +618,160 @@ def merge_shard_partials(specs: list[AggSpec], parts: list[dict]) -> dict:
                         stats[k] += v
             merged[name] = {"stats": stats}
     return merged
+
+
+def merge_derived(spec: AggSpec, entries: list[dict]) -> dict:
+    """Cross-shard reduce of a derived agg: counts sum, nested partials
+    merge recursively, top hits re-rank."""
+    nested = parse_aggs(spec.sub_raw)
+    out: dict = {}
+    for key, _q, _extra in spec.buckets:
+        parts = [e["derived"][key] for e in entries
+                 if key in e.get("derived", {})]
+        if not parts:
+            continue
+        bucket = {"count": sum(p["count"] for p in parts)}
+        if nested:
+            bucket["sub"] = merge_shard_partials(
+                nested, [p.get("sub", {}) for p in parts])
+        hits = [h for p in parts for h in p.get("hits", [])]
+        if hits or spec.kind == "top_hits":
+            hits.sort(key=lambda h: -(h.get("_score") or 0.0))
+            bucket["hits"] = hits[: spec.top_hits_size]
+        out[key] = bucket
+    return out
+
+
+def finalize_derived(spec: AggSpec, merged_buckets: dict) -> dict:
+    nested = parse_aggs(spec.sub_raw)
+
+    def bucket_json(key):
+        b = merged_buckets.get(key)
+        if b is None:
+            return {"doc_count": 0}
+        out = {"doc_count": int(b["count"])}
+        if nested:
+            out.update(finalize_partials(nested, b.get("sub", {})))
+        if "hits" in b:
+            out["hits"] = {"total": int(b["count"]),
+                           "hits": b["hits"]}
+        return out
+
+    if spec.kind == "significant_terms":
+        def totals(key):
+            b = merged_buckets.get(key)
+            if b is None:
+                return 0, []
+            fin = finalize_partials(nested, b.get("sub", {}))
+            return (int(b["count"]),
+                    fin.get("__sig_terms", {}).get("buckets", []))
+
+        fg_t, fg_b = totals("fg")
+        bg_t, bg_b = totals("bg")
+        return significant_buckets(spec, fg_t, fg_b, bg_t, bg_b)
+    if spec.kind in ("filter", "missing", "global"):
+        key = spec.buckets[0][0]
+        return bucket_json(key)
+    if spec.kind == "top_hits":
+        key = spec.buckets[0][0]
+        b = merged_buckets.get(key) or {"count": 0, "hits": []}
+        return {"hits": {"total": int(b["count"]),
+                         "max_score": (b["hits"][0].get("_score")
+                                       if b.get("hits") else None),
+                         "hits": b.get("hits", [])}}
+    if spec.kind == "filters":
+        return {"buckets": {key: bucket_json(key)
+                            for key, _q, _x in spec.buckets}}
+    # range / date_range: ordered array with from/to echoes
+    buckets = []
+    for key, _q, extra in spec.buckets:
+        bj = bucket_json(key)
+        entry = {"key": key, **{k: v for k, v in extra.items()
+                                if v is not None}, **bj}
+        buckets.append(entry)
+    return {"buckets": buckets}
+
+
+def jlh_score(fg_count: float, fg_total: float, bg_count: float,
+              bg_total: float) -> float:
+    """JLH significance heuristic (ref: bucket/significant/heuristics/
+    JLHScore.java): (fgPct - bgPct) * (fgPct / bgPct), 0 when not more
+    frequent in the foreground."""
+    if fg_total <= 0 or bg_total <= 0 or bg_count <= 0:
+        return 0.0
+    fg_pct = fg_count / fg_total
+    bg_pct = bg_count / bg_total
+    if fg_pct <= bg_pct:
+        return 0.0
+    return (fg_pct - bg_pct) * (fg_pct / bg_pct)
+
+
+def apply_sig_subs(agg_specs, aggregations: dict, readers: list,
+                   raw_query: dict | None = None,
+                   search_ids=None) -> None:
+    """Stitch significant_terms sub-aggs into parent terms buckets, for
+    one reader (ShardReader) or a node's shards. Foreground = enclosing
+    query AND bucket term: with a real query, `search_ids(query_dict) ->
+    set[str]` gives the matching doc ids (capped by the caller) and
+    sig_term_counts intersects with them."""
+    for spec in agg_specs:
+        subs = spec.sig_subs
+        if spec.kind != "terms" or not subs:
+            continue
+        agg_out = (aggregations or {}).get(spec.name)
+        if not agg_out:
+            continue
+        allowed = None
+        if raw_query is not None and search_ids is not None \
+                and raw_query != {"match_all": {}}:
+            allowed = search_ids(raw_query)
+        for sname, conf in subs.items():
+            field = conf.get("field")
+            sub_spec = AggSpec(
+                name=sname, kind="significant_terms", field=field,
+                size=int(conf.get("size", 10) or 10),
+                min_doc_count=int(conf.get("min_doc_count", 3)))
+
+            def summed(flt_value=None, _f=field):
+                total = 0
+                counts: dict = {}
+                for reader in readers:
+                    t, c = reader.sig_term_counts(
+                        _f, spec.field if flt_value is not None else None,
+                        flt_value,
+                        allowed_ids=(allowed if flt_value is not None
+                                     else None))
+                    total += t
+                    for k, v in c.items():
+                        counts[k] = counts.get(k, 0) + v
+                return total, [{"key": k, "doc_count": v}
+                               for k, v in counts.items()]
+
+            bg_total, bg_counts = summed()
+            for bucket in agg_out.get("buckets", []):
+                fg_total, fg_counts = summed(bucket["key"])
+                bucket[sname] = significant_buckets(
+                    sub_spec, fg_total, fg_counts, bg_total, bg_counts)
+
+
+def significant_buckets(spec: AggSpec, fg_total: int, fg_buckets: list,
+                        bg_total: int, bg_buckets: list) -> dict:
+    """Foreground / background term counts -> significant-terms buckets
+    ranked by JLH score."""
+    bg_counts = {b["key"]: b["doc_count"] for b in bg_buckets}
+    out = []
+    for b in fg_buckets:
+        fg_c = b["doc_count"]
+        if fg_c < spec.min_doc_count:
+            continue
+        bg_c = bg_counts.get(b["key"], fg_c)
+        score = jlh_score(fg_c, fg_total, bg_c, bg_total)
+        if score <= 0:
+            continue
+        out.append({"key": b["key"], "doc_count": fg_c,
+                    "score": score, "bg_count": bg_c})
+    out.sort(key=lambda x: (-x["score"], x["key"]))
+    return {"doc_count": fg_total, "buckets": out[: spec.size]}
 
 
 def _decimal_format(pattern: str, value: float) -> str:
@@ -566,11 +832,15 @@ def finalize_partials(specs: list[AggSpec], merged: dict) -> dict:
                                   "sum_other_doc_count": 0, "buckets": []}
             elif spec.kind in ("date_histogram", "histogram"):
                 response[name] = {"buckets": []}
+            elif spec.kind in DERIVED_KINDS:
+                response[name] = finalize_derived(spec, {})
             else:
                 response[name] = _stats_json(spec.kind, {"count": 0.0})
             continue
         entry = merged[name]
-        if spec.kind == "terms":
+        if spec.kind in DERIVED_KINDS:
+            response[name] = finalize_derived(spec, entry["derived"])
+        elif spec.kind == "terms":
             items = [(key, bk) for key, bk in entry["buckets"].items()
                      if bk["count"] >= max(spec.min_doc_count, 1)]
             order_key, order_dir = spec.order

@@ -60,8 +60,10 @@ fielddata breaker (`utils/breaker.py`).
 
 from __future__ import annotations
 
+import fnmatch
 import math
 import os
+import re
 import threading
 import time
 import weakref
@@ -77,8 +79,9 @@ from ..index.segment import (Segment, next_pow2, bm25_idf,
                              build_tile_minmax, BM25_B, BM25_K1,
                              POS_MAX_ENC)
 from ..ops import aggs as agg_ops
-from ..ops import cuda_scoring, ordered
-from ..ops.knn import SIMILARITIES as _KNN_SIMILARITIES, knn_score_column
+from ..ops import cuda_scoring, ordered, xla_math
+from ..ops.knn import (SIMILARITIES as _KNN_SIMILARITIES, fma_rn,
+                       knn_score_column, sqrt_rn)
 # fused positional clause caps: n rides in the clause kind string
 # (phrase_pos:{n}:..., bm25f:{nf}:{nt}); wider shapes take the host path
 from ..ops.cuda_scoring import (POS_MAX_FIELDS as _POS_FIELDS_MAX,
@@ -94,10 +97,14 @@ from ..ops.topk import (running_topk_init, top_k_hits, top_k_by_field,
 from ..utils.breaker import breaker_service
 from ..utils.errors import (CircuitBreakingError, QueryParsingError,
                             SearchParseError, SearchTimeoutError)
+from ..utils.settings import parse_time_value
 from . import resident as _resident
 from .query_dsl import (Query, MatchAllQuery, MatchNoneQuery, TermQuery,
                         RangeQuery, PrefixQuery, BoolQuery,
-                        ConstantScoreQuery, KnnQuery)
+                        ConstantScoreQuery, KnnQuery, ExistsQuery, IdsQuery,
+                        WildcardQuery, FuzzyQuery, RegexpQuery,
+                        MoreLikeThisQuery, BoostingQuery, ScoreFunction,
+                        FunctionScoreQuery, resolve_msm)
 
 _F32_MIN_WEIGHT = 1e-30  # keeps score>0 as the match signal even at boost~0
 _DENSE_GROUP_MAX = 8     # should-groups up to this many terms take the
@@ -147,6 +154,7 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
             name: {
                 "block_docs": _up(pf.block_docs, device),
                 "block_imps": _up(pf.block_imps, device),
+                "doc_len": _up(pf.doc_len, device),
                 **({"fwd_tids": _up(pf.fwd_tids, device),
                     "fwd_imps": _up(pf.fwd_imps, device)}
                    if pf.fwd_tids is not None else {}),
@@ -706,6 +714,53 @@ class QueryBinder:
         return self._expand_terms(q.field, lambda t: t.startswith(q.value),
                                   q.boost, q.max_expansions)
 
+    def _bind_WildcardQuery(self, q: WildcardQuery) -> Bound:
+        rx = re.compile(fnmatch.translate(q.value))
+        return self._expand_terms(q.field, lambda t: rx.match(t) is not None,
+                                  q.boost, q.max_expansions)
+
+    def _bind_FuzzyQuery(self, q: FuzzyQuery) -> Bound:
+        target = q.value
+
+        def within_edit(t: str) -> bool:
+            if abs(len(t) - len(target)) > q.fuzziness:
+                return False
+            return _edit_distance_le(t, target, q.fuzziness)
+
+        return self._expand_terms(q.field, within_edit, q.boost,
+                                  q.max_expansions)
+
+    def _bind_RegexpQuery(self, q: RegexpQuery) -> Bound:
+        try:
+            rx = re.compile(q.value)
+        except re.error as e:
+            raise QueryParsingError(f"invalid regexp [{q.value}]: {e}")
+        return self._expand_terms(q.field,
+                                  lambda t: rx.fullmatch(t) is not None,
+                                  q.boost, q.max_expansions)
+
+    def _bind_ExistsQuery(self, q: ExistsQuery) -> Bound:
+        kind = self.seg.field_kind(q.field)
+        if kind == "text":
+            return Bound("exists_text", q.field, scalars={"boost": 1.0})
+        if kind == "keyword":
+            return Bound("exists_kw", q.field, scalars={"boost": 1.0})
+        if kind == "numeric":
+            return Bound("exists_num", q.field, scalars={"boost": 1.0})
+        if kind == "vector":
+            return Bound("exists_gv", f"{kind}\x00{q.field}",
+                         scalars={"boost": 1.0})
+        return self._no_match()
+
+    def _bind_IdsQuery(self, q: IdsQuery) -> Bound:
+        """The reference binds a [cap] bool mask a request; the port
+        binds the matched doc indices (sorted, unique) and builds the
+        same mask on the device (eval_node `ids`), so a batch uploads
+        [B, n] int32 and not [B, cap] bools."""
+        docs = sorted({d for d in (self.seg.id_map.get(v) for v in q.values)
+                       if d is not None})
+        return Bound("ids", arrays={"docs": np.asarray(docs, dtype=np.int32)})
+
     # -- positional: fused clause kinds, else host match -> docs_w --------
 
     def _docs_w(self, docs: np.ndarray, imps: np.ndarray) -> Bound:
@@ -1061,6 +1116,121 @@ class QueryBinder:
         return Bound("const", scalars={"boost": q.boost},
                      children={"q": [self.bind(q.query)]})
 
+    def _bind_MoreLikeThisQuery(self, q: MoreLikeThisQuery) -> Bound:
+        """Lucene MoreLikeThis term selection against THIS segment's
+        statistics: tokens of the like-texts ranked by tf * idf, the top
+        max_query_terms become a bool should of term queries."""
+        tf_by_field: dict[str, dict[str, int]] = {}
+        for fld in q.fields:
+            analyzer = self.mappers.search_analyzer_for(fld)
+            counts = tf_by_field.setdefault(fld, {})
+            for text in q.like_texts:
+                for tok in analyzer.analyze(text):
+                    counts[tok] = counts.get(tok, 0) + 1
+            # terms of the unliked texts never make the query
+            for text in q.unlike_texts:
+                for tok in analyzer.analyze(text):
+                    counts.pop(tok, None)
+        scored: list[tuple[float, str, str]] = []
+        for fld, counts in tf_by_field.items():
+            pf = self.seg.text.get(fld)
+            if pf is None:
+                continue
+            for term, tf in counts.items():
+                if tf < q.min_term_freq:
+                    continue
+                t = pf.lookup(term)
+                if t < 0:
+                    continue
+                df = int(pf.df[t])
+                if df < min(q.min_doc_freq, pf.doc_count):
+                    continue
+                idf = float(bm25_idf(float(df), pf.doc_count))
+                scored.append((tf * idf, fld, term))
+        scored.sort(reverse=True)
+        selected = scored[: q.max_query_terms]
+        if not selected:
+            return self._no_match()
+        shoulds = tuple(TermQuery(fld, term, q.boost)
+                        for _, fld, term in selected)
+        msm = resolve_msm(q.minimum_should_match, len(shoulds)) or 1
+        must_not = (IdsQuery(q.exclude_ids),) if q.exclude_ids else ()
+        return self.bind(BoolQuery(should=shoulds,
+                                   minimum_should_match=max(msm, 1),
+                                   must_not=must_not))
+
+    def _bind_BoostingQuery(self, q: BoostingQuery) -> Bound:
+        return Bound("boosting", scalars={"negative_boost": q.negative_boost},
+                     children={"pos": [self.bind(q.positive)],
+                               "neg": [self.bind(q.negative)]})
+
+    # -- function_score ----------------------------------------------------
+
+    def _resolve_decay_value(self, field: str, v, is_span: bool) -> float:
+        """origin / scale / offset -> column units (date columns: epoch
+        seconds / second spans; numeric: float). "now" reads the wall
+        clock, as the reference does."""
+        nc = self.seg.numerics.get(field)
+        if nc is not None and nc.kind == DATE:
+            if is_span:
+                return parse_time_value(v) / 1000.0
+            if v == "now" or v is None:
+                return float(time.time())
+            return parse_date_millis(v) / 1000.0
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            # date strings against a long column hold epoch MILLIS
+            if is_span:
+                return float(parse_time_value(v))
+            if v == "now" or v is None:
+                return time.time() * 1000.0
+            return float(parse_date_millis(v))
+
+    def _bind_fn(self, fn: ScoreFunction) -> Bound:
+        children = {"filter": [self.bind(fn.filter)]
+                    if fn.filter is not None else []}
+        if fn.kind == "weight":
+            return Bound("fn_weight", scalars={"weight": fn.weight},
+                         children=children)
+        if fn.kind == "field_value_factor":
+            has_col = fn.field in self.seg.numerics
+            return Bound("fn_fvf", f"{fn.field}|{fn.modifier}|{int(has_col)}",
+                         scalars={"factor": fn.factor, "missing": fn.missing,
+                                  "weight": fn.weight}, children=children)
+        if fn.kind == "random_score":
+            return Bound("fn_random", scalars={"seed": fn.seed,
+                                               "weight": fn.weight},
+                         children=children)
+        if fn.kind in ("gauss", "exp", "linear"):
+            if fn.scale is None:
+                raise QueryParsingError(
+                    f"decay function on [{fn.field}] requires [scale]")
+            has_col = fn.field in self.seg.numerics
+            origin = self._resolve_decay_value(fn.field, fn.origin, False) \
+                if has_col else 0.0
+            scale = self._resolve_decay_value(fn.field, fn.scale, True) \
+                if has_col else 1.0
+            offset = self._resolve_decay_value(fn.field, fn.offset, True) \
+                if has_col else 0.0
+            return Bound("fn_decay", f"{fn.field}|{fn.kind}|{int(has_col)}",
+                         scalars={"origin": origin, "scale": scale,
+                                  "offset": offset, "decay": fn.decay,
+                                  "weight": fn.weight}, children=children)
+        raise QueryParsingError(f"unknown score function [{fn.kind}]")
+
+    def _bind_FunctionScoreQuery(self, q: FunctionScoreQuery) -> Bound:
+        mode_tag = (f"{q.score_mode}|{q.boost_mode}|"
+                    f"{int(q.min_score is not None)}")
+        return Bound(
+            "fnscore", mode_tag,
+            scalars={"max_boost": q.max_boost,
+                     "min_score": (q.min_score if q.min_score is not None
+                                   else 0.0),
+                     "boost": q.boost},
+            children={"q": [self.bind(q.query)],
+                      "fns": [self._bind_fn(f) for f in q.functions]})
+
     def _bind_KnnQuery(self, q: KnnQuery) -> Bound:
         """Vector similarity as a scoring clause: every live doc with a
         vector matches, scored by the field similarity's transform times
@@ -1084,6 +1254,27 @@ class QueryBinder:
                                            _F32_MIN_WEIGHT),
                               "sim": sim},
                      arrays={"qv": qv})
+
+
+def _edit_distance_le(a: str, b: str, k: int) -> bool:
+    """Banded Levenshtein <= k (host-side fuzzy expansion)."""
+    la, lb = len(a), len(b)
+    if abs(la - lb) > k:
+        return False
+    prev = list(range(lb + 1))
+    for i in range(1, la + 1):
+        cur = [i] + [0] * lb
+        lo = max(1, i - k)
+        hi = min(lb, i + k)
+        if lo > 1:
+            cur[lo - 1] = k + 1
+        for j in range(lo, hi + 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1,
+                         prev[j - 1] + (a[i - 1] != b[j - 1]))
+        if min(cur[max(0, lo - 1):hi + 1]) > k:
+            return False
+        prev = cur
+    return prev[lb] <= k
 
 
 # ---------------------------------------------------------------------------
@@ -1224,6 +1415,60 @@ def _finalize_node(bounds: Sequence[Bound]) -> tuple[tuple, tuple]:
     if kind == "const":
         d, p = _finalize_node([b.children["q"][0] for b in bounds])
         return ("const", d), (p, stack_scalar("boost", np.float32))
+    if kind in ("exists_text", "exists_kw", "exists_num", "exists_gv"):
+        return ((kind, b0.field), ())
+    if kind == "ids":
+        # doc indices padded with -1 (no doc); eval_node scatters them
+        # into the [B, cap] mask the reference uploads
+        n_pad = next_pow2(max(b.arrays["docs"].size for b in bounds),
+                          floor=1)
+        docs = np.full((B, n_pad), -1, dtype=np.int32)
+        for i, b in enumerate(bounds):
+            d = b.arrays["docs"]
+            docs[i, : d.size] = d
+        return ("ids", n_pad), (docs,)
+    if kind == "boosting":
+        dp, pp = _finalize_node([b.children["pos"][0] for b in bounds])
+        dn, pn = _finalize_node([b.children["neg"][0] for b in bounds])
+        return (("boosting", dp, dn),
+                (pp, pn, stack_scalar("negative_boost", np.float32)))
+    if kind == "fnscore":
+        qd, qp = _finalize_node([b.children["q"][0] for b in bounds])
+        fn_descs = []
+        fn_params = []
+        for i in range(len(b0.children["fns"])):
+            fd, fp = _finalize_node([b.children["fns"][i] for b in bounds])
+            fn_descs.append(fd)
+            fn_params.append(fp)
+        return (("fnscore", qd, tuple(fn_descs), b0.field),
+                (qp, tuple(fn_params),
+                 stack_scalar("max_boost", np.float32),
+                 stack_scalar("min_score", np.float32),
+                 stack_scalar("boost", np.float32)))
+    if kind in ("fn_weight", "fn_fvf", "fn_random", "fn_decay"):
+        flt = b0.children.get("filter", [])
+        fdesc, fparams = (None, ())
+        if flt:
+            fdesc, fparams = _finalize_node([b.children["filter"][0]
+                                             for b in bounds])
+        if kind == "fn_weight":
+            own = (stack_scalar("weight", np.float32),)
+        elif kind == "fn_fvf":
+            own = (stack_scalar("factor", np.float32),
+                   stack_scalar("missing", np.float32),
+                   stack_scalar("weight", np.float32))
+        elif kind == "fn_random":
+            # uint32, as the reference stacks it; the packed upload
+            # carries its bits as int32 (eval_node reads them back)
+            own = (stack_scalar("seed", np.uint32),
+                   stack_scalar("weight", np.float32))
+        else:
+            own = (stack_scalar("origin", np.float32),
+                   stack_scalar("scale", np.float32),
+                   stack_scalar("offset", np.float32),
+                   stack_scalar("decay", np.float32),
+                   stack_scalar("weight", np.float32))
+        return ((kind, b0.field, fdesc), (own, fparams))
     raise QueryParsingError(f"unknown bound node [{kind}]")
 
 
@@ -1457,7 +1702,256 @@ def eval_node(desc: tuple, params: tuple, seg: dict, cap: int, B: int
         p_child, boost = params
         _, m = eval_node(d_child, p_child, seg, cap, B)
         return torch.where(m, boost[:, None], 0.0), m
+    if kind in ("exists_text", "exists_kw", "exists_num", "exists_gv"):
+        _, field = desc
+        if kind == "exists_text":
+            m = seg["text"][field]["doc_len"] > 0
+        elif kind == "exists_kw":
+            m = seg["kw"][field] >= 0
+        elif kind == "exists_num":
+            m = seg["num"][field]["exists"]
+        else:
+            m = seg["vec"][field.split("\x00", 1)[1]]["exists"]
+        m = m[None, :].expand(B, cap)
+        return m.to(torch.float32), m
+    if kind == "ids":
+        # the reference's [B, cap] mask, built from the doc indices; a
+        # pad index (-1) lands in a spare column that is cut off
+        (docs,) = params
+        idx = torch.where(docs >= 0, docs, cap).to(torch.int64)
+        mask = torch.zeros((B, cap + 1), dtype=torch.bool, device=device)
+        mask.scatter_(1, idx, True)
+        mask = mask[:, :cap]
+        return mask.to(torch.float32), mask
+    if kind == "boosting":
+        _, d_pos, d_neg = desc
+        p_pos, p_neg, nboost = params
+        s, m = eval_node(d_pos, p_pos, seg, cap, B)
+        _, mn = eval_node(d_neg, p_neg, seg, cap, B)
+        s = torch.where(mn, ordered.ftz(s * nboost[:, None]), s)
+        return s, m
+    if kind == "fnscore":
+        return _eval_fnscore(desc, params, seg, cap, B)
     raise QueryParsingError(f"unknown desc node [{kind}]")
+
+
+# ---------------------------------------------------------------------------
+# function_score: the reference's combination as its compiled CPU program
+# computes it. exp / log / log1p are XLA's own approximations
+# (ops/xla_math). XLA's algebraic simplifier folds a constant into the
+# row weight ((log(x) * 1/ln10) * w -> log(x) * (w * 1/ln10)), and its
+# code generator contracts an add of a bare product (a function without a
+# filter) into an FMA (`_fma_sum`). Every product or quotient that can
+# leave the normal range is flushed as XLA's CPU runtime flushes it
+# (ops/ordered.ftz). Scores equal the reference's bit for bit, except a
+# sum / avg over two or more unfiltered functions, within 1 ulp; the
+# port's own ops are the same on the CPU and on the card.
+# ---------------------------------------------------------------------------
+
+
+def _fma_sum(terms: list) -> torch.Tensor:
+    """Sum of (value, product) terms in order with XLA's contraction:
+    fadd(x, y) fuses x's product when x is a bare product, else y's.
+    Where both are bare products, LLVM's Reassociate pass first orders
+    the operands by an expression rank the port does not model, so the
+    reference may fuse y's instead: the sum is then within 1 ulp of the
+    reference's (tests/test_torch_function_score.py measures it)."""
+    acc, acc_prod = terms[0]
+    for val, prod in terms[1:]:
+        if acc_prod is not None:
+            acc = fma_rn(acc_prod[0], acc_prod[1], val)
+        elif prod is not None:
+            acc = fma_rn(prod[0], prod[1], acc)
+        else:
+            acc = acc + val
+        acc_prod = None
+        acc = ordered.ftz(acc)
+    return acc
+
+
+def _eval_fnscore(desc: tuple, params: tuple, seg: dict, cap: int, B: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    ftz = ordered.ftz
+    _, qdesc, fn_descs, mode_tag = desc
+    qparams, fn_params, max_boost, min_score, boost = params
+    score_mode, boost_mode, has_min = mode_tag.split("|")
+    s, m = eval_node(qdesc, qparams, seg, cap, B)
+    device = s.device
+    fns = [_eval_score_fn(fd, fp, seg, cap, B)
+           for fd, fp in zip(fn_descs, fn_params)]
+    if not fns:
+        combined = torch.ones((B, cap), dtype=torch.float32, device=device)
+    elif score_mode in ("sum", "avg"):
+        # a filtered function's where(a, f, 0) is no bare product
+        combined = _fma_sum([(torch.where(a, f, 0.0), None)
+                             if a is not None else (f, prod)
+                             for f, a, prod in fns])
+        if score_mode == "avg":
+            cnt = None
+            for _f, a, _p in fns:
+                t = (a.to(torch.float32) if a is not None
+                     else torch.ones((B, cap), dtype=torch.float32,
+                                     device=device))
+                cnt = t if cnt is None else cnt + t
+            combined = torch.where(
+                cnt > 0, ftz(combined / torch.clamp(cnt, min=1.0)), 1.0)
+    elif score_mode in ("max", "min"):
+        fill = float("-inf") if score_mode == "max" else float("inf")
+        stk = torch.stack([f if a is None else torch.where(a, f, fill)
+                           for f, a, _p in fns])
+        ext = stk.amax(dim=0) if score_mode == "max" else stk.amin(dim=0)
+        combined = torch.where(torch.isfinite(ext), ext, 1.0)
+    elif score_mode == "first":
+        combined = torch.ones((B, cap), dtype=torch.float32, device=device)
+        for f, a, _p in reversed(fns):
+            combined = f if a is None else torch.where(a, f, combined)
+    else:  # multiply (the default)
+        combined = None
+        for f, a, _p in fns:
+            t = f if a is None else torch.where(a, f, 1.0)
+            combined = t if combined is None else ftz(combined * t)
+    combined = torch.minimum(combined, max_boost[:, None])
+    if boost_mode == "replace":
+        new = combined
+    elif boost_mode == "sum":
+        new = ftz(s + combined)
+    elif boost_mode == "avg":
+        new = ftz((s + combined) / 2.0)
+    elif boost_mode == "max":
+        new = torch.maximum(s, combined)
+    elif boost_mode == "min":
+        new = torch.minimum(s, combined)
+    else:  # multiply
+        new = ftz(s * combined)
+    new = ftz(new * boost[:, None])
+    if has_min == "1":
+        m = m & (new >= min_score[:, None])
+    # keep the positive-score match invariant of the scoring paths
+    new = torch.where(m, torch.clamp(new, min=_F32_MIN_WEIGHT), 0.0)
+    return new, m
+
+
+def _random_bits(seed: torch.Tensor, cap: int, device) -> torch.Tensor:
+    """The reference's random_score hash of (doc index, seed) -> [B, cap]
+    f32, as its device program computes it: the seed arrives as int32
+    (the packed upload), and JAX's promotion of int32 with the uint32
+    constants (int64, canonicalised to int32 without x64) makes the hash
+    int32 from the seed's product on: wrapping products and sums,
+    ARITHMETIC shifts and a signed conversion. h ^ (h >> 13) clears the
+    sign bit, so the values lie in [0, 0.5), not [0, 1). Done in int64
+    holding the 32 bits (torch has no general uint32 multiply)."""
+    m32 = 0xFFFFFFFF
+
+    def signed(h):
+        return torch.where(h >= 2 ** 31, h - 2 ** 32, h)
+
+    def mul32(h, k):
+        # h * k mod 2^32 for h, k < 2^32, in two halves (no int64 overflow)
+        return (h * (k & 0xFFFF) + (((h * (k >> 16)) & 0xFFFF) << 16)) & m32
+
+    idx = torch.arange(cap, dtype=torch.int64, device=device)[None, :]
+    sd = seed.to(torch.int64)[:, None] & m32    # the int32 wire's bits
+    h = (mul32(idx, 2654435761) + mul32(sd, 40503)) & m32
+    h = (h ^ (signed(h) >> 15)) & m32
+    h = mul32(h, 2246822519)
+    h = signed((h ^ (signed(h) >> 13)) & m32)
+    return h.to(torch.float32) / float(2 ** 32)
+
+
+def _eval_score_fn(desc: tuple, params: tuple, seg: dict, cap: int, B: int
+                   ) -> tuple[torch.Tensor, torch.Tensor | None, tuple | None]:
+    """One score function -> (factor [B, cap], applicable [B, cap] or
+    None where it applies everywhere, product): `product` is (a, b) with
+    factor == fl(a * b) when the factor is a bare product that XLA may
+    contract into a following add (no filter), else None."""
+    ftz = ordered.ftz
+    kind, tag, fdesc = desc
+    own, fparams = params
+    device = seg["_device"]
+    applicable = (eval_node(fdesc, fparams, seg, cap, B)[1]
+                  if fdesc is not None else None)
+
+    def product(a, b):
+        return ftz(a * b), applicable, (a, b) if applicable is None \
+            else None
+
+    if kind == "fn_weight":
+        (weight,) = own
+        return weight[:, None].expand(B, cap).contiguous(), applicable, None
+    if kind == "fn_random":
+        seed, weight = own
+        return product(_random_bits(seed, cap, device), weight[:, None])
+    field, shape_or_mod, has_col = tag.split("|")
+    if has_col == "0":
+        # column absent in this segment: fvf -> missing value; decay -> 1
+        if kind == "fn_fvf":
+            _factor, missing, weight = own
+            val = missing[:, None].expand(B, cap)
+            return product(*_fvf_modifier(val, shape_or_mod,
+                                          weight[:, None]))
+        weight = own[-1]
+        return weight[:, None].expand(B, cap).contiguous(), applicable, None
+    col = seg["num"][field]
+    vals = col["values"].to(torch.float32)[None, :]
+    exists = col["exists"][None, :]
+    if kind == "fn_fvf":
+        factor, missing, weight = own
+        val = torch.where(exists, ftz(vals * factor[:, None]),
+                          missing[:, None])
+        return product(*_fvf_modifier(val, shape_or_mod, weight[:, None]))
+    # decay functions (ref: functionscore/DecayFunctionBuilder.java)
+    origin, scale, offset, decay, weight = own
+    d = torch.clamp(ftz(ftz((vals - origin[:, None]).abs())
+                        - offset[:, None]), min=0.0)
+    ln_decay = xla_math.log(decay[:, None])
+    if shape_or_mod == "gauss":
+        sigma2 = ftz(-ftz(scale[:, None] * scale[:, None])
+                     / ftz(2.0 * ln_decay))
+        f = xla_math.exp(ftz(-ftz(d * d) / ftz(2.0 * sigma2)))
+    elif shape_or_mod == "exp":
+        lam = ftz(ln_decay / scale[:, None])
+        f = xla_math.exp(ftz(lam * d))
+    else:  # linear
+        s_ = ftz(scale[:, None] / (1.0 - decay[:, None]))
+        f = torch.clamp(ftz(ftz(s_ - d) / s_), min=0.0)
+    return product(torch.where(exists, f, 1.0), weight[:, None])
+
+
+_LOG10_MODIFIERS = {"log": (1e-9, 0.0), "log1p": (0.0, 1.0),
+                    "log2p": (0.0, 2.0)}
+
+
+def _fvf_modifier(val: torch.Tensor, modifier: str, weight: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """field_value_factor modifiers (ref: common/lucene/search/function/
+    FieldValueFactorFunction.Modifier) times the weight, as the two
+    operands of the last product: the log10 kinds fold 1/ln10 into the
+    weight (XLA: (log(x) * c) * w -> log(x) * (w * c))."""
+    ftz = ordered.ftz
+    if modifier in _LOG10_MODIFIERS:
+        lo, add = _LOG10_MODIFIERS[modifier]
+        x = torch.clamp(val, min=lo)
+        if add:
+            x = x + add
+        return xla_math.log(x), ftz(weight * xla_math.INV_LN10)
+    if modifier == "none":
+        v = val
+    elif modifier == "ln":
+        v = xla_math.log(torch.clamp(val, min=1e-9))
+    elif modifier == "ln1p":
+        v = xla_math.log1p(torch.clamp(val, min=0.0))
+    elif modifier == "ln2p":
+        v = xla_math.log(torch.clamp(val, min=0.0) + 2.0)
+    elif modifier == "square":
+        v = ftz(val * val)
+    elif modifier == "sqrt":
+        v = sqrt_rn(torch.clamp(val, min=0.0))
+    elif modifier == "reciprocal":
+        v = ftz(1.0 / torch.clamp(val, min=1e-9))
+    else:
+        raise SearchParseError(
+            f"unknown field_value_factor modifier [{modifier}]")
+    return v, weight
 
 
 # ---------------------------------------------------------------------------

