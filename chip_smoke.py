@@ -72,8 +72,8 @@ each of which fails the run on any error:
    `corpus.dsl_mixes` (query_string, compound, multi_term,
    function_score, exists_ids, more_like_this, bucket_aggs with 10
    derived buckets a request, 64 requests an msearch, top_hits_sig), a
-   warm-up batch and one timed batch each inside one profiler session
-   (the card's activity alone, split at marker kernels: a `dsl mix` line
+   warm-up batch and one timed batch each inside a profiler session of
+   its own (the card's activity alone: a `dsl mix` line
    with req/s, p50, device busy ms and idle share), the launch counts
    zeroed just before; K3, K1, K2 and the scan must launch, query_string
    and more_like_this must be admitted to K3 and function_score rejected
@@ -84,6 +84,30 @@ each of which fails the run on any error:
    node of 3,000 docs a shard answers query_string, function_score and
    bucket_aggs over HTTP _msearch and `GET /logs/_search?q=` as its
    engines' readers do;
+6c. scripts and the device metric aggs (path v), on the same index: five
+   mixes of `corpus.script_mixes` (script_filter: a match with a script
+   filter over size and status with params; script_score: function_score
+   of `_score`, a param and tanh; script_sort: a match sorted by
+   `_script`; script_aggs: terms(status) -> avg over a script, stats over
+   a script and a scripted_metric; pctl_card: percentiles and
+   percentile_ranks of size and cardinality of status, exact and with
+   precision_threshold 1 (the HLL sketch), top-level and in two daily
+   date_range buckets), a warm-up of 32 requests a mix and one timed
+   batch each in a profiler session of its own (`script mix` lines as
+   path (u)'s),
+   the counts zeroed just before; K1, the bucket stats (the HLL
+   registers' max fold), the scan and the tree must launch, script
+   clauses and function_score must be rejected by the fused engine; the
+   first 32 requests of each mix with the plain versions swapped in give
+   identical responses, and 8 pctl_card requests' HLL registers are
+   `torch.equal` to the plain version's; 16 requests a mix on the small
+   index give the CPU's responses exactly. In the window after the
+   scroll (beside the passages' build workers, `script node` line): a
+   durable 2-shard node of 2,000 docs a shard over HTTP stores a script
+   (`PUT /_scripts/size_kb`), serves a search filtered and sorted by it
+   as its readers do, runs an `_update` with a script, and after a
+   restart (the process's registry emptied) has the script back from
+   scripts.json and answers with the same hits;
 7. the node path: the main path's index comes from a `Node` on the card
    behind a loopback `RestServer` (index `logs`, 2 shards, the streaming
    delta mode): shard s takes corpus.make_docs(2^20, seed 42 + s, start
@@ -162,8 +186,9 @@ each of which fails the run on any error:
 12. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--rehearse` runs the main, delta, resident, query DSL, node, restart,
-scroll, kill -9 and vectors paths' checks on the CPU at a toy size (no build, no timings, no
+`--rehearse` runs the main, delta, resident, query DSL, scripts, node,
+restart, scroll, kill -9 and vectors paths' checks on the CPU at a toy
+size (no build, no timings, no
 result line), to exercise this script without a card. `--ab-parent DIR` loads the K3 of an earlier
 commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
 git-ignored `smoke_checkout/`) beside this one and times the two in turns
@@ -176,8 +201,8 @@ min and max);
 builds patched copies of this checkout's K3 (a design step undone, or a
 probe) under DIR and times them this way. `--kernels-only` stops after
 the kernel phase, `--vectors-only` runs the build and path (t) alone,
-`--dsl-only` the build, two 2^20-doc shards built in workers and path
-(u) alone (no result line either).
+`--dsl-only` the build, two 2^20-doc shards built in workers and paths
+(u) and (v) alone, with (v)'s HTTP node (no result line either).
 """
 
 from __future__ import annotations
@@ -339,8 +364,23 @@ def search_merged(readers, bodies, deadline=None) -> list[dict]:
         out.append(merge_shard_results(
             resps, agg_specs=parse_aggs(body.get("aggs")),
             shard_partials=[r.get("_agg_partials", {}) for r in resps],
-            frm=body.get("from", 0), size=body.get("size", 10)))
+            frm=body.get("from", 0), size=body.get("size", 10),
+            **_merge_order(body.get("sort"))))
     return out
+
+
+def _merge_order(sort) -> dict:
+    """The merge's order for a request's one sort key, as the node's."""
+    entry = sort[0] if isinstance(sort, list) and sort else sort
+    if entry in (None, "_score"):
+        return {}
+    if isinstance(entry, str):
+        return {"score_sort": False, "descending": False}
+    spec = next(iter(entry.values()))
+    if next(iter(entry)) == "_score":
+        return {}
+    order = spec.get("order", "asc") if isinstance(spec, dict) else str(spec)
+    return {"score_sort": False, "descending": str(order).lower() == "desc"}
 
 
 def _strip(resps: list[dict]) -> list[dict]:
@@ -966,6 +1006,20 @@ def rehearse(n_docs: int, batch: int) -> int:
                "fused_admitted": v["fused"]["admission"]["admitted"],
                "rejected": v["fused"]["admission"]["rejected"]}
            for k, v in dsl["mixes"].items()}}))
+    # path (v): the script mixes on the same readers and small index, and
+    # the HTTP node with a stored script, a scripted update and a restart
+    with contextlib.redirect_stdout(io.StringIO()):
+        scripts, _ = script_phase(argparse.Namespace(batch=batch), readers,
+                                  make_readers(small, "cpu"),
+                                  make_readers([copy.copy(s) for s in small],
+                                               "cpu"), lambda: None,
+                                  on_card=False)
+        script_node = script_node_check(300, "cpu")
+    log("rehearse scripts: " + json.dumps({
+        "small": scripts["small"], "node": script_node,
+        **{k: {"hits": v["hits"],
+               "rejected": v["fused"]["admission"]["rejected"]}
+           for k, v in scripts["mixes"].items()}}))
     log("rehearse vectors: " + json.dumps({
         "recall": vec["recall"], "small": vec["small"], "node": vec["node"],
         **{k: {"hits": v["hits"], "ivf_host_syncs_per_batch":
@@ -2359,7 +2413,8 @@ def _same_bits(a, b) -> bool:
 
 
 def measure_bucket_stats(ids, mask, values, n_buckets, stats, reps,
-                         ns_per_add, old=None):
+                         ns_per_add, old=None, plain=None,
+                         keep_plain: bool = False):
     """The bucket-stats kernel vs its plain version (XLA's scatter
     results), every stat bit for bit; library: what the main path ran
     for the count, min and max before this kernel, index_add_ and two
@@ -2373,7 +2428,10 @@ def measure_bucket_stats(ids, mask, values, n_buckets, stats, reps,
     from elasticsearch_tpu_torch.ops import ordered
     args = (ids, mask, values, n_buckets, stats)
     got = cs.ordered_bucket_stats(*args)
-    want, plain_ms = plain_run(lambda: cs.ordered_bucket_stats_ref(*args))
+    # `plain`: (result, ms) of the plain version on these inputs for a
+    # superset of `stats`, taken by an earlier row
+    want, plain_ms = plain if plain is not None else plain_run(
+        lambda: cs.ordered_bucket_stats_ref(*args))
     for st in stats:
         if not _same_bits(got[st], want[st]):
             raise AssertionError(f"ordered_bucket_stats {st} != plain at "
@@ -2407,7 +2465,10 @@ def measure_bucket_stats(ids, mask, values, n_buckets, stats, reps,
          "bound_ms": bound_ms, "bound_by": bound_by,
          "hottest": bucket_hottest(ids, mask, n_buckets),
          "max_abs_err": max(float((got[st] - want[st]).abs().nan_to_num()
-                                  .max()) for st in stats)}
+                                  .max()) for st in stats),
+         "plain_shared": plain is not None}
+    if keep_plain:
+        m["_plain"] = (want, plain_ms)
     if old is not None and hasattr(old, "ordered_bucket_stats"):
         # a parent that has this kernel already: the two in turns
         prev = old.ordered_bucket_stats(*args)
@@ -2499,19 +2560,29 @@ def scan_sweep(dev, rng, B: int = 256, cap: int = 1 << 20,
     lat = add_latency(dev)
     log("add latency " + json.dumps(lat))
     ext = ("sum", "sum_sq", "count", "min", "max")
-    for label, b_ids, n_b, rows_b, stats in (
-            ("terms status -> extended_stats", ids, 3, 128, ext),
-            ("terms status -> sum", ids, 3, 128, ("sum",)),
+    # the sum-only row is held against the extended_stats row's plain
+    # result (the same inputs, the plain fold of all five stats); the one
+    # bucket row folds 2^19 docs (its plain fold is one pass per doc)
+    half = cap // 2
+    shared = {}
+    for label, b_ids, n_b, rows_b, n, stats in (
+            ("terms status -> extended_stats", ids, 3, 128, cap, ext),
+            ("terms status -> sum", ids, 3, 128, cap, ("sum",)),
             ("1,000 buckets -> extended_stats", torch.from_numpy(
                 rng.integers(-5, 1005, size=cap).astype(np.int32)).to(dev),
-             1000, 256, ext),
+             1000, 256, cap, ext),
             ("one bucket -> extended_stats",
-             torch.zeros(cap, dtype=torch.int32, device=dev), 1, 1, ext)):
-        m = measure_bucket_stats(b_ids, sz_ok[:rows_b].contiguous(), sz[0],
-                                 n_b, stats, reps=8,
-                                 ns_per_add=lat["ns_per_add"], old=old)
+             torch.zeros(half, dtype=torch.int32, device=dev), 1, 1, half,
+             ext)):
+        m = measure_bucket_stats(
+            b_ids, sz_ok[:rows_b, :n].contiguous(), sz[0, :n].contiguous(),
+            n_b, stats, reps=8, ns_per_add=lat["ns_per_add"], old=old,
+            plain=shared.get("terms status") if stats == ("sum",) else None,
+            keep_plain=label == "terms status -> extended_stats")
+        if "_plain" in m:
+            shared["terms status"] = m.pop("_plain")
         rows.append({"kernel": "ordered_bucket_stats", "agg": label,
-                     "B": rows_b, "cap": cap, "n_buckets": n_b, **m})
+                     "B": rows_b, "cap": n, "n_buckets": n_b, **m})
         log("kernel_sweep " + json.dumps(rows[-1]))
     rows += subnormal_rows(dev, rng)
     return rows
@@ -3975,9 +4046,8 @@ def vector_phase(args, dev, sync, out_dir=None, on_card=True,
 # -- path (u): the query DSL ------------------------------------------------
 
 # path (u) budgets 60 s of the run: a warm-up batch a mix, then ONE timed
-# batch a mix, recorded in one profiler session (the card's activity
-# alone, split between marker kernels) for its device busy time
-DSL_MARKER_CYCLES = 1000
+# batch a mix, each recorded in a profiler session of its own (the card's
+# activity alone) for its device busy time
 # requests per msearch of a mix: bucket_aggs' requests spawn 10
 # auxiliary requests each (one a bucket), sent back through msearch
 DSL_BATCH = {"bucket_aggs": 64}
@@ -4005,70 +4075,53 @@ def dsl_search(readers, name):
     return run
 
 
-def _dsl_marker_spans(prof, n: int) -> list[list[tuple]]:
-    """The card's events of a profiler session split at the last n + 1
-    marker kernels (`torch.cuda._sleep`) launched around n batches (a
-    primer marker goes first: the session may miss its first event): per
-    batch the (start, end) microseconds of its kernels and copies."""
+def _device_spans(prof) -> list[tuple]:
+    """The (start, end) microseconds of the card's kernels and copies in
+    a profiler session."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
-    dev = sorted(((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns())
-                   / 1e3, e.name())
-                  for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == cuda), key=lambda x: x[0])
-    marks = [i for i, (_a, _b, name) in enumerate(dev)
-             if "spin" in name][-(n + 1):]
-    if len(marks) != n + 1:
-        raise AssertionError(f"dsl profile: {len(marks)} marker kernels, "
-                             f"{n + 2} launched")
-    return [[(a, b) for a, b, _n in dev[marks[i] + 1: marks[i + 1]]]
-            for i in range(n)]
+    return [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
 
 
 def run_dsl_path(readers, mixes, sync, on_card: bool) -> tuple:
-    """One timed batch of each DSL mix (after the warm-up), with the
-    launch counts zeroed just before the path and read per mix and after
-    it. On the card the batches run inside one profiler session that
-    records the card's activity alone; marker kernels between them give
-    each batch's device busy time."""
+    """One timed batch of each mix (after the warm-up), with the launch
+    counts zeroed just before the path and read per mix and after it. On
+    the card each batch runs inside a profiler session of its own that
+    records the card's activity alone: its device busy time is the union
+    of the session's kernel and copy intervals (a session a batch: one
+    session for all the batches lost events once its buffer filled)."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     from elasticsearch_tpu_torch.search import executor
     stats, last = {}, {}
     _zero_counts()
-    names = list(mixes)
-    ctx = contextlib.nullcontext()
-    if on_card:
-        from torch.profiler import ProfilerActivity, profile
-        ctx = profile(activities=[ProfilerActivity.CUDA])
-    with ctx as prof:
-        if on_card:                              # the primer marker
-            torch.cuda._sleep(DSL_MARKER_CYCLES)
-            sync()
-        for name in names:
-            if on_card:
-                torch.cuda._sleep(DSL_MARKER_CYCLES)
-            sync()
-            before = dict(cs.LAUNCHES)
-            executor._fused_stats.reset()
+    for name in mixes:
+        sync()
+        before = dict(cs.LAUNCHES)
+        executor._fused_stats.reset()
+        ctx = contextlib.nullcontext()
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+            ctx = profile(activities=[ProfilerActivity.CUDA])
+        with ctx as prof:
             st, last[name] = time_mix(readers, mixes[name], 1, sync,
                                       batch=DSL_BATCH.get(name))
-            stats[name] = {
-                **st, "batch": DSL_BATCH.get(name) or len(mixes[name]),
-                "launches": {k: cs.LAUNCHES[k] - before[k]
-                             for k in cs.LAUNCHES},
-                "hits": sum(r["hits"]["total"] for r in last[name]),
-                "fused": executor.fused_scoring_stats()}
+        stats[name] = {
+            **st, "batch": DSL_BATCH.get(name) or len(mixes[name]),
+            "launches": {k: cs.LAUNCHES[k] - before[k]
+                         for k in cs.LAUNCHES},
+            "hits": sum(r["hits"]["total"] for r in last[name]),
+            "fused": executor.fused_scoring_stats()}
         if on_card:
-            torch.cuda._sleep(DSL_MARKER_CYCLES)
-            sync()
-    launches = dict(cs.LAUNCHES)
-    if on_card:
-        for name, spans in zip(names, _dsl_marker_spans(prof, len(names))):
-            busy = _merged_span(spans) / 1e3
+            busy = _merged_span(_device_spans(prof)) / 1e3
             stats[name]["device_busy_ms"] = busy
             stats[name]["device_idle_share"] = max(
                 0.0, 1.0 - busy / stats[name]["p50_ms"])
+    launches = dict(cs.LAUNCHES)
+    if on_card:
+        torch.cuda.synchronize()
     return stats, last, launches
 
 
@@ -4236,6 +4289,239 @@ def dsl_phase(args, readers, on_gpu, on_cpu, dev, sync,
     return report, launches
 
 
+# -- path (v): scripts and the device metric aggs --------------------------
+
+# path (v) runs right after path (u) on the same bases: a warm-up of
+# SCRIPT_WARMUP requests a mix (uploads: the script columns, the sorted
+# layouts), then ONE timed batch of each mix in a profiler session, as
+# path (u); its HTTP node (stored script, scripted update, restart) runs
+# in the window after the scroll, beside the passages' build workers
+SCRIPT_WARMUP = 32
+SCRIPT_SWAP = 32          # requests a mix with the plain versions swapped in
+SCRIPT_SMALL = 16         # requests a mix on the card-vs-CPU small index
+SCRIPT_HLL_ROWS = 8       # pctl_card requests whose HLL registers are held
+SCRIPT_NODE_DOCS = 2000   # per shard of the HTTP node
+# the kernels path (v) must launch on the card: K1 scores the matches of
+# the unfused script plans, the bucket stats fold the HLL registers, the
+# scan and the tree reduce the percentiles' sorted bins and the stats
+SCRIPT_KERNELS = ("dense_score", "ordered_bucket_stats", "ordered_prefix",
+                  "ordered_sum")
+
+
+def check_script_path(stats, last) -> None:
+    """Every script plan stays off K3 (script clauses are rejected as
+    `clause:script_q`, function_score as `clause:fnscore`, sorts by
+    `sort`), every mix has hits, and the aggregations are well formed."""
+    adm = stats["script_filter"]["fused"]["admission"]
+    if adm["admitted"] or adm["rejected"].get("clause:script_q", 0) <= 0:
+        raise AssertionError(f"script_filter: admission {adm}")
+    adm = stats["script_score"]["fused"]["admission"]
+    if adm["admitted"] or adm["rejected"].get("clause:fnscore", 0) <= 0:
+        raise AssertionError(f"script_score: admission {adm}")
+    for name, resps in last.items():
+        if sum(r["hits"]["total"] for r in resps) <= 0:
+            raise AssertionError(f"{name}: no hits in the mix")
+        for r in resps:
+            if not all(np.isfinite(h["_score"]) for h in r["hits"]["hits"]
+                       if h["_score"] is not None):
+                raise AssertionError(f"{name}: a score is not finite")
+    for r in last["script_sort"]:
+        keys = [h["sort"][0] for h in r["hits"]["hits"]]
+        if keys != sorted(keys, reverse=True):
+            raise AssertionError(f"script_sort: keys out of order {keys}")
+    for r in last["script_aggs"]:
+        a = r["aggregations"]
+        if a["kb"]["count"] != r["hits"]["total"] \
+                or not np.isfinite(a["total_kb"]["value"]):
+            raise AssertionError("script_aggs: " + json.dumps(a)[:300])
+    for r in last["pctl_card"]:
+        a = r["aggregations"]
+        if r["hits"]["total"] and (a["status_n"]["value"] != 3
+                                   or a["status_hll"]["value"] != 3
+                                   or a["size_p"]["values"]["50.0"] is None):
+            raise AssertionError("pctl_card: " + json.dumps(a)[:300])
+
+
+def hll_registers(readers, bodies) -> list:
+    """Each shard's HLL registers of the `status_hll` aggs of `bodies`."""
+    import torch
+    return [torch.from_numpy(np.asarray(
+        r.get("_agg_partials", {})["status_hll"]["hll"]))
+        for reader in readers
+        for r in reader.msearch(copy.deepcopy(bodies), with_partials=True)]
+
+
+def script_phase(args, readers, on_gpu, on_cpu, sync,
+                 on_card: bool = True) -> tuple:
+    """Path (v): the five script / device-agg mixes on the main path's
+    readers (args.batch requests each), then their checks: admission, the
+    plain swap (and the HLL registers `torch.equal` to the plain
+    version's), the card against the CPU on the small index. Returns (the
+    report, the path's launch counts)."""
+    import torch
+    from elasticsearch_tpu_torch import corpus
+    t_phase = time.perf_counter()
+    laps = {}
+    mark = time.perf_counter()
+
+    def lap(name):
+        nonlocal mark
+        now = time.perf_counter()
+        laps[name] = now - mark
+        mark = now
+    mixes = corpus.script_mixes(args.batch)
+    for name in corpus.SCRIPT_MIXES:           # warm-up: uploads, layouts
+        search_merged(readers, mixes[name][:SCRIPT_WARMUP])
+    sync()
+    lap("warm_up")
+    stats, last, launches = run_dsl_path(readers, mixes, sync, on_card)
+    lap("timed_mixes")
+    if on_card:
+        missing = [k for k in SCRIPT_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on path (v): "
+                                 f"{missing}")
+    check_script_path(stats, last)
+    hll_bodies = mixes["pctl_card"][:SCRIPT_HLL_ROWS]
+    regs = hll_registers(readers, hll_bodies)
+    with swapped_kernels(**plain_versions()):
+        for name, bodies in mixes.items():
+            if _strip(search_merged(readers, bodies[:SCRIPT_SWAP])) \
+                    != _strip(last[name][:SCRIPT_SWAP]):
+                raise AssertionError(f"script {name}: responses with the "
+                                     "plain versions swapped in differ")
+        plain_regs = hll_registers(readers, hll_bodies)
+    if not all(torch.equal(a, b) for a, b in zip(regs, plain_regs)):
+        raise AssertionError("HLL registers != the plain version's")
+    lap("plain_swap")
+    for name in corpus.SCRIPT_MIXES:
+        log("script mix " + json.dumps({
+            "mix": name, "requests": stats[name]["requests"],
+            "batch": stats[name]["batch"], "qps": stats[name]["qps"],
+            "p50_ms": stats[name]["p50_ms"], "hits": stats[name]["hits"],
+            "device_busy_ms": stats[name].get("device_busy_ms"),
+            "device_idle_share": stats[name].get("device_idle_share"),
+            "launches": {k: v for k, v in stats[name]["launches"].items()
+                         if v},
+            "admission": stats[name]["fused"]["admission"],
+            "gpu": gpu_line() if on_card else "cpu"}))
+    small = script_small_check(on_gpu, on_cpu)
+    log("script small index: " + json.dumps(small))
+    lap("small_index")
+    report = {"mixes": stats, "small": small, "launches": launches,
+              "hll_rows": len(regs), "laps": laps,
+              "seconds": time.perf_counter() - t_phase,
+              "gpu": gpu_line() if on_card else "cpu"}
+    log("script: " + json.dumps({k: report[k] for k in (
+        "launches", "hll_rows", "laps", "seconds", "gpu")}))
+    return report, launches
+
+
+def script_small_check(on_gpu, on_cpu) -> dict:
+    """Every script mix on a small index: the card gives the CPU's
+    responses exactly (the script math is XLA's, computed op by op, or
+    the library's functions taken in f64 and rounded once: the mixes use
+    only the former, tanh among them)."""
+    from elasticsearch_tpu_torch import corpus
+    mixes = corpus.script_mixes(SCRIPT_SMALL, seed=19)
+    hits = {}
+    for name, bodies in mixes.items():
+        got = _strip(search_merged(on_gpu, bodies))
+        want = _strip(search_merged(on_cpu, bodies))
+        if json.dumps(got, sort_keys=True) != json.dumps(want,
+                                                         sort_keys=True):
+            raise AssertionError(f"script small index, {name}: the card "
+                                 "!= the CPU")
+        hits[name] = sum(r["hits"]["total"] for r in want)
+    return {"requests_per_mix": SCRIPT_SMALL, "hits": hits}
+
+
+def script_node_check(n_docs: int, dev) -> dict:
+    """A durable 2-shard node on `dev` behind a loopback RestServer: a
+    stored script PUT over HTTP serves a search (equal to the engines'
+    readers), an `_update` with a script changes the doc, and after a
+    restart (the process's script registry emptied first) the stored
+    script is back from scripts.json and the search answers as before."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.rest.server import RestServer
+    from elasticsearch_tpu_torch.script import ScriptService
+    t0 = time.perf_counter()
+    data = data_dir("scripts")
+    settings = node_settings(data, **{"node.name": "script-node"})
+    body = {"query": {"bool": {
+        "must": [{"match": {"message": "images"}}],
+        "filter": [{"script": {"script": {
+            "id": "size_kb", "params": {"d": 1024, "lo": 20}}}}]}},
+        "size": 20, "sort": [{"_script": {"script": {
+            "id": "size_kb", "params": {"d": 1024, "lo": 0}},
+            "type": "number", "order": "desc"}}]}
+    out = {}
+    node = Node(settings, device=dev)
+    server = RestServer(node, "127.0.0.1", 0).start()
+    url = f"http://127.0.0.1:{server.port}"
+    try:
+        node.create_index("logs", {"number_of_shards": 2}, corpus.MAPPING)
+        keys = routing_keys(2)
+        for s in range(2):
+            r = node.bulk(_bulk_ops(corpus.make_docs(
+                n_docs, seed=72 + s, start=s * n_docs, long_every=300),
+                keys[s]))
+            if r["errors"]:
+                raise AssertionError("script node: bulk failed")
+        node.refresh("logs")
+        http_call(url, "PUT", "/_scripts/size_kb", lines=[{"script": {
+            "source": "doc['size'].value / params.d - params.lo"}}])
+        got = http_call(url, "POST", "/logs/_search", lines=[body])
+        want = search_merged(node_readers(node), [body])[0]
+        if {k: v for k, v in got.items() if k != "took"} \
+                != _strip([want])[0]:
+            raise AssertionError("script node: the stored-script search "
+                                 "over HTTP != the engines' readers")
+        hit = got["hits"]["hits"][0]
+        key = keys[int(hit["_id"]) // n_docs]
+        doc = f"/logs/_doc/{hit['_id']}?routing={key}"
+        before = http_call(url, "GET", doc)["_source"]["size"]
+        http_call(url, "POST", f"/logs/_update/{hit['_id']}?refresh=true"
+                  f"&routing={key}", lines=[{"script": {
+                      "source": "ctx._source.size += params.n",
+                      "params": {"n": 4096}}}])
+        after = http_call(url, "GET", doc)["_source"]["size"]
+        if after != before + 4096:
+            raise AssertionError(f"script node: update {before} -> {after}")
+        pre = http_call(url, "POST", "/logs/_search", lines=[body])
+        out = {"hits": got["hits"]["total"], "updated": hit["_id"]}
+    finally:
+        server.stop()
+        node.close()
+    ScriptService.instance().stored.clear()
+    ScriptService.instance().meta.clear()
+    node = Node(settings, device=dev)
+    server = RestServer(node, "127.0.0.1", 0).start()
+    url = f"http://127.0.0.1:{server.port}"
+    try:
+        src = http_call(url, "GET", "/_scripts/size_kb")["script"]["source"]
+        if src != "doc['size'].value / params.d - params.lo":
+            raise AssertionError(f"script node: stored script {src!r}")
+        post = http_call(url, "POST", "/logs/_search", lines=[body])
+
+        def sorted_hits(r):
+            # hits, keys and sources; the BM25 scores beside a script sort
+            # follow the segments' statistics, which the restart's
+            # translog replay lays out anew
+            return r["hits"]["total"], [(h["_id"], h["sort"], h["_source"])
+                                        for h in r["hits"]["hits"]]
+        if sorted_hits(post) != sorted_hits(pre):
+            raise AssertionError("script node: the search after the "
+                                 "restart differs")
+    finally:
+        server.stop()
+        node.close()
+        shutil.rmtree(data, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def gpu_line() -> str:
     try:
         out = subprocess.run(
@@ -4284,9 +4570,13 @@ def on_card(args) -> int:
         log(f"dsl only: shards built in {time.perf_counter() - t0:.1f} s")
         gc.collect()
         gc.freeze()
-        dsl_phase(args, make_readers(segs, dev), make_readers(small, dev),
-                  make_readers([copy.copy(s) for s in small], "cpu"), dev,
-                  torch.cuda.synchronize)
+        readers = make_readers(segs, dev)
+        on_gpu = make_readers(small, dev)
+        on_cpu = make_readers([copy.copy(s) for s in small], "cpu")
+        dsl_phase(args, readers, on_gpu, on_cpu, dev, torch.cuda.synchronize)
+        script_phase(args, readers, on_gpu, on_cpu, torch.cuda.synchronize)
+        log("script node: " + json.dumps(script_node_check(
+            SCRIPT_NODE_DOCS, dev)))
         log(f"dsl only: {time.perf_counter() - t_run:.1f} s")
         return 0
     if args.kernels_only:
@@ -4609,8 +4899,15 @@ def on_card(args) -> int:
     dsl, dsl_launches = dsl_phase(args, readers, on_gpu, on_cpu, dev, sync)
     for k in kernels:
         k["launches"] += dsl_launches.get(k["name"], 0)
-    del on_gpu, on_cpu, small
     lap("dsl")
+    # path (v): scripts and the device metric aggs on the same bases and
+    # small index; its launches join the kernels line
+    scripts, script_launches = script_phase(args, readers, on_gpu, on_cpu,
+                                            sync)
+    for k in kernels:
+        k["launches"] += script_launches.get(k["name"], 0)
+    del on_gpu, on_cpu, small
+    lap("scripts")
     # phase 7: the node path. The earlier paths' readers go first, so
     # that compaction can release the replaced segments' holds; then a
     # delta per shard, every mix through node.msearch / HTTP _msearch /
@@ -4667,6 +4964,12 @@ def on_card(args) -> int:
         min(args.small_docs, SMALL_NODE_DOCS), 8, dev, sync)
     lap("small_node")
     log("small node: " + json.dumps(node_out["small"]))
+    # path (v)'s HTTP node (stored script, scripted update, restart),
+    # timed beside the passages' build workers
+    scripts["node"] = script_node_check(SCRIPT_NODE_DOCS, dev)
+    log("script node (beside the passage build): "
+        + json.dumps(scripts["node"]))
+    lap("script_node")
     # path (t): vectors, hybrid bundles and rescore
     vectors, vec_entry = vector_phase(args, dev, sync, out_dir,
                                       build=vec_build)

@@ -532,3 +532,87 @@ def dsl_mixes(n: int, seed: int = 11, n_ids: int = 1 << 21
                      "sig": {"significant_terms": {"field": "status",
                                                    "min_doc_count": 1}}}})
     return mixes
+
+
+SCRIPT_MIXES = ("script_filter", "script_score", "script_sort", "script_aggs",
+                "pctl_card")
+
+
+def script_mixes(n: int, seed: int = 13) -> dict[str, list[dict]]:
+    """The script and device metric agg mixes, `n` requests each:
+    script_filter: a message match with a script filter over size and
+        status (a keyword, which a device script reads as the missing
+        value 0) with params;
+    script_score: function_score over a message match with a script_score
+        of `_score`, a param and tanh (XLA's own approximation);
+    script_sort: a message match sorted by a `_script` key, descending;
+    script_aggs: size 0 under a message match: terms on status with an avg
+        over a script (the reference runs a bucket's script sub-metric as
+        a missing field: null), stats over a script with params and a
+        scripted_metric;
+    pctl_card: size 0 under a size range: percentiles and
+        percentile_ranks of size and cardinality of status, exact and
+        with precision_threshold 1 (the HLL sketch), top-level and in
+        daily date_range buckets (the reference takes these metric kinds
+        under derived bucket aggs, not under terms or date_histogram)."""
+    rng = np.random.default_rng(seed)
+    words = vocab()
+    head = words[: max(len(words) // 8, 30)]
+    w = zipf_weights(len(head))
+    mixes: dict[str, list[dict]] = {k: [] for k in SCRIPT_MIXES}
+    for i in range(n):
+        a, b = (head[j] for j in rng.choice(len(head), size=2,
+                                            replace=False, p=w))
+        lo = int(rng.integers(100, 60_000))
+        match = {"match": {"message": f"{a} {b}"}}
+        mixes["script_filter"].append({"query": {"bool": {
+            "must": [match],
+            "filter": [{"script": {"script": {
+                "source": "doc['size'].value > params.lo && "
+                          "doc['size'].value < params.hi "
+                          "+ doc['status'].value",
+                "params": {"lo": lo, "hi": lo + 40_000}}}}]}},
+            "size": 10})
+        mixes["script_score"].append({"query": {"function_score": {
+            "query": match,
+            "functions": [{"script_score": {"script": {
+                "source": "_score * params.w + Math.tanh("
+                          "doc['size'].value / params.s)",
+                "params": {"w": 0.5 + (i % 4) * 0.25, "s": 50_000}}}}],
+            "boost_mode": "replace"}}, "size": 10})
+        mixes["script_sort"].append({
+            "query": {"match": {"message": a}}, "size": 10,
+            "sort": [{"_script": {"type": "number", "order": "desc",
+                                  "script": {
+                                      "source": "doc['size'].value % "
+                                                "params.m - params.c",
+                                      "params": {"m": 1000, "c": 500}}}}]})
+        mixes["script_aggs"].append({
+            "query": {"match": {"message": a}}, "size": 0, "aggs": {
+                "by_status": {"terms": {"field": "status"}, "aggs": {
+                    "avg_kb": {"avg": {"script": "doc['size'].value / 1024"}}}},
+                "kb": {"stats": {"script": {
+                    "source": "doc['size'].value / params.d",
+                    "params": {"d": 1024}}}},
+                "total_kb": {"scripted_metric": {
+                    "map_script": "doc['size'].value * params.f",
+                    "params": {"f": 0.001}}}}})
+        day = int(rng.integers(1, 28))
+        card = {"status_n": {"cardinality": {"field": "status"}},
+                "status_hll": {"cardinality": {"field": "status",
+                                               "precision_threshold": 1}}}
+        pctl = {"size_p": {"percentiles": {"field": "size",
+                                           "percents": [50, 95, 99]}},
+                "size_r": {"percentile_ranks": {
+                    "field": "size", "values": [lo, lo + 20_000]}}}
+        mixes["pctl_card"].append({
+            "query": {"range": {"size": {"gte": lo, "lte": lo + 40_000}}},
+            "size": 0, "aggs": {
+                **pctl, **card,
+                "days": {"date_range": {"field": "@timestamp", "ranges": [
+                    {"from": f"2015-01-{day:02d}",
+                     "to": f"2015-01-{day + 1:02d}"},
+                    {"from": f"2015-01-{day + 1:02d}",
+                     "to": f"2015-01-{day + 2:02d}"}]},
+                    "aggs": {**pctl, **card}}}})
+    return mixes

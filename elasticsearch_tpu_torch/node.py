@@ -36,11 +36,17 @@ term statistics summed over the shards, `_aggregate_dfs`), `scan`
 contexts over point-in-time readers (`scroll`, `clear_scroll`, reaped
 at their keepalive).
 
+Scripts: stored scripts (`put_stored_script`, the versioned lang-scoped
+forms) persist to `<path.data>/scripts.json` in the reference's format,
+so either package reads the other's; file scripts under `path.scripts`
+(default `<path.data>/scripts`) load and hot-reload through the resource
+watcher (`utils/watcher.py`); `update_doc` runs update scripts on
+ctx._source (`_run_update_script`).
+
 Not ported (NotImplementedError): suggest, significant-terms sub-aggs,
-aliases, index templates, warmers, snapshots, scripts (update scripts
-included), percolation, TTL, the autotuner store, scripts and hunspell
-dictionaries under `path.data`, and the rest of the admin and stats
-APIs.
+aliases, index templates, warmers, snapshots, percolation, TTL, the
+autotuner store, hunspell dictionaries under `path.data`, update
+`?fields=`, and the rest of the admin and stats APIs.
 """
 
 from __future__ import annotations
@@ -156,8 +162,143 @@ class Node:
         fault_spec = self.settings.get_str("search.fault_injection")
         if fault_spec is not None:
             self._fault_registry = faults.configure(fault_spec)
+        # resource watcher + file scripts (ref: ResourceWatcherService
+        # watching config/scripts for ScriptService file reload)
+        from .utils.watcher import ResourceWatcherService
+        self.resource_watcher = ResourceWatcherService(self.settings)
+        self._watch_file_scripts()
         if self.data_path:
             self._load_existing_indices()
+            self._load_stored_scripts()
+
+    def _watch_file_scripts(self) -> None:
+        """File scripts: `<path.scripts>` (default <path.data>/scripts)
+        loaded by name-minus-extension and hot-reloaded through the
+        resource watcher (ref: ScriptService.java ScriptChangesListener
+        on config/scripts)."""
+        path = self.settings.get_str("path.scripts") or (
+            os.path.join(self.data_path, "scripts")
+            if self.data_path else None)
+        if not path:
+            return
+        # register even when the dir does not exist yet: FileWatcher
+        # tolerates a missing path, so a later-created dir starts
+        # loading at the next poll instead of requiring a restart
+        from .script import ScriptService
+        from .utils.watcher import FileChangesListener, FileWatcher, HIGH
+
+        svc = ScriptService.instance()
+
+        # only extensions a script engine owns load (ref: ScriptService
+        # registers per-engine extensions; editor backups etc. are
+        # ignored rather than shadowing the real script)
+        _EXTS = (".expression", ".painless", ".mustache", ".txt")
+
+        class _Listener(FileChangesListener):
+            def on_file_created(self, p):
+                self._load(p)
+
+            def on_file_changed(self, p):
+                self._load(p)
+
+            @staticmethod
+            def on_file_deleted(p):
+                # scripts key on the file STEM; another script extension
+                # with the same stem may still provide the script —
+                # reload from a survivor instead of dropping blindly
+                if not p.endswith(_EXTS):
+                    return
+                name = os.path.splitext(os.path.basename(p))[0]
+                d = os.path.dirname(p)
+                try:
+                    survivor = next(
+                        (os.path.join(d, f) for f in sorted(os.listdir(d))
+                         if os.path.splitext(f)[0] == name
+                         and f.endswith(_EXTS)
+                         and os.path.isfile(os.path.join(d, f))), None)
+                except OSError:
+                    survivor = None
+                if survivor is not None:
+                    _Listener._load(survivor)
+                else:
+                    svc.file_scripts.pop(name, None)
+
+            @staticmethod
+            def _load(p):
+                if not p.endswith(_EXTS):
+                    return
+                name = os.path.splitext(os.path.basename(p))[0]
+                try:
+                    with open(p) as f:
+                        svc.file_scripts[name] = f.read().strip()
+                except OSError:
+                    pass
+
+        w = FileWatcher(path)
+        w.add_listener(_Listener())
+        self.resource_watcher.add(w, HIGH)
+        self._script_watcher = w
+
+    # -- stored scripts (ref: ScriptService indexed scripts in .scripts;
+    # persisted here like gateway metadata) ----------------------------
+    def _scripts_file(self) -> str:
+        return os.path.join(self.data_path, "scripts.json")
+
+    def _load_stored_scripts(self) -> None:
+        from .script import ScriptService
+        path = self._scripts_file()
+        if os.path.exists(path):
+            with open(path) as f:
+                data = json.load(f)
+            svc = ScriptService.instance()
+            if "sources" in data and isinstance(data["sources"], dict):
+                svc.stored.update(data["sources"])
+                svc.meta.update(data.get("meta", {}))
+            else:  # pre-versioning flat format
+                for sid, src in data.items():
+                    svc.stored[sid] = src
+
+    def put_stored_script(self, script_id: str, source: str) -> None:
+        from .script import ScriptService
+        ScriptService.instance().put_stored(script_id, source)
+        self._persist_stored_scripts()
+
+    def delete_stored_script(self, script_id: str) -> bool:
+        from .script import ScriptService
+        found = ScriptService.instance().delete_stored(script_id)
+        self._persist_stored_scripts()
+        return found
+
+    def put_stored_script_versioned(self, script_id: str, source: str,
+                                    lang: str, version: int | None = None,
+                                    version_type: str = "internal"
+                                    ) -> tuple[int, bool]:
+        from .script import ScriptService
+        v, created = ScriptService.instance().put_versioned(
+            script_id, source, lang, version=version,
+            version_type=version_type)
+        self._persist_stored_scripts()
+        return v, created
+
+    def delete_stored_script_versioned(self, script_id: str,
+                                       version: int | None = None,
+                                       version_type: str = "internal"
+                                       ) -> int | None:
+        from .script import ScriptService
+        v = ScriptService.instance().delete_versioned(
+            script_id, version=version, version_type=version_type)
+        self._persist_stored_scripts()
+        return v
+
+    def _persist_stored_scripts(self) -> None:
+        if not self.data_path:
+            return
+        from .script import ScriptService
+        svc = ScriptService.instance()
+        tmp = self._scripts_file() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"sources": svc.stored, "meta": svc.meta}, f)
+        os.replace(tmp, self._scripts_file())
 
     # -- index admin -------------------------------------------------------
     def create_index(self, name: str, settings: dict | None = None,
@@ -334,35 +475,71 @@ class Node:
                    timestamp: str | None = None) -> dict:
         """Partial update with a `doc` (ref: TransportUpdateAction +
         UpdateHelper: get, merge, re-index with the read version), with
-        `upsert` / `doc_as_upsert`. Update scripts are not ported."""
-        if body.get("script") is not None or body.get("scripted_upsert"):
-            raise NotImplementedError("update scripts are not ported")
+        `upsert` / `doc_as_upsert`, or with a `script` mutating
+        ctx._source (ctx.op `none` / `delete`, `scripted_upsert`; the 1.x
+        shape with `params` / `lang` beside a string script)."""
         if fields:
             raise NotImplementedError("update ?fields= is not ported")
         if index not in self.indices and (body.get("upsert") is not None
-                                          or body.get("doc_as_upsert")):
+                                          or body.get("doc_as_upsert")
+                                          or body.get("scripted_upsert")):
             svc = self._ensure_index(index)
         else:
             svc = self._index(index)
         routing = routing if routing is not None else parent
+        script_spec = body.get("script")
+        if isinstance(script_spec, str) and (
+                body.get("params") is not None
+                or body.get("lang") is not None):
+            # 1.x UpdateRequest shape: script/params/lang are request
+            # TOP-LEVEL keys (ref: UpdateRequest.source parsing)
+            script_spec = {"inline": script_spec,
+                           "params": body.get("params") or {},
+                           "lang": body.get("lang", "groovy")}
+        if script_spec is not None and body.get("doc") is not None:
+            # ref: UpdateRequest.validate
+            raise IllegalArgumentError("can't provide both script and doc")
         try:
             current = svc.get_doc(doc_id, routing, doc_type=doc_type)
         except ElasticsearchTpuError:
             if version is not None:
                 raise VersionConflictError(index, doc_id, -1, version)
             upsert = body.get("upsert")
-            if upsert is None and body.get("doc_as_upsert"):
+            if upsert is None and script_spec is not None and \
+                    body.get("scripted_upsert"):
+                upsert = {}
+            elif upsert is None and body.get("doc_as_upsert"):
                 upsert = body.get("doc")
             if upsert is None:
                 raise
+            if script_spec is not None and body.get("scripted_upsert"):
+                upsert = self._run_update_script(script_spec, dict(upsert),
+                                                 is_upsert=True)
+                if upsert is None:  # ctx.op == none/delete on upsert
+                    return {"_index": index, "_id": doc_id,
+                            "result": "noop"}
             return self.index_doc(index, doc_id, upsert, routing=routing,
                                   doc_type=doc_type, refresh=refresh,
                                   ttl=ttl, timestamp=timestamp)
         if version is not None and current["_version"] != version:
             raise VersionConflictError(index, doc_id,
                                        current["_version"], version)
-        import json
         src = json.loads(current["_source"])
+        if script_spec is not None:
+            new_src = self._run_update_script(script_spec, src)
+            if new_src is None:  # ctx.op = "none"
+                return {"_index": index, "_id": doc_id,
+                        "_version": current["_version"], "result": "noop"}
+            if new_src == "__delete__":
+                r = svc.delete_doc(doc_id, current["_version"], routing)
+                if refresh:
+                    svc.shard_for(doc_id, routing).refresh()
+                return r
+            return self.index_doc(index, doc_id, new_src,
+                                  version=current["_version"],
+                                  routing=routing, doc_type=doc_type,
+                                  ttl=ttl, timestamp=timestamp,
+                                  refresh=refresh)
         doc_part = body.get("doc")
         if doc_part is None:
             raise IllegalArgumentError("update requires [doc] or [script]")
@@ -380,6 +557,24 @@ class Node:
                               version=current["_version"],
                               routing=routing, doc_type=doc_type,
                               ttl=ttl, timestamp=timestamp, refresh=refresh)
+
+    @staticmethod
+    def _run_update_script(script_spec, src: dict, is_upsert: bool = False):
+        """Run an update script against ctx._source; returns the new
+        source, "__delete__", or None for a noop. Ref: UpdateHelper
+        ctx.op handling (index/delete/none)."""
+        from .script import parse_script_spec, compile_script
+        source, params = parse_script_spec(script_spec)
+        cs = compile_script(source)
+        ctx = {"_source": src, "op": "index",
+               "_now": int(time.time() * 1000)}
+        cs.run(params=params, bindings={"ctx": ctx})
+        op = ctx.get("op", "index")
+        if op in ("none", "noop"):
+            return None
+        if op == "delete":
+            return None if is_upsert else "__delete__"
+        return ctx["_source"]
 
     def bulk(self, operations: list[tuple[str, dict]],
              refresh: bool = False) -> dict:
@@ -1033,6 +1228,11 @@ class Node:
             _ann.reset(if_current=self._ann_cfg)
             self._ann_cfg = None
         self.clear_scroll()
+        self.resource_watcher.close()
+        w = getattr(self, "_script_watcher", None)
+        if w is not None:
+            self.resource_watcher.remove(w)
+            self._script_watcher = None
         for svc in self.indices.values():
             if self.data_path:
                 self._persist_index_meta(svc)

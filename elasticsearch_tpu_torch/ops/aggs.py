@@ -210,9 +210,17 @@ def masked_stats(values: torch.Tensor, exists: torch.Tensor,
     max of the flushed values: -0.0 below +0.0."""
     m = mask & exists[None, :]
     v = ordered.ftz(values.to(torch.float32))[None, :]
+    return row_stats(v, m, signed_zeros=values.is_floating_point())
+
+
+def row_stats(v: torch.Tensor, m: torch.Tensor,
+              signed_zeros: bool = True) -> dict:
+    """`masked_stats` of f32 values v ([1, cap] or [B, cap], flushed)
+    under the mask m [B, cap]: the reference's where(m, v, 0).sum(-1),
+    where(m, v * v, 0).sum(-1), and the reduce min / max."""
     mn = torch.where(m, v, F32_INF).amin(dim=-1)
     mx = torch.where(m, v, -F32_INF).amax(dim=-1)
-    if values.is_floating_point():
+    if signed_zeros:
         zero = v == 0
         neg = torch.signbit(v)
         has_neg0 = (m & zero & neg).any(dim=-1)

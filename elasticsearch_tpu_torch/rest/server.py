@@ -7,8 +7,12 @@ search path: `GET /`, `PUT` / `DELETE /{index}`, documents
 `GET|DELETE /{index}/_doc|{type}/{id}`, `POST /{index}/_update/{id}`),
 `_bulk`, `_refresh`, `_flush`, `_forcemerge`, `_recovery`, `_search`
 (with `scroll` and `search_type`), `GET|POST /_search/scroll`,
-`DELETE /_search/scroll`, `_msearch`, `_count` and `GET /_nodes/stats`. `_bulk` and `_msearch` take NDJSON bodies; other
-bodies are JSON. The server is the standard library's
+`DELETE /_search/scroll`, `_msearch`, `_count`, `GET /_nodes/stats`,
+stored scripts (`PUT|POST|GET|DELETE /_scripts/{id}` and the lang-scoped
+`/_scripts/{lang}/{id}` with versions) and stored search templates
+(`PUT|POST|GET|DELETE /_search/template/{id}`); `_update` also takes the
+1.x `script` / `lang` URL params. `_bulk` and `_msearch` take NDJSON
+bodies; other bodies are JSON. The server is the standard library's
 ThreadingHTTPServer: the control plane is host Python, the card does the
 searching.
 
@@ -342,11 +346,157 @@ def register_routes(d: RestDispatcher) -> None:
     @d.route("POST", "/{index}/_update/{id}")
     def update_doc(node, params, body, index, id, doc_type=None):
         version = params.get("version")
-        return node.update_doc(index, id, dict(body or {}),
+        body = dict(body or {})
+        # 1.x accepted script/lang as URL params (ref: RestUpdateAction
+        # request.param("script")); a body script wins over the URL one
+        if params.get("script") is not None and body.get("script") is None:
+            body["script"] = params["script"]
+        if params.get("lang") is not None and body.get("lang") is None:
+            body["lang"] = params["lang"]
+        return node.update_doc(index, id, body,
                                refresh=_truthy(params, "refresh"),
                                doc_type=doc_type,
                                routing=params.get("routing"),
                                version=int(version) if version else None)
+
+    # -- stored scripts (ref: RestPutIndexedScriptAction; ES 2.0 kept
+    # these in the .scripts index) -------------------------------------
+    @d.route("PUT", "/_scripts/{id}")
+    @d.route("POST", "/_scripts/{id}")
+    def put_script(node, params, body, id):
+        # accepts expression scripts AND mustache search templates, with
+        # string or object sources (ref: RestPutStoredScriptAction)
+        body = body or {}
+        spec = body.get("script", body)
+        if isinstance(spec, dict):
+            src = spec.get("source", spec.get("inline"))
+        else:
+            src = spec
+        if src is None:
+            raise IllegalArgumentError("stored script requires [source]")
+        if isinstance(src, dict):
+            src = json.dumps(src)
+        node.put_stored_script(id, str(src))
+        return {"acknowledged": True, "_id": id}
+
+    @d.route("GET", "/_scripts/{id}")
+    def get_script(node, params, body, id):
+        from ..script import ScriptService
+        # get_stored raises ScriptMissingError (404) when absent
+        src = ScriptService.instance().get_stored(id)
+        return {"_id": id, "found": True,
+                "script": {"lang": "expression", "source": src}}
+
+    @d.route("DELETE", "/_scripts/{id}")
+    def delete_script(node, params, body, id):
+        found = node.delete_stored_script(id)
+        return {"acknowledged": found, "found": found}
+
+    # -- lang-scoped indexed scripts (the 1.x .scripts-index API shape;
+    # ref: RestPutIndexedScriptAction + ScriptService indexed scripts,
+    # full index/get/delete version semantics) -------------------------
+    def _script_version_params(params):
+        v = params.get("version")
+        return (int(v) if v is not None else None,
+                params.get("version_type", "internal"))
+
+    @d.route("PUT", "/_scripts/{lang}/{id}")
+    @d.route("POST", "/_scripts/{lang}/{id}")
+    def put_script_lang(node, params, body, lang, id):
+        body = body or {}
+        spec = body.get("script", body)
+        if isinstance(spec, dict):
+            src = spec.get("source") or spec.get("inline")
+        else:
+            src = spec
+        if src is None:
+            raise IllegalArgumentError("stored script requires [script]")
+        if isinstance(src, dict):
+            src = json.dumps(src)
+        version, vtype = _script_version_params(params)
+        v, created = node.put_stored_script_versioned(id, str(src),
+                                                      lang=lang,
+                                                      version=version,
+                                                      version_type=vtype)
+        return {"acknowledged": True, "_index": ".scripts", "_type": lang,
+                "_id": id, "_version": v, "created": created}
+
+    @d.route("GET", "/_scripts/{lang}/{id}")
+    def get_script_lang(node, params, body, lang, id):
+        from ..script import ScriptService
+        svc = ScriptService.instance()
+        meta = svc.get_meta(id)
+        # indexed scripts are keyed (lang, id): .scripts stores lang as
+        # the doc _type, so a different lang is a different document
+        if meta is None or meta["lang"] != lang:
+            return RestStatus(404, {"found": False, "lang": lang,
+                                    "_index": ".scripts", "_id": id})
+        version, vtype = _script_version_params(params)
+        svc.check_read_version(id, version, vtype)
+        return {"found": True, "lang": meta["lang"], "_index": ".scripts",
+                "_id": id, "_version": meta["version"],
+                "script": meta["source"]}
+
+    @d.route("DELETE", "/_scripts/{lang}/{id}")
+    def delete_script_lang(node, params, body, lang, id):
+        from ..script import ScriptService
+        meta = ScriptService.instance().get_meta(id)
+        version, vtype = _script_version_params(params)
+        if meta is not None and meta["lang"] != lang:
+            meta = None  # other-lang doc: this (lang, id) is absent
+        v = (node.delete_stored_script_versioned(id, version=version,
+                                                 version_type=vtype)
+             if meta is not None else None)
+        if v is None:
+            # ES deletes of missing docs answer version 1
+            return RestStatus(404, {"found": False, "_index": ".scripts",
+                                    "_type": lang, "_id": id,
+                                    "_version": 1})
+        return {"found": True, "_index": ".scripts", "_type": lang,
+                "_id": id, "_version": v}
+
+    # indexed search templates (ref: RestPutSearchTemplateAction — ES 2.0
+    # stored them in the .scripts index under lang `mustache`)
+    @d.route("PUT", "/_search/template/{id}")
+    @d.route("POST", "/_search/template/{id}")
+    def put_indexed_template(node, params, body, id):
+        body = body or {}
+        src = body.get("template", body)
+        if isinstance(src, dict):
+            # compact separators: the stored form is matched by regex in
+            # clients/tests (query\S\S\S\Smatch_all)
+            src = json.dumps(src, separators=(",", ":"))
+        src = str(src)
+        if "{{}}" in src:
+            # ref: MustacheScriptEngineService compile failure on an
+            # empty mustache tag
+            raise IllegalArgumentError(
+                f"Unable to parse template [{src[:80]}]")
+        node.put_stored_script(f"__template__{id}", src)
+        return {"acknowledged": True, "_id": id, "created": True,
+                "_version": 1}
+
+    @d.route("GET", "/_search/template/{id}")
+    def get_indexed_template(node, params, body, id):
+        from ..script import ScriptService
+        try:
+            src = ScriptService.instance().get_stored(f"__template__{id}")
+        except ElasticsearchTpuError:
+            return RestStatus(404, {"_index": ".scripts", "_id": id,
+                                    "found": False, "lang": "mustache"})
+        return {"_index": ".scripts", "_id": id, "found": True,
+                "lang": "mustache", "template": src, "_version": 1}
+
+    @d.route("DELETE", "/_search/template/{id}")
+    def delete_indexed_template(node, params, body, id):
+        found = node.delete_stored_script(f"__template__{id}")
+        if not found:
+            return RestStatus(404, {"found": False,
+                                    "_index": ".scripts", "_id": id,
+                                    "_version": 1})
+        return {"found": True, "_index": ".scripts", "_id": id,
+                "_version": 2, "acknowledged": True}
+
 
     # -- index admin and typed documents (last: bare /{index} patterns) ---
     @d.route("PUT", "/{index}")

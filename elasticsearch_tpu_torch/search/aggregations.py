@@ -1,13 +1,17 @@
 """Aggregations: parse JSON -> agg specs, build device descs, reduce partials.
 
-Counterpart of `elasticsearch_tpu/search/aggregations.py`, trimmed to the
-aggregations this slice serves: `terms` on keyword fields,
-`date_histogram` / `histogram`, and the metric kinds (`sum`, `avg`,
-`min`, `max`, `value_count`, `stats`, `extended_stats`), top-level or as
-sub-aggregations of a bucket agg. The device part is the desc tree that
-`search/executor.eval_aggs` interprets; per-segment partial arrays are
-reduced host-side by numpy addition/min/max keyed on shard-global
-ordinals or histogram bucket keys, and shards merge by bucket KEY.
+Counterpart of `elasticsearch_tpu/search/aggregations.py`: `terms` on
+keyword fields, `date_histogram` / `histogram`, the metric kinds (`sum`,
+`avg`, `min`, `max`, `value_count`, `stats`, `extended_stats`; over a
+field or a `script`), `scripted_metric` (a map script summed per doc),
+`cardinality` (exact below `precision_threshold`, the HLL++ sketch of
+`ops/hll` above) and `percentiles` / `percentile_ranks` (a 2048-bin
+device histogram, centroid interpolation), top-level or as
+sub-aggregations where the reference takes them. The device part is the
+desc tree that `search/executor.eval_aggs` interprets; per-segment
+partial arrays are reduced host-side by numpy addition/min/max keyed on
+shard-global ordinals or histogram bucket keys, and shards merge by
+bucket KEY (HLL registers by elementwise max).
 
 Derived bucket aggs (`filter`, `filters`, `range`, `date_range`,
 `missing`, `global`, `top_hits`, `significant_terms`; DERIVED_KINDS) have
@@ -17,9 +21,8 @@ executor (`ShardReader._apply_derived`), whose sub-aggregations of any
 kind recurse; their partials merge by bucket key (`merge_derived`) and
 finalize by kind (`finalize_derived`). `significant_terms` scores
 foreground against background term counts with JLH, top-level or as a
-sub of `terms` (`apply_sig_subs`). Nested / reverse_nested / children,
-percentiles, cardinality, geo and scripted aggs raise
-NotImplementedError.
+sub of `terms` (`apply_sig_subs`). Nested / reverse_nested / children
+and the geo aggs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,9 +42,11 @@ METRIC_KINDS = ("avg", "sum", "min", "max", "stats", "extended_stats",
 # same readers: each bucket IS a filtered query
 DERIVED_KINDS = ("filter", "filters", "range", "date_range", "missing",
                  "global", "top_hits", "significant_terms")
-_NOT_PORTED = ("nested", "reverse_nested", "children", "percentiles",
-               "percentile_ranks", "cardinality", "geo_bounds",
-               "geo_centroid", "geohash_grid", "scripted_metric")
+_NOT_PORTED = ("nested", "reverse_nested", "children", "geo_bounds",
+               "geo_centroid", "geohash_grid")
+_PCTL_BINS = 2048  # device histogram resolution for percentiles: bins
+                   # with centroid interpolation (percentile_values)
+DEFAULT_PERCENTS = (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0)
 _FIXED_UNITS_S = {
     "second": 1, "1s": 1, "minute": 60, "1m": 60, "hour": 3600, "1h": 3600,
     "day": 86400, "1d": 86400, "week": 604800, "1w": 604800,
@@ -64,6 +69,8 @@ class AggSpec:
     # derived kinds: [(bucket_key, filter_query_dict|None, extra_json)]
     buckets: list = dc_field(default_factory=list)
     mode: str = "and"               # and (filter query) | ignore_query
+    percents: tuple = DEFAULT_PERCENTS
+    precision_threshold: int = 3000  # cardinality: exact below, HLL above
     sub_raw: dict = dc_field(default_factory=dict)   # nested aggs, re-parsed
     top_hits_size: int = 3
     top_hits_source: object = True
@@ -93,13 +100,13 @@ def parse_aggs(body: dict | None) -> list[AggSpec]:
         conf = spec[kind]
         if kind in _NOT_PORTED:
             raise _not_ported(kind)
-        if kind in DERIVED_KINDS:
+        if kind in DERIVED_KINDS or kind in ("percentiles",
+                                             "percentile_ranks"):
             specs.append(_parse_special(name, kind, conf, sub))
             continue
-        if kind not in ("terms", "date_histogram", "histogram", *METRIC_KINDS):
+        if kind not in ("terms", "date_histogram", "histogram", "cardinality",
+                        "scripted_metric", *METRIC_KINDS):
             raise SearchParseError(f"unknown aggregation type [{kind}]")
-        if conf.get("script") is not None:
-            raise _not_ported(f"{kind} over a script")
         order = ("_count", "desc")
         if kind == "terms" and isinstance(conf.get("order"), dict):
             ok, ov = next(iter(conf["order"].items()))
@@ -113,6 +120,21 @@ def parse_aggs(body: dict | None) -> list[AggSpec]:
             min_doc_count=int(conf.get("min_doc_count", 1)),
             order=order,
         )
+        if kind == "scripted_metric":
+            # restricted scripted_metric (ref: metrics/scripted/
+            # ScriptedMetricAggregator.java): map_script is a device
+            # expression giving one number per doc; combine / reduce sum
+            ms = conf.get("map_script")
+            if ms is None:
+                raise SearchParseError(
+                    f"[scripted_metric] agg [{name}] requires [map_script]")
+            agg.field = _script_field_tag(ms, conf.get("params"))
+        elif agg.field is None and conf.get("script") is not None \
+                and kind in METRIC_KINDS:
+            # metric aggs over a script instead of a field (ref:
+            # ValuesSourceParser script mode)
+            agg.field = _script_field_tag(conf["script"],
+                                          conf.get("params"))
         if agg.field is None:
             raise SearchParseError(f"aggregation [{name}] requires [field]")
         if kind == "terms" and sub:
@@ -128,9 +150,27 @@ def parse_aggs(body: dict | None) -> list[AggSpec]:
                         "significant_terms"]
         if kind == "histogram" and conf.get("format"):
             agg.fmt = str(conf["format"])
+        if kind == "cardinality" and conf.get("precision_threshold") \
+                is not None:
+            agg.precision_threshold = int(conf["precision_threshold"])
         agg.sub_metrics.extend(parse_sub_metrics(name, sub).values())
         specs.append(agg)
     return specs
+
+
+def _script_field_tag(script, params: dict | None) -> str:
+    """A script and its (numeric) params as a pseudo field name, which
+    keys the plan like a real column."""
+    from ..script import parse_script_spec, compile_script
+    from ..script.service import numeric_param
+    src, sparams = parse_script_spec(script if isinstance(script, dict)
+                                     else {"script": script})
+    if params:
+        sparams = {**sparams, **params}
+    compile_script(src)  # surface parse errors at request time
+    ptag = ",".join(f"{k}={numeric_param(k, v)}"
+                    for k, v in sorted(sparams.items()))
+    return f"_script\x00{src}\x00{ptag}"
 
 
 def _range_key(frm, to) -> str:
@@ -139,7 +179,7 @@ def _range_key(frm, to) -> str:
 
 
 def _parse_special(name: str, kind: str, conf, sub: dict) -> AggSpec:
-    """Derived bucket aggs (see DERIVED_KINDS)."""
+    """Derived bucket aggs (see DERIVED_KINDS) and percentiles."""
     spec = AggSpec(name=name, kind=kind, field=None, sub_raw=dict(sub))
     if kind == "filter":
         spec.buckets = [(name, conf if conf else {"match_all": {}}, {})]
@@ -184,6 +224,26 @@ def _parse_special(name: str, kind: str, conf, sub: dict) -> AggSpec:
         spec.buckets = [(name, {"match_all": {}}, {})]
         spec.top_hits_size = int(conf.get("size", 3))
         spec.top_hits_source = conf.get("_source", True)
+    elif kind == "percentiles":
+        field = conf.get("field")
+        if field is None:
+            raise SearchParseError(
+                f"[percentiles] agg [{name}] requires [field]")
+        spec.field = field
+        if conf.get("percents"):
+            spec.percents = tuple(float(p) for p in conf["percents"])
+    elif kind == "percentile_ranks":
+        # same device histogram as percentiles, inverse interpolation
+        field = conf.get("field")
+        if field is None:
+            raise SearchParseError(
+                f"[percentile_ranks] agg [{name}] requires [field]")
+        spec.field = field
+        values = conf.get("values")
+        if not values:
+            raise SearchParseError(
+                f"[percentile_ranks] agg [{name}] requires [values]")
+        spec.percents = tuple(float(v) for v in values)
     elif kind == "significant_terms":
         # foreground (query) vs background (index) term frequencies via
         # two terms aux requests, scored with JLH
@@ -293,6 +353,9 @@ class ShardAggContext:
         # other numeric columns are epoch millis. Partial keys are always
         # normalized to millis so shards with different mappings merge.
         self.date_unit: dict[str, int] = {}          # agg name -> 1000 (s) | 1 (ms)
+        # cardinality aggs that switched to the HLL++ sketch (the
+        # precision_threshold switchover)
+        self.hll_names: set[str] = set()
 
     def _is_date_column(self, field: str) -> bool:
         for seg in self.segments:
@@ -419,8 +482,45 @@ class ShardAggContext:
                 descs.append((spec.name, (kind, spec.field)))
                 for i in range(len(self.segments)):
                     per_seg[i].append(())
-            elif spec.kind in METRIC_KINDS:
-                descs.append((spec.name, ("stats", spec.field)))
+            elif spec.kind == "cardinality":
+                terms, seg_maps = self.global_ords[spec.field]
+                if len(terms) > spec.precision_threshold:
+                    # high cardinality: HLL++ sketch registers instead of
+                    # an O(cardinality) exact count array
+                    from ..ops.hll import M, term_registers
+                    g_reg, g_rank = term_registers(terms)
+                    self.hll_names.add(spec.name)
+                    descs.append((spec.name,
+                                  ("cardinality_hll", spec.field, M)))
+                    for i in range(len(self.segments)):
+                        safe = np.clip(seg_maps[i], 0,
+                                       max(len(terms) - 1, 0))
+                        per_seg[i].append((g_reg[safe], g_rank[safe]))
+                else:
+                    n_global = next_pow2(len(terms), floor=1)
+                    descs.append((spec.name, ("cardinality_kw", spec.field,
+                                              n_global)))
+                    for i in range(len(self.segments)):
+                        per_seg[i].append((seg_maps[i],))
+            elif spec.kind in ("percentiles", "percentile_ranks"):
+                lo, hi, _ = self._extent(spec.field)
+                width = max((hi - lo) / _PCTL_BINS, 1e-9)
+                self.origins[spec.name] = (lo, width, _PCTL_BINS)
+                descs.append((spec.name, ("pctl", spec.field, _PCTL_BINS)))
+                self._ensure_num_sorted_all(spec.field)
+                for i in range(len(self.segments)):
+                    per_seg[i].append((np.float32(lo), np.float32(width)))
+            elif spec.kind in METRIC_KINDS or spec.kind == "scripted_metric":
+                if spec.field.startswith("_script\x00"):
+                    tag = spec.field.split("\x00", 1)[1]
+                    from ..script import compile_script
+                    from .executor import ensure_script_vals
+                    cs = compile_script(tag.split("\x00", 1)[0])
+                    for seg in self.segments:
+                        ensure_script_vals(seg, cs.fields, self.device)
+                    descs.append((spec.name, ("stats_script", tag)))
+                else:
+                    descs.append((spec.name, ("stats", spec.field)))
                 for i in range(len(self.segments)):
                     per_seg[i].append(())
             elif spec.kind in DERIVED_KINDS:
@@ -461,6 +561,11 @@ def shard_partials(specs: list[AggSpec], ctx: ShardAggContext,
     out: list[dict] = [dict() for _ in range(batch)]
     for spec in specs:
         name = spec.name
+        if spec.kind == "cardinality" and name in ctx.hll_names:
+            regs = _acc(partials, name, "max", how="max")     # [B, M]
+            for b in range(batch):
+                out[b][name] = {"hll": regs[b]}
+            continue
         if spec.kind == "terms" and any(
                 "top_idx" in p.get(name, {}) for p in partials):
             # device-compressed per-segment tops (executor._compress_topk)
@@ -496,12 +601,13 @@ def shard_partials(specs: list[AggSpec], ctx: ShardAggContext,
                                 st[skey] = st.get(skey, 0.0) + v
                 out[b][name] = {"buckets": buckets, "total": total}
             continue
-        if spec.kind == "terms":
+        if spec.kind in ("terms", "cardinality"):
             terms, _ = ctx.global_ords[spec.field]
             counts = _acc(partials, name, "counts")           # [B, G]
             sub_acc = _reduce_subs(spec, partials, name)
             shard_size = None
-            if spec.size < (1 << 30):
+            # cardinality stays exact: no shard-level truncation
+            if spec.kind == "terms" and spec.size < (1 << 30):
                 shard_size = int(spec.size * 1.5) + 10
             for b in range(batch):
                 row = counts[b][: len(terms)]
@@ -523,7 +629,10 @@ def shard_partials(specs: list[AggSpec], ctx: ShardAggContext,
                     buckets[terms[g]] = {
                         "count": int(row[g]),
                         "subs": _sub_stats(spec, sub_acc, b, g)}
-                out[b][name] = {"buckets": buckets, "total": total}
+                entry = {"buckets": buckets}
+                if spec.kind == "terms":
+                    entry["total"] = total
+                out[b][name] = entry
         elif spec.kind in ("date_histogram", "histogram"):
             counts = _acc(partials, name, "counts")
             sub_acc = _reduce_subs(spec, partials, name)
@@ -550,6 +659,17 @@ def shard_partials(specs: list[AggSpec], ctx: ShardAggContext,
             counts = _acc(partials, name, "count")
             for b in range(batch):
                 out[b][name] = {"stats": {"count": float(counts[b])}}
+        elif spec.kind in ("percentiles", "percentile_ranks"):
+            counts = _acc(partials, name, "counts")      # [B, bins]
+            lo, width, n_bins = ctx.origins[name]
+            centers = [lo + (i + 0.5) * width for i in range(n_bins)]
+            for b in range(batch):
+                points = {}
+                row = counts[b]
+                for i in np.nonzero(row > 0)[0]:
+                    points[centers[int(i)]] = points.get(
+                        centers[int(i)], 0.0) + float(row[int(i)])
+                out[b][name] = {"points": points}
         else:
             stats = {
                 "count": _acc(partials, name, "count"),
@@ -578,7 +698,30 @@ def merge_shard_partials(specs: list[AggSpec], parts: list[dict]) -> dict:
         entries = [p[name] for p in parts if name in p]
         if not entries:
             continue
-        if "derived" in entries[0]:
+        if any("hll" in e for e in entries):
+            # shards may disagree on exact-vs-sketch (a per-shard term
+            # count decision): exact bucket partials convert to sketch
+            # registers (their keys hashed), as HyperLogLogPlusPlus
+            # upgrades linear counting on merge
+            from ..ops.hll import M as _HLL_M, term_registers
+            regs = np.zeros(_HLL_M, dtype=np.float64)
+            for e in entries:
+                if "hll" in e:
+                    regs = np.maximum(regs, np.asarray(e["hll"]))
+                else:
+                    keys = list(e["buckets"])
+                    r_idx, r_rank = term_registers(keys, memo=False)
+                    if keys:
+                        np.maximum.at(regs, r_idx[: len(keys)],
+                                      r_rank[: len(keys)])
+            merged[name] = {"hll": regs}
+        elif "points" in entries[0]:
+            points: dict = {}
+            for e in entries:
+                for c, n in e["points"].items():
+                    points[c] = points.get(c, 0.0) + n
+            merged[name] = {"points": points}
+        elif "derived" in entries[0]:
             merged[name] = {"derived": merge_derived(spec, entries)}
         elif "buckets" in entries[0]:
             buckets: dict = {}
@@ -774,6 +917,59 @@ def significant_buckets(spec: AggSpec, fg_total: int, fg_buckets: list,
     return {"doc_count": fg_total, "buckets": out[: spec.size]}
 
 
+def percentile_rank_values(points: dict, values: tuple) -> dict:
+    """Inverse of percentile_values: % of observed weight at or below each
+    value (ref: metrics/percentiles/PercentileRanks)."""
+    items = sorted(points.items())
+    total = sum(c for _, c in items)
+    out = {}
+    for v in values:
+        key = str(float(v))
+        if total == 0:
+            out[key] = None
+            continue
+        below = sum(c for x, c in items if x <= v)
+        out[key] = 100.0 * below / total
+    return out
+
+
+def percentile_values(points: dict, percents: tuple) -> dict:
+    """Weighted points -> percentile values by t-digest-style centroid
+    interpolation (each histogram bin acts as a centroid whose mass sits
+    at its center; quantiles interpolate linearly between adjacent
+    centroid mid-ranks — ref: metrics/percentiles/tdigest/
+    TDigestState.quantile)."""
+    if not points:
+        return {str(p): None for p in percents}
+    items = sorted(points.items())
+    total = sum(c for _, c in items)
+    # cumulative mid-rank of each centroid
+    mids: list[tuple[float, float]] = []
+    cum = 0.0
+    for center, cnt in items:
+        mids.append((cum + cnt / 2.0, float(center)))
+        cum += cnt
+    out = {}
+    for p in percents:
+        target = total * p / 100.0
+        if target <= mids[0][0]:
+            out[str(p)] = mids[0][1]
+            continue
+        if target >= mids[-1][0]:
+            out[str(p)] = mids[-1][1]
+            continue
+        val = mids[-1][1]
+        for j in range(1, len(mids)):
+            r0, v0 = mids[j - 1]
+            r1, v1 = mids[j]
+            if target <= r1:
+                frac = (target - r0) / (r1 - r0) if r1 > r0 else 0.0
+                val = v0 + frac * (v1 - v0)
+                break
+        out[str(p)] = float(val)
+    return out
+
+
 def _decimal_format(pattern: str, value: float) -> str:
     """Java DecimalFormat subset for histogram `format` patterns."""
     import re as _re
@@ -834,11 +1030,36 @@ def finalize_partials(specs: list[AggSpec], merged: dict) -> dict:
                 response[name] = {"buckets": []}
             elif spec.kind in DERIVED_KINDS:
                 response[name] = finalize_derived(spec, {})
+            elif spec.kind == "cardinality":
+                response[name] = {"value": 0}
+            elif spec.kind == "percentiles":
+                response[name] = {"values": percentile_values(
+                    {}, spec.percents)}
+            elif spec.kind == "percentile_ranks":
+                response[name] = {"values": percentile_rank_values(
+                    {}, spec.percents)}
+            elif spec.kind == "scripted_metric":
+                response[name] = {"value": 0.0}
             else:
                 response[name] = _stats_json(spec.kind, {"count": 0.0})
             continue
         entry = merged[name]
-        if spec.kind in DERIVED_KINDS:
+        if spec.kind == "percentiles":
+            response[name] = {"values": percentile_values(
+                entry["points"], spec.percents)}
+        elif spec.kind == "percentile_ranks":
+            response[name] = {"values": percentile_rank_values(
+                entry["points"], spec.percents)}
+        elif spec.kind == "scripted_metric":
+            response[name] = {"value": entry["stats"].get("sum", 0.0)}
+        elif spec.kind == "cardinality":
+            if "hll" in entry:
+                from ..ops.hll import estimate
+                response[name] = {"value": int(round(
+                    estimate(entry["hll"])))}
+            else:
+                response[name] = {"value": len(entry["buckets"])}
+        elif spec.kind in DERIVED_KINDS:
             response[name] = finalize_derived(spec, entry["derived"])
         elif spec.kind == "terms":
             items = [(key, bk) for key, bk in entry["buckets"].items()
@@ -902,14 +1123,6 @@ def finalize_partials(specs: list[AggSpec], merged: dict) -> dict:
         else:
             response[name] = _stats_json(spec.kind, entry["stats"])
     return response
-
-
-def reduce_aggs(specs: list[AggSpec], ctx: ShardAggContext,
-                partials: list[dict], batch: int) -> list[dict]:
-    """Single-shard convenience: segment partials -> final response JSON."""
-    per_query = shard_partials(specs, ctx, partials, batch)
-    return [finalize_partials(specs, merge_shard_partials(specs, [p]))
-            for p in per_query]
 
 
 def _reduce_subs(spec: AggSpec, partials: list[dict], name: str) -> dict:

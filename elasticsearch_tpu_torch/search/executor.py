@@ -104,7 +104,7 @@ from .query_dsl import (Query, MatchAllQuery, MatchNoneQuery, TermQuery,
                         ConstantScoreQuery, KnnQuery, ExistsQuery, IdsQuery,
                         WildcardQuery, FuzzyQuery, RegexpQuery,
                         MoreLikeThisQuery, BoostingQuery, ScoreFunction,
-                        FunctionScoreQuery, resolve_msm)
+                        FunctionScoreQuery, ScriptQuery, resolve_msm)
 
 _F32_MIN_WEIGHT = 1e-30  # keeps score>0 as the match signal even at boost~0
 _DENSE_GROUP_MAX = 8     # should-groups up to this many terms take the
@@ -216,6 +216,22 @@ def _f32_flushed(v: float) -> float:
     if f != 0 and abs(f) < np.float32(ordered.F32_TINY):
         return math.copysign(0.0, float(v))
     return v
+
+
+def ensure_script_vals(segment: Segment, fields,
+                       device: torch.device) -> None:
+    """Upload the natural-unit f32 view ("script_vals": dates in epoch
+    millis) of the numeric columns a script references, once per segment
+    and device: scripts are rare, so script-free workloads never hold this
+    copy. The values are not flushed: a doc value reaches the script
+    through a select, which passes a subnormal on, and the script's
+    arithmetic reads it as zero (`TorchBackend`)."""
+    dev = device_arrays(segment, device)
+    for f in fields:
+        nc = segment.numerics.get(f)
+        if nc is not None and "script_vals" not in dev["num"][f]:
+            dev["num"][f]["script_vals"] = _up(nc.raw.astype(np.float32),
+                                               device)
 
 
 def _host_perms(segment: Segment) -> dict:
@@ -353,6 +369,8 @@ def ensure_agg_views(segment: Segment, bound: "Bound", agg_desc: tuple,
             lkind, lfield, subs = "kw", node[1], node[3]
         elif kind in ("hist_fixed", "hist_edges"):
             lkind, lfield, subs = "num", node[1], node[3]
+        elif kind == "pctl":
+            lkind, lfield, subs = "num", node[1], ()
         else:
             continue
         store_name = "kw_sorted" if lkind == "kw" else "num_sorted"
@@ -439,8 +457,9 @@ def _agg_view_plan(desc: tuple, agg_desc: tuple, agg_params: tuple,
                     and _desc_view_ok(desc, store, seg)):
                 ok = all(_sub_view_ok(store, seg, f, mk)
                          for _n, f, mk in subs)
-        elif kind in ("hist_fixed", "hist_edges"):
-            field, subs = node[1], node[3]
+        elif kind in ("hist_fixed", "hist_edges", "pctl"):
+            field = node[1]
+            subs = node[3] if kind != "pctl" else ()
             store = seg.get("num_sorted", {}).get(field)
             col = seg["num"].get(field)
             if (store is not None and ("num", field) in live_views
@@ -514,10 +533,13 @@ class QueryBinder:
 
     def __init__(self, segment: Segment, mapper: MapperService,
                  live: np.ndarray | None = None,
-                 dfs: dict | None = None):
+                 dfs: dict | None = None,
+                 device: torch.device | None = None):
         self.seg = segment
         self.mappers = mapper
         self.live = live
+        # where the searcher runs: a script's columns are uploaded there
+        self.device = device
         # {"field\x00term": [global_df, global_N]} from the DFS pre-phase
         self.dfs = dfs
 
@@ -1159,6 +1181,26 @@ class QueryBinder:
                                    minimum_should_match=max(msm, 1),
                                    must_not=must_not))
 
+    def _script_bound(self, kind: str, source: str, params: tuple,
+                      scalars: dict, children: dict | None = None
+                      ) -> Bound:
+        """A device script's bound: the tag "source\x00p1,p2" keys the
+        plan, each numeric param rides as a stacked f32 scalar."""
+        from ..script import compile_script
+        from ..script.service import numeric_param
+        cs = compile_script(source)     # validate (raises ScriptException)
+        if self.device is not None:
+            ensure_script_vals(self.seg, cs.fields, self.device)
+        for name, val in params:
+            scalars[f"p_{name}"] = numeric_param(name, val)
+        pnames = ",".join(n for n, _ in params)
+        return Bound(kind, f"{source}\x00{pnames}", scalars=scalars,
+                     children=children or {})
+
+    def _bind_ScriptQuery(self, q: ScriptQuery) -> Bound:
+        return self._script_bound("script_q", q.script, q.params,
+                                  {"boost": q.boost})
+
     def _bind_BoostingQuery(self, q: BoostingQuery) -> Bound:
         return Bound("boosting", scalars={"negative_boost": q.negative_boost},
                      children={"pos": [self.bind(q.positive)],
@@ -1217,6 +1259,10 @@ class QueryBinder:
                          scalars={"origin": origin, "scale": scale,
                                   "offset": offset, "decay": fn.decay,
                                   "weight": fn.weight}, children=children)
+        if fn.kind == "script_score":
+            return self._script_bound("fn_script", fn.script,
+                                      fn.script_params,
+                                      {"weight": fn.weight}, children)
         raise QueryParsingError(f"unknown score function [{fn.kind}]")
 
     def _bind_FunctionScoreQuery(self, q: FunctionScoreQuery) -> Bound:
@@ -1445,6 +1491,19 @@ def _finalize_node(bounds: Sequence[Bound]) -> tuple[tuple, tuple]:
                  stack_scalar("max_boost", np.float32),
                  stack_scalar("min_score", np.float32),
                  stack_scalar("boost", np.float32)))
+    if kind in ("script_q", "fn_script"):
+        pnames = [n for n in b0.field.split("\x00", 1)[1].split(",") if n]
+        last = "boost" if kind == "script_q" else "weight"
+        own = tuple(stack_scalar(f"p_{n}", np.float32) for n in pnames) + \
+            (stack_scalar(last, np.float32),)
+        if kind == "script_q":
+            return (("script_q", b0.field), own)
+        flt = b0.children.get("filter", [])
+        fdesc, fparams = (None, ())
+        if flt:
+            fdesc, fparams = _finalize_node([b.children["filter"][0]
+                                             for b in bounds])
+        return (("fn_script", b0.field, fdesc), (own, fparams))
     if kind in ("fn_weight", "fn_fvf", "fn_random", "fn_decay"):
         flt = b0.children.get("filter", [])
         fdesc, fparams = (None, ())
@@ -1732,6 +1791,13 @@ def eval_node(desc: tuple, params: tuple, seg: dict, cap: int, B: int
         return s, m
     if kind == "fnscore":
         return _eval_fnscore(desc, params, seg, cap, B)
+    if kind == "script_q":
+        _, tag = desc
+        boost = params[-1]
+        val = _eval_device_script(tag, params[:-1], seg, cap, B)
+        m = val != 0 if val.dtype != torch.bool else val
+        return torch.where(m, torch.clamp(boost[:, None],
+                                          min=_F32_MIN_WEIGHT), 0.0), m
     raise QueryParsingError(f"unknown desc node [{kind}]")
 
 
@@ -1777,7 +1843,7 @@ def _eval_fnscore(desc: tuple, params: tuple, seg: dict, cap: int, B: int
     score_mode, boost_mode, has_min = mode_tag.split("|")
     s, m = eval_node(qdesc, qparams, seg, cap, B)
     device = s.device
-    fns = [_eval_score_fn(fd, fp, seg, cap, B)
+    fns = [_eval_score_fn(fd, fp, seg, cap, B, score=s)
            for fd, fp in zip(fn_descs, fn_params)]
     if not fns:
         combined = torch.ones((B, cap), dtype=torch.float32, device=device)
@@ -1831,6 +1897,54 @@ def _eval_fnscore(desc: tuple, params: tuple, seg: dict, cap: int, B: int
     return new, m
 
 
+def _eval_device_script(tag: str, own: tuple, seg: dict, cap: int, B: int,
+                        score: torch.Tensor | None = None,
+                        times: torch.Tensor | None = None):
+    """Run a compiled expression on the device columns.
+
+    `tag` = "source\x00p1,p2" (the plan key); `own` = stacked [B] param
+    tensors in tag order. Columns [cap] broadcast against params [B, 1]
+    -> [B, cap]. With `times` ([B], a function's weight) returns
+    (value * times as f32 [B, cap], its product operands or None) for
+    `_fma_sum`'s contraction; else the value [B, cap]."""
+    from ..script import compile_script, ColumnDocAccessor, TorchBackend
+    from ..script.expression import device_value
+    src, pname_str = tag.split("\x00", 1)
+    pnames = [n for n in pname_str.split(",") if n]
+    cs = compile_script(src)
+    xp = TorchBackend(seg["_device"])
+    params = {n: own[i][:, None] for i, n in enumerate(pnames)}
+    bindings = {"_score": score} if score is not None else {}
+    val, prod = device_value(cs, ColumnDocAccessor(seg, xp), params,
+                             bindings, xp, times=None if times is None
+                             else times[:, None])
+    if times is None:
+        return _rows(xp.cast(val, xp.result_dtype(val)), B, cap)
+    if prod is not None:
+        prod = tuple(_rows(xp.f32(v), B, cap) for v in prod)
+    return _rows(xp.f32(val), B, cap), prod
+
+
+def _rows(v: torch.Tensor, B: int, cap: int) -> torch.Tensor:
+    return v.expand(B, cap) if v.dim() else v.reshape(1, 1).expand(B, cap)
+
+
+def _eval_agg_script(tag: str, seg: dict, cap: int, B: int) -> torch.Tensor:
+    """Aggregation / sort variant of _eval_device_script: the params are
+    constants baked into the tag ("src\x00k=v,...") -> f32 [B, cap]."""
+    from ..script import compile_script, ColumnDocAccessor, TorchBackend
+    src, ptag = tag.split("\x00", 1)
+    params = {}
+    for pair in ptag.split(","):
+        if pair:
+            k, v = pair.split("=", 1)
+            params[k] = float(v)
+    xp = TorchBackend(seg["_device"])
+    val = compile_script(src).run(doc=ColumnDocAccessor(seg, xp),
+                                  params=params, bindings={}, xp=xp)
+    return _rows(xp.cast(val, xp.result_dtype(val)), B, cap)
+
+
 def _random_bits(seed: torch.Tensor, cap: int, device) -> torch.Tensor:
     """The reference's random_score hash of (doc index, seed) -> [B, cap]
     f32, as its device program computes it: the seed arrives as int32
@@ -1858,12 +1972,14 @@ def _random_bits(seed: torch.Tensor, cap: int, device) -> torch.Tensor:
     return h.to(torch.float32) / float(2 ** 32)
 
 
-def _eval_score_fn(desc: tuple, params: tuple, seg: dict, cap: int, B: int
+def _eval_score_fn(desc: tuple, params: tuple, seg: dict, cap: int, B: int,
+                   score: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor | None, tuple | None]:
     """One score function -> (factor [B, cap], applicable [B, cap] or
     None where it applies everywhere, product): `product` is (a, b) with
     factor == fl(a * b) when the factor is a bare product that XLA may
-    contract into a following add (no filter), else None."""
+    contract into a following add (no filter), else None. `score` is the
+    inner query's, a script's `_score`."""
     ftz = ordered.ftz
     kind, tag, fdesc = desc
     own, fparams = params
@@ -1881,6 +1997,10 @@ def _eval_score_fn(desc: tuple, params: tuple, seg: dict, cap: int, B: int
     if kind == "fn_random":
         seed, weight = own
         return product(_random_bits(seed, cap, device), weight[:, None])
+    if kind == "fn_script":
+        factor, prod = _eval_device_script(tag, own[:-1], seg, cap, B,
+                                           score=score, times=own[-1])
+        return factor, applicable, prod if applicable is None else None
     field, shape_or_mod, has_col = tag.split("|")
     if has_col == "0":
         # column absent in this segment: fvf -> missing value; decay -> 1
@@ -2172,6 +2292,40 @@ def _hist_view(store, vm, subs, kind, params, n_buckets, device) -> dict:
                               pos, n_buckets, device)
 
 
+def _pctl_edges(lo: torch.Tensor, width: torch.Tensor,
+                n_bins: int) -> torch.Tensor:
+    """The bins' edges as the reference's program computes them:
+    lo + width * [1 .. n_bins-1] with the product contracted into the
+    add (an FMA), between -inf and +inf."""
+    i = torch.arange(1, n_bins, dtype=torch.float32, device=lo.device)
+    lo32 = lo.to(torch.float32).reshape(1).expand(n_bins - 1)
+    w32 = width.to(torch.float32).reshape(1).expand(n_bins - 1)
+    inner = ordered.ftz(fma_rn(w32, i, lo32))
+    inf = torch.full((1,), math.inf, dtype=torch.float32, device=lo.device)
+    return torch.cat([-inf, inner, inf])
+
+
+def _pctl_bins(values: torch.Tensor, lo: torch.Tensor, width: torch.Tensor,
+               n_bins: int) -> torch.Tensor:
+    """clip((v - lo) / width, 0, n_bins - 1) as int32, as XLA converts
+    (NaN -> 0)."""
+    v = ordered.ftz(values.to(torch.float32))
+    q = ordered.ftz(ordered.ftz(v - lo.to(torch.float32))
+                    / width.to(torch.float32))
+    q = torch.clamp(torch.nan_to_num(q, nan=0.0), 0, n_bins - 1)
+    return q.to(torch.int32)
+
+
+def _pctl_view(store: dict, vm: torch.Tensor, lo, width, n_bins: int
+               ) -> dict:
+    pos = torch.searchsorted(store["vals"].to(torch.float32).contiguous(),
+                             _pctl_edges(lo, width, n_bins),
+                             side="left").to(torch.int32)
+    w = vm & store["sexists"][None, :]
+    return {"counts": agg_ops.view_group_reduce(
+        w, pos, int_weights=True).to(torch.float32)}
+
+
 def _compress_topk(entry: dict, top_s: int) -> dict:
     """Shrink a terms partial to its per-segment top buckets by count
     (device-side shard_size); indices ride as f32 (exact below 2^24)."""
@@ -2371,6 +2525,91 @@ def eval_aggs(agg_desc: tuple, agg_params: tuple, seg: dict,
             else:
                 m = valid & (seg["kw"][field] >= 0)[None, :]
                 out[name] = {"count": m.sum(dim=-1, dtype=torch.float32)}
+        elif kind == "stats_script":
+            # a metric over a device-evaluated expression (script metric
+            # aggs and scripted_metric; params baked into the tag)
+            _, tag = node
+            vals = _eval_agg_script(tag, seg, valid.shape[-1], B)
+            out[name] = agg_ops.row_stats(vals.to(torch.float32), valid)
+        elif kind == "pctl":
+            # fixed-resolution histogram for percentile interpolation
+            # (the host merges weighted bins)
+            _, field, n_bins = node
+            lo, width = params
+            if use_view:
+                out[name] = _pctl_view(seg["num_sorted"][field],
+                                       views.mask(("num", field)), lo,
+                                       width, n_bins)
+                continue
+            col = seg["num"].get(field)
+            if col is None:
+                out[name] = {"counts": _zeros(B, n_bins, device)}
+                continue
+            if "mv_values" in col:
+                counts = _zeros(B, n_bins, device)
+                mv, me = col["mv_values"], col["mv_exists"]
+                for m in range(mv.shape[1]):
+                    bids = _pctl_bins(mv[:, m], lo, width, n_bins)
+                    bids = torch.where(me[:, m], bids, n_bins)
+                    counts = counts + agg_ops.bucket_counts(bids, valid,
+                                                            n_bins)
+                out[name] = {"counts": counts}
+                continue
+            srtn = seg.get("num_sorted", {}).get(field)
+            if srtn is not None:
+                # scatter-free: value-sorted prefix sums at the bin edges;
+                # the outer edges are -+inf (the clip into the first and
+                # last bins of the bucket-id path)
+                out[name] = {"counts": _sorted_hist_counts(
+                    srtn, col["exists"], valid,
+                    _pctl_edges(lo, width, n_bins))}
+                continue
+            bids = _pctl_bins(col["values"], lo, width, n_bins)
+            bids = torch.where(col["exists"], bids, n_bins)
+            out[name] = {"counts": agg_ops.bucket_counts(bids, valid,
+                                                         n_bins)}
+        elif kind == "cardinality_kw":
+            _, field, n_global = node
+            if field not in seg["kw"]:
+                out[name] = {"counts": _zeros(B, n_global, device)}
+                continue
+            (seg2global,) = params
+            if field in seg.get("kw_mv", {}):
+                mv = seg["kw_mv"][field]
+                counts = _zeros(B, n_global, device)
+                for m in range(mv.shape[1]):
+                    bids = agg_ops.keyword_bucket_ids(mv[:, m], seg2global,
+                                                      n_global)
+                    counts = counts + agg_ops.bucket_counts(bids, valid,
+                                                            n_global)
+            else:
+                bids = agg_ops.keyword_bucket_ids(seg["kw"][field],
+                                                  seg2global, n_global)
+                counts = agg_ops.bucket_counts(bids, valid, n_global)
+            out[name] = {"counts": counts}  # the host counts nonzero keys
+        elif kind == "cardinality_hll":
+            # HLL++ sketch: the max of per-ordinal ranks in 2^p registers
+            # (ref: HyperLogLogPlusPlus.collect), the bucket stats' max
+            # fold with the registers as buckets; "max" makes the
+            # segment / shard reduction an elementwise max
+            _, field, n_regs = node
+            reg_l, rank_l = params
+            if field not in seg["kw"] or reg_l.shape[0] == 0:
+                out[name] = {"max": _zeros(B, n_regs, device)}
+                continue
+            cols = ([seg["kw_mv"][field][:, j]
+                     for j in range(seg["kw_mv"][field].shape[1])]
+                    if field in seg.get("kw_mv", {})
+                    else [seg["kw"][field]])
+            regs = _zeros(B, n_regs, device)
+            for ords in cols:
+                safe = ords.clamp(min=0).to(torch.int64)
+                ok = valid & (ords >= 0)[None, :]
+                mx = agg_ops.bucket_stats(reg_l[safe], ok,
+                                          rank_l[safe].to(torch.float32),
+                                          n_regs, ("max",))["max"]
+                regs = torch.maximum(regs, mx)
+            out[name] = {"max": regs}
         else:
             raise SearchParseError(f"unknown agg node [{kind}]")
     return out
@@ -2929,6 +3168,10 @@ def _segment_body_one(seg: dict, params: tuple, live: torch.Tensor,
             col = seg["num"][field]
             keys = col.get("sort_values", col["values"])
             missing = ~seg["num"][field]["exists"]
+        elif kindtag == "script":
+            keys = _eval_agg_script(field, seg, cap, 1)[0].to(
+                torch.float32)
+            missing = torch.zeros((cap,), dtype=torch.bool, device=device)
         else:  # field absent from this whole segment
             keys = torch.zeros((cap,), dtype=torch.int32, device=device)
             missing = torch.ones((cap,), dtype=torch.bool, device=device)
@@ -2984,6 +3227,8 @@ def _sort_key_is_float(segment: Segment, sort_spec: tuple) -> bool:
     if sort_spec[0] == "_score":
         return True
     _, field, _desc, kindtag = sort_spec[:4]
+    if kindtag == "script":
+        return True
     if kindtag == "num" and field in segment.numerics:
         return segment.numerics[field].values.dtype == np.float32
     return False  # kw ords / absent field path

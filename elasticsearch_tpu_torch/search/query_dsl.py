@@ -11,12 +11,13 @@ positional ones (`match_phrase` / `match_phrase_prefix`, `span_term` /
 (`query_string` / `simple_query_string`, `common`, `more_like_this`),
 the wrappers (`wrapper`, `indices`, `type`, `limit`, `template`) and the
 compound queries (`bool`, `constant_score`, `filtered`, `boosting`,
-`dis_max`, `and` / `or` / `not`, `function_score`). Compound queries
+`dis_max`, `and` / `or` / `not`, `function_score` with `script_score`)
+and the `script` filter. Compound queries
 desugar exactly as in the reference (`match` -> bool over analyzed
 terms, `terms` -> bool should, `filtered` -> bool must + filter,
 `dis_max` -> bool should summing its scores, a one-term phrase -> term),
-so both packages bind the same plans. Nested and parent / child joins,
-geo queries and scripts raise NotImplementedError.
+so both packages bind the same plans. Nested and parent / child joins
+and geo queries raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -222,9 +223,19 @@ class KnnQuery(Query):
 
 
 @dataclass(frozen=True)
+class ScriptQuery(Query):
+    """Script filter: matches docs where the expression is truthy (filter
+    context, constant score)."""
+
+    script: str
+    params: tuple = ()             # sorted ((name, value), ...)
+    boost: float = 1.0
+
+
+@dataclass(frozen=True)
 class ScoreFunction:
     """One function_score function: weight, field_value_factor,
-    random_score, or a gauss / exp / linear decay."""
+    random_score, a gauss / exp / linear decay, or script_score."""
 
     kind: str
     field: str | None = None
@@ -241,6 +252,9 @@ class ScoreFunction:
     scale: object = None
     offset: object = 0
     decay: float = 0.5
+    # script_score
+    script: str | None = None
+    script_params: tuple = ()      # sorted ((name, value), ...)
 
 
 @dataclass(frozen=True)
@@ -264,11 +278,11 @@ class BoostingQuery(Query):
     negative_boost: float = 0.2
 
 
-# queries the reference parses that the port does not carry yet: joins,
-# geo and scripts
+# queries the reference parses that the port does not carry yet: joins
+# and geo
 _NOT_PORTED = frozenset((
     "nested", "_parents_match", "geo_distance", "geo_distance_range",
-    "geo_bounding_box", "geo_polygon", "geo_shape", "script", "has_child",
+    "geo_bounding_box", "geo_polygon", "geo_shape", "has_child",
     "has_parent", "parent_id"))
 
 
@@ -910,9 +924,11 @@ class QueryParser:
                     offset=dconf.get("offset", 0),
                     decay=float(dconf.get("decay", 0.5))))
             elif kind == "script_score":
-                raise NotImplementedError(
-                    "[script_score] is not yet ported to "
-                    "elasticsearch_tpu_torch")
+                from ..script import parse_script_spec
+                src, sparams = parse_script_spec(conf)
+                functions.append(ScoreFunction(
+                    "script_score", weight=weight, filter=flt, script=src,
+                    script_params=tuple(sorted(sparams.items()))))
             else:
                 raise QueryParsingError(
                     f"unknown score function [{kind}]")
@@ -924,6 +940,14 @@ class QueryParser:
             min_score=(float(body["min_score"])
                        if body.get("min_score") is not None else None),
             boost=float(body.get("boost", 1.0)))
+
+    def _parse_script(self, body) -> Query:
+        from ..script import parse_script_spec
+        src, params = parse_script_spec(body)
+        return ScriptQuery(script=src,
+                           params=tuple(sorted(params.items())),
+                           boost=float(body.get("boost", 1.0))
+                           if isinstance(body, dict) else 1.0)
 
     def _parse_not(self, body) -> Query:
         if isinstance(body, dict):

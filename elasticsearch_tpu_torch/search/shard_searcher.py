@@ -30,10 +30,16 @@ builds an index, the exact scan otherwise) and combines them at finish
 in Python floats, as the reference does. `rescore` rescores the response
 window with a second query (`_apply_rescore`, five score modes).
 
+Scripts: a `_script` sort computes its keys on the device from the
+doc-value columns (`executor._eval_agg_script`, params baked into the
+plan key); `script_fields` run on the host per returned hit
+(`script.run_field_script`, `_score` bound to the hit's score).
+
 Trimmed to this slice: request keys outside `query`, `knn`, `rescore`,
 `aggs` / `aggregations`, `size`, `from`, `sort` (one key: `_score`, a
-keyword or a numeric field), `_source`, `version` and `_dfs_stats` raise
-NotImplementedError, as do multi-key sorts, highlight and suggest.
+keyword or a numeric field, or `_script`), `_source`, `version`,
+`script_fields` and `_dfs_stats` raise NotImplementedError, as do
+multi-key sorts, highlight and suggest.
 
 Derived bucket aggs (filter, filters, range, date_range, missing,
 global, top_hits, significant_terms) run after the main groups: each
@@ -59,8 +65,9 @@ from ..index.mapping import MapperService
 from ..index.segment import Segment
 from ..utils.errors import SearchParseError, SearchTimeoutError
 from .aggregations import (DERIVED_KINDS, AggSpec, ShardAggContext,
-                           apply_sig_subs, finalize_partials, parse_aggs,
-                           reduce_aggs, shard_partials, significant_buckets)
+                           apply_sig_subs, finalize_partials,
+                           merge_shard_partials, parse_aggs, shard_partials,
+                           significant_buckets)
 from ..ops.knn import SIMILARITIES
 from .executor import (QueryBinder, _device_live, _fused_stats,
                        collect_pack_result, collect_segment_result,
@@ -70,7 +77,7 @@ from .query_dsl import QueryParser
 
 _REQUEST_KEYS = frozenset(("query", "aggs", "aggregations", "size", "from",
                            "sort", "_source", "version", "_dfs_stats",
-                           "rescore"))
+                           "rescore", "script_fields"))
 
 
 def rewrite_knn_body(body: dict) -> dict:
@@ -338,7 +345,8 @@ class ShardReader:
             p = parsed[i]
             per_seg_bounds = [
                 QueryBinder(seg, self.mappers, live=self.live[seg.seg_id],
-                            dfs=p["dfs_stats"]).bind(p["query"])
+                            dfs=p["dfs_stats"],
+                            device=self.device).bind(p["query"])
                 for seg in self.segments]
             bound_per_req[i] = per_seg_bounds
             sig = (tuple(b.signature() for b in per_seg_bounds),
@@ -366,6 +374,12 @@ class ShardReader:
             if sort_spec[0] == "field" and sort_spec[3] == "kw":
                 sort_terms, seg_maps = self.global_ords(sort_spec[1])
                 sort_maps = [(m,) for m in seg_maps]
+            elif sort_spec[0] == "field" and sort_spec[3] == "script":
+                from ..script import compile_script
+                from .executor import ensure_script_vals
+                cs = compile_script(sort_spec[1].split("\x00", 1)[0])
+                for seg in self.segments:
+                    ensure_script_vals(seg, cs.fields, self.device)
             pending = []
             # streaming write path: a (base, delta) pair serves a
             # fused-admitted plan in ONE dispatch (the delta walk chains
@@ -459,9 +473,14 @@ class ShardReader:
                                            partials, len(idxs))
                 agg_json = [{} for _ in idxs]
             elif p0["agg_specs"]:
+                # the group's partials, finalized with each request's
+                # own specs (its percents / values)
                 part_json = None
-                agg_json = reduce_aggs(p0["agg_specs"], agg_ctx, partials,
-                                       len(idxs))
+                agg_json = [finalize_partials(
+                    parsed[i]["agg_specs"],
+                    merge_shard_partials(parsed[i]["agg_specs"], [part]))
+                    for i, part in zip(idxs, shard_partials(
+                        p0["agg_specs"], agg_ctx, partials, len(idxs)))]
             else:
                 part_json = None
                 agg_json = [{} for _ in idxs]
@@ -865,7 +884,7 @@ class ShardReader:
     # -- internals ---------------------------------------------------------
     def _ords_for(self, specs: list[AggSpec]) -> dict:
         return {s.field: self.global_ords(s.field)
-                for s in specs if s.kind == "terms"}
+                for s in specs if s.kind in ("terms", "cardinality")}
 
     def _parse_request(self, body: dict) -> dict:
         body = body or {}
@@ -909,8 +928,13 @@ class ShardReader:
             if rescore["query"] is None:
                 raise SearchParseError("[rescore] requires [rescore_query]")
         static_sig = (
+            # precision_threshold keys the plan too (exact counts or the
+            # HLL sketch); the percents / values of percentiles apply
+            # per request at the reduce. The reference's key leaves out
+            # both, and its batch-mates take the first request's
+            # (ROADMAP Queue 3)
             tuple((s.name, s.kind, s.field, s.interval, s.size,
-                   s.min_doc_count, s.order,
+                   s.min_doc_count, s.order, s.precision_threshold,
                    tuple((m.name, m.kind, m.field) for m in s.sub_metrics))
                   for s in agg_specs),
             sort_spec, frm + size,
@@ -921,9 +945,24 @@ class ShardReader:
                 "static_sig": static_sig,
                 "want_version": bool(body.get("version", False)),
                 "rescore": rescore,
+                "script_fields": self._parse_script_fields(
+                    body.get("script_fields")),
                 "derived_specs": derived_specs,
                 "raw_query": raw_query,
                 "dfs_stats": body.get("_dfs_stats")}
+
+    def _parse_script_fields(self, spec) -> list:
+        """script_fields -> [(name, CompiledScript, params)], evaluated
+        on the host per hit (ref: search/fetch/script/
+        ScriptFieldsParseElement)."""
+        if not spec:
+            return []
+        from ..script import parse_script_spec, compile_script
+        out = []
+        for name, conf in spec.items():
+            src, params = parse_script_spec(conf)
+            out.append((name, compile_script(src), params))
+        return out
 
     def _keyword_fallback(self, field: str) -> str:
         """Aggregating/sorting on a text field falls back to its .keyword
@@ -953,8 +992,22 @@ class ShardReader:
             fld, spec = next(iter(entry.items()))
             if fld == "_score":
                 return ("_score",)
-            if fld in ("_geo_distance", "_geoDistance", "_script"):
+            if fld in ("_geo_distance", "_geoDistance"):
                 raise NotImplementedError(f"[{fld}] sort is not yet ported")
+            if fld == "_script":
+                # script sort (ref: search/sort/ScriptSortParser.java):
+                # keys computed on the device from doc-value columns;
+                # params baked into the tag, which keys the plan
+                from ..script import parse_script_spec, compile_script
+                from ..script.service import numeric_param
+                src, sparams = parse_script_spec(spec)
+                compile_script(src)
+                ptag = ",".join(f"{k}={numeric_param(k, v)}"
+                                for k, v in sorted(sparams.items()))
+                order = str(spec.get("order", "asc")).lower() \
+                    if isinstance(spec, dict) else "asc"
+                return ("field", f"{src}\x00{ptag}", order == "desc",
+                        "script")
             order = (spec.get("order", "asc") if isinstance(spec, dict)
                      else str(spec)).lower()
         fld = self._keyword_fallback(fld)
@@ -1029,6 +1082,12 @@ class ShardReader:
                                          src)
                 if filtered is not None:
                     hit["_source"] = filtered
+            if p["script_fields"]:
+                from ..script import run_field_script
+                sf = hit.setdefault("fields", {})
+                for name, cs, sparams in p["script_fields"]:
+                    sf[name] = [run_field_script(cs, seg, local_doc, sparams,
+                                                 score=score)]
             hits.append(hit)
 
         resp = {

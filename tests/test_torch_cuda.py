@@ -1349,3 +1349,81 @@ def test_dsl_mixes_on_the_card_equal_cpu(cuda):
         if device == "cpu":
             want = json.dumps(out, sort_keys=True)
     assert json.dumps(out, sort_keys=True) == want
+
+
+@pytest.mark.parametrize("name", ["tanh", "expm1", "sinh", "cosh", "log2",
+                                  "hypot", "sin", "cos", "tan", "atan",
+                                  "atan2", "asin", "acos", "pow"])
+def test_script_math_on_the_card_equals_cpu(cuda, name):
+    """The script math of ops/xla_math on the card: XLA's own code (tanh,
+    expm1, sinh, cosh, log2, hypot) gives the CPU's bits; the C library's
+    functions, taken in f64 and rounded once, agree with the CPU's within
+    1 ulp (CUDA's f64 functions are not Sleef's), almost always exactly."""
+    from elasticsearch_tpu_torch.ops import xla_math
+    rng = np.random.default_rng(23)
+    x = np.concatenate([rng.standard_normal(1 << 18) * 10,
+                        rng.uniform(-1, 1, 1 << 16),
+                        [0.0, -0.0, 1e-40, -1e-40, np.inf, -np.inf, np.nan,
+                         20.0, -20.0, 88.0, 1.0, -1.0]]).astype(np.float32)
+    y = np.roll(x, 7) * np.float32(0.3)
+    if name in ("asin", "acos"):
+        x = np.clip(x, -1, 1)
+    if name in ("log2", "pow"):
+        x = np.abs(x)
+    f = getattr(xla_math, name)
+    args = (x, y) if name in ("hypot", "atan2", "pow") else (x,)
+    want = f(*(torch.from_numpy(a) for a in args)).numpy()
+    got = f(*(torch.from_numpy(a).to(cuda) for a in args)).cpu().numpy()
+    gi = got.view(np.int32).astype(np.int64)
+    wi = want.view(np.int32).astype(np.int64)
+    gi = np.where(gi < 0, -(gi & 0x7FFFFFFF), gi)
+    wi = np.where(wi < 0, -(wi & 0x7FFFFFFF), wi)
+    d = np.where(np.isnan(got) & np.isnan(want), 0, np.abs(gi - wi))
+    bound = 0 if name in ("tanh", "expm1", "sinh", "cosh", "log2",
+                          "hypot") else 1
+    assert d.max() <= bound, (name, x[d > bound][:4], got[d > bound][:4],
+                              want[d > bound][:4])
+    assert (d > 0).mean() < 1e-3
+
+
+def test_script_and_device_agg_mixes_on_the_card_equal_cpu(cuda):
+    """The script mixes (script filter, script_score, script sort, script
+    metric aggs and scripted_metric) and the percentile / cardinality mix,
+    HLL registers included, on a small base + delta: the card's
+    responses and partials are the CPU's exactly."""
+    import copy
+    import json
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.index.segment import (SegmentBuilder,
+                                                       pad_delta_shapes)
+    from elasticsearch_tpu_torch.search.shard_searcher import ShardReader
+    svc = MapperService(mapping=corpus.MAPPING)
+    docs = corpus.make_docs(3300, seed=61, long_every=300)
+    segs = []
+    for seg_id, part in (("base", docs[:3000]), ("delta0", docs[3000:])):
+        b = SegmentBuilder()
+        for did, d in part:
+            b.add(svc.parse(did, d))
+        segs.append(b.build(seg_id))
+    segs[1].delta_parent = segs[0].cache_key()
+    pad_delta_shapes(segs[1])
+    mixes = corpus.script_mixes(8, seed=5)
+
+    def norm(v):
+        if isinstance(v, np.ndarray):
+            return v.tolist()
+        if isinstance(v, dict):
+            return {str(k): norm(x) for k, x in v.items() if k != "took"}
+        if isinstance(v, list):
+            return [norm(x) for x in v]
+        return v
+
+    outs = []
+    for device in ("cpu", cuda):
+        reader = ShardReader("logs", [copy.copy(s) for s in segs], {}, svc,
+                             device=device)
+        outs.append(json.dumps({name: [norm(r) for r in reader.msearch(
+            copy.deepcopy(bodies), with_partials=(name == "pctl_card"))]
+            for name, bodies in mixes.items()}, sort_keys=True))
+    assert outs[0] == outs[1]

@@ -199,6 +199,11 @@ def test_derived_kinds_parse_and_unported_raise():
     specs = port_aggs.parse_aggs({f"{n}_{k}": v for n, a in AGGS.items()
                                   for k, v in a.items()})
     assert {s.kind for s in specs} >= set(port_aggs.DERIVED_KINDS)
-    for kind in ("nested", "percentiles", "cardinality", "scripted_metric"):
+    for kind in ("nested", "geo_bounds", "geohash_grid"):
         with pytest.raises(NotImplementedError):
             port_aggs.parse_aggs({"x": {kind: {"field": "size"}}})
+    # ported since: the device metric aggs and scripted_metric
+    for kind, conf in (("percentiles", {"field": "size"}),
+                       ("cardinality", {"field": "status"}),
+                       ("scripted_metric", {"map_script": "1"})):
+        assert port_aggs.parse_aggs({"x": {kind: conf}})[0].kind == kind
