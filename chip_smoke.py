@@ -8,8 +8,9 @@ each of which fails the run on any error:
 1. device: the card's name and power limit as nvidia-smi reports them;
 2. build: the hand-written CUDA kernels of `elasticsearch_tpu_torch/ops`
    compiled from their sources with nvcc for sm_90a;
-3. kernels: each kernel held bit-exact (`torch.equal`) against its plain
-   PyTorch version at the slice's shapes, with kernel / plain / library
+3. kernels (in a process of its own on the card, beside the node ingest
+   of phase 7): each kernel held bit-exact (`torch.equal`) against its
+   plain PyTorch version at the slice's shapes, with kernel / plain / library
    times (CUDA events) and the card's least time for the same work (K3,
    the fused bundle walk: one to three clauses, with and without a range
    filter, k 10 and 100, the match mask on and off, the mask-only grid;
@@ -57,7 +58,8 @@ each of which fails the run on any error:
    phrase / span / BM25F code of search/phrase.py through K2), whose
    responses must be identical, with matches in every mix compared;
 5. the delta path: per shard a delta segment of 2^17 docs (seeds 142,
-   143) beside the shard's segment as its base, `match`,
+   143; built in 2 workers beside the node ingest, with the small
+   index's shards) beside the shard's segment as its base, `match`,
    `match_range_aggs`, `count_match` and `phrase` through the base+delta
    pack dispatch (the agg mixes 64 requests per msearch, DELTA_BATCH;
    every fused group must go as one pack, K3's seeded form must launch),
@@ -101,8 +103,8 @@ each of which fails the run on any error:
    first 32 requests of each mix with the plain versions swapped in give
    identical responses, and 8 pctl_card requests' HLL registers are
    `torch.equal` to the plain version's; 16 requests a mix on the small
-   index give the CPU's responses exactly. In the window after the
-   scroll (beside the passages' build workers, `script node` line): a
+   index give the CPU's responses exactly. After the scroll (beside the
+   kill -9 and small node workers, `script node` line): a
    durable 2-shard node of 2,000 docs a shard over HTTP stores a script
    (`PUT /_scripts/size_kb`), serves a search filtered and sorted by it
    as its readers do, runs an `_update` with a script, and after a
@@ -125,8 +127,8 @@ each of which fails the run on any error:
    variance derived from them), the
    positional mixes, which score with the segment's field statistics,
    by their totals) and the replaced segments' fielddata holds are
-   released; then a 12,000-doc node (SMALL_NODE_DOCS) on the card and
-   one on the CPU take
+   released; then (in a process of its own after the scroll) a
+   12,000-doc node (SMALL_NODE_DOCS) on the card and one on the CPU take
    the same writes, Part A's subnormal docs included (bulk + compaction,
    a delta, deletes and updates, compaction, _forcemerge), and give the
    same responses exactly after each; a `node summary` line with the
@@ -151,8 +153,9 @@ each of which fails the run on any error:
    `match` and `phrase` mixes as dfs_query_then_fetch give the same
    responses with the plain versions swapped in; a `scroll` line (page
    p50 at from 0 and from 15,000);
-10. kill -9: a request-mode node (2 shards) in a subprocess (`python3
-   chip_smoke.py --durability-worker ...`) on the card, SIGKILLed once
+10. kill -9 (the rounds in a process of their own after the scroll,
+   `--worker kill9`): a request-mode node (2 shards) in a subprocess
+   (`python3 chip_smoke.py --durability-worker ...`) on the card, SIGKILLed once
    at a random instant after 10,000 acked docs, once by
    `crash_point:site=translog:phase=append:rate=0.05:seed=11:kill=1`,
    once by `crash_point:site=store:phase=commit:kill=1`; after each, a
@@ -162,8 +165,9 @@ each of which fails the run on any error:
 11. vectors (path t): two shards of 2^19 passages (BASELINE config 5's
    2^20 x 256 over two shards: a `passage` text field and a 256-dim
    cosine `embedding`, Gaussian around seeded centers, seeds 23 and 24)
-   with a 2^15-doc delta each, built in the background from the end of
-   the scroll phase on; the IVF build timed apart, its assignment also
+   with a 2^15-doc delta each, built in the background (4 workers at
+   nice 19) from the node path's start on; the IVF build timed apart,
+   its assignment also
    on the card; four mixes of 256 requests through the base + delta
    readers, the counts zeroed just before: `knn` (a top-level knn
    section, k 10, the IVF probe on the bases), `knn_exact` (the same on
@@ -183,13 +187,44 @@ each of which fails the run on any error:
    a small dyadic index answering all four mixes on the card exactly as
    on the CPU; a small node with path.data taking vector docs through
    _bulk, restarting and answering as before;
+11b. joins (path w), after the scroll and the script node, beside the
+   kill -9 and small node workers: two nested shards of 200,000
+   StackOverflow questions with 0-8 answers each as nested objects and
+   three with thousands (about 2^20 rows a shard; corpus.qa_nested_docs,
+   the shape of Rally's `nested` track), and a parent / child index `qa`
+   (corpus.qa_join_docs, the ES 2.0 children agg's question / answer
+   types: 2^16 questions with their answers), both built with the port's
+   SegmentBuilder in the side workers beside the node ingest (`qa` on the
+   shards its routing gives, as a node's _bulk places them; the node's
+   _bulk with routing runs on the small nodes below); six mixes of 256
+   requests (`nested_match`: a body match under `nested` in each score
+   mode, boosted inside a bool every fifth; `nested_aggs`: nested ->
+   terms, date_histogram and reverse_nested -> terms; `has_child` with
+   min_children, `has_parent`, `parent_id`, `children_agg`), smoke checks
+   of the join paths at full size, not a model of users' traffic (their
+   query words chosen so that the host's join resolution fits the run),
+   a warm-up of 32 and one timed batch a mix in a profiler session of its
+   own (`join mix` lines), the counts zeroed just before; the to-parent
+   fold and K1 must launch, nested plans be rejected by the fused engine
+   as `clause:nested`; the first 32 requests a mix with the plain
+   versions swapped in identical; HTTP _msearch equal to the node's
+   readers; durable 2-shard nodes on the card and the CPU equal after the
+   ingest, a parent's delete, a force merge and a restart; once the
+   workers have ended, the fold `torch.equal` to its plain version on the
+   path's first call of each score mode and on a sweep row of the nested
+   shard's layout (its hottest parent over 4,096 rows), timed beside its
+   bound and the library's scatters;
 12. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `--rehearse` runs the main, delta, resident, query DSL, scripts, node,
-restart, scroll, kill -9 and vectors paths' checks on the CPU at a toy
+restart, scroll, kill -9, vectors and joins paths' checks on the CPU at a toy
 size (no build, no timings, no
-result line), to exercise this script without a card. `--ab-parent DIR` loads the K3 of an earlier
+result line), to exercise this script without a card (the kill -9 rounds
+and the small node in worker processes, as a whole run starts them).
+`--worker KIND OUT DEVICE ARG` is the entry of those processes (the
+kernel sweeps, the kill -9 rounds, the small node), which the run starts
+itself. `--ab-parent DIR` loads the K3 of an earlier
 commit unpacked under DIR (its `elasticsearch_tpu_torch/ops`, e.g. in the
 git-ignored `smoke_checkout/`) beside this one and times the two in turns
 on every K3 sweep and launch-form row, K1's, K2's, the unfused leaf's,
@@ -202,7 +237,8 @@ builds patched copies of this checkout's K3 (a design step undone, or a
 probe) under DIR and times them this way. `--kernels-only` stops after
 the kernel phase, `--vectors-only` runs the build and path (t) alone,
 `--dsl-only` the build, two 2^20-doc shards built in workers and paths
-(u) and (v) alone, with (v)'s HTTP node (no result line either).
+(u) and (v) alone, with (v)'s HTTP node, `--joins-only` the build and
+path (w) alone (no result line either).
 """
 
 from __future__ import annotations
@@ -219,6 +255,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -342,12 +379,13 @@ def build_shards(n_docs: int, n_shards: int, long_every: int,
         return pool.map(_build_shard, jobs)
 
 
-def make_readers(segments, device):
+def make_readers(segments, device, mapping=None, index: str = "logs"):
+    """A reader per shard segment (the corpus's mapping by default)."""
     from elasticsearch_tpu_torch import corpus
     from elasticsearch_tpu_torch.index.mapping import MapperService
     from elasticsearch_tpu_torch.search.shard_searcher import ShardReader
-    svc = MapperService(mapping=corpus.MAPPING)
-    return [ShardReader("logs", [seg], {}, svc, shard_id=s, device=device)
+    svc = MapperService(mapping=mapping or corpus.MAPPING)
+    return [ShardReader(index, [seg], {}, svc, shard_id=s, device=device)
             for s, seg in enumerate(segments)]
 
 
@@ -684,24 +722,71 @@ def _build_delta(job):
     return builder.build(f"delta{shard}")
 
 
+def _delta_jobs(n_bases: int, n_base: int, n_docs: int,
+                long_every: int) -> list:
+    start = n_bases * n_base
+    return [(s, n_docs, start + s * n_docs, long_every)
+            for s in range(n_bases)]
+
+
+def pair_deltas(bases: list, deltas: list) -> list:
+    """Each delta keyed on its base's generation (`delta_parent`) and its
+    term dimension bucketed (pad_delta_shapes)."""
+    from elasticsearch_tpu_torch.index.segment import pad_delta_shapes
+    for base, delta in zip(bases, deltas):
+        delta.delta_parent = base.cache_key()
+        pad_delta_shapes(delta)
+    return deltas
+
+
 def build_deltas(bases: list, n_base: int, n_docs: int, long_every: int,
                  workers: int) -> list:
-    """A delta segment per base, `delta_parent` set to the base's
-    generation and its term dimension bucketed (pad_delta_shapes)."""
-    from elasticsearch_tpu_torch.index.segment import pad_delta_shapes
-    start = len(bases) * n_base
-    jobs = [(s, n_docs, start + s * n_docs, long_every)
-            for s in range(len(bases))]
+    """A delta segment per base (`pair_deltas`)."""
+    jobs = _delta_jobs(len(bases), n_base, n_docs, long_every)
     if workers <= 1:
         deltas = [_build_delta(j) for j in jobs]
     else:
         ctx = multiprocessing.get_context("spawn")
         with ctx.Pool(min(workers, len(jobs))) as pool:
             deltas = pool.map(_build_delta, jobs)
-    for base, delta in zip(bases, deltas):
-        delta.delta_parent = base.cache_key()
-        pad_delta_shapes(delta)
-    return deltas
+    return pair_deltas(bases, deltas)
+
+
+def start_side_builds(args, joins: bool = True) -> dict:
+    """Builds in 4 worker processes in the background from the node
+    ingest on (its bulk loads one of the host's cores), so none waits in
+    the main flow: path (w)'s two nested shards first (the long jobs, two
+    workers), then on the other two the delta path's two deltas, the
+    small index's two shards and path (w)'s parent / child shards. The
+    workers run at the lowest scheduling priority (nice 19): the main
+    process's host work goes first. -> {"pool", "start", and a pending
+    result per build}."""
+    ctx = multiprocessing.get_context("spawn")
+    with worker_threads(1):
+        pool = ctx.Pool(4, initializer=os.nice, initargs=(19,))
+    out = {"pool": pool, "start": time.perf_counter(),
+           "qa_questions": JOIN_QA_QUESTIONS}
+    if joins:
+        out["nested"] = pool.map_async(_build_join_shard, _join_jobs(
+            JOIN_QUESTIONS, JOIN_HOT), chunksize=1)
+    out["deltas"] = pool.map_async(
+        _build_delta, _delta_jobs(2, args.docs, args.delta_docs, 1000),
+        chunksize=1)
+    out["small"] = pool.map_async(
+        _build_shard, [(s, args.small_docs, 300) for s in range(2)],
+        chunksize=1)
+    if joins:
+        out["qa"] = pool.map_async(_build_qa_join_shard, _qa_join_jobs(
+            JOIN_QA_QUESTIONS, JOIN_HOT), chunksize=1)
+    return out
+
+
+def side_result(side: dict, name: str, waits: dict) -> list:
+    """A side build's segments, the seconds waited for them in `waits`."""
+    t0 = time.perf_counter()
+    segs = side[name].get()
+    waits[name] = time.perf_counter() - t0
+    return segs
 
 
 def make_pack_readers(bases, deltas, device):
@@ -1020,6 +1105,18 @@ def rehearse(n_docs: int, batch: int) -> int:
         **{k: {"hits": v["hits"],
                "rejected": v["fused"]["admission"]["rejected"]}
            for k, v in scripts["mixes"].items()}}))
+    # path (w): joins at a toy size (the nested shards built here, the
+    # CPU against the CPU on the small nodes)
+    with contextlib.redirect_stdout(io.StringIO()):
+        side = rehearse_join_builds(min(n_docs, 400))
+        joins, _launches, _entry = join_phase(
+            argparse.Namespace(batch=batch), "cpu", lambda: None, side, {},
+            on_card=False)
+    log("rehearse joins: " + json.dumps({
+        "setup": joins["setup"], "small": joins["small"],
+        **{k: {"hits": v["hits"],
+               "rejected": v["fused"]["admission"]["rejected"]}
+           for k, v in joins["mixes"].items()}}))
     log("rehearse vectors: " + json.dumps({
         "recall": vec["recall"], "small": vec["small"], "node": vec["node"],
         **{k: {"hits": v["hits"], "ivf_host_syncs_per_batch":
@@ -1027,6 +1124,29 @@ def rehearse(n_docs: int, batch: int) -> int:
                "knn_admission": v["fused"]["admission"]["knn"]}
            for k, v in vec["mixes"].items()}}))
     return 0
+
+
+class _Done:
+    """A finished build in place of a pool's pending result."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def get(self):
+        return self.value
+
+
+def rehearse_join_builds(n: int) -> dict:
+    """Path (w)'s shards at a toy size, built here (`start_side_builds`'
+    shape)."""
+    hot = ((0, 300), (10, 120))
+    return {"start": time.perf_counter(), "qa_questions": 2 * n,
+            "nested": _Done([_build_join_shard(j)
+                             for j in _join_jobs(n, hot)]),
+            # a question with 1,000 answers: has_child's rare words
+            # match two of them
+            "qa": _Done([_build_qa_join_shard(j)
+                         for j in _qa_join_jobs(2 * n, ((0, 4000),))])}
 
 
 def rehearse_node(n_docs: int, batch: int) -> dict:
@@ -1066,16 +1186,19 @@ def rehearse_node(n_docs: int, batch: int) -> dict:
     finally:
         server.stop()
         node.close()
-    kills = kill_rounds("cpu", lambda: None, "cpu", n_docs=300,
-                        flush_every=200)
-    small = small_node_check(min(n_docs, 600), 4, "cpu", lambda: None)
+    # the kill -9 rounds (a CPU worker, 300 docs) and the small node in
+    # processes of their own, as the whole run starts them
+    window = [start_worker("kill9", "cpu"),
+              start_worker("small_node", "cpu", str(min(n_docs, 600)))]
+    kills = finish_worker(window[0])
+    small = finish_worker(window[1])
     return {"ingest": ingest["docs"], "compaction_s": out["compaction_s"],
             "fielddata": out["fielddata"],
             "launched": sorted(k for k in NODE_KERNELS if launches[k] > 0),
             "durable": {k: durable[k] for k in ("flush_s", "store_bytes",
                                                 "recovery", "segments")},
             "scroll": {k: scroll_out[k] for k in ("scroll", "scan")},
-            "kill9_acked": [k["acked"] for k in kills],
+            "kill9_acked": [k["acked"] for k in kills["rounds"]],
             "small": small["steps"]}
 
 
@@ -2154,6 +2277,106 @@ def kill_rounds(dev, sync, device_arg: str, seed: int = 7,
         out.append(rec)
     shutil.rmtree(data, ignore_errors=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# checks in processes of their own, beside the main process's phases
+# ---------------------------------------------------------------------------
+
+# `--worker KIND OUT DEVICE [ARG]`: a self-contained part of the run in a
+# process of its own, its result as JSON in OUT, its log lines on its
+# stdout. kernels: the kernel sweeps (ARG the --ab-parent directory or
+# ""); kill9: the kill -9 rounds; small_node: the small node's card-vs-CPU
+# steps (ARG its docs per shard)
+WORKER_KINDS = ("kernels", "kill9", "small_node")
+
+
+def run_worker(kind: str, out: str, device: str, arg: str) -> int:
+    import torch
+    if device == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sync = torch.cuda.synchronize
+    else:
+        dev, sync = "cpu", (lambda: None)
+    t0 = time.perf_counter()
+    if kind == "kernels":
+        from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+        cs.build()
+        old = load_parent_k3(arg) if arg else None
+        sweep, worst = kernel_sweep(dev, np.random.default_rng(42), old=old)
+        result = {"sweep": sweep, "worst": worst}
+    elif kind == "kill9":
+        result = {"rounds": kill_rounds(dev, sync, device)
+                  if device == "cuda" else
+                  kill_rounds(dev, sync, device, n_docs=300,
+                              flush_every=200)}
+    else:
+        torch.set_num_threads(WINDOW_THREADS)
+        result = small_node_check(int(arg), 8 if device == "cuda" else 4,
+                                  dev, sync)
+    result["worker_s"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+_WORKERS: list[dict] = []     # started and not yet finished
+
+
+def start_worker(kind: str, device: str, arg: str = "") -> dict:
+    """`kind` started in a process of its own (`run_worker`), its stdout
+    to a file beside its result's."""
+    root = data_dir(f"worker-{kind}")
+    out, log_path = (os.path.join(root, n) for n in ("out.json", "log.txt"))
+    log_f = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", kind, out,
+         device, arg], stdout=log_f, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    w = {"kind": kind, "proc": proc, "out": out, "log": log_path,
+         "log_f": log_f, "root": root}
+    _WORKERS.append(w)
+    return w
+
+
+def finish_worker(w: dict, timeout_s: float = 900.0) -> dict:
+    """Wait for a worker; its log lines go to this run's log, and any
+    exit but 0 fails the run with its last lines. Returns its result,
+    with `wait_s`, the seconds this process waited for it."""
+    t0 = time.perf_counter()
+    try:
+        rc = w["proc"].wait(timeout=timeout_s)
+    finally:
+        stop_workers([w])
+    wait_s = time.perf_counter() - t0
+    with open(w["log"]) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        log(line)
+    if rc != 0:
+        raise AssertionError(f"worker {w['kind']} exited {rc}: "
+                             + "\n".join(lines[-20:]))
+    with open(w["out"]) as f:
+        result = json.load(f)
+    shutil.rmtree(w["root"], ignore_errors=True)
+    result["wait_s"] = wait_s
+    return result
+
+
+def stop_workers(workers=None) -> None:
+    """Kill the workers still running and what they started (all of them
+    by default: a failed run leaves none behind)."""
+    import signal
+    for w in list(_WORKERS if workers is None else workers):
+        if w["proc"].poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(w["proc"].pid, signal.SIGKILL)
+            w["proc"].wait()
+        w["log_f"].close()
+        if w in _WORKERS:
+            _WORKERS.remove(w)
 
 
 # ---------------------------------------------------------------------------
@@ -3491,6 +3714,7 @@ def _build_passage_shard(job):
     the k-means and the assignment on the CPU), timed on the segment's
     `ivf_build_s`, the assignment's part on `ivf_assign_host_s`."""
     name, n_docs, start, seed, dims, dyadic, ivf = job
+    t_job = time.perf_counter()
     from elasticsearch_tpu_torch import corpus
     from elasticsearch_tpu_torch.index.mapping import MapperService
     from elasticsearch_tpu_torch.index.segment import (SegmentBuilder,
@@ -3527,6 +3751,7 @@ def _build_passage_shard(job):
         finally:
             ann._assign_full = assign
         seg.ivf_build_s = time.perf_counter() - t0
+    seg.worker_s = time.perf_counter() - t_job
     return seg
 
 
@@ -3541,12 +3766,42 @@ def _passage_jobs(n_docs: int, n_delta: int, dims: int, dyadic: bool,
                 dims, dyadic, False) for s in range(2)])
 
 
+# thread pools of the background workers and of the main process while
+# they run: the passages' IVF k-means (a BLAS product) and host assignment
+# (a torch product) on PASSAGE_THREADS threads a worker, the side builds
+# on one, the main process's CPU torch ops on WINDOW_THREADS during the
+# node ingest and from the passages' start to path (t), the small node
+# worker's too. More threads than cores stall every parallel region of a
+# process whose threads the scheduler parks (the small node's CPU half
+# took four times as long with the passages' k-means on every core)
+PASSAGE_THREADS = 2
+WINDOW_THREADS = 2
+
+
+@contextlib.contextmanager
+def worker_threads(n: int):
+    """Worker processes started inside run their BLAS and OpenMP thread
+    pools on `n` threads (the environment they start with)."""
+    keys = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: str(n) for k in keys})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def start_passage_build():
     """The full-size passages and the bases' IVF indexes built in 4
-    worker processes in the background: (pool, pending result, start
-    time)."""
+    worker processes in the background, at the lowest scheduling
+    priority (nice 19): (pool, pending result, start time)."""
     ctx = multiprocessing.get_context("spawn")
-    pool = ctx.Pool(4)
+    with worker_threads(PASSAGE_THREADS):
+        pool = ctx.Pool(4, initializer=os.nice, initargs=(19,))
     return (pool, pool.map_async(_build_passage_shard,
                                  _passage_jobs(VEC_DOCS, VEC_DELTA_DOCS,
                                                VEC_DIMS, False, ivf=True)),
@@ -3899,14 +4154,27 @@ def card_assignment(bases, dev) -> dict:
     return {"bases": out}
 
 
+def vector_small_checks(args, dev, sync, on_card=True,
+                        n: int = VEC_DOCS) -> dict:
+    """Path (t)'s small dyadic index (the card against the CPU) and its
+    small node, which need no passages."""
+    out = {"small": small_vector_check(
+        min(args.small_docs, VEC_SMALL_DOCS) if on_card else n, dev, sync)}
+    log("vector small index: " + json.dumps(out["small"]))
+    out["node"] = vector_node_check(VEC_NODE_DOCS if on_card else n, dev)
+    log("vector node: " + json.dumps(out["node"]))
+    return out
+
+
 def vector_phase(args, dev, sync, out_dir=None, on_card=True,
                  build=None, n: int = VEC_DOCS, nd: int = VEC_DELTA_DOCS,
-                 D: int = VEC_DIMS) -> tuple:
+                 D: int = VEC_DIMS, small=None) -> tuple:
     """Path (t): dense vectors, hybrid bundles and rescore over 2 shards
     of n passages (D dims) with a delta of nd each. `build` is
-    `start_passage_build`'s handle (None: build here); the small dyadic
-    index and the small node run first, while it builds. Returns (the
-    report, the kernels line's knn_vec entry or None off the card)."""
+    `start_passage_build`'s handle (None: build here); `small` is
+    `vector_small_checks`' result where they ran before (None: they run
+    first here, while the passages build). Returns (the report, the
+    kernels line's knn_vec entry or None off the card)."""
     from elasticsearch_tpu_torch import corpus
     from elasticsearch_tpu_torch.index import ann
     t_phase = time.perf_counter()
@@ -3918,14 +4186,8 @@ def vector_phase(args, dev, sync, out_dir=None, on_card=True,
         now = time.perf_counter()
         laps[name] = now - mark
         mark = now
-    report = {}
-    report["small"] = small_vector_check(
-        min(args.small_docs, VEC_SMALL_DOCS) if on_card else n, dev, sync)
-    log("vector small index: " + json.dumps(report["small"]))
-    lap("small_index")
-    report["node"] = vector_node_check(VEC_NODE_DOCS if on_card else n, dev)
-    log("vector node: " + json.dumps(report["node"]))
-    lap("node")
+    report = dict(small or vector_small_checks(args, dev, sync, on_card, n))
+    lap("small_checks")
     if build is None:
         t0 = time.perf_counter()
         bases, deltas = build_passage_shards(n, nd, D, False)
@@ -3957,7 +4219,9 @@ def vector_phase(args, dev, sync, out_dir=None, on_card=True,
     lap("ivf_build")
     ai = bases[0].ann["embedding"]
     setup = {"docs_per_shard": n, "delta_docs_per_shard": nd, "dims": D,
-             "build_s": build_s, "ivf_build_s": ivf_s,
+             "build_s": build_s,
+             "worker_s": [getattr(b, "worker_s", None) for b in bases],
+             "ivf_build_s": ivf_s,
              "clusters": ai.n_clusters, "cluster_cap": ai.cluster_cap,
              "nprobe": ann.default_nprobe(ai.n_clusters),
              "text_L": bases[0].text["passage"].fwd_tids.shape[1]}
@@ -4295,7 +4559,7 @@ def dsl_phase(args, readers, on_gpu, on_cpu, dev, sync,
 # SCRIPT_WARMUP requests a mix (uploads: the script columns, the sorted
 # layouts), then ONE timed batch of each mix in a profiler session, as
 # path (u); its HTTP node (stored script, scripted update, restart) runs
-# in the window after the scroll, beside the passages' build workers
+# after the scroll, beside the kill -9 and small node workers
 SCRIPT_WARMUP = 32
 SCRIPT_SWAP = 32          # requests a mix with the plain versions swapped in
 SCRIPT_SMALL = 16         # requests a mix on the card-vs-CPU small index
@@ -4522,6 +4786,437 @@ def script_node_check(n_docs: int, dev) -> dict:
     return out
 
 
+# -- path (w): joins ----------------------------------------------------------
+
+# the nested index: per shard JOIN_QUESTIONS StackOverflow questions with
+# 0-8 answers each as nested objects (corpus.qa_nested_docs, Rally's
+# `nested` track) and JOIN_HOT questions with thousands: about 2^20 rows
+# a shard once the nested rows are counted, the longest chains of the
+# to-parent fold over 4,096 rows
+JOIN_QUESTIONS = 200_000
+JOIN_HOT = ((0, 5000), (100_000, 4200), (150_000, 2600))
+# the parent / child index (corpus.qa_join_docs, the ES 2.0 children
+# agg's question / answer types): this many questions in all with their
+# answers, each doc on the shard its routing gives (a question's own id,
+# an answer's question), as a node's _bulk places them, but built with
+# the SegmentBuilder in a worker (the node's _bulk with routing runs on
+# the small nodes); the hot questions have a quarter of JOIN_HOT's
+# answers. A size for a smoke check of the join paths, from no published
+# source
+JOIN_QA_QUESTIONS = 1 << 16
+JOIN_WARMUP = 32          # requests a mix before the timed batch
+JOIN_SWAP = 32            # requests a mix with the plain versions swapped in
+JOIN_HTTP = 8             # requests a mix over HTTP _msearch (small node)
+JOIN_SMALL_QUESTIONS = 150   # per shard of the small card / CPU nodes
+JOIN_SMALL_REQUESTS = 6      # requests a mix on the small nodes
+JOIN_SWEEP_B = 128        # rows of the to-parent fold's sweep row
+# the kernels path (w) must launch on the card: the to-parent fold of the
+# nested queries (and of reverse_nested's), K1 the body / title matches
+JOIN_KERNELS = ("to_parent_fold", "dense_score")
+JOIN_SOURCE = ("elasticsearch_tpu_torch/ops/csrc/block_join.cu",
+               "elasticsearch_tpu/search/executor.py:1759 (.at[:, target]"
+               ".add / .max / .min in XLA, not a TPU kernel)")
+
+
+def _build_join_shard(job):
+    """Worker: one shard of the nested index with the port's builder."""
+    name, n, start, seed, hot = job
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    svc = MapperService(mapping=corpus.QA_NESTED_MAPPING)
+    builder = SegmentBuilder()
+    for did, doc in corpus.qa_nested_docs(n, seed=seed, start=start,
+                                          hot=hot):
+        builder.add(svc.parse(did, doc))
+    return builder.build(name)
+
+
+def _join_jobs(n: int, hot) -> list:
+    return [(f"qa{s}", n, s * n, 51 + s, hot) for s in range(2)]
+
+
+def _build_qa_join_shard(job):
+    """Worker: the parent / child docs that the routing (DjbHash of a
+    doc's routing value, `cluster/routing.shard_id`, as the node's _bulk
+    routes them) places on shard `s`, with the port's builder."""
+    s, n, hot = job
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.cluster.routing import shard_id
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    svc = MapperService(mapping=corpus.QA_JOIN_MAPPING)
+    builder = SegmentBuilder()
+    for did, doc, key in corpus.qa_join_docs(n, seed=52, hot=hot):
+        if shard_id(did, 2, key) == s:
+            builder.add(svc.parse(did, doc))
+    return builder.build(f"qa_join{s}")
+
+
+def _qa_join_jobs(n: int, hot) -> list:
+    return [(s, n, tuple((i, k // 4) for i, k in hot)) for s in range(2)]
+
+
+def fold_layout_stats(layout) -> dict:
+    """The longest index list of a to-parent layout (its hottest parent's
+    nested rows plus itself) and the parents with nested rows."""
+    n = layout["starts"][1:] - layout["starts"][:-1]
+    return {"hottest": int(n.max()), "parents_with_rows": int((n > 1).sum())}
+
+
+def parent_fold_bound(score, ok, mode):
+    """Least time of to_parent_fold: the scores and flags read once, the
+    index lists once, the counts (and the mode's values) written once,
+    over the memory's rate."""
+    B, cap = ok.shape
+    nbytes = B * cap * (4 + 1 + 4 + (4 if mode != "none" else 0)) \
+        + cap * 8
+    return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def measure_parent_fold(score, ok, layout, mode, reps):
+    """The to-parent fold kernel vs its plain version, bit for bit (the
+    count and the mode's value); library: index_add_ of the flags and of
+    the masked scores and two scatter_reduce_ (amax, amin) on the same
+    inputs (atomics: the same function, in no fixed order)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    got = cs.to_parent_fold(score, ok, layout, mode)
+    want, plain_ms = plain_run(
+        lambda: cs.to_parent_fold_ref(score, ok, layout, mode))
+    for g, w in zip(got, want):
+        if (g is None) != (w is None) or (g is not None
+                                          and not _same_bits(g, w)):
+            raise AssertionError(f"to_parent_fold ({mode}) != plain at "
+                                 f"{tuple(ok.shape)}")
+    B, cap = ok.shape
+    tgt = layout["target"].to(torch.int64)
+    idx = tgt[None, :].expand(B, -1)
+
+    def library():
+        cnt = torch.zeros((B, cap), device=ok.device)
+        cnt.index_add_(1, tgt, ok.float())
+        tot = torch.zeros((B, cap), device=ok.device)
+        tot.index_add_(1, tgt, torch.where(ok, score, 0.0))
+        out = [cnt, tot]
+        for fill, how in ((-float("inf"), "amax"), (float("inf"), "amin")):
+            o = torch.full((B, cap), fill, device=ok.device)
+            out.append(o.scatter_reduce_(1, idx, torch.where(ok, score, fill),
+                                         reduce=how, include_self=True))
+        return out
+
+    bound_ms, bound_by = parent_fold_bound(score, ok, mode)
+    return {"mode": mode, "B": B, "cap": cap,
+            "ms": cuda_ms(lambda: cs.to_parent_fold(score, ok, layout, mode),
+                          reps),
+            "plain_ms": plain_ms,
+            "library_ms": cuda_ms(library, max(2, reps // 4)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "matched": int(ok.sum()), **fold_layout_stats(layout),
+            "max_abs_err": max(float((g - w).abs().nan_to_num().max())
+                               for g, w in zip(got, want) if g is not None)}
+
+
+def capture_fold_calls():
+    """A shim that remembers the first (score, ok, layout, mode) the
+    to-parent fold's wrapper sees in each mode."""
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    seen: dict[str, tuple] = {}
+    orig = cs.to_parent_fold
+
+    def call(score, ok, layout, mode):
+        if mode not in seen:
+            seen[mode] = (score.clone(), ok.clone(), layout, mode)
+        return orig(score, ok, layout, mode)
+    return seen, call
+
+
+def join_plain_versions() -> dict:
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    return {**plain_versions(), "to_parent_fold": cs.to_parent_fold_ref}
+
+
+def check_join_path(stats, last) -> None:
+    """Every nested plan stays off K3 (`clause:nested`), every mix has
+    hits, scores are finite, and each response is the join's shape:
+    has_child gives questions, has_parent and parent_id answers (parent_id
+    its question's), the nested agg counts answers of the matching
+    questions with reverse_nested back on at most those questions."""
+    adm = stats["nested_match"]["fused"]["admission"]
+    if adm["admitted"] or adm["rejected"].get("clause:nested", 0) <= 0:
+        raise AssertionError(f"nested_match: admission {adm}")
+    for name, resps in last.items():
+        if sum(r["hits"]["total"] for r in resps) <= 0 and name not in (
+                "nested_aggs", "children_agg"):
+            raise AssertionError(f"{name}: no hits in the mix")
+        for r in resps:
+            if not all(np.isfinite(h["_score"]) for h in r["hits"]["hits"]
+                       if h["_score"] is not None):
+                raise AssertionError(f"{name}: a score is not finite")
+    for r in last["has_child"]:
+        if any(not h["_id"].startswith("q") for h in r["hits"]["hits"]):
+            raise AssertionError("has_child: a hit is not a question")
+    for name in ("has_parent", "parent_id"):
+        for r in last[name]:
+            if any(not h["_id"].startswith("a") for h in r["hits"]["hits"]):
+                raise AssertionError(f"{name}: a hit is not an answer")
+    aggs = [r["aggregations"]["answers"] for r in last["nested_aggs"]]
+    if sum(a["doc_count"] for a in aggs) <= 0 or any(
+            a["questions"]["doc_count"] > r["hits"]["total"]
+            or (a["doc_count"] > 0) != (a["questions"]["doc_count"] > 0)
+            for a, r in zip(aggs, last["nested_aggs"])):
+        raise AssertionError("nested_aggs: " + json.dumps(aggs[0])[:300])
+    if sum(r["aggregations"]["answers"]["doc_count"]
+           for r in last["children_agg"]) <= 0:
+        raise AssertionError("children_agg: no answers under any request")
+
+
+def _join_small_docs(n: int, start: int) -> tuple:
+    from elasticsearch_tpu_torch import corpus
+    return (corpus.qa_nested_docs(n, seed=61, start=start,
+                                  hot=((0, 60),)),
+            corpus.qa_join_docs(n, seed=62, start=start, hot=((0, 30),)))
+
+
+def join_small_check(dev, n_questions: int = JOIN_SMALL_QUESTIONS,
+                     n_req: int = JOIN_SMALL_REQUESTS) -> dict:
+    """A durable 2-shard node on the card behind a loopback RestServer and
+    one on the CPU take the same writes: the nested index, and the parent
+    / child index with each answer routed by its question's id (over
+    HTTP _bulk on the card's node, through node.bulk on the CPU's); both
+    give the same responses to every join mix exactly after the ingest, a
+    parent of each index deleted, a force merge (the compaction) and a
+    restart, and after the ingest JOIN_HTTP requests of each parent /
+    child mix over HTTP _msearch equal the card node's engines' readers."""
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.rest.server import RestServer
+    mixes = {**corpus.qa_nested_mixes(n_req, seed=63),
+             **corpus.qa_join_mixes(n_req, seed=64,
+                                    n_questions=n_questions)}
+    index_of = {**{m: "nested" for m in corpus.QA_NESTED_MIXES},
+                **{m: "qa" for m in corpus.QA_JOIN_MIXES}}
+    paths = {k: data_dir(f"join-small-{k}") for k in ("gpu", "cpu")}
+    devs = {"gpu": dev, "cpu": "cpu"}
+
+    def boot():
+        return {k: Node(node_settings(paths[k], **{
+            "node.name": f"join-{k}", "index.number_of_shards": 2}),
+            device=devs[k]) for k in paths}
+    nodes = boot()
+    server = RestServer(nodes["gpu"], "127.0.0.1", 0).start()
+    url = f"http://127.0.0.1:{server.port}"
+    steps, http = {}, {}
+
+    def compare(step):
+        got = {}
+        for k, n in nodes.items():
+            got[k] = json.dumps({m: _node_strip(node_search(
+                n, copy.deepcopy(b), index=index_of[m]))
+                for m, b in mixes.items()}, sort_keys=True)
+        if got["gpu"] != got["cpu"]:
+            raise AssertionError(f"join small nodes, {step}: the card != "
+                                 "the CPU")
+        steps[step] = sum(r["hits"]["total"]
+                          for resps in json.loads(got["cpu"]).values()
+                          for r in resps)
+    try:
+        nested, joined = _join_small_docs(2 * n_questions, 0)
+        for k, n in nodes.items():
+            n.create_index("nested", {"number_of_shards": 2},
+                           corpus.QA_NESTED_MAPPING)
+            n.create_index("qa", {"number_of_shards": 2},
+                           corpus.QA_JOIN_MAPPING)
+            r = n.bulk([("index", {"_index": "nested", "_id": d, "doc": s})
+                        for d, s in nested])
+            if k == "gpu":
+                lines = []
+                for did, d, key in joined:
+                    lines += [{"index": {"_index": "qa", "_id": did,
+                                         "routing": key}}, d]
+                rq = http_call(url, "POST", "/_bulk", lines=lines)
+            else:
+                rq = n.bulk([("index", {"_index": "qa", "_id": d,
+                                        "_routing": key, "doc": s})
+                             for d, s, key in joined])
+            if r["errors"] or rq["errors"]:
+                raise AssertionError("join small nodes: bulk failed")
+            n.refresh(None)
+        compare("ingest")
+        readers = node_readers(nodes["gpu"], "qa")
+        for name in corpus.QA_JOIN_MIXES:
+            bodies = mixes[name][:JOIN_HTTP]
+            lines = [x for b in bodies for x in ({"index": "qa"}, b)]
+            over_http = http_call(url, "POST", "/_msearch",
+                                  lines=lines)["responses"]
+            if _node_strip(over_http) != _strip(search_merged(readers,
+                                                              bodies)):
+                raise AssertionError(f"join small node, {name}: HTTP "
+                                     "_msearch != the engines' readers")
+            http[name] = sum(r["hits"]["total"] for r in over_http)
+        del readers
+        for n in nodes.values():
+            # the hot parents: their nested rows and children go with them
+            n.delete_doc("nested", "0")
+            n.delete_doc("qa", "q0", routing="q0")
+            n.refresh(None)
+        compare("parent deleted")
+        for n in nodes.values():
+            n.force_merge(None)
+        compare("force merge")
+        server.stop()
+        for n in nodes.values():
+            n.flush(None)
+            n.close()
+        nodes = boot()
+        compare("restart")
+    finally:
+        server.stop()
+        for n in nodes.values():
+            n.close()
+        for p in paths.values():
+            shutil.rmtree(p, ignore_errors=True)
+    return {"questions_per_shard": n_questions, "requests_per_mix": n_req,
+            "hits": steps, "http_msearch_hits": http}
+
+
+def join_phase(args, dev, sync, side: dict, waits: dict,
+               on_card: bool = True) -> tuple:
+    """Path (w) on the shards `side` built: the parent / child mixes on the
+    `qa` shards, then the nested mixes on the nested shards, args.batch
+    requests a mix (a warm-up of JOIN_WARMUP, `nested_match` whole: the
+    fold's calls it captures are the timed batch's; then one timed batch
+    each in a profiler session of its own, the counts zeroed just before
+    each part); then the checks: launches, admission, the responses'
+    shape, the plain swap, and the small durable nodes (HTTP _bulk and
+    _msearch, the card equal to the CPU through a parent's delete, a
+    force merge and a restart). Returns (the report, the path's launch
+    counts, `join_kernels`' inputs: the fold's captured calls and a
+    nested shard)."""
+    from elasticsearch_tpu_torch import corpus
+    t_phase = time.perf_counter()
+    laps = {}
+    mark = time.perf_counter()
+
+    def lap(name):
+        nonlocal mark
+        now = time.perf_counter()
+        laps[name] = now - mark
+        mark = now
+    qa_segs = side_result(side, "qa", waits)
+    segs = side_result(side, "nested", waits)
+    setup = {"built_s": time.perf_counter() - side["start"],
+             "nested_rows": [s.num_docs for s in segs],
+             "nested_capacity": [s.capacity for s in segs],
+             "qa_docs": [s.num_docs for s in qa_segs]}
+    readers_j = make_readers(qa_segs, dev, corpus.QA_JOIN_MAPPING, "qa")
+    readers_n = make_readers(segs, dev, corpus.QA_NESTED_MAPPING, "nested")
+    lap("build_wait")
+    join_mixes = corpus.qa_join_mixes(args.batch,
+                                      n_questions=side["qa_questions"])
+    nested_mixes = corpus.qa_nested_mixes(args.batch)
+    seen, shim = capture_fold_calls()
+    for bodies in join_mixes.values():          # warm-up: uploads, layouts
+        search_merged(readers_j, bodies[:JOIN_WARMUP])
+    with swapped_kernels(to_parent_fold=shim):
+        search_merged(readers_n, nested_mixes["nested_match"])
+        search_merged(readers_n, nested_mixes["nested_aggs"][:JOIN_WARMUP])
+    sync()
+    lap("warm_up")
+    stats, last, launches = run_dsl_path(readers_j, join_mixes, sync,
+                                         on_card)
+    n_stats, n_last, n_launches = run_dsl_path(readers_n, nested_mixes,
+                                               sync, on_card)
+    stats.update(n_stats)
+    last.update(n_last)
+    launches = {k: launches[k] + n_launches[k] for k in launches}
+    lap("timed_mixes")
+    if on_card:
+        missing = [k for k in JOIN_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on path (w): "
+                                 f"{missing}")
+    check_join_path(stats, last)
+    with swapped_kernels(**join_plain_versions()):
+        for readers, mixes in ((readers_j, join_mixes),
+                               (readers_n, nested_mixes)):
+            for name, bodies in mixes.items():
+                if _strip(search_merged(readers, bodies[:JOIN_SWAP])) \
+                        != _strip(last[name][:JOIN_SWAP]):
+                    raise AssertionError(f"join {name}: responses with the "
+                                         "plain versions swapped in differ")
+    del readers_j, readers_n, qa_segs
+    lap("plain_swap")
+    for name in (*corpus.QA_JOIN_MIXES, *corpus.QA_NESTED_MIXES):
+        log("join mix " + json.dumps({
+            "mix": name, "requests": stats[name]["requests"],
+            "qps": stats[name]["qps"], "p50_ms": stats[name]["p50_ms"],
+            "hits": stats[name]["hits"],
+            "device_busy_ms": stats[name].get("device_busy_ms"),
+            "device_idle_share": stats[name].get("device_idle_share"),
+            "launches": {k: v for k, v in stats[name]["launches"].items()
+                         if v},
+            "admission": stats[name]["fused"]["admission"],
+            "gpu": gpu_line() if on_card else "cpu"}))
+    small = join_small_check(dev if on_card else "cpu")
+    log("join small nodes: " + json.dumps(small))
+    lap("small_nodes")
+    report = {"setup": setup, "mixes": stats, "small": small,
+              "launches": launches, "laps": laps,
+              "seconds": time.perf_counter() - t_phase,
+              "gpu": gpu_line() if on_card else "cpu"}
+    log("joins: " + json.dumps({k: report[k] for k in (
+        "setup", "small", "launches", "laps", "seconds", "gpu")}))
+    return report, launches, (seen, segs[0])
+
+
+def join_kernels(report: dict, launches: dict, kern_in, dev) -> dict:
+    """The to-parent fold on path (w)'s own first call of each score mode
+    (`join_phase`'s captures), then a sweep row: JOIN_SWEEP_B rows over
+    the nested shard's layout (its hottest parent over 4,096 rows), random
+    scores of both signs, 70% of the nested rows matched; each
+    `torch.equal` to its plain version, timed beside its bound and the
+    library's scatters. Adds `folds` and `sweep` to the path's report;
+    returns the kernels line's entry."""
+    import torch
+    from elasticsearch_tpu_torch.search import executor
+    seen, seg = kern_in
+    folds = {mode: measure_parent_fold(score, ok, layout, mode, reps=20)
+             for mode, (score, ok, layout, _m) in sorted(seen.items())}
+    seen.clear()
+    nest = executor.device_arrays(seg, dev)["nested"]
+    g = torch.Generator(device=dev).manual_seed(5)
+    score = torch.randn((JOIN_SWEEP_B, seg.capacity), device=dev,
+                        generator=g)
+    ok = (torch.rand((JOIN_SWEEP_B, seg.capacity), device=dev, generator=g)
+          < 0.7) & nest["is_child"][None, :]
+    sweep = {m: measure_parent_fold(score, ok, nest, m, reps=10)
+             for m in ("sum", "max")}
+    if sweep["sum"]["hottest"] <= 4096:
+        raise AssertionError(f"join sweep: hottest list "
+                             f"{sweep['sum']['hottest']} <= 4096")
+    del score, ok
+    for mode, m in folds.items():
+        log(f"main-path inputs to_parent_fold ({mode}): " + json.dumps(m))
+    for mode, m in sweep.items():
+        log(f"sweep to_parent_fold ({mode}): " + json.dumps(m))
+    report.update(folds=folds, sweep=sweep)
+    m = folds.get("sum") or next(iter(folds.values()))
+    return {"name": "to_parent_fold", "route": "cuda",
+            "source": JOIN_SOURCE[0], "replaces": JOIN_SOURCE[1],
+            "launches": launches["to_parent_fold"],
+            "max_abs_err": max([f["max_abs_err"] for f in folds.values()]
+                               + [f["max_abs_err"] for f in sweep.values()]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+            "call": {"mix": "nested_match", "mode": m["mode"], "B": m["B"],
+                     "cap": m["cap"], "hottest": m["hottest"]},
+            "sweep_call": {k: sweep["sum"][k] for k in (
+                "B", "cap", "hottest", "ms", "plain_ms", "library_ms",
+                "bound_ms")}}
+
+
 def gpu_line() -> str:
     try:
         out = subprocess.run(
@@ -4544,8 +5239,30 @@ def on_card(args) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(dev)}")
 
-    # phase 2: build
-    build_s = cs.build(verbose=True)
+    # phase 2: build. In a whole run the node ingest's documents are made
+    # meanwhile (nvcc runs in processes of its own)
+    whole = not (args.vectors_only or args.dsl_only or args.joins_only
+                 or args.kernels_only)
+    built = {}
+
+    def build():
+        try:
+            built["s"] = cs.build(verbose=True)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            built["error"] = e
+    builder = threading.Thread(target=build)
+    builder.start()
+    from elasticsearch_tpu_torch import corpus
+    if whole:
+        t0 = time.perf_counter()
+        shard_docs = [corpus.make_docs(args.docs, seed=42 + s,
+                                       start=s * args.docs, long_every=1000)
+                      for s in range(2)]
+        gen_s = time.perf_counter() - t0
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    build_s = built["s"]
     log(f"build: {build_s:.2f} s")
     for name, out in cs.BUILD_LOG.items():
         for line in out.splitlines():
@@ -4579,6 +5296,17 @@ def on_card(args) -> int:
             SCRIPT_NODE_DOCS, dev)))
         log(f"dsl only: {time.perf_counter() - t_run:.1f} s")
         return 0
+    if args.joins_only:
+        side = start_side_builds(args)
+        joins, launches, kern_in = join_phase(args, dev,
+                                              torch.cuda.synchronize, side,
+                                              {})
+        entry = join_kernels(joins, launches, kern_in, dev)
+        side["pool"].terminate()
+        side["pool"].join()
+        log("to_parent_fold kernel: " + json.dumps(entry))
+        log(f"joins only: {time.perf_counter() - t_run:.1f} s")
+        return 0
     if args.kernels_only:
         rng = np.random.default_rng(42)
         _sweep, worst = kernel_sweep(dev, rng, old=old)
@@ -4603,9 +5331,16 @@ def on_card(args) -> int:
     # _bulk); one refresh compacts each shard's delta into its base. The
     # earlier paths search these bases: a compacted single delta is the
     # SegmentBuilder's segment of the same docs, every array equal
-    # (tests/test_torch_engine.py)
-    from elasticsearch_tpu_torch import corpus
+    # (tests/test_torch_engine.py). Beside it, where the host's other
+    # cores are idle: the kernel sweeps (phase 3) in a process of their
+    # own on the card, and the side builds (the deltas, the small index,
+    # path (w)'s shards) in 4 workers at nice 19
     from elasticsearch_tpu_torch.node import Node
+    sweeper = start_worker("kernels", "cuda", args.ab_parent or "")
+    side = start_side_builds(args)
+    side_wait: dict = {}
+    main_threads = torch.get_num_threads()
+    torch.set_num_threads(WINDOW_THREADS)
     from elasticsearch_tpu_torch.rest.server import RestServer
     data = data_dir("node")
     settings = node_settings(data)
@@ -4617,11 +5352,6 @@ def on_card(args) -> int:
                                "index.streaming.delta": True},
                       corpus.MAPPING)
     keys = routing_keys(2)
-    t0 = time.perf_counter()
-    shard_docs = [corpus.make_docs(args.docs, seed=42 + s,
-                                   start=s * args.docs, long_every=1000)
-                  for s in range(2)]
-    gen_s = time.perf_counter() - t0
     ingest = node_ingest(node, url, shard_docs, keys)
     del shard_docs
     t0 = time.perf_counter()
@@ -4640,7 +5370,8 @@ def on_card(args) -> int:
                    "docs_per_s_without_translog":
                        NO_TRANSLOG_INGEST_DOCS_PER_S,
                    "translog_bytes": dir_bytes(data),
-                   "generate_s": gen_s, "gpu": gpu_line()})
+                   "generate_s": gen_s, "generated_beside_build": True,
+                   "gpu": gpu_line()})
     log("node ingest: " + json.dumps(ingest))
     log(f"index: 2 shards x {args.docs} docs from the node; capacity "
         f"{[s.capacity for s in segs]}; message L "
@@ -4658,10 +5389,13 @@ def on_card(args) -> int:
     gc.collect()
     gc.freeze()
 
+    torch.set_num_threads(main_threads)
     lap("node_ingest")
-    # phase 3: kernels at the slice's shapes
-    rng = np.random.default_rng(42)
-    sweep, worst = kernel_sweep(dev, rng, old=old)
+    # phase 3: kernels at the slice's shapes, swept beside the ingest
+    kern = finish_worker(sweeper)
+    sweep, worst = kern["sweep"], kern["worst"]
+    log("kernel sweep (beside the ingest): " + json.dumps(
+        {"worker_s": kern["worker_s"], "wait_s": kern["wait_s"]}))
     lap("kernel_sweep")
 
     # phase 4: main paths
@@ -4721,7 +5455,7 @@ def on_card(args) -> int:
 
     lap("main_paths")
     # the card agrees with the CPU on a small index
-    small = build_shards(args.small_docs, 2, 300, workers=2)
+    small = side_result(side, "small", side_wait)
     # separate segment objects: each caches its own device columns
     on_gpu = make_readers(small, dev)
     on_cpu = make_readers([copy.copy(s) for s in small], "cpu")
@@ -4758,10 +5492,8 @@ def on_card(args) -> int:
 
     lap("small_index")
     # phase 5: the delta path (a 2^17-doc delta beside each shard)
-    t0 = time.perf_counter()
-    deltas = build_deltas(segs, args.docs, args.delta_docs, 1000, workers=2)
-    log(f"delta: 2 deltas x {args.delta_docs} docs built in "
-        f"{time.perf_counter() - t0:.1f} s; capacity "
+    deltas = pair_deltas(segs, side_result(side, "deltas", side_wait))
+    log(f"delta: 2 deltas x {args.delta_docs} docs built; capacity "
         f"{[d.capacity for d in deltas]}, delta_parent "
         f"{[d.delta_parent for d in deltas]}")
     readers_d = make_pack_readers(segs, deltas, dev)
@@ -4806,7 +5538,8 @@ def on_card(args) -> int:
         for kern, call in seen.get(name, {}).items():
             if not isinstance(kern, tuple):     # by perm kind: below
                 first.setdefault(kern, (name, call))
-    if set(first) != set(cs.LAUNCHES):
+    # every kernel of the main paths (the to-parent fold is path (w)'s)
+    if set(first) != set(cs.LAUNCHES) - {"to_parent_fold"}:
         raise AssertionError(f"captured {sorted(first)}")
     meas = {"dense_score": measure_dense(first["dense_score"][1][0],
                                          reps=20, old=old),
@@ -4914,6 +5647,12 @@ def on_card(args) -> int:
     # the engines' readers, deletes and updates, compaction
     del readers, readers_d, segs, deltas, engines
     gc.collect()
+    # path (t)'s passages build in the background from here on (4 workers
+    # at nice 19), beside the node path, the restart and the scroll, which
+    # leave most of the host's cores idle; the main process's CPU torch
+    # ops on WINDOW_THREADS meanwhile
+    vec_build = start_passage_build()
+    torch.set_num_threads(WINDOW_THREADS)
     node_out, node_launches = node_phase(
         args, node, url, sync,
         profile=lambda search, m: profile_mixes(
@@ -4953,26 +5692,48 @@ def on_card(args) -> int:
                 "call")}
             k["max_abs_err"] = max(k["max_abs_err"], k3_deep["max_abs_err"])
     lap("scroll")
-    # path (t)'s passages build in the background from here on, while the
-    # kill -9 rounds, the small node and path (t)'s small checks run
-    vec_build = start_passage_build()
-    kills = kill_rounds(dev, sync, "cuda")
-    lap("kill9")
-    # the small node: the card against the CPU after every write step,
-    # Part A's subnormal docs and bodies included
-    node_out["small"] = small_node_check(
-        min(args.small_docs, SMALL_NODE_DOCS), 8, dev, sync)
-    lap("small_node")
-    log("small node: " + json.dumps(node_out["small"]))
-    # path (v)'s HTTP node (stored script, scripted update, restart),
-    # timed beside the passages' build workers
+    # the kill -9 rounds and the small node (the card against the CPU
+    # after every write step, Part A's subnormal docs and bodies included)
+    # in processes of their own, beside path (v)'s HTTP node and path (w)
+    # in this one
+    window = [start_worker("kill9", "cuda"),
+              start_worker("small_node", "cuda",
+                           str(min(args.small_docs, SMALL_NODE_DOCS)))]
+    # path (v)'s HTTP node (stored script, scripted update, restart)
     scripts["node"] = script_node_check(SCRIPT_NODE_DOCS, dev)
-    log("script node (beside the passage build): "
+    log("script node (beside the kill -9 and small node workers): "
         + json.dumps(scripts["node"]))
     lap("script_node")
+    # path (w): joins on the shards built beside the ingest; its launches
+    # join the kernels line
+    joins, join_launches, join_in = join_phase(args, dev, sync, side,
+                                               side_wait)
+    side["pool"].close()
+    side["pool"].join()
+    log("side builds (beside the ingest), seconds waited: "
+        + json.dumps(side_wait))
+    for k in kernels:
+        k["launches"] += join_launches.get(k["name"], 0)
+    lap("joins")
+    # path (t)'s small dyadic index and small node need no passages
+    vec_small = vector_small_checks(args, dev, sync)
+    lap("vector_small_checks")
+    kills = finish_worker(window[0])
+    node_out["small"] = finish_worker(window[1])
+    log("small node: " + json.dumps(node_out["small"]))
+    log("window workers: " + json.dumps(
+        {"kill9_s": kills["worker_s"], "small_node_s":
+         node_out["small"]["worker_s"], "waited_s": kills["wait_s"]
+         + node_out["small"]["wait_s"]}))
+    lap("window_workers")
+    # the to-parent fold timed on the card alone, once the workers that
+    # shared it have ended; it has an entry of its own in the kernels line
+    kernels.append(join_kernels(joins, join_launches, join_in, dev))
+    lap("join_kernels")
+    torch.set_num_threads(main_threads)
     # path (t): vectors, hybrid bundles and rescore
     vectors, vec_entry = vector_phase(args, dev, sync, out_dir,
-                                      build=vec_build)
+                                      build=vec_build, small=vec_small)
     kernels.append(vec_entry)
     lap("vectors")
     log("vectors: " + json.dumps({k: vectors[k] for k in (
@@ -4998,7 +5759,7 @@ def on_card(args) -> int:
             "flush_s", "store_bytes", "boot_s", "recovery",
             "first_serve_s", "fielddata_before", "fielddata_after")},
         "scroll_page_p50_ms": scroll_out["page_p50_ms"],
-        "kill9_acked": [k["acked"] for k in kills],
+        "kill9_acked": [k["acked"] for k in kills["rounds"]],
         "mem_get_info": {"free": free, "total": total}}))
     report = {"gpu": gpu_line(), "build_s": build_s, "sweep": sweep,
               "mixes": stats, "match_fused_vs_unfused": match_ab,
@@ -5006,8 +5767,9 @@ def on_card(args) -> int:
               "delta": {"mixes": d_stats, "launches": d_launches,
                         "pack_vs_segments": d_ab},
               "resident": res, "node": node_out, "durable": durable,
-              "scroll": scroll_out, "kill9": kills, "vectors": vectors,
-              "dsl": dsl,
+              "scroll": scroll_out, "kill9": kills["rounds"],
+              "vectors": vectors,
+              "dsl": dsl, "joins": joins,
               "profiles": profiles, "kernels": kernels,
               "seconds": time.perf_counter() - t_run}
     if out_dir:
@@ -5046,6 +5808,9 @@ def main(argv=None) -> int:
     p.add_argument("--vectors-only", action="store_true",
                    help="build, then the vectors path alone (no result "
                         "line)")
+    p.add_argument("--joins-only", action="store_true",
+                   help="build, then path (w), the joins, alone (no "
+                        "result line)")
     p.add_argument("--dsl-only", action="store_true",
                    help="build, then path (u), the query DSL, alone on "
                         "shards built in workers (no result line)")
@@ -5053,9 +5818,20 @@ def main(argv=None) -> int:
                    metavar=("DATA", "SEED", "START", "DEVICE", "DOCS",
                             "FLUSH_EVERY", "BATCH"),
                    help="run the kill -9 rounds' writer (internal)")
+    p.add_argument("--worker", nargs=4, default=None,
+                   metavar=("KIND", "OUT", "DEVICE", "ARG"),
+                   help="run a part of the run in its own process "
+                        "(internal)")
     args = p.parse_args(argv)
     if args.durability_worker:
         return durability_worker(args.durability_worker)
+    if args.worker:
+        if args.worker[0] not in WORKER_KINDS:
+            p.error(f"--worker: unknown kind {args.worker[0]}")
+        try:
+            return run_worker(*args.worker)
+        finally:
+            remove_data()
     try:
         import torch
     except ImportError:
@@ -5071,6 +5847,7 @@ def main(argv=None) -> int:
         try:
             return rehearse(min(args.docs, 1500), min(args.batch, 8))
         finally:
+            stop_workers()
             remove_data()
     if args.out_dir:
         global _log_file
@@ -5083,6 +5860,7 @@ def main(argv=None) -> int:
     try:
         return on_card(args)
     finally:
+        stop_workers()
         remove_data()
 
 

@@ -616,3 +616,226 @@ def script_mixes(n: int, seed: int = 13) -> dict[str, list[dict]]:
                      "to": f"2015-01-{day + 2:02d}"}]},
                     "aggs": {**pctl, **card}}}})
     return mixes
+
+
+# ---------------------------------------------------------------------------
+# Joins: questions and answers, nested and parent / child
+# ---------------------------------------------------------------------------
+
+# Rally's `nested` track (StackOverflow questions, their answers as nested
+# objects), its answers also carrying a text body and their score
+QA_NESTED_MAPPING = {"properties": {
+    "title": {"type": "text"},
+    "user": {"type": "keyword"},
+    "creationDate": {"type": "date"},
+    "tag": {"type": "keyword"},
+    "answer_count": {"type": "integer"},
+    "answers": {"type": "nested", "properties": {
+        "user": {"type": "keyword"},
+        "date": {"type": "date"},
+        "body": {"type": "text"},
+        "score": {"type": "integer"}}},
+}}
+# the ES 2.0 `children` aggregation docs' question / answer types, as one
+# join field: questions with tags and an owner, answers with an owner,
+# a creation date, a body and a score
+QA_JOIN_MAPPING = {"properties": {
+    "qa": {"type": "join", "relations": {"question": "answer"}},
+    "title": {"type": "text"},
+    "body": {"type": "text"},
+    "tags": {"type": "keyword"},
+    "owner": {"type": "keyword"},
+    "creation_date": {"type": "date"},
+    "score": {"type": "integer"},
+}}
+QA_USERS = 50_000
+QA_TAGS = 500
+QA_MAX_ANSWERS = 8
+QA_SPAN_MILLIS = 365 * 86400 * 1000     # one year of questions
+QA_HOT_ANSWERS = 5000                   # answers of a hot question
+
+
+def _qa_draws(n: int, seed: int, hot) -> dict:
+    """The per-question draws both join corpora share: answer counts
+    (0..QA_MAX_ANSWERS, `hot` = ((question index, answers), ...) with
+    more), text words, users, tags, dates and answer scores."""
+    rng = np.random.default_rng(seed)
+    n_ans = rng.integers(0, QA_MAX_ANSWERS + 1, size=n)
+    for i, k in hot:
+        if i < n:
+            n_ans[i] = k
+    total = int(n_ans.sum())
+    words = vocab()
+    w = zipf_weights(len(words))
+    title_len = rng.integers(3, 7, size=n)
+    body_len = rng.integers(3, 9, size=total)
+    return {
+        "n_ans": n_ans, "words": words,
+        "title": rng.choice(len(words), size=(n, 6), p=w),
+        "title_len": title_len,
+        "body": rng.choice(len(words), size=(total, 8), p=w),
+        "body_len": body_len,
+        "q_user": rng.choice(QA_USERS, size=n, p=zipf_weights(QA_USERS)),
+        "a_user": rng.choice(QA_USERS, size=total, p=zipf_weights(QA_USERS)),
+        "tags": rng.choice(QA_TAGS, size=(n, 3), p=zipf_weights(QA_TAGS)),
+        "n_tags": rng.integers(1, 4, size=n),
+        "q_date": T0_MILLIS + rng.integers(0, QA_SPAN_MILLIS, size=n),
+        "a_delay": rng.integers(60_000, 30 * 86400 * 1000, size=total),
+        # votes: mostly small, some negative
+        "score": np.minimum(rng.geometric(0.3, size=total) - 3, 500),
+    }
+
+
+def _qa_text(d: dict, key: str, i: int, n: int) -> str:
+    return " ".join(d["words"][j] for j in d[key][i, :n])
+
+
+def qa_nested_docs(n: int, seed: int = 51, start: int = 0,
+                   hot=((0, QA_HOT_ANSWERS),)) -> list[tuple[str, dict]]:
+    """`n` questions (ids start..start+n-1), each with 0..QA_MAX_ANSWERS
+    answers as nested objects (`hot` questions with more): a StackOverflow
+    question's title, asker, creation date and 1-3 tags, each answer's
+    user, date, body and score."""
+    d = _qa_draws(n, seed, hot)
+    docs = []
+    a = 0
+    for i in range(n):
+        k = int(d["n_ans"][i])
+        qd = int(d["q_date"][i])
+        answers = [{"user": f"u{d['a_user'][a + j]}",
+                    "date": qd + int(d["a_delay"][a + j]),
+                    "body": _qa_text(d, "body", a + j,
+                                     int(d["body_len"][a + j])),
+                    "score": int(d["score"][a + j])} for j in range(k)]
+        a += k
+        docs.append((str(start + i), {
+            "title": _qa_text(d, "title", i, int(d["title_len"][i])),
+            "user": f"u{d['q_user'][i]}",
+            "creationDate": qd,
+            "tag": [f"t{t}" for t in d["tags"][i, :int(d["n_tags"][i])]],
+            "answer_count": k,
+            "answers": answers}))
+    return docs
+
+
+def qa_join_docs(n: int, seed: int = 52, start: int = 0,
+                 hot=((0, QA_HOT_ANSWERS),)) -> list[tuple[str, dict, str]]:
+    """`n` questions and their answers as parent / child documents of the
+    `qa` join field: (id, source, routing), each question first, then its
+    answers, routed by the question's id (its shard, as `_parent` routes
+    a child)."""
+    d = _qa_draws(n, seed, hot)
+    docs = []
+    a = 0
+    for i in range(n):
+        qid = f"q{start + i}"
+        k = int(d["n_ans"][i])
+        qd = int(d["q_date"][i])
+        docs.append((qid, {
+            "qa": "question",
+            "title": _qa_text(d, "title", i, int(d["title_len"][i])),
+            "owner": f"u{d['q_user'][i]}",
+            "creation_date": qd,
+            "tags": [f"t{t}" for t in d["tags"][i, :int(d["n_tags"][i])]]},
+            qid))
+        for j in range(k):
+            docs.append((f"a{start + i}_{j}", {
+                "qa": {"name": "answer", "parent": qid},
+                "body": _qa_text(d, "body", a + j, int(d["body_len"][a + j])),
+                "owner": f"u{d['a_user'][a + j]}",
+                "creation_date": qd + int(d["a_delay"][a + j]),
+                "score": int(d["score"][a + j])}, qid))
+        a += k
+    return docs
+
+
+QA_NESTED_MIXES = ("nested_match", "nested_aggs")
+QA_JOIN_MIXES = ("has_child", "has_parent", "parent_id", "children_agg")
+NESTED_SCORE_MODES = ("none", "sum", "avg", "max", "min")
+
+
+def mid_terms(rng: np.random.Generator, n: int, lo: int = 100,
+              hi: int = 1000) -> list[str]:
+    """`n` single words of the vocabulary's ranks lo..hi-1 (Zipf ranks:
+    each in a few hundredths of a percent of the tokens)."""
+    words = vocab()
+    return [words[j] for j in rng.integers(lo, hi, size=n)]
+
+
+def qa_nested_mixes(n: int, seed: int = 53) -> dict[str, list[dict]]:
+    """The nested mixes, `n` requests each:
+    nested_match: a match of 1-2 head words on the answers' body under
+        `nested`, score modes none / sum / avg / max / min in turn, every
+        fifth inside a bool beside a title match with a boost; ids and
+        scores only (`_source` false: a hot question's source carries
+        thousands of answers);
+    nested_aggs: size 0 under a title match: a nested agg over the
+        answers -> terms on the answer's user and a monthly
+        date_histogram of its date, with reverse_nested -> terms on the
+        question's tags.
+    Smoke checks of the nested paths, not a model of users' traffic: no
+    published source gives these queries' words or their mix."""
+    rng = np.random.default_rng(seed)
+    texts = head_terms(rng, 2 * n, k_max=2)
+    mixes: dict[str, list[dict]] = {k: [] for k in QA_NESTED_MIXES}
+    for i in range(n):
+        nested = {"nested": {
+            "path": "answers",
+            "score_mode": NESTED_SCORE_MODES[i % len(NESTED_SCORE_MODES)],
+            "query": {"match": {"answers.body": texts[2 * i]}}}}
+        if i % 5 == 4:
+            nested["nested"]["boost"] = 1.7
+            q = {"bool": {"must": [nested],
+                          "should": [{"match": {"title": texts[2 * i + 1]}}]}}
+        else:
+            q = nested
+        mixes["nested_match"].append({"query": q, "size": 10,
+                                      "_source": False})
+        mixes["nested_aggs"].append({
+            "query": {"match": {"title": texts[2 * i + 1]}}, "size": 0,
+            "aggs": {"answers": {"nested": {"path": "answers"}, "aggs": {
+                "by_user": {"terms": {"field": "answers.user", "size": 5}},
+                "by_month": {"date_histogram": {"field": "answers.date",
+                                                "interval": "month"}},
+                "questions": {"reverse_nested": {}, "aggs": {
+                    "tags": {"terms": {"field": "tag", "size": 5}}}}}}}})
+    return mixes
+
+
+def qa_join_mixes(n: int, seed: int = 54, n_questions: int = 1 << 18
+                  ) -> dict[str, list[dict]]:
+    """The parent / child mixes, `n` requests each:
+    has_child: questions with at least 2 answers matching one of 2 words
+        of the vocabulary's ranks 100-999 in their body (min_children 2);
+    has_parent: answers of the questions asked by one user (of the 2,000
+        most active);
+    parent_id: the answers of one question (ids 0..n_questions-1);
+    children_agg: size 0 under a title match of a word of ranks 30-299:
+        a children agg over the answers -> terms on their owner and the
+        top score.
+    Smoke checks of the parent / child paths, not a model of users'
+    traffic: no published source gives their selectivity, and the words'
+    ranks were chosen so that the host's join resolution of a batch of
+    256 fits a whole chip_smoke run."""
+    rng = np.random.default_rng(seed)
+    words = mid_terms(rng, 2 * n)
+    titles = mid_terms(rng, n, lo=30, hi=300)
+    texts = [f"{words[2 * i]} {words[2 * i + 1]}" for i in range(n)]
+    users = rng.integers(0, 2000, size=n)
+    qids = rng.integers(0, n_questions, size=n)
+    mixes: dict[str, list[dict]] = {k: [] for k in QA_JOIN_MIXES}
+    for i in range(n):
+        mixes["has_child"].append({"query": {"has_child": {
+            "type": "answer", "min_children": 2,
+            "query": {"match": {"body": texts[i]}}}}, "size": 10})
+        mixes["has_parent"].append({"query": {"has_parent": {
+            "parent_type": "question",
+            "query": {"term": {"owner": f"u{users[i]}"}}}}, "size": 10})
+        mixes["parent_id"].append({"query": {"parent_id": {
+            "type": "answer", "id": f"q{qids[i]}"}}, "size": 10})
+        mixes["children_agg"].append({
+            "query": {"match": {"title": titles[i]}}, "size": 0,
+            "aggs": {"answers": {"children": {"type": "answer"}, "aggs": {
+                "owners": {"terms": {"field": "owner", "size": 5}},
+                "top": {"max": {"field": "score"}}}}}})
+    return mixes

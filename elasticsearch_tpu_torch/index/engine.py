@@ -833,7 +833,9 @@ class Engine:
                     self._delta_seg = seg
                     self._delta_epoch = int(seg.delta_epoch)
                     for d in range(seg.num_docs):
-                        if live[d]:
+                        # nested rows come back with their parent's parse
+                        if live[d] and (seg.parent_of is None
+                                        or seg.parent_of[d] < 0):
                             self._delta_docs[seg.ids[d]] = (
                                 self.mappers.parse(seg.ids[d],
                                                    seg.sources[d]),

@@ -6,11 +6,14 @@ index's shard engines (documents routed by `cluster/routing.shard_id`,
 so each lands on the same shard as in the reference), the operation
 counters and the generation-keyed request cache. With a `data_path`,
 shard s of index `name` keeps its store and translog under
-`<data_path>/<name>/<s>/`, and the per-doc type / routing / timestamp
-metadata is durable under `<data_path>/<name>/`: each change is appended
-to `_types.log` as it is acked (one JSON line `[id, type, routing,
-timestamp]`, null where unset; a torn last line is ignored on open), and flush and close write the whole map to
-`_types.json` (the reference's file) and empty the log. The reference
+`<data_path>/<name>/<s>/`, and the per-doc type / routing / timestamp /
+parent metadata is durable under `<data_path>/<name>/`: each change is
+appended to `_types.log` as it is acked (one JSON line `[id, type,
+routing, timestamp, parent]`, null where unset; a line of four has no
+parent; a torn last line is ignored on open), and flush and close write
+the whole map to `_types.json` (the reference's file) and empty the
+log. A write with a `parent` (the legacy `_parent` mapping) is routed by
+it unless a routing is given, as in the reference. The reference
 rewrites `_types.json` on every write, which makes an ingest quadratic
 in the index's docs (ROADMAP Queue 3). Percolation is not ported.
 """
@@ -51,11 +54,12 @@ class IndexService:
                 os.makedirs(path, exist_ok=True)
             self.shards[s] = Engine(name, s, self.mappers, path=path,
                                     settings=settings, device=device)
-        # per-doc mapping type / routing / index timestamp (ref: the
-        # _uid, _routing and _timestamp field mappers)
+        # per-doc mapping type / routing / index timestamp / parent id
+        # (ref: the _uid, _routing, _timestamp and _parent field mappers)
         self.doc_types: dict[str, str] = {}
         self.doc_routing: dict[str, str] = {}
         self.doc_ts: dict[str, int] = {}
+        self.doc_parent: dict[str, str] = {}
         self.mapping_types: set[str] = set()
         self.op_stats = IndexOpStats()
         for eng in self.shards.values():
@@ -98,7 +102,9 @@ class IndexService:
                   routing: str | None = None,
                   doc_type: str | None = None,
                   version_type: str = "internal",
+                  parent: str | None = None,
                   timestamp_ms: int | None = None) -> dict:
+        routing = routing if routing is not None else parent
         with self._id_lock(doc_id):
             r = self.shard_for(doc_id, routing).index(
                 doc_id, source, version, version_type=version_type)
@@ -106,6 +112,11 @@ class IndexService:
             if timestamp_ms is not None:
                 meta_dirty |= self.doc_ts.get(doc_id) != timestamp_ms
                 self.doc_ts[doc_id] = timestamp_ms
+            if parent is not None:
+                meta_dirty |= self.doc_parent.get(doc_id) != str(parent)
+                self.doc_parent[doc_id] = str(parent)
+            else:
+                meta_dirty |= self.doc_parent.pop(doc_id, None) is not None
             if doc_type and doc_type != "_doc":
                 meta_dirty |= self.doc_types.get(doc_id) != doc_type
                 self.doc_types[doc_id] = doc_type
@@ -145,6 +156,7 @@ class IndexService:
             if r.get("found"):
                 dirty = self.doc_types.pop(doc_id, None) is not None
                 dirty |= self.doc_routing.pop(doc_id, None) is not None
+                dirty |= self.doc_parent.pop(doc_id, None) is not None
                 dirty |= self.doc_ts.pop(doc_id, None) is not None
                 if dirty:
                     self._log_meta(doc_id)
@@ -169,6 +181,8 @@ class IndexService:
         r["_type"] = stored
         if doc_id in self.doc_routing:
             r["_routing"] = self.doc_routing[doc_id]
+        if doc_id in self.doc_parent:
+            r["_parent"] = self.doc_parent[doc_id]
         return r
 
     def doc_type_of(self, doc_id: str) -> str:
@@ -181,11 +195,9 @@ class IndexService:
             with open(self._types_path) as f:
                 meta = json.load(f)
             if "types" in meta or "routing" in meta or "parent" in meta:
-                if meta.get("parent"):
-                    raise NotImplementedError(
-                        "_parent metadata is not ported")
                 self.doc_types = meta.get("types", {})
                 self.doc_routing = meta.get("routing", {})
+                self.doc_parent = meta.get("parent", {})
                 self.doc_ts = meta.get("ts", {})
             else:   # legacy flat {id: type} layout
                 self.doc_types = meta
@@ -194,12 +206,14 @@ class IndexService:
         with open(self._types_log_path) as f:
             for line in f:
                 try:
-                    did, typ, routing, ts = json.loads(line)
+                    did, typ, routing, ts, *rest = json.loads(line)
                 except ValueError:
                     break   # a torn last line: the write never finished
+                parent = rest[0] if rest else None
                 for field, value in ((self.doc_types, typ),
                                      (self.doc_routing, routing),
-                                     (self.doc_ts, ts)):
+                                     (self.doc_ts, ts),
+                                     (self.doc_parent, parent)):
                     if value is None:
                         field.pop(did, None)
                     else:
@@ -212,7 +226,8 @@ class IndexService:
             return
         line = json.dumps([doc_id, self.doc_types.get(doc_id),
                            self.doc_routing.get(doc_id),
-                           self.doc_ts.get(doc_id)])
+                           self.doc_ts.get(doc_id),
+                           self.doc_parent.get(doc_id)])
         with self._meta_lock:
             self._meta_pending.append(line + "\n")
         write_before_ack(self, self._write_types_log, first=True)
@@ -232,7 +247,7 @@ class IndexService:
         with self._meta_lock:
             snap = {"types": dict(self.doc_types),
                     "routing": dict(self.doc_routing),
-                    "parent": {},
+                    "parent": dict(self.doc_parent),
                     "ts": dict(self.doc_ts)}
             tmp = self._types_path + ".tmp"
             with open(tmp, "w") as f:

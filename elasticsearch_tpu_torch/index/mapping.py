@@ -2,12 +2,18 @@
 
 Counterpart of `elasticsearch_tpu/index/mapping.py`, trimmed to the
 field types this slice of the port serves: `text`, `keyword`, the
-integer and float numerics, `date`, `boolean`, `ip` and `dense_vector`
+integer and float numerics, `date`, `boolean`, `ip`, `dense_vector`
 (`dims`, `similarity` cosine | dot_product | l2_norm, cosine when
-unset). A parsed document becomes columnar contributions (term lists per
-text field, values per keyword/numeric field, one float list per vector
-field) that `index/segment.py` packs into columns. Geo, join,
-completion and nested objects are not ported yet and raise.
+unset), `nested` objects and the `join` field. A parsed document becomes
+columnar contributions (term lists per text field, values per
+keyword/numeric field, one float list per vector field) that
+`index/segment.py` packs into columns. Each element of a `nested` field
+becomes a block-join sub-document (`ParsedDocument.nested`), which the
+segment builder lays out as a hidden row before its parent. A `join`
+value becomes the relation as a keyword column under the field's name
+plus the parent id as the keyword column `<field>#parent`; the legacy
+`_parent` mapping records the parent type (`parent_type`). Geo and
+completion are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -34,12 +40,14 @@ DATE = "date"
 BOOLEAN = "boolean"
 IP = "ip"
 DENSE_VECTOR = "dense_vector"  # [dims] float embedding -> device matrix
+JOIN = "join"                  # parent/child relation: the relation as a
+                               # keyword column + "<field>#parent" ids
 
 NUMERIC_TYPES = {LONG, INTEGER, SHORT, BYTE, DOUBLE, FLOAT}
-ALL_TYPES = NUMERIC_TYPES | {TEXT, KEYWORD, DATE, BOOLEAN, IP, DENSE_VECTOR}
+ALL_TYPES = NUMERIC_TYPES | {TEXT, KEYWORD, DATE, BOOLEAN, IP, DENSE_VECTOR,
+                             JOIN}
 # types the reference maps that this slice does not carry yet
-_UNPORTED_TYPES = {"geo_point", "geo_shape", "join", "completion",
-                   "nested"}
+_UNPORTED_TYPES = {"geo_point", "geo_shape", "completion"}
 _LEGACY_STRING = "string"
 
 _EPOCH = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
@@ -109,6 +117,7 @@ class FieldMapper:
     # dot_product | l2_norm ("" = cosine, the reference's default)
     similarity: str = ""
     dims: int | None = None   # dense_vector dimensionality
+    relations: dict | None = None  # join: parent relation -> child(ren)
 
     def to_dict(self) -> dict:
         """The field's mapping as the reference renders it (persisted in
@@ -125,6 +134,8 @@ class FieldMapper:
         if self.type == DENSE_VECTOR:
             d["dims"] = self.dims
             d["similarity"] = self.similarity or "cosine"
+        if self.type == JOIN:
+            d["relations"] = self.relations or {}
         if self.search_analyzer is not None:
             d["search_analyzer"] = self.search_analyzer
         if self.fmt is not None:
@@ -148,9 +159,15 @@ class ParsedField:
 
 @dataclass
 class ParsedDocument:
+    """`nested` carries the block-join sub-documents, (path, fields,
+    source bytes) per nested object, in document order (ref:
+    ParsedDocument.docs(): Lucene indexes nested objects as adjacent
+    hidden docs before their parent)."""
+
     doc_id: str
     source: bytes
     fields: list[ParsedField] = field(default_factory=list)
+    nested: list[tuple] = field(default_factory=list)
 
 
 class DocumentMapper:
@@ -167,10 +184,20 @@ class DocumentMapper:
         self.dynamic = dynamic
         self._fields: dict[str, FieldMapper] = {}
         self._multi_fields: dict[str, list[str]] = {}
+        self._nested_paths: set[str] = set()
+        self.parent_type: str | None = None
+        self.routing_required = False
         if mapping:
             self._parse_mapping(mapping)
 
     def _parse_mapping(self, mapping: dict) -> None:
+        if "_parent" in mapping and isinstance(mapping["_parent"], dict):
+            # _parent declares the parent type; children route by parent
+            # id (ref: index/mapper/internal/ParentFieldMapper.java)
+            self.parent_type = mapping["_parent"].get("type")
+        if "_routing" in mapping and isinstance(mapping["_routing"], dict):
+            self.routing_required = bool(
+                mapping["_routing"].get("required", False))
         if "dynamic" in mapping:
             dyn = mapping["dynamic"]
             if isinstance(dyn, bool):
@@ -191,6 +218,13 @@ class DocumentMapper:
     def _add_field(self, name: str, spec: dict) -> FieldMapper | None:
         if not isinstance(spec, dict):
             raise MapperParsingError(f"mapping for field [{name}] must be an object")
+        if spec.get("type") == "nested":
+            # nested object: its elements become block-join sub-documents
+            # (ref: index/mapper/object/ObjectMapper.java Nested)
+            self._nested_paths.add(name)
+            for child, child_spec in (spec.get("properties") or {}).items():
+                self._add_field(f"{name}.{child}", child_spec)
+            return None
         if "properties" in spec and spec.get("type") in (None, "object"):
             for child, child_spec in spec["properties"].items():
                 self._add_field(f"{name}.{child}", child_spec)
@@ -199,6 +233,9 @@ class DocumentMapper:
         if typ in _UNPORTED_TYPES:
             raise NotImplementedError(
                 f"field type [{typ}] on [{name}] is not yet ported")
+        if typ == JOIN and not isinstance(spec.get("relations"), dict):
+            raise MapperParsingError(
+                f"join field [{name}] requires a [relations] object")
         legacy_string = typ == _LEGACY_STRING
         if legacy_string:
             typ = KEYWORD if spec.get("index") == "not_analyzed" else TEXT
@@ -218,6 +255,7 @@ class DocumentMapper:
             similarity="" if sim == "cosine" else sim,
             dims=(int(spec["dims"]) if spec.get("dims") is not None
                   else None),
+            relations=(dict(spec["relations"]) if typ == JOIN else None),
         )
         for sub_name, sub_spec in (spec.get("fields") or {}).items():
             sub = self._add_field(f"{name}.{sub_name}", sub_spec)
@@ -249,6 +287,8 @@ class DocumentMapper:
                     s.rsplit(".", 1)[-1]: self._fields[s].to_dict()
                     for s in sorted(subs) if s in self._fields}
             props[n] = d
+        for path in sorted(self._nested_paths):
+            props[path] = {"type": "nested"}
         return {"properties": props}
 
     def field(self, name: str) -> FieldMapper | None:
@@ -315,7 +355,29 @@ class DocumentMapper:
     def _parse_object(self, prefix: str, obj: dict, out: ParsedDocument) -> None:
         for key, value in obj.items():
             name = f"{prefix}{key}"
+            if name in self._nested_paths:
+                # each element becomes a block-join sub-document (ref:
+                # ObjectMapper nested=true -> Lucene child docs); doubly
+                # nested children attach to the root doc, told apart by
+                # their full path
+                elements = value if isinstance(value, list) else [value]
+                for el in elements:
+                    if not isinstance(el, dict):
+                        raise MapperParsingError(
+                            f"nested field [{name}] elements must be objects")
+                    src = json.dumps(el, separators=(",", ":")).encode()
+                    sub = ParsedDocument(doc_id="", source=src)
+                    self._parse_object(f"{name}.", el, sub)
+                    out.nested.append((name, sub.fields, src))
+                    out.nested.extend(sub.nested)
+                continue
             if isinstance(value, dict):
+                fm = self._fields.get(name)
+                if fm is not None and fm.type == JOIN:
+                    # {"name": relation, "parent": id}: a join value, not
+                    # a sub-object
+                    self._parse_value(name, value, out)
+                    continue
                 self._parse_object(f"{name}.", value, out)
                 continue
             if isinstance(value, list):
@@ -377,6 +439,29 @@ class DocumentMapper:
             if len(str(value)) <= 256 or "." not in fm.name:  # ignore_above on subs
                 out.fields.append(ParsedField(name=fm.name, type=KEYWORD,
                                               value=str(value)))
+        elif fm.type == JOIN:
+            # {"name": relation, "parent": id} or a bare relation string
+            # -> the relation as a keyword column + the "<field>#parent"
+            # id column (the reference's _parent field data,
+            # ParentFieldMapper.java)
+            if isinstance(value, dict):
+                rel = value.get("name")
+                parent = value.get("parent")
+            else:
+                rel, parent = str(value), None
+            known = set()
+            for p, c in (fm.relations or {}).items():
+                known.add(p)
+                known.update(c if isinstance(c, list) else [c])
+            if rel not in known:
+                raise MapperParsingError(
+                    f"unknown join relation [{rel}] on field [{fm.name}]")
+            out.fields.append(ParsedField(name=fm.name, type=KEYWORD,
+                                          value=str(rel)))
+            if parent is not None:
+                out.fields.append(ParsedField(name=f"{fm.name}#parent",
+                                              type=KEYWORD,
+                                              value=str(parent)))
         else:
             try:
                 coerced = self._coerce(fm, value)
@@ -408,6 +493,26 @@ class MapperService:
 
     def field(self, name: str) -> FieldMapper | None:
         return self.mapper.field(name)
+
+    @property
+    def parent_type(self) -> str | None:
+        return self.mapper.parent_type
+
+    @property
+    def routing_required(self) -> bool:
+        return self.mapper.routing_required
+
+    @property
+    def nested_paths(self) -> set[str]:
+        return set(self.mapper._nested_paths)
+
+    def join_field(self) -> FieldMapper | None:
+        """The index's join field, if one is mapped (at most one, as with
+        the reference's single _parent per type)."""
+        for fm in self.mapper._fields.values():
+            if fm.type == JOIN:
+                return fm
+        return None
 
     def similarity_for(self, field: str):
         from .similarity import SimilarityService

@@ -16,10 +16,14 @@ columns this slice of the port searches:
                      norms (`VectorColumn`), plus the segment's IVF
                      coarse indexes (`ann`, built lazily by
                      `index/ann.ensure_ann` or restored by the store);
-  * _id/_source   -> host-side.
+  * _id/_source   -> host-side;
+  * nested docs   -> block join: each nested object is a hidden row laid
+                     out before its parent, with a `_nested_path` keyword
+                     value, and `parent_of[d]` is its parent's row (-1
+                     for primary rows).
 
-The layout pass is the host one (`_pack_layout_host`); geo, nested rows
-and the device-side build are not ported yet. The engine's
+The layout pass is the host one (`_pack_layout_host`); geo and the
+device-side build are not ported yet. The engine's
 two repacks are: `merge_segments` (a rebuild from the rows, impacts
 recomputed) and `concat_segments` (the streaming compaction: impacts
 preserved, so a search of the result equals one of its sources). A delta
@@ -39,8 +43,8 @@ from typing import Iterable
 
 import numpy as np
 
-from .mapping import (ParsedDocument, TEXT, KEYWORD, DATE, BOOLEAN, IP,
-                      LONG, INTEGER, SHORT, BYTE, DENSE_VECTOR)
+from .mapping import (ParsedDocument, ParsedField, TEXT, KEYWORD, DATE,
+                      BOOLEAN, IP, LONG, INTEGER, SHORT, BYTE, DENSE_VECTOR)
 
 BLOCK = 128           # posting block width (doc, impact) lanes
 MAX_FWD_SLOTS = 256   # forward-index width limit (beyond: scatter path)
@@ -302,11 +306,25 @@ class Segment:
     # preserved from the source segments' field stats and cannot be
     # recomputed from this segment's own doc_count / avg_len
     impacts_preserved: bool = False
+    # block join: parent_of[d] = the row of d's parent for nested
+    # sub-docs, -1 for primary rows (ref: Lucene block join /
+    # ObjectMapper nested); None when the segment has no nested rows
+    parent_of: np.ndarray = dc_field(default=None, repr=False)  # int32 [cap]
+
+    @property
+    def has_nested(self) -> bool:
+        return (self.parent_of is not None
+                and bool((self.parent_of >= 0).any()))
 
     def primary_mask(self) -> np.ndarray:
-        m = np.zeros(self.capacity, dtype=bool)
-        m[: self.num_docs] = True
-        return m
+        """Rows that are documents of their own (hidden nested rows
+        excluded); with nested rows the reference's `parent_of == -1`,
+        which keeps the padding rows too."""
+        if self.parent_of is None:
+            m = np.zeros(self.capacity, dtype=bool)
+            m[: self.num_docs] = True
+            return m
+        return self.parent_of == -1
 
     def fingerprint(self) -> str:
         """Content fingerprint for restart-stable caches: the pack's
@@ -381,11 +399,29 @@ class SegmentBuilder:
     def __init__(self, similarity=None):
         self.docs: list[ParsedDocument] = []
         self.versions: list[int] = []
+        self.parent_of: list[int] = []
         self.similarity = similarity
 
     def add(self, doc: ParsedDocument, version: int = 1) -> None:
+        """A doc's nested sub-documents are laid out as hidden rows
+        BEFORE it (Lucene's block-join order), each with its
+        `_nested_path` value and a pointer to the parent's row."""
+        n_children = len(doc.nested)
+        parent_row = len(self.docs) + n_children
+        for i, entry in enumerate(doc.nested):
+            path, fields = entry[0], list(entry[1])
+            src = entry[2] if len(entry) > 2 else b""
+            if not any(f.name == "_nested_path" for f in fields):
+                fields.append(ParsedField(name="_nested_path", type=KEYWORD,
+                                          value=path))
+            self.docs.append(ParsedDocument(
+                doc_id=f"{doc.doc_id}\x00{path}\x00{i}", source=src,
+                fields=fields))
+            self.versions.append(version)
+            self.parent_of.append(parent_row)
         self.docs.append(doc)
         self.versions.append(version)
+        self.parent_of.append(-1)
 
     def __len__(self) -> int:
         return len(self.docs)
@@ -452,11 +488,15 @@ class SegmentBuilder:
                     for name, (kind, col) in num_values.items()}
         vectors = {name: _build_vector(name, col, cap)
                    for name, col in vec_values.items()}
+        parent_of = None
+        if any(p >= 0 for p in self.parent_of):
+            parent_of = np.full(cap, -1, dtype=np.int32)
+            parent_of[:n] = self.parent_of
         return Segment(seg_id=seg_id, num_docs=n, capacity=cap, ids=ids,
                        id_map=id_map, sources=sources,
                        versions=np.asarray(self.versions, dtype=np.int64),
                        text=text, keywords=keywords, numerics=numerics,
-                       vectors=vectors)
+                       vectors=vectors, parent_of=parent_of)
 
     def _sim_for(self, field: str):
         if self.similarity is None:
@@ -841,10 +881,10 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
     lnorm, k1ln), `kw.<field>.<col>` (ords, df,
     optional mv_ords), `num.<field>.<col>` (values, exists, raw, optional
     mv_values, mv_raw, mv_exists), `vec.<field>.<col>` (values, exists,
-    norms) and `versions`. `meta` holds seg_id, num_docs, capacity, ids,
-    optional sources, and per field: text -> {terms, doc_count,
-    avg_len}, keywords -> {terms}, numerics -> {kind, bias}, vectors ->
-    {}."""
+    norms), `versions` and the optional block-join `parent_of`. `meta`
+    holds seg_id, num_docs, capacity, ids, optional sources, and per
+    field: text -> {terms, doc_count, avg_len}, keywords -> {terms},
+    numerics -> {kind, bias}, vectors -> {}."""
     def cols(prefix: str, names: tuple) -> dict:
         return {c: (np.array(arrays[f"{prefix}.{c}"], copy=True)
                     if f"{prefix}.{c}" in arrays else None) for c in names}
@@ -872,12 +912,15 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
                for f in meta.get("vectors", {})}
     n = int(meta["num_docs"])
     ids = list(meta["ids"])
+    parent_of = arrays.get("parent_of")
     return Segment(
         seg_id=meta["seg_id"], num_docs=n, capacity=int(meta["capacity"]),
         ids=ids, id_map={i: j for j, i in enumerate(ids)},
         sources=list(meta.get("sources") or [b"{}"] * n),
         versions=np.asarray(arrays.get("versions", np.ones(n)), dtype=np.int64),
-        text=text, keywords=keywords, numerics=numerics, vectors=vectors)
+        text=text, keywords=keywords, numerics=numerics, vectors=vectors,
+        parent_of=(None if parent_of is None
+                   else np.array(parent_of, dtype=np.int32, copy=True)))
 
 
 def concat_segments(segments: Iterable[Segment], seg_id: str | None = None,
@@ -906,6 +949,10 @@ def concat_segments(segments: Iterable[Segment], seg_id: str | None = None,
         live = None if live_masks is None else live_masks.get(s.seg_id)
         keep = (np.ones(s.num_docs, dtype=bool) if live is None
                 else np.array(live[: s.num_docs], dtype=bool, copy=True))
+        if s.parent_of is not None:
+            # nested rows live and die with their parent
+            ch = s.parent_of[: s.num_docs] >= 0
+            keep[ch] &= keep[s.parent_of[: s.num_docs][ch]]
         rm = np.full(s.num_docs, -1, dtype=np.int64)
         rm[keep] = n + np.arange(int(keep.sum()))
         keeps.append(keep)
@@ -916,12 +963,17 @@ def concat_segments(segments: Iterable[Segment], seg_id: str | None = None,
     ids: list[str] = []
     sources: list[bytes] = []
     versions = np.ones(n, dtype=np.int64)
+    parent_new = np.full(cap, -1, dtype=np.int32)
+    any_nested = False
     for s, keep, rm in zip(segs, keeps, row_maps):
         for d in np.nonzero(keep)[0]:
             d = int(d)
             ids.append(s.ids[d])
             sources.append(s.sources[d])
             versions[rm[d]] = int(s.versions[d])
+            if s.parent_of is not None and s.parent_of[d] >= 0:
+                parent_new[rm[d]] = rm[int(s.parent_of[d])]
+                any_nested = True
 
     # -- text fields: CSR merge with preserved impacts --------------------
     text: dict[str, PostingsField] = {}
@@ -1133,7 +1185,8 @@ def concat_segments(segments: Iterable[Segment], seg_id: str | None = None,
         ids=ids, id_map={i: j for j, i in enumerate(ids)},
         sources=sources, versions=versions,
         text=text, keywords=keywords, numerics=numerics, vectors=vectors,
-        ann=ann_carry, impacts_preserved=True)
+        ann=ann_carry, impacts_preserved=True,
+        parent_of=parent_new if any_nested else None)
 
 
 def merge_segments(segments: Iterable[Segment], seg_id: str | None = None,
@@ -1142,9 +1195,8 @@ def merge_segments(segments: Iterable[Segment], seg_id: str | None = None,
     """Merge segments into one, dropping deleted docs: a rebuild from
     the rows (each doc's tokens recovered from the positions sidecar),
     impacts recomputed under the merged field stats (ref: Lucene segment
-    merging driven by TieredMergePolicy)."""
-    from .mapping import ParsedField
-
+    merging driven by TieredMergePolicy). Nested rows are re-attached to
+    their parent and laid out again by `SegmentBuilder.add`."""
     builder = SegmentBuilder(similarity=similarity)
     for seg in segments:
         live = None if live_masks is None else live_masks.get(seg.seg_id)
@@ -1209,10 +1261,25 @@ def merge_segments(segments: Iterable[Segment], seg_id: str | None = None,
                         value=[float(x) for x in vc.values[d]]))
             return fields
 
+        children_of: dict[int, list[int]] = {}
+        if seg.parent_of is not None:
+            for d in range(seg.num_docs):
+                p = int(seg.parent_of[d])
+                if p >= 0:
+                    children_of.setdefault(p, []).append(d)
+
         for d in range(seg.num_docs):
             if live is not None and not live[d]:
                 continue
+            if seg.parent_of is not None and seg.parent_of[d] >= 0:
+                continue  # nested rows ride with their parent
             doc = ParsedDocument(doc_id=seg.ids[d], source=seg.sources[d],
                                  fields=row_fields(d))
+            for c in children_of.get(d, ()):
+                cf = row_fields(c)
+                path = next((f.value for f in cf
+                             if f.name == "_nested_path"), "")
+                cf = [f for f in cf if f.name != "_nested_path"]
+                doc.nested.append((str(path), cf, seg.sources[c]))
             builder.add(doc, version=int(seg.versions[d]))
     return builder.build(seg_id)

@@ -32,8 +32,10 @@ through `_pack_layout_host(pf, cap, imps)`; a delta reloads as the delta
 (`delta_parent`, `delta_epoch`, `pad_delta_shapes`). Vector columns
 are saved as their f32 values and exists mask (`vec__<field>__*`, norms
 recomputed on load) and IVF indexes as their arrays (`ann__<field>__*`),
-in the reference's format. The port's Segment has no geo, completion or
-parent columns: a file holding one raises NotImplementedError on load.
+in the reference's format, and a nested segment's block-join
+`parent_of` column as it is. The port's Segment has no geo or
+completion columns: a file holding one raises NotImplementedError on
+load.
 
 Every write / read boundary is hooked into `utils/faults.py`.
 """
@@ -89,12 +91,9 @@ def _commit_checksum(commit: dict) -> str:
                    separators=(",", ":")).encode()).hexdigest()
 
 
-def _not_ported_columns(meta: dict, files) -> list[str]:
-    out = [f"{k} {sorted(meta[k]) if isinstance(meta[k], dict) else meta[k]}"
-           for k in ("geos", "completions") if meta.get(k)]
-    if "parent_of" in files:
-        out.append("parent_of")
-    return out
+def _not_ported_columns(meta: dict) -> list[str]:
+    return [f"{k} {sorted(meta[k]) if isinstance(meta[k], dict) else meta[k]}"
+            for k in ("geos", "completions") if meta.get(k)]
 
 
 class Store:
@@ -160,6 +159,8 @@ class Store:
         np.cumsum([len(s) for s in seg.sources], out=offsets[1:])
         arrays["src_blob"] = np.frombuffer(blob, dtype=np.uint8)
         arrays["src_offsets"] = offsets
+        if seg.parent_of is not None:
+            arrays["parent_of"] = seg.parent_of
         for name, pf in seg.text.items():
             key = f"text__{name}"
             arrays[f"{key}__df"] = pf.df
@@ -268,7 +269,7 @@ class Store:
             raise CorruptIndexError(
                 f"checksum mismatch for segment [{seg_id}]")
         z = np.load(npz_path)
-        missing = _not_ported_columns(meta, z.files)
+        missing = _not_ported_columns(meta)
         if missing:
             raise NotImplementedError(
                 f"segment [{seg_id}] holds columns the port does not "
@@ -351,6 +352,7 @@ class Store:
             sources=sources, versions=z["versions"],
             text=text, keywords=keywords, numerics=numerics,
             vectors=vectors, ann=ann,
+            parent_of=(z["parent_of"] if "parent_of" in z.files else None),
             delta_parent=meta.get("delta_parent"),
             delta_epoch=int(meta.get("delta_epoch", 0)),
             impacts_preserved=impacts_preserved,

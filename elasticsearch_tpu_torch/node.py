@@ -43,10 +43,16 @@ so either package reads the other's; file scripts under `path.scripts`
 watcher (`utils/watcher.py`); `update_doc` runs update scripts on
 ctx._source (`_run_update_script`).
 
+Joins: `parent` routes a write (index / get / update / delete) unless a
+routing is given, and is kept as the doc's `_parent` metadata; an index
+with a `_parent` (or `_routing: {required: true}`) mapping refuses doc
+ops without routing or parent (RoutingMissingError); update `?fields=`
+echoes `_parent`, `_routing`, `_timestamp` and source fields.
+
 Not ported (NotImplementedError): suggest, significant-terms sub-aggs,
 aliases, index templates, warmers, snapshots, percolation, TTL, the
-autotuner store, hunspell dictionaries under `path.data`, update
-`?fields=`, and the rest of the admin and stats APIs.
+autotuner store, hunspell dictionaries under `path.data`, and the rest
+of the admin and stats APIs.
 """
 
 from __future__ import annotations
@@ -75,7 +81,8 @@ from .utils import faults, monitor
 from .utils.breaker import breaker_service
 from .utils.errors import (ElasticsearchTpuError, IllegalArgumentError,
                            IndexAlreadyExistsError, IndexNotFoundError,
-                           SearchTimeoutError, ShardFailedError,
+                           RoutingMissingError, SearchTimeoutError,
+                           ShardFailedError,
                            TrafficRejectedError, VersionConflictError)
 from .utils.metrics import MetricsRegistry
 from .utils.settings import Settings, parse_time_value as _parse_time_value
@@ -420,12 +427,13 @@ class Node:
                   version_type: str = "internal",
                   parent: str | None = None,
                   timestamp: str | None = None) -> dict:
-        if ttl is not None or parent is not None:
-            raise NotImplementedError("_ttl and _parent are not ported")
+        if ttl is not None:
+            raise NotImplementedError("_ttl is not ported")
         svc = self._ensure_index(index)
         if doc_id is None:
             import uuid
             doc_id = uuid.uuid4().hex[:20]
+        self._check_routing_required(svc, doc_id, routing, parent)
         # index timestamp: explicit millis / date, else the write time
         if timestamp is not None:
             from .index.mapping import parse_date_millis
@@ -436,17 +444,31 @@ class Node:
         else:
             ts = int(time.time() * 1000)
         r = svc.index_doc(doc_id, body, version, routing, doc_type=doc_type,
-                          version_type=version_type, timestamp_ms=ts)
+                          version_type=version_type, parent=parent,
+                          timestamp_ms=ts)
         if refresh:
-            # a doc-level refresh publishes the written shard only
-            svc.shard_for(doc_id, routing).refresh()
+            # a doc-level refresh publishes the written shard only; the
+            # parent routes it as the write did
+            svc.shard_for(doc_id, routing if routing is not None
+                          else parent).refresh()
         self.metrics.counter("indexing.index_total").inc()
         return r
+
+    @staticmethod
+    def _check_routing_required(svc, doc_id: str, routing, parent) -> None:
+        """A `_parent`-mapped (or routing-required) index rejects doc ops
+        without routing or parent (ref: RoutingMissingException usage in
+        TransportIndexAction / TransportGetAction)."""
+        if routing is None and parent is None and (
+                svc.mappers.parent_type is not None
+                or svc.mappers.routing_required):
+            raise RoutingMissingError(svc.name, doc_id)
 
     def get_doc(self, index: str, doc_id: str, routing: str | None = None,
                 doc_type: str | None = None, realtime: bool = True,
                 parent: str | None = None) -> dict:
         svc = self._index(index)
+        self._check_routing_required(svc, doc_id, routing, parent)
         return svc.get_doc(doc_id, routing if routing is not None
                            else parent, doc_type=doc_type,
                            realtime=realtime)
@@ -457,6 +479,7 @@ class Node:
                    version_type: str = "internal",
                    parent: str | None = None) -> dict:
         svc = self._index(index)
+        self._check_routing_required(svc, doc_id, routing, parent)
         routing = routing if routing is not None else parent
         r = svc.delete_doc(doc_id, version, routing, doc_type=doc_type,
                            version_type=version_type)
@@ -478,14 +501,13 @@ class Node:
         `upsert` / `doc_as_upsert`, or with a `script` mutating
         ctx._source (ctx.op `none` / `delete`, `scripted_upsert`; the 1.x
         shape with `params` / `lang` beside a string script)."""
-        if fields:
-            raise NotImplementedError("update ?fields= is not ported")
         if index not in self.indices and (body.get("upsert") is not None
                                           or body.get("doc_as_upsert")
                                           or body.get("scripted_upsert")):
             svc = self._ensure_index(index)
         else:
             svc = self._index(index)
+        self._check_routing_required(svc, doc_id, routing, parent)
         routing = routing if routing is not None else parent
         script_spec = body.get("script")
         if isinstance(script_spec, str) and (
@@ -499,6 +521,32 @@ class Node:
         if script_spec is not None and body.get("doc") is not None:
             # ref: UpdateRequest.validate
             raise IllegalArgumentError("can't provide both script and doc")
+
+        def _with_get(r: dict, new_src: dict) -> dict:
+            # ?fields= echoes the updated doc in a `get` section (ref:
+            # UpdateHelper.extractGetResult)
+            if fields:
+                g: dict = {"found": True}
+                if "_source" in fields:
+                    g["_source"] = new_src
+                flds = {}
+                for f in fields:
+                    if f == "_parent":
+                        if doc_id in svc.doc_parent:
+                            flds[f] = svc.doc_parent[doc_id]
+                    elif f == "_routing":
+                        if doc_id in svc.doc_routing:
+                            flds[f] = svc.doc_routing[doc_id]
+                    elif f == "_timestamp":
+                        if doc_id in svc.doc_ts:
+                            flds[f] = svc.doc_ts[doc_id]
+                    elif f != "_source" and f in new_src:
+                        v = new_src[f]
+                        flds[f] = v if isinstance(v, list) else [v]
+                if flds:
+                    g["fields"] = flds
+                r["get"] = g
+            return r
         try:
             current = svc.get_doc(doc_id, routing, doc_type=doc_type)
         except ElasticsearchTpuError:
@@ -518,9 +566,10 @@ class Node:
                 if upsert is None:  # ctx.op == none/delete on upsert
                     return {"_index": index, "_id": doc_id,
                             "result": "noop"}
-            return self.index_doc(index, doc_id, upsert, routing=routing,
-                                  doc_type=doc_type, refresh=refresh,
-                                  ttl=ttl, timestamp=timestamp)
+            r = self.index_doc(index, doc_id, upsert, routing=routing,
+                               doc_type=doc_type, refresh=refresh,
+                               ttl=ttl, timestamp=timestamp, parent=parent)
+            return _with_get(r, dict(upsert))
         if version is not None and current["_version"] != version:
             raise VersionConflictError(index, doc_id,
                                        current["_version"], version)
@@ -535,11 +584,11 @@ class Node:
                 if refresh:
                     svc.shard_for(doc_id, routing).refresh()
                 return r
-            return self.index_doc(index, doc_id, new_src,
-                                  version=current["_version"],
-                                  routing=routing, doc_type=doc_type,
-                                  ttl=ttl, timestamp=timestamp,
-                                  refresh=refresh)
+            return _with_get(self.index_doc(
+                index, doc_id, new_src, version=current["_version"],
+                routing=routing, doc_type=doc_type, ttl=ttl,
+                timestamp=timestamp, parent=parent, refresh=refresh),
+                new_src)
         doc_part = body.get("doc")
         if doc_part is None:
             raise IllegalArgumentError("update requires [doc] or [script]")
@@ -553,10 +602,11 @@ class Node:
             src = merged
         else:
             _deep_merge(src, doc_part)
-        return self.index_doc(index, doc_id, src,
-                              version=current["_version"],
-                              routing=routing, doc_type=doc_type,
-                              ttl=ttl, timestamp=timestamp, refresh=refresh)
+        return _with_get(self.index_doc(index, doc_id, src,
+                                        version=current["_version"],
+                                        routing=routing, doc_type=doc_type,
+                                        ttl=ttl, timestamp=timestamp,
+                                        parent=parent, refresh=refresh), src)
 
     @staticmethod
     def _run_update_script(script_spec, src: dict, is_upsert: bool = False):

@@ -35,6 +35,11 @@ Pallas kernel:
   port: the agg reduces the reference takes with XLA's `cumsum`,
   `.sum(-1)` and `.at[ids].add / .min / .max`, with XLA's exact f32
   results (plain versions in `ops/ordered.py`), for ops/aggs.
+* `to_parent_fold` (csrc/block_join.cu) is no TPU kernel's port either:
+  the nested query's to-parent projection, XLA's scatters
+  `.at[:, target].add / .max / .min` over the [B, cap] child scores,
+  each parent's indices folded in ascending order (plain version
+  `ordered.parent_fold`).
 
 Each kernel sits beside its plain PyTorch version (`*_ref`), which
 repeats the kernel's arithmetic op for op. A wrapper takes the plain
@@ -68,7 +73,7 @@ from . import ordered
 
 LAUNCHES = {"dense_score": 0, "scatter_add": 0, "bundle_topk": 0,
             "positional_leaf": 0, "ordered_prefix": 0, "ordered_sum": 0,
-            "ordered_bucket_stats": 0}
+            "ordered_bucket_stats": 0, "to_parent_fold": 0}
 # K3's launches by launch form: one chunk of a stepped walk (a span short
 # of the whole grid), a seeded single launch (thr_init given: a delta
 # walk chained onto its base), the plain single launch
@@ -84,7 +89,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _SOURCES = {"dense_score": "dense_score.cu", "scatter_add": "scatter_add.cu",
             "bundle_topk": "bundle_topk.cu", "ordered_scan": "ordered_scan.cu",
-            "bucket_stats": "bucket_stats.cu"}
+            "bucket_stats": "bucket_stats.cu", "block_join": "block_join.cu"}
 # entry point -> the library (source) that defines it
 _ENTRIES = {"dense_score": "dense_score", "scatter_add": "scatter_add",
             "scatter_add_scratch": "scatter_add",
@@ -97,12 +102,15 @@ _ENTRIES = {"dense_score": "dense_score", "scatter_add": "scatter_add",
             "ordered_prefix_doc_major_scratch": "ordered_scan",
             "ordered_bucket_stats": "bucket_stats",
             "ordered_bucket_stats_scratch": "bucket_stats",
-            "bucket_add_chain": "bucket_stats"}
+            "bucket_add_chain": "bucket_stats",
+            "to_parent_fold": "block_join"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
-# the agg reduces flush subnormals as XLA's CPU runtime does
+# the agg reduces and the to-parent fold flush subnormals as XLA's CPU
+# runtime does
 _SOURCE_FLAGS = {"ordered_scan": ("-ftz=true",),
-                 "bucket_stats": ("-ftz=true",)}
+                 "bucket_stats": ("-ftz=true",),
+                 "block_join": ("-ftz=true",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -151,6 +159,10 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
         lib.ordered_bucket_stats_scratch.restype = ctypes.c_longlong
         lib.bucket_add_chain.argtypes = [P, P, P, I, P]
         lib.bucket_add_chain.restype = ctypes.c_int
+        return lib
+    if name == "block_join":
+        lib.to_parent_fold.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        lib.to_parent_fold.restype = ctypes.c_int
         return lib
     fn = getattr(lib, name)
     if name == "dense_score":
@@ -626,6 +638,73 @@ def ordered_bucket_stats(bucket_ids: torch.Tensor, mask: torch.Tensor,
     _raise_on(err, "ordered_bucket_stats")
     LAUNCHES["ordered_bucket_stats"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The block join's to-parent fold (the nested query)
+# ---------------------------------------------------------------------------
+
+
+def block_join_layout(target: torch.Tensor) -> dict:
+    """Each position's index list for `to_parent_fold`, as a CSR in
+    ascending order: {"target", "order" (the indices stably sorted by
+    target), "starts" ([cap + 1], each position's first slot)}, int32 on
+    target's device. Built once per segment at upload (the segment's
+    `device_arrays()["nested"]` holds it)."""
+    t = target.to(torch.int64)
+    order = torch.sort(t, stable=True).indices
+    starts = torch.searchsorted(
+        t[order], torch.arange(t.numel() + 1, device=t.device))
+    return {"target": target.to(torch.int32),
+            "order": order.to(torch.int32),
+            "starts": starts.to(torch.int32)}
+
+
+def to_parent_fold_ref(score: torch.Tensor, ok: torch.Tensor,
+                       layout: dict, mode: str) -> tuple:
+    """Plain version of `to_parent_fold` (`ordered.parent_fold`); the
+    fold's passes are worked out once per layout and kept on it."""
+    ranks = layout.get("_ranks")
+    if ranks is None:
+        ranks = layout["_ranks"] = ordered.parent_fold_ranks(
+            layout["target"], layout["order"], layout["starts"])
+    return ordered.parent_fold(score, ok, layout["target"], ranks, mode)
+
+
+def to_parent_fold(score: torch.Tensor, ok: torch.Tensor, layout: dict,
+                   mode: str) -> tuple:
+    """The nested query's to-parent projection: per (row, position), the
+    count of the matched indices that target it and, by `mode` (none /
+    sum / max / min), their score's sum in ascending index order or XLA's
+    max / min (`ordered.parent_fold`). score f32 [B, cap], ok bool
+    [B, cap], layout `block_join_layout` -> (count f32 [B, cap], value
+    f32 [B, cap] | None for "none")."""
+    code = ordered.PARENT_FOLD_MODES[mode]
+    if ok.device.type == "cpu":
+        return to_parent_fold_ref(score, ok, layout, mode)
+    dev = ok.device
+    _check(score, "score", torch.float32, 2, dev)
+    _check(ok, "ok", torch.bool, 2, dev)
+    order, starts = layout["order"], layout["starts"]
+    _check(order, "order", torch.int32, 1, dev)
+    _check(starts, "starts", torch.int32, 1, dev)
+    B, cap = ok.shape
+    if score.shape != ok.shape or order.shape[0] != cap \
+            or starts.shape[0] != cap + 1:
+        raise ValueError(f"score {tuple(score.shape)} / ok "
+                         f"{tuple(ok.shape)} / order {tuple(order.shape)} / "
+                         f"starts {tuple(starts.shape)} disagree")
+    count = torch.empty((B, cap), dtype=torch.float32, device=dev)
+    value = (torch.empty((B, cap), dtype=torch.float32, device=dev)
+             if code else None)
+    err = _fn("to_parent_fold")(order.data_ptr(), starts.data_ptr(),
+                                score.data_ptr(), ok.data_ptr(),
+                                count.data_ptr(),
+                                value.data_ptr() if code else None,
+                                B, cap, code, _stream(dev))
+    _raise_on(err, "to_parent_fold")
+    LAUNCHES["to_parent_fold"] += 1
+    return count, value
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,10 @@ keeps its value as XLA does.
 (`ops/cuda_scoring.ordered_prefix`), `xla_block_sum` of its tree entry
 (`ops/cuda_scoring.ordered_sum`), `bucket_fold`, `bucket_count` and
 `bucket_extreme` of its bucket-stats entry
-(`ops/cuda_scoring.ordered_bucket_stats`).
+(`ops/cuda_scoring.ordered_bucket_stats`), and `parent_fold` of the
+block join's to-parent fold (`ops/cuda_scoring.to_parent_fold`): the
+nested query's `.at[:, target].add / .max / .min` over [B, cap] scores,
+each parent's indices folded in ascending order.
 """
 
 from __future__ import annotations
@@ -253,11 +256,11 @@ def float_order_bits(values: torch.Tensor) -> torch.Tensor:
 
 
 def extreme_keys(values: torch.Tensor, largest: bool) -> torch.Tensor:
-    """The rank key of each doc's value for `bucket_extreme`, [cap] int64
-    (smaller wins; the doc breaks NaN ties), taken from the flushed
-    value."""
+    """The rank key of each doc's value for `bucket_extreme`, int64 of
+    the values' shape, [cap] or [B, cap] (smaller wins; the doc, the
+    last axis, breaks NaN ties), taken from the flushed value."""
     v = ftz(values.to(torch.float32))
-    cap = v.shape[0]
+    cap = v.shape[-1]
     doc = torch.arange(cap, dtype=torch.int64, device=v.device)
     neg = (v.contiguous().view(torch.int32) < 0)
     ordv = float_order_bits(v)
@@ -271,16 +274,23 @@ def extreme_keys(values: torch.Tensor, largest: bool) -> torch.Tensor:
 def extreme_value(keys: torch.Tensor, values: torch.Tensor,
                   largest: bool) -> torch.Tensor:
     """Decode `extreme_keys` (reduced per bucket) back to f32 values; a
-    NaN class key takes its doc's value, EXTREME_NONE the reduction's
+    NaN class key takes its doc's value (values [cap], or [B, cap] with
+    keys [B, n]: each row its own), EXTREME_NONE the reduction's
     identity (+inf for the minimum, -inf for the maximum)."""
     cls = keys >> 32
     lo = keys & 0xFFFFFFFF
     ordv = 0xFFFFFFFF - lo if largest else lo
     bits = torch.where(ordv >= 1 << 31, ordv & 0x7FFFFFFF, 0xFFFFFFFF - ordv)
     doc = torch.where(cls == 0, lo, 0xFFFFFFFF - lo).clamp(
-        max=max(values.shape[0] - 1, 0))
-    nan_bits = values.to(torch.float32).contiguous().view(torch.int32).to(
-        torch.int64)[doc] & 0xFFFFFFFF if values.numel() else lo
+        max=max(values.shape[-1] - 1, 0))
+    vbits = values.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & 0xFFFFFFFF
+    if not values.numel():
+        nan_bits = lo
+    elif values.dim() == 2:
+        nan_bits = vbits.gather(1, doc)
+    else:
+        nan_bits = vbits[doc]
     bits = torch.where(cls < 2, nan_bits, bits)
     ident = 0xFF800000 if largest else 0x7F800000
     bits = torch.where(keys >= EXTREME_NONE, ident, bits)
@@ -319,3 +329,66 @@ def prefix_at(w: torch.Tensor, perm: torch.Tensor | None,
     if pos.dim() == 1:
         return cs0[:, pos]
     return cs0.gather(1, pos)
+
+
+PARENT_FOLD_MODES = {"none": 0, "sum": 1, "max": 2, "min": 3}
+
+
+def parent_fold_ranks(target: torch.Tensor, order: torch.Tensor,
+                      starts: torch.Tensor) -> tuple:
+    """The fold's passes: the indices grouped by their rank in their
+    target's list (the k-th index of every list in pass k) -> (indices
+    by rank, their targets, the count of each pass). From the CSR of
+    `parent_fold` (order: the indices stably sorted by target; starts:
+    each position's first slot)."""
+    t_sorted = target.to(torch.int64)[order.to(torch.int64)]
+    pos = torch.arange(order.numel(), device=order.device)
+    rank = pos - starts.to(torch.int64)[t_sorted]
+    by_rank = torch.sort(rank, stable=True).indices
+    idx = order.to(torch.int64)[by_rank]
+    return idx, t_sorted[by_rank], torch.bincount(rank).tolist()
+
+
+def parent_fold(score: torch.Tensor, ok: torch.Tensor, target: torch.Tensor,
+                ranks: tuple, mode: str) -> tuple:
+    """The block join's to-parent fold: per (row b, position p) over the
+    indices i with target[i] == p, the count of ok[b, i] (f32) and, by
+    `mode`, the reference's XLA scatter result:
+      * "sum": `zeros.at[:, target].add(where(ok, score, 0))`, a left fold
+        from +0.0 in ascending i of every index (+0.0 where not ok),
+        flushed after each add;
+      * "max" / "min": `full(-inf).at[:, target].max(where(ok, score,
+        -inf))` (min: +inf), XLA's NaN-propagating compare with -0.0
+        below +0.0, by the rank keys of `bucket_extreme`;
+      * "none": the count alone (value None).
+    score f32 [B, cap], ok bool [B, cap], target [cap], ranks
+    `parent_fold_ranks(...)` -> (count [B, cap], value [B, cap] | None).
+    The k-th index of every list is added in pass k, so a pass adds to
+    each target at most once: as many passes as the longest list."""
+    B, cap = ok.shape
+    dev = ok.device
+    tgt = target.to(torch.int64)
+    count = torch.zeros((B, cap), dtype=torch.int64, device=dev)
+    count.index_add_(1, tgt, ok.to(torch.int64))
+    count = count.clamp(max=1 << 24).to(torch.float32)
+    if mode == "none":
+        return count, None
+    v = ftz(score.to(torch.float32))
+    if mode == "sum":
+        v = torch.where(ok, v, 0.0)
+        flush = may_underflow(v)
+        out = torch.zeros((B, cap), dtype=torch.float32, device=dev)
+        idx, t_by_rank, counts = ranks
+        lo = 0
+        for n in counts:
+            i, t = idx[lo:lo + n], t_by_rank[lo:lo + n]
+            acc = out[:, t] + v[:, i]
+            out[:, t] = ftz(acc) if flush else acc
+            lo += n
+        return count, out
+    largest = mode == "max"
+    keys = torch.where(ok, extreme_keys(v, largest), EXTREME_NONE)
+    best = torch.full((B, cap), EXTREME_NONE, dtype=torch.int64, device=dev)
+    best.scatter_reduce_(1, tgt[None, :].expand(B, -1), keys, reduce="amin",
+                         include_self=True)
+    return count, extreme_value(best, v, largest)

@@ -300,7 +300,8 @@ def register_routes(d: RestDispatcher) -> None:
         if params.get("op_type") == "create":
             from ..utils.errors import VersionConflictError
             try:
-                node.get_doc(index, id, routing=params.get("routing"))
+                node.get_doc(index, id, routing=params.get("routing")
+                             or params.get("parent"))
                 exists = True
             except ElasticsearchTpuError:
                 exists = False
@@ -313,6 +314,7 @@ def register_routes(d: RestDispatcher) -> None:
                               doc_type=doc_type,
                               version_type=params.get("version_type",
                                                       "internal"),
+                              parent=params.get("parent"),
                               timestamp=params.get("timestamp"))
 
     @d.route("GET", "/{index}/_doc/{id}")
@@ -321,10 +323,35 @@ def register_routes(d: RestDispatcher) -> None:
         if _truthy(params, "refresh"):
             node.refresh(index)
         r = node.get_doc(index, id, routing=params.get("routing"),
-                         doc_type=doc_type, realtime=realtime)
+                         doc_type=doc_type, realtime=realtime,
+                         parent=params.get("parent"))
         src = r.get("_source")
         r["_source"] = (json.loads(src) if isinstance(src, (bytes, str))
                         else (src or {}))
+        field_list = ([f.strip() for f in str(params["fields"]).split(",")]
+                      if params.get("fields") else None)
+        if field_list is not None:
+            # ?fields=: metadata (_routing, _parent, _timestamp) and source
+            # fields; an explicit list drops _source unless it names it
+            # (ref: RestGetAction)
+            obj = r["_source"]
+            flds = {}
+            for f in field_list:
+                if f in ("_routing", "_parent"):
+                    if f in r:
+                        flds[f] = r[f]
+                elif f == "_timestamp":
+                    ts = node._index(index).doc_ts.get(id)
+                    if ts is not None:
+                        flds[f] = ts
+                elif f in obj:
+                    v = obj[f]
+                    flds[f] = v if isinstance(v, list) else [v]
+            if flds:
+                r["fields"] = flds
+            if "_source" not in field_list and "_source" not in params:
+                r.pop("_source", None)
+                return r
         if params.get("_source") == "false":
             r.pop("_source", None)
         return r
@@ -338,7 +365,8 @@ def register_routes(d: RestDispatcher) -> None:
                             refresh=_truthy(params, "refresh"),
                             doc_type=doc_type,
                             version_type=params.get("version_type",
-                                                    "internal"))
+                                                    "internal"),
+                            parent=params.get("parent"))
         if not r.get("found"):
             return RestStatus(404, {**r, "found": False})
         return r
@@ -353,11 +381,14 @@ def register_routes(d: RestDispatcher) -> None:
             body["script"] = params["script"]
         if params.get("lang") is not None and body.get("lang") is None:
             body["lang"] = params["lang"]
+        fields = params.get("fields")
         return node.update_doc(index, id, body,
                                refresh=_truthy(params, "refresh"),
                                doc_type=doc_type,
                                routing=params.get("routing"),
-                               version=int(version) if version else None)
+                               parent=params.get("parent"),
+                               version=int(version) if version else None,
+                               fields=fields.split(",") if fields else None)
 
     # -- stored scripts (ref: RestPutIndexedScriptAction; ES 2.0 kept
     # these in the .scripts index) -------------------------------------

@@ -14,15 +14,17 @@ shard-global ordinals or histogram bucket keys, and shards merge by
 bucket KEY (HLL registers by elementwise max).
 
 Derived bucket aggs (`filter`, `filters`, `range`, `date_range`,
-`missing`, `global`, `top_hits`, `significant_terms`; DERIVED_KINDS) have
-no device desc: the shard searcher runs each bucket as an auxiliary
+`missing`, `global`, `top_hits`, `significant_terms`, and the scope
+shifts `nested`, `reverse_nested`, `children`; DERIVED_KINDS) have no
+device desc: the shard searcher runs each bucket as an auxiliary
 filtered size-0 (top_hits: size-n) request through the same batched
-executor (`ShardReader._apply_derived`), whose sub-aggregations of any
-kind recurse; their partials merge by bucket key (`merge_derived`) and
-finalize by kind (`finalize_derived`). `significant_terms` scores
-foreground against background term counts with JLH, top-level or as a
-sub of `terms` (`apply_sig_subs`). Nested / reverse_nested / children
-and the geo aggs raise NotImplementedError.
+executor (`ShardReader._apply_derived`; a scope shift's request runs
+over the nested rows, their parents or a relation's children), whose
+sub-aggregations of any kind recurse; their partials merge by bucket key
+(`merge_derived`) and finalize by kind (`finalize_derived`).
+`significant_terms` scores foreground against background term counts
+with JLH, top-level or as a sub of `terms` (`apply_sig_subs`). The geo
+aggs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,9 +43,12 @@ METRIC_KINDS = ("avg", "sum", "min", "max", "stats", "extended_stats",
 # derived bucket aggs run as auxiliary filtered sub-requests over the
 # same readers: each bucket IS a filtered query
 DERIVED_KINDS = ("filter", "filters", "range", "date_range", "missing",
-                 "global", "top_hits", "significant_terms")
-_NOT_PORTED = ("nested", "reverse_nested", "children", "geo_bounds",
-               "geo_centroid", "geohash_grid")
+                 "global", "top_hits", "nested", "reverse_nested",
+                 "children", "significant_terms")
+# the scope-shifting derived aggs: one auxiliary request each, over the
+# nested rows, back over their parents, or over a relation's children
+SCOPE_KINDS = ("nested", "reverse_nested", "children")
+_NOT_PORTED = ("geo_bounds", "geo_centroid", "geohash_grid")
 _PCTL_BINS = 2048  # device histogram resolution for percentiles: bins
                    # with centroid interpolation (percentile_values)
 DEFAULT_PERCENTS = (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0)
@@ -220,6 +225,26 @@ def _parse_special(name: str, kind: str, conf, sub: dict) -> AggSpec:
     elif kind == "global":
         spec.buckets = [(name, None, {})]
         spec.mode = "ignore_query"
+    elif kind == "nested":
+        # ref: bucket/nested/NestedAggregator.java: the scope shifts to
+        # the hidden block-join rows of `path`
+        path = (conf or {}).get("path")
+        if not path:
+            raise SearchParseError(f"[nested] agg [{name}] requires [path]")
+        spec.mode = f"nested:{path}"
+        spec.buckets = [(name, None, {})]
+    elif kind == "reverse_nested":
+        # ref: bucket/nested/ReverseNestedAggregator.java: the scope
+        # shifts back to the parents of the enclosing nested scope
+        spec.mode = "reverse_nested"
+        spec.buckets = [(name, None, {})]
+    elif kind == "children":
+        # ref: bucket/children/ParentToChildrenAggregator.java
+        ctype = (conf or {}).get("type")
+        if not ctype:
+            raise SearchParseError(f"[children] agg [{name}] requires [type]")
+        spec.mode = f"children:{ctype}"
+        spec.buckets = [(name, None, {})]
     elif kind == "top_hits":
         spec.buckets = [(name, {"match_all": {}}, {})]
         spec.top_hits_size = int(conf.get("size", 3))
@@ -812,7 +837,7 @@ def finalize_derived(spec: AggSpec, merged_buckets: dict) -> dict:
         fg_t, fg_b = totals("fg")
         bg_t, bg_b = totals("bg")
         return significant_buckets(spec, fg_t, fg_b, bg_t, bg_b)
-    if spec.kind in ("filter", "missing", "global"):
+    if spec.kind in ("filter", "missing", "global", *SCOPE_KINDS):
         key = spec.buckets[0][0]
         return bucket_json(key)
     if spec.kind == "top_hits":

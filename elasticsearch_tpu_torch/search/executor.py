@@ -44,6 +44,17 @@ collected back into per-segment lists). With `ES_TPU_RESIDENT_LOOP` set,
 fused plans go through pinned resident entries (`search/resident.py`)
 that run the stepped K3 walk with a per-chunk deadline check.
 
+Joins. A `nested` query binds to the `nested` kind: its child query is
+evaluated over every row, then projected onto the parents by the
+hand-written `to_parent_fold` kernel (`ops/cuda_scoring`), the count and
+the score mode's sum / max / min in the reference's exact order, with
+the score mode's avg, match and boost as elementwise ops after it. The
+child scope (the rows of the query's path) and `_parents_match` (the
+nested agg's scope: rows whose parent matches) are built on the device
+from the segment's `_nested_path` ordinals and the dispatch's live mask,
+so a batch uploads a path ordinal per row, not the reference's [B, cap]
+masks. Neither kind is admitted by the fused engine.
+
 Vectors. A `knn` query node binds to the `knn_vec` kind: the similarity
 column of `ops/knn.knn_score_column` (bf16 values resident on the
 device, f32 norms) times the clause boost, matching every doc with a
@@ -180,6 +191,16 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
                        "norms": _up(ordered.ftz_np(vc.norms), device)}
                 for name, vc in segment.vectors.items()},
     }
+    if segment.has_nested:
+        # block join: nested row -> its parent's row (a primary row
+        # targets itself, as in the reference) and each position's index
+        # list for the to-parent fold
+        target = np.where(segment.parent_of >= 0, segment.parent_of,
+                          np.arange(segment.capacity, dtype=np.int32))
+        dev["nested"] = {
+            "is_child": _up(segment.parent_of >= 0, device),
+            **cuda_scoring.block_join_layout(
+                _up(target.astype(np.int32), device))}
     segment._device = (device, dev)  # type: ignore[attr-defined]
     return dev
 
@@ -1277,6 +1298,44 @@ class QueryBinder:
             children={"q": [self.bind(q.query)],
                       "fns": [self._bind_fn(f) for f in q.functions]})
 
+    # -- block join (nested) ------------------------------------------------
+
+    _NESTED_SCORE_MODES = ("none", "sum", "avg", "max", "min")
+
+    def _bind_NestedQuery(self, q) -> Bound:
+        """ToParentBlockJoinQuery: the child query over the hidden nested
+        rows of the path, projected onto the parent rows (ref:
+        index/query/NestedQueryParser.java). Binds the path's ordinal;
+        the device compares the `_nested_path` column with it."""
+        if not self.seg.has_nested:
+            return self._no_match()
+        kc = self.seg.keywords.get("_nested_path")
+        if kc is None:
+            return self._no_match()
+        o = kc.lookup(q.path)
+        if o < 0:
+            return self._no_match()
+        mode = q.score_mode if q.score_mode in self._NESTED_SCORE_MODES \
+            else "avg"
+        return Bound("nested", field=mode,
+                     scalars={"boost": max(q.boost, _F32_MIN_WEIGHT),
+                              "path_ord": o},
+                     children={"q": [self.bind(q.query)]})
+
+    def _bind_ParentsMatchQuery(self, q) -> Bound:
+        """Nested rows whose PARENT matches the inner query (the nested
+        agg's scope; ref: the parentDocs bitset of
+        search/aggregations/bucket/nested/NestedAggregator.java). The
+        parents' liveness is the binder's live mask (the segment's
+        primary rows without one)."""
+        if not self.seg.has_nested:
+            return self._no_match()
+        plive = (self.live if self.live is not None
+                 else self.seg.primary_mask())
+        return Bound("parents_match",
+                     arrays={"plive": np.asarray(plive, dtype=bool)},
+                     children={"q": [self.bind(q.query)]})
+
     def _bind_KnnQuery(self, q: KnnQuery) -> Bound:
         """Vector similarity as a scoring clause: every live doc with a
         vector matches, scored by the field similarity's transform times
@@ -1461,6 +1520,21 @@ def _finalize_node(bounds: Sequence[Bound]) -> tuple[tuple, tuple]:
     if kind == "const":
         d, p = _finalize_node([b.children["q"][0] for b in bounds])
         return ("const", d), (p, stack_scalar("boost", np.float32))
+    if kind == "nested":
+        d, p = _finalize_node([b.children["q"][0] for b in bounds])
+        return (("nested", d, b0.field),        # field = score_mode
+                (p, stack_scalar("path_ord", np.int32),
+                 stack_scalar("boost", np.float32)))
+    if kind == "parents_match":
+        d, p = _finalize_node([b.children["q"][0] for b in bounds])
+        # one row, [1, cap], shared by every request where each binder saw
+        # the same mask (the reference stacks [B, cap])
+        p0 = b0.arrays["plive"]
+        if all(b.arrays["plive"] is p0
+               or np.array_equal(b.arrays["plive"], p0) for b in bounds):
+            return ("parents_match", d), (p, p0[None, :])
+        return (("parents_match", d),
+                (p, np.stack([b.arrays["plive"] for b in bounds])))
     if kind in ("exists_text", "exists_kw", "exists_num", "exists_gv"):
         return ((kind, b0.field), ())
     if kind == "ids":
@@ -1782,6 +1856,35 @@ def eval_node(desc: tuple, params: tuple, seg: dict, cap: int, B: int
         mask.scatter_(1, idx, True)
         mask = mask[:, :cap]
         return mask.to(torch.float32), mask
+    if kind == "nested":
+        # block-join to-parent projection (ToParentBlockJoinQuery): the
+        # count and the score mode's fold on the to_parent_fold kernel,
+        # the rest elementwise in the reference's order
+        _, inner_desc, score_mode = desc
+        inner_params, path_ord, boost = params
+        c_score, c_match = eval_node(inner_desc, inner_params, seg, cap, B)
+        nest = seg["nested"]
+        path_mask = seg["kw"]["_nested_path"][None, :] == path_ord[:, None]
+        ok = c_match & path_mask & nest["is_child"][None, :]
+        fold = {"none": "none", "max": "max", "min": "min"}.get(score_mode,
+                                                               "sum")
+        cnt, val = cuda_scoring.to_parent_fold(c_score.contiguous(), ok,
+                                               nest, fold)
+        match = cnt > 0
+        if score_mode == "none":
+            return torch.where(match, boost[:, None], 0.0), match
+        if score_mode == "avg":
+            val = ordered.ftz(val / torch.clamp(cnt, min=1.0))
+        return ordered.ftz(torch.where(match, val, 0.0) * boost[:, None]), \
+            match
+    if kind == "parents_match":
+        (inner_desc,) = desc[1:]
+        inner_params, plive = params
+        _, p_match = eval_node(inner_desc, inner_params, seg, cap, B)
+        pm = p_match & plive
+        target = seg["nested"]["target"].to(torch.int64)
+        match = pm[:, target] & seg["nested"]["is_child"][None, :]
+        return match.to(torch.float32), match
     if kind == "boosting":
         _, d_pos, d_neg = desc
         p_pos, p_neg, nboost = params
@@ -3032,9 +3135,11 @@ def _chunk_b(B: int, cap: int) -> int:
 
 
 def _slice_rows(tree, lo: int, hi: int):
+    """Rows lo..hi-1 of every param; a leaf of one row (`_parents_match`'s
+    shared live mask) serves every row and stays whole."""
     if isinstance(tree, tuple):
         return tuple(_slice_rows(t, lo, hi) for t in tree)
-    return tree[lo:hi]
+    return tree if tree.shape[0] == 1 else tree[lo:hi]
 
 
 def _cat_rows(trees: list):

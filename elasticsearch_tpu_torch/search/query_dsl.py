@@ -16,8 +16,14 @@ and the `script` filter. Compound queries
 desugar exactly as in the reference (`match` -> bool over analyzed
 terms, `terms` -> bool should, `filtered` -> bool must + filter,
 `dis_max` -> bool should summing its scores, a one-term phrase -> term),
-so both packages bind the same plans. Nested and parent / child joins
-and geo queries raise NotImplementedError.
+so both packages bind the same plans. `nested` is the block join of a
+child query onto its parents (score_mode none / sum / avg / max / min);
+`_parents_match` is the internal scope filter of the nested agg. The
+parent / child queries (`has_child`, `has_parent`, `parent_id`) are no
+AST nodes: the shard searcher resolves them into ids / term filters
+before parsing (`ShardReader._resolve_joins_all`), as the reference
+does.
+Geo queries raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -209,6 +215,25 @@ class ConstantScoreQuery(Query):
 
 
 @dataclass(frozen=True)
+class NestedQuery(Query):
+    """Block-join child query projected onto parents (ref:
+    index/query/NestedQueryParser.java, ToParentBlockJoinQuery)."""
+
+    path: str
+    query: Query
+    score_mode: str = "avg"    # none | sum | avg | max | min
+    boost: float = 1.0
+
+
+@dataclass(frozen=True)
+class ParentsMatchQuery(Query):
+    """Internal: nested rows whose parent matches `query`, the scope
+    filter of nested aggregations (NestedAggregator's parentDocs)."""
+
+    query: Query
+
+
+@dataclass(frozen=True)
 class KnnQuery(Query):
     """Vector similarity as a scoring clause: every live doc carrying a
     vector matches, scored by the field similarity's transformed value
@@ -278,12 +303,10 @@ class BoostingQuery(Query):
     negative_boost: float = 0.2
 
 
-# queries the reference parses that the port does not carry yet: joins
-# and geo
+# queries the reference parses that the port does not carry yet: geo
 _NOT_PORTED = frozenset((
-    "nested", "_parents_match", "geo_distance", "geo_distance_range",
-    "geo_bounding_box", "geo_polygon", "geo_shape", "has_child",
-    "has_parent", "parent_id"))
+    "geo_distance", "geo_distance_range", "geo_bounding_box", "geo_polygon",
+    "geo_shape"))
 
 
 def _dotted_get(obj: dict, path: str):
@@ -717,6 +740,21 @@ class QueryParser:
             "boost": spec.get("boost", 1.0)}})
 
     # -- misc wrappers ------------------------------------------------------
+
+    def _parse_nested(self, body) -> Query:
+        path = body.get("path")
+        if not path:
+            raise QueryParsingError("[nested] requires [path]")
+        inner = body.get("query") or body.get("filter")
+        if inner is None:
+            raise QueryParsingError("[nested] requires [query]")
+        return NestedQuery(
+            path=str(path), query=self.parse(inner),
+            score_mode=str(body.get("score_mode", "avg")).lower(),
+            boost=float(body.get("boost", 1.0)))
+
+    def _parse__parents_match(self, body) -> Query:
+        return ParentsMatchQuery(self.parse(body.get("query")))
 
     def _parse_wrapper(self, body) -> Query:
         import base64

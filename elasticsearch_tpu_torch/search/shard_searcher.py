@@ -35,17 +35,33 @@ doc-value columns (`executor._eval_agg_script`, params baked into the
 plan key); `script_fields` run on the host per returned hit
 (`script.run_field_script`, `_score` bound to the hit's score).
 
+Joins. Nested rows are hidden: `live` keeps primary rows only, while
+`live_all` (the engine's deletions, a deleted parent's liveness carried
+onto its nested rows) serves nested-scope requests, the auxiliary
+requests of a `nested` agg (`_nested_scope`). `has_child`, `has_parent`
+and `parent_id` nodes are resolved on the host before parsing
+(`_resolve_joins_all`): an auxiliary search collects one side of the
+join (two passes at most, `JOIN_RESOLVE_WINDOW`), and its ids become an
+`ids` or term filter for the other, as the reference's per-shard
+parent-id collectors do; the auxiliary searches of a batch's requests go
+as one msearch a round. Children must be routed to their parent's
+shard.
+
 Trimmed to this slice: request keys outside `query`, `knn`, `rescore`,
 `aggs` / `aggregations`, `size`, `from`, `sort` (one key: `_score`, a
-keyword or a numeric field, or `_script`), `_source`, `version`,
-`script_fields` and `_dfs_stats` raise NotImplementedError, as do
-multi-key sorts, highlight and suggest.
+keyword or a numeric field, or `_script`), `_source`, `fields` (stored
+fields, read from `_source`, dotted paths into objects), `version`,
+`script_fields`, `_dfs_stats` and the internal `_nested_scope` /
+`_reverse_ctx` raise NotImplementedError, as do multi-key sorts,
+highlight and suggest.
 
 Derived bucket aggs (filter, filters, range, date_range, missing,
-global, top_hits, significant_terms) run after the main groups: each
-bucket is an auxiliary filtered request (size 0, top_hits size n) sent
-back through `msearch`, so a batch's derived requests are batched and
-dispatched like any other (`_apply_derived`); with `with_partials` their
+global, top_hits, significant_terms, and the scope shifts nested,
+reverse_nested, children: `_scope_shift_body`) run after the main
+groups: each bucket is an auxiliary filtered request (size 0, top_hits
+size n) sent back through `msearch`, so a batch's derived requests are
+batched and dispatched like any other (`_apply_derived`); with
+`with_partials` their
 results travel as `{"derived": ...}` partials that the node merges by
 bucket key. significant_terms under a terms agg counts a field's terms
 on the host per bucket (`sig_term_counts`, `_apply_sig_subs`).
@@ -64,8 +80,8 @@ from .. import resolve_device
 from ..index.mapping import MapperService
 from ..index.segment import Segment
 from ..utils.errors import SearchParseError, SearchTimeoutError
-from .aggregations import (DERIVED_KINDS, AggSpec, ShardAggContext,
-                           apply_sig_subs, finalize_partials,
+from .aggregations import (DERIVED_KINDS, SCOPE_KINDS, AggSpec,
+                           ShardAggContext, apply_sig_subs, finalize_partials,
                            merge_shard_partials, parse_aggs, shard_partials,
                            significant_buckets)
 from ..ops.knn import SIMILARITIES
@@ -76,8 +92,9 @@ from .executor import (QueryBinder, _device_live, _fused_stats,
 from .query_dsl import QueryParser
 
 _REQUEST_KEYS = frozenset(("query", "aggs", "aggregations", "size", "from",
-                           "sort", "_source", "version", "_dfs_stats",
-                           "rescore", "script_fields"))
+                           "sort", "_source", "fields", "version",
+                           "_dfs_stats", "rescore", "script_fields",
+                           "_nested_scope", "_reverse_ctx"))
 
 
 def rewrite_knn_body(body: dict) -> dict:
@@ -181,10 +198,19 @@ class ShardReader:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.index_name = index_name
         self.segments = [s for s in segments if s.num_docs > 0]
+        # live_all: the engine's deletions, a parent's liveness carried
+        # onto its nested rows; live: primary rows only (hidden
+        # block-join rows never surface as hits, ref: Lucene
+        # NonNestedDocsFilter)
+        self.live_all = {}
         self.live = {}
         for s in self.segments:
             la = np.array(live_masks.get(s.seg_id, _default_live(s)),
                           dtype=bool, copy=True)
+            if s.parent_of is not None:
+                ch = s.parent_of >= 0
+                la[ch] &= la[s.parent_of[ch]]
+            self.live_all[s.seg_id] = la
             self.live[s.seg_id] = la & s.primary_mask()
         self.mappers = mapper
         self.shard_id = shard_id
@@ -203,7 +229,7 @@ class ShardReader:
             parts = []
             for seg in self.segments:
                 h = hashlib.blake2b(digest_size=8)
-                h.update(self.live[seg.seg_id].tobytes())
+                h.update(self.live_all[seg.seg_id].tobytes())
                 parts.append((seg.cache_key(), int(seg.delta_epoch or 0),
                               h.hexdigest()))
             self._generation_key = (self.index_name, self.shard_id,
@@ -260,6 +286,198 @@ class ShardReader:
             out[f"{f}\x00{t}"] = (df, n)
         return out
 
+    # -- parent/child joins (host-side two-pass resolution) ----------------
+    # The reference resolves has_child / has_parent with per-shard
+    # parent-id collectors (index/search/child/ChildrenQuery.java: collect
+    # the matching children's parent ids, then filter the parents). Same
+    # shape here: an auxiliary query collects one side, and its ids become
+    # a host-computed filter for the other. Children must be routed to
+    # their parent's shard (routing = the parent id), as in ES.
+
+    JOIN_RESOLVE_WINDOW = 10_000
+
+    def _collect_all_hits(self, queries: list[dict]) -> list[list[dict]]:
+        """All hits of each auxiliary join query, the queries of a batch
+        in one msearch a pass: the first pass learns each total, a second
+        (only for those past the window) fetches every hit in one top-k.
+        A query's hits do not depend on its batch: the reference's one
+        msearch a query gives them alike."""
+        first = self.msearch([{"query": q, "size": self.JOIN_RESOLVE_WINDOW,
+                               "_source": False} for q in queries])
+        out = [r["hits"]["hits"] for r in first]
+        again = [i for i, r in enumerate(first)
+                 if r["hits"]["total"] > self.JOIN_RESOLVE_WINDOW]
+        if again:
+            full = self.msearch([{"query": queries[i],
+                                  "size": first[i]["hits"]["total"],
+                                  "_source": False} for i in again])
+            for i, r in zip(again, full):
+                out[i] = r["hits"]["hits"]
+        return out
+
+    def _resolve_joins_all(self, queries: list) -> list:
+        """Each query with its has_child / has_parent / parent_id nodes
+        replaced (`_join_resolver`), the auxiliary searches of the batch
+        taken together: a round collects the next one each query is
+        waiting on."""
+        out = list(queries)
+        gens, pending = {}, {}
+        for i, q in enumerate(queries):
+            if q is not None and _has_join_nodes(q):
+                gens[i] = self._join_resolver(q)
+                pending[i] = None
+        while pending:
+            asks = {}
+            for i, hits in pending.items():
+                try:
+                    asks[i] = gens[i].send(hits)
+                except StopIteration as done:
+                    out[i] = done.value
+            idx = list(asks)
+            pending = dict(zip(idx, self._collect_all_hits(
+                [asks[i] for i in idx]))) if idx else {}
+        return out
+
+    def _join_field(self, ctx: str):
+        fm = self.mappers.join_field()
+        if fm is None:
+            raise SearchParseError(
+                f"[{ctx}] no join field is mapped on [{self.index_name}]")
+        return fm
+
+    # compound query shapes whose bodies hold query nodes: the join
+    # resolution recurses only there, so a field named like "parent_id"
+    # inside a term / match leaf is never read as a join query
+    _QUERY_LIST_KEYS = ("must", "should", "must_not", "filter", "queries",
+                        "filters")
+    _QUERY_CHILD_KEYS = ("query", "filter", "positive", "negative",
+                         "no_match_query", "include", "exclude")
+    _COMPOUND_NODES = ("bool", "constant_score", "filtered", "not", "and",
+                       "or", "nested", "function_score", "boosting",
+                       "dis_max", "indices", "_parents_match",
+                       "span_multi")
+
+    def _join_resolver(self, q):
+        """Generator: `q` with the has_child / has_parent / parent_id
+        query nodes (by their place in the query tree, not by key name)
+        replaced with resolved id filters. It yields each auxiliary query
+        it needs and is sent back that query's hits
+        (`_resolve_joins_all` drives it)."""
+        if not isinstance(q, dict):
+            return q
+        out = {}
+        for name, body in q.items():
+            if name == "has_child":
+                out.update((yield from self._resolve_has_child(body)))
+            elif name == "has_parent":
+                out.update((yield from self._resolve_has_parent(body)))
+            elif name == "parent_id":
+                out.update(self._resolve_parent_id(body))
+            elif name in self._COMPOUND_NODES and isinstance(body, dict):
+                nb = dict(body)
+                for k, v in body.items():
+                    if k in self._QUERY_LIST_KEYS and isinstance(v, list):
+                        items = []
+                        for x in v:
+                            items.append((yield from self._join_resolver(x)))
+                        nb[k] = items
+                    elif k in self._QUERY_LIST_KEYS + self._QUERY_CHILD_KEYS \
+                            and isinstance(v, dict):
+                        nb[k] = yield from self._join_resolver(v)
+                    elif k == "functions" and isinstance(v, list):
+                        # function_score's functions carry a filter each
+                        fns = []
+                        for fn in v:
+                            if isinstance(fn, dict) and \
+                                    isinstance(fn.get("filter"), dict):
+                                fn = {**fn, "filter": (yield from
+                                      self._join_resolver(fn["filter"]))}
+                            fns.append(fn)
+                        nb[k] = fns
+                out[name] = nb
+            elif name in ("and", "or", "dis_max") and isinstance(body, list):
+                items = []
+                for x in body:
+                    items.append((yield from self._join_resolver(x)))
+                out[name] = items
+            else:
+                out[name] = body  # a leaf: its values are never queries
+        return out
+
+    def _join_parent_of_hit(self, doc_id: str, pcol: str) -> str | None:
+        seg, local = self._locate(doc_id)
+        if seg is None:
+            return None
+        kc = seg.keywords.get(pcol)
+        if kc is None or kc.ords[local] < 0:
+            return None
+        return kc.terms[kc.ords[local]]
+
+    def _resolve_has_child(self, spec: dict):
+        """Generator (see `_join_resolver`): the parents with min_children
+        .. max_children matching children."""
+        fm = self._join_field("has_child")
+        ctype = spec.get("type") or spec.get("child_type")
+        inner = yield from self._join_resolver(spec.get("query")
+                                               or {"match_all": {}})
+        hits = yield {"bool": {"must": [inner],
+                               "filter": [{"term": {fm.name: ctype}}]}}
+        pcol = f"{fm.name}#parent"
+        counts: dict[str, int] = {}
+        for h in hits:
+            pid = self._join_parent_of_hit(h["_id"], pcol)
+            if pid is not None:
+                counts[pid] = counts.get(pid, 0) + 1
+        mn = int(spec.get("min_children", 1) or 1)
+        mx = spec.get("max_children")
+        ids = [p for p, c in counts.items()
+               if c >= mn and (mx is None or c <= int(mx))]
+        if not ids:
+            return {"match_none": {}}
+        return {"ids": {"values": sorted(ids)}}
+
+    def _resolve_has_parent(self, spec: dict):
+        """Generator (see `_join_resolver`): the children of the matching
+        parents."""
+        fm = self._join_field("has_parent")
+        ptype = spec.get("parent_type") or spec.get("type")
+        inner = yield from self._join_resolver(spec.get("query")
+                                               or {"match_all": {}})
+        hits = yield {"bool": {"must": [inner],
+                               "filter": [{"term": {fm.name: ptype}}]}}
+        pids = {h["_id"] for h in hits}
+        if not pids:
+            return {"match_none": {}}
+        # the matched parents' children: membership of the parent-id
+        # ordinal column
+        pcol = f"{fm.name}#parent"
+        child_ids: list[str] = []
+        for seg in self.segments:
+            kc = seg.keywords.get(pcol)
+            if kc is None:
+                continue
+            # the matched parents' ordinals (the reference walks every
+            # term of the column; a lookup a parent gives the same set)
+            want = np.asarray(sorted(kc.term_index[p] for p in pids
+                                     if p in kc.term_index), dtype=np.int32)
+            if want.size == 0:
+                continue
+            n = seg.num_docs
+            mask = (self.live[seg.seg_id][:n]
+                    & np.isin(kc.ords[:n], want))
+            child_ids.extend(seg.ids[d] for d in np.nonzero(mask)[0])
+        if not child_ids:
+            return {"match_none": {}}
+        return {"ids": {"values": sorted(child_ids)}}
+
+    def _resolve_parent_id(self, spec: dict) -> dict:
+        fm = self._join_field("parent_id")
+        ctype = spec.get("type")
+        clauses = [{"term": {f"{fm.name}#parent": str(spec.get("id"))}}]
+        if ctype:
+            clauses.append({"term": {fm.name: ctype}})
+        return {"bool": {"filter": clauses}}
+
     # -- search ------------------------------------------------------------
     def search(self, body: dict) -> dict:
         return self.msearch([body])[0]
@@ -311,8 +529,12 @@ class ShardReader:
                 knn_idx.append(i)
                 knn_modes[i] = mode
         knn_set = set(knn_idx)
-        parsed = {i: self._parse_request(bodies[i])
-                  for i in range(n) if i not in knn_set}
+        main_idx = [i for i in range(n) if i not in knn_set]
+        # the join nodes of every request resolved together
+        queries = self._resolve_joins_all([(bodies[i] or {}).get("query")
+                                           for i in main_idx])
+        parsed = {i: self._parse_request(bodies[i], q)
+                  for i, q in zip(main_idx, queries)}
         pend = _PendingMsearch(self, bodies, with_partials, started,
                                knn_idx, parsed)
         pend.deadline = deadline
@@ -381,6 +603,9 @@ class ShardReader:
                 for seg in self.segments:
                     ensure_script_vals(seg, cs.fields, self.device)
             pending = []
+            # nested-scope requests (aggs over the hidden nested rows)
+            # lift the primary-row restriction
+            live_sel = self.live_all if p0["nested_scope"] else self.live
             # streaming write path: a (base, delta) pair serves a
             # fused-admitted plan in ONE dispatch (the delta walk chains
             # onto the base's running top-k); inadmissible plans fall
@@ -390,8 +615,8 @@ class ShardReader:
                     and _pack_dispatch_enabled():
                 b_seg, d_seg = self.segments
                 pack = execute_pack_async(
-                    b_seg, d_seg, self.live[b_seg.seg_id],
-                    self.live[d_seg.seg_id],
+                    b_seg, d_seg, live_sel[b_seg.seg_id],
+                    live_sel[d_seg.seg_id],
                     [bound_per_req[i][0] for i in idxs],
                     [bound_per_req[i][1] for i in idxs], k,
                     agg_desc=agg_desc,
@@ -405,7 +630,7 @@ class ShardReader:
                 for si, seg in enumerate(self.segments):
                     bounds = [bound_per_req[i][si] for i in idxs]
                     pending.append(execute_segment_async(
-                        seg, self.live[seg.seg_id], bounds, k,
+                        seg, live_sel[seg.seg_id], bounds, k,
                         agg_desc=agg_desc, agg_params=agg_params[si],
                         sort_spec=sort_spec, sort_params=sort_maps[si],
                         device=self.device, deadline=deadline,
@@ -587,12 +812,19 @@ class ShardReader:
 
     def _derived_bodies(self, spec: AggSpec, p: dict) -> list[dict]:
         """A derived agg's auxiliary requests, one a bucket (filter,
-        filters, range, date_range, missing, global, top_hits) or the
-        foreground and background of significant_terms."""
+        filters, range, date_range, missing, global, top_hits), the
+        foreground and background of significant_terms, or the one
+        request of a scope shift. Inside a nested scope they stay in it."""
+        if spec.kind in SCOPE_KINDS:
+            return [self._scope_shift_body(spec, p)]
         if spec.kind == "significant_terms":
             base = {"size": 0, "aggs": spec.sub_raw}
-            return [{"query": p["raw_query"] or {"match_all": {}}, **base},
-                    {"query": {"match_all": {}}, **base}]
+            bodies = [{"query": p["raw_query"] or {"match_all": {}}, **base},
+                      {"query": {"match_all": {}}, **base}]
+            if p["nested_scope"]:
+                for b in bodies:
+                    b["_nested_scope"] = p["nested_scope"]
+            return bodies
         bodies = []
         for _key, flt, _extra in spec.buckets:
             if spec.mode == "ignore_query":
@@ -607,8 +839,58 @@ class ShardReader:
                     "_source": spec.top_hits_source}
             if spec.sub_raw:
                 body["aggs"] = spec.sub_raw
+            if p["nested_scope"]:
+                body["_nested_scope"] = p["nested_scope"]
+            if p["reverse_ctx"]:
+                body["_reverse_ctx"] = p["reverse_ctx"]
             bodies.append(body)
         return bodies
+
+    def _scope_shift_body(self, spec: AggSpec, p: dict) -> dict:
+        """The auxiliary request of a scope-shifting agg: nested (the
+        nested rows of `path` whose parent matches the request's query),
+        reverse_nested (back to the parents of the enclosing nested
+        scope), children (a relation's children of the matching
+        parents). Its own derived and sub aggs recurse."""
+        outer = p["raw_query"]
+        if spec.kind == "nested":
+            path = spec.mode.split(":", 1)[1]
+            q = {"bool": {"filter": [
+                {"term": {"_nested_path": path}},
+                {"_parents_match": {"query": outer or {"match_all": {}}}}]}}
+            body = {"query": q, "size": 0, "_nested_scope": path,
+                    "_reverse_ctx": {"path": path, "outer": outer}}
+        elif spec.kind == "reverse_nested":
+            ctx = p.get("reverse_ctx")
+            if not ctx:
+                raise SearchParseError(
+                    "[reverse_nested] must be nested inside a [nested] "
+                    "aggregation")
+            clauses: dict = {"filter": [{"nested": {
+                "path": ctx["path"], "query": {"match_all": {}}}}]}
+            if ctx.get("outer"):
+                clauses["must"] = [ctx["outer"]]
+            body = {"query": {"bool": clauses}, "size": 0}
+        else:  # children
+            ctype = spec.mode.split(":", 1)[1]
+            fm = self._join_field("children")
+            parent_rel = None
+            for parent, kids in (fm.relations or {}).items():
+                kids = kids if isinstance(kids, list) else [kids]
+                if ctype in kids:
+                    parent_rel = parent
+            if parent_rel is None:
+                raise SearchParseError(
+                    f"[children] no relation to type [{ctype}]")
+            q = {"bool": {
+                "must": [{"has_parent": {"parent_type": parent_rel,
+                                         "query": outer or
+                                         {"match_all": {}}}}],
+                "filter": [{"term": {fm.name: ctype}}]}}
+            body = {"query": q, "size": 0}
+        if spec.sub_raw:
+            body["aggs"] = spec.sub_raw
+        return body
 
     def _apply_derived(self, resps: list[dict], ps: list[dict],
                        with_partials: bool) -> None:
@@ -660,7 +942,7 @@ class ShardReader:
                 fg["aggregations"]["__sig_terms"]["buckets"],
                 bg["hits"]["total"],
                 bg["aggregations"]["__sig_terms"]["buckets"])
-        if spec.kind in ("filter", "missing", "global"):
+        if spec.kind in ("filter", "missing", "global", *SCOPE_KINDS):
             return bucket_json(aux[0])
         if spec.kind == "filters":
             return {"buckets": {key: bucket_json(ar)
@@ -886,7 +1168,9 @@ class ShardReader:
         return {s.field: self.global_ords(s.field)
                 for s in specs if s.kind in ("terms", "cardinality")}
 
-    def _parse_request(self, body: dict) -> dict:
+    def _parse_request(self, body: dict, raw_query=None) -> dict:
+        """`raw_query`: the body's query with its join nodes resolved
+        (`_resolve_joins_all`)."""
         body = body or {}
         extra = sorted(set(body) - _REQUEST_KEYS)
         if extra:
@@ -898,7 +1182,10 @@ class ShardReader:
             return (_load_source(seg.sources[local]) if seg is not None
                     else None)
 
-        raw_query = body.get("query")
+        if raw_query is None:
+            raw_query = body.get("query")
+            if raw_query is not None and _has_join_nodes(raw_query):
+                raw_query = self._resolve_joins_all([raw_query])[0]
         query = QueryParser(self.mappers, index_name=self.index_name,
                             doc_lookup=doc_lookup).parse(raw_query)
         all_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
@@ -912,6 +1199,17 @@ class ShardReader:
         if size < 0 or frm < 0:
             raise SearchParseError("[from] and [size] must be >= 0")
         sort_spec = self._parse_sort(body.get("sort"))
+        src = body.get("_source", True)
+        stored_fields = body.get("fields")
+        if isinstance(stored_fields, str):
+            stored_fields = [stored_fields]
+        if stored_fields is not None:
+            # a fields list suppresses _source unless "_source" is listed
+            # (ref: search/fetch/FieldsParseElement)
+            if "_source" in stored_fields:
+                stored_fields = [f for f in stored_fields if f != "_source"]
+            elif "_source" not in body:
+                src = False
         rescore = body.get("rescore")
         if isinstance(rescore, list):
             rescore = rescore[0] if rescore else None
@@ -927,6 +1225,7 @@ class ShardReader:
             }
             if rescore["query"] is None:
                 raise SearchParseError("[rescore] requires [rescore_query]")
+        nested_scope = body.get("_nested_scope")
         static_sig = (
             # precision_threshold keys the plan too (exact counts or the
             # HLL sketch); the percents / values of percentiles apply
@@ -937,11 +1236,12 @@ class ShardReader:
                    s.min_doc_count, s.order, s.precision_threshold,
                    tuple((m.name, m.kind, m.field) for m in s.sub_metrics))
                   for s in agg_specs),
-            sort_spec, frm + size,
+            sort_spec, frm + size, bool(nested_scope),
         )
         return {"query": query, "agg_specs": agg_specs, "size": size,
                 "from": frm, "sort_spec": sort_spec,
-                "source_filter": body.get("_source", True),
+                "source_filter": src,
+                "stored_fields": stored_fields,
                 "static_sig": static_sig,
                 "want_version": bool(body.get("version", False)),
                 "rescore": rescore,
@@ -949,6 +1249,8 @@ class ShardReader:
                     body.get("script_fields")),
                 "derived_specs": derived_specs,
                 "raw_query": raw_query,
+                "nested_scope": nested_scope,
+                "reverse_ctx": body.get("_reverse_ctx"),
                 "dfs_stats": body.get("_dfs_stats")}
 
     def _parse_script_fields(self, spec) -> list:
@@ -1082,6 +1384,26 @@ class ShardReader:
                                          src)
                 if filtered is not None:
                     hit["_source"] = filtered
+            if p["stored_fields"]:
+                # stored fields load from _source (every field is
+                # source-backed; ref: FetchPhase fieldsVisitor)
+                source = _load_source(seg.sources[local_doc])
+                flds = {}
+                for f in p["stored_fields"]:
+                    v = source.get(f)
+                    if v is None and "." in f:
+                        # a dotted path into (nested) objects
+                        cur = source
+                        for part in f.split("."):
+                            cur = (cur.get(part)
+                                   if isinstance(cur, dict) else None)
+                            if cur is None:
+                                break
+                        v = cur
+                    if v is not None:
+                        flds[f] = v if isinstance(v, list) else [v]
+                if flds:
+                    hit["fields"] = flds
             if p["script_fields"]:
                 from ..script import run_field_script
                 sf = hit.setdefault("fields", {})
@@ -1162,6 +1484,18 @@ def filter_source(source: dict, spec) -> dict | None:
         return out
 
     return walk(source, "")
+
+
+_JOIN_NODE_KEYS = ("has_child", "has_parent", "parent_id")
+
+
+def _has_join_nodes(q) -> bool:
+    if isinstance(q, dict):
+        return any(k in _JOIN_NODE_KEYS or _has_join_nodes(v)
+                   for k, v in q.items())
+    if isinstance(q, list):
+        return any(_has_join_nodes(x) for x in q)
+    return False
 
 
 def _load_source(raw: bytes) -> dict:

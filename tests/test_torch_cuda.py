@@ -736,7 +736,8 @@ def test_register_and_spill_report(cuda, tmp_path):
                                  "doc_major_kernel", "scan_points_kernel",
                                  "tree_pair_kernel"),
                 "bucket_stats": ("compact_kernel", "fold_kernel"),
-                "dense_score": ("dense_score_kernel",)}
+                "dense_score": ("dense_score_kernel",),
+                "block_join": ("to_parent_fold_kernel",)}
     import subprocess
     for name, src in cs._SOURCES.items():
         out = subprocess.run(
@@ -1199,14 +1200,15 @@ def test_agg_kernels_flush_subnormals(cuda, seed):
 
 
 def test_agg_kernels_sass_flush(cuda, tmp_path):
-    """The agg reduces are built with -ftz=true: every f32 add, multiply,
-    min / max and compare in their SASS carries .FTZ."""
+    """The agg reduces and the to-parent fold are built with -ftz=true:
+    every f32 add, multiply, min / max and compare in their SASS carries
+    .FTZ."""
     import re
     import shutil
     import subprocess
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     f32_op = re.compile(r"\b(FADD|FMUL|FFMA|FMNMX|FSETP)\b[^;]*;")
-    for name in ("ordered_scan", "bucket_stats"):
+    for name in ("ordered_scan", "bucket_stats", "block_join"):
         lib = tmp_path / f"{name}.so"
         subprocess.run([cs._nvcc(), *cs._NVCC_FLAGS, *cs._SOURCE_FLAGS[name],
                         "-I", str(cs._CSRC), "-o", str(lib),
@@ -1219,6 +1221,102 @@ def test_agg_kernels_sass_flush(cuda, tmp_path):
         plain = [op for op in ops if ".FTZ" not in op]
         print(f"{name}: {len(ops)} f32 ops, {len(plain)} without .FTZ")
         assert not plain, (name, plain[:5])
+
+
+# -- the block join's to-parent fold --------------------------------------
+
+def _block_join_inputs(rng, B, cap, hot, special):
+    """Parents with 0-8 nested rows each, one with `hot` of them; scores
+    of mixed signs and magnitudes (non-dyadic, cancelling sums), with
+    `special` NaNs of both signs and payloads, infinities, signed zeros
+    and subnormals."""
+    parent_of = np.full(cap, -1, np.int32)
+    i = 0
+    while i < cap - 1:
+        k = hot if hot and i == 0 else int(rng.integers(0, 9))
+        k = min(k, cap - 1 - i)
+        parent_of[i:i + k] = i + k
+        i += k + 1
+    target = np.where(parent_of >= 0, parent_of,
+                      np.arange(cap, dtype=np.int32))
+    score = (rng.standard_normal((B, cap))
+             * 10.0 ** rng.integers(-3, 4, (B, cap))).astype(np.float32)
+    if special:
+        at = rng.random((B, cap)) < special
+        score[at] = rng.choice(np.concatenate([_SPECIAL, _SUBNORMALS]),
+                               size=int(at.sum()))
+    ok = (rng.random((B, cap)) < 0.7) & (parent_of >= 0)[None]
+    return target, score, ok
+
+
+@pytest.mark.parametrize("mode", ["none", "sum", "max", "min"])
+@pytest.mark.parametrize("B,cap,hot,special", [
+    (3, 4096, 0, 0.0), (5, 70_003, 4096, 0.0), (4, 65_536, 300, 0.05),
+    (256, 1 << 16, 0, 0.01)])
+def test_to_parent_fold_equals_plain(cuda, mode, B, cap, hot, special):
+    """The to-parent fold kernel against its plain version
+    (ordered.parent_fold), bit for bit: the count and the mode's sum in
+    ascending index order / max / min, on parents with 0-8 nested rows,
+    a hot parent with thousands, a capacity off a multiple of the block,
+    and NaN / +-inf / +-0 / subnormal scores (max / min keep XLA's NaN,
+    -0.0 below +0.0; subnormals flushed)."""
+    rng = np.random.default_rng(B * 31 + cap + hot)
+    target, score, ok = _block_join_inputs(rng, B, cap, hot, special)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    layout = cs.block_join_layout(t(target))
+    before = cs.LAUNCHES["to_parent_fold"]
+    cnt, val = cs.to_parent_fold(t(score), t(ok), layout, mode)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["to_parent_fold"] == before + 1
+    want_cnt, want_val = cs.to_parent_fold_ref(t(score), t(ok), layout, mode)
+    assert _bits_equal(cnt, want_cnt)
+    if mode == "none":
+        assert val is None and want_val is None
+    else:
+        assert _bits_equal(val, want_val), mode
+    # the same fold on the CPU: the plain version's bits there too, but
+    # for the payload of a NaN that an add produced (the card's adds
+    # return the canonical NaN, the CPU's keep the operand's)
+    cpu_cnt, cpu_val = cs.to_parent_fold(torch.from_numpy(score),
+                                         torch.from_numpy(ok),
+                                         cs.block_join_layout(
+                                             torch.from_numpy(target)), mode)
+    assert torch.equal(cnt.cpu(), cpu_cnt)
+    if mode != "none":
+        a, b = val.cpu(), cpu_val
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        if mode == "sum":
+            a, b = torch.where(both_nan, 0.0, a), torch.where(both_nan, 0.0, b)
+        assert _bits_equal(a, b), mode
+
+
+def test_nested_query_on_the_card_equals_cpu(cuda):
+    """A nested index (corpus.qa_nested_docs): every score mode of a
+    nested match, boosted inside a bool, and the nested / reverse_nested
+    aggs answer on the card exactly as on the CPU, through the
+    to_parent_fold kernel."""
+    import copy
+    import json
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    from elasticsearch_tpu_torch.search.shard_searcher import ShardReader
+    svc = MapperService(mapping=corpus.QA_NESTED_MAPPING)
+    b = SegmentBuilder()
+    for did, d in corpus.qa_nested_docs(400, seed=3, hot=((0, 700),)):
+        b.add(svc.parse(did, d))
+    seg = b.build("nested")
+    bodies = [body for mix in corpus.qa_nested_mixes(12, seed=4).values()
+              for body in mix]
+    before = cs.LAUNCHES["to_parent_fold"]
+    outs = []
+    for device in ("cpu", cuda):
+        reader = ShardReader("qa", [copy.copy(seg)], {}, svc, device=device)
+        resps = [reader.search(copy.deepcopy(body)) for body in bodies]
+        outs.append(json.dumps([{k: v for k, v in r.items() if k != "took"}
+                                for r in resps], sort_keys=True))
+    assert cs.LAUNCHES["to_parent_fold"] > before
+    assert outs[0] == outs[1]
 
 
 # -- the breaker's device probe and a node on the card ---------------------

@@ -198,12 +198,19 @@ def test_mixed_dsl_batch(one_shard, monkeypatch, fused):
 def test_derived_kinds_parse_and_unported_raise():
     specs = port_aggs.parse_aggs({f"{n}_{k}": v for n, a in AGGS.items()
                                   for k, v in a.items()})
-    assert {s.kind for s in specs} >= set(port_aggs.DERIVED_KINDS)
-    for kind in ("nested", "geo_bounds", "geohash_grid"):
+    # the scope shifts (nested, reverse_nested, children) need a nested
+    # or join mapping: tests/test_torch_join.py serves them
+    assert {s.kind for s in specs} >= (set(port_aggs.DERIVED_KINDS)
+                                       - set(port_aggs.SCOPE_KINDS))
+    for kind in ("geo_centroid", "geo_bounds", "geohash_grid"):
         with pytest.raises(NotImplementedError):
             port_aggs.parse_aggs({"x": {kind: {"field": "size"}}})
-    # ported since: the device metric aggs and scripted_metric
+    # ported since: the device metric aggs and scripted_metric, and the
+    # scope shifts
     for kind, conf in (("percentiles", {"field": "size"}),
                        ("cardinality", {"field": "status"}),
-                       ("scripted_metric", {"map_script": "1"})):
+                       ("scripted_metric", {"map_script": "1"}),
+                       ("nested", {"path": "comments"}),
+                       ("reverse_nested", {}),
+                       ("children", {"type": "answer"})):
         assert port_aggs.parse_aggs({"x": {kind: conf}})[0].kind == kind

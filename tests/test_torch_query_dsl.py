@@ -361,13 +361,26 @@ def test_expansions_pick_the_reference_terms(built, body):
 
 def test_not_ported_queries_still_raise(built):
     port, ref = _parsers(built)
-    for body in ({"nested": {"path": "x", "query": {"match_all": {}}}},
-                 {"geo_distance": {"distance": "1km", "loc": [0, 0]}},
-                 {"has_child": {"type": "c", "query": {"match_all": {}}}}):
+    for body in ({"geo_distance": {"distance": "1km", "loc": [0, 0]}},
+                 {"geo_bounding_box": {"loc": {"top_left": [0, 1],
+                                               "bottom_right": [1, 0]}}},
+                 {"geo_shape": {"loc": {"shape": {"type": "point",
+                                                  "coordinates": [0, 0]}}}}):
         with pytest.raises(NotImplementedError):
             port.parse(body)
-    # ported since: the script query and script_score parse as the
-    # reference's
+    # ported since: the script query and script_score, nested and
+    # _parents_match parse as the reference's
     for body in ({"script": {"script": "1"}},
-                 {"function_score": {"script_score": {"script": "1"}}}):
+                 {"function_score": {"script_score": {"script": "1"}}},
+                 {"nested": {"path": "x", "score_mode": "max",
+                             "query": {"match_all": {}}}},
+                 {"_parents_match": {"query": {"match_all": {}}}}):
         assert _ast(port.parse(body)) == _ast(ref.parse(body))
+    # the parent / child queries are resolved by the shard searcher
+    # before parsing; a parser alone refuses them as the reference's does
+    body = {"has_child": {"type": "c", "query": {"match_all": {}}}}
+    with pytest.raises(Exception) as p_err:
+        port.parse(body)
+    with pytest.raises(Exception) as r_err:
+        ref.parse(body)
+    assert str(p_err.value) == str(r_err.value)
