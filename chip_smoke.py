@@ -261,7 +261,11 @@ import time
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
-H100_F32_OPS_PER_S = 67e12    # float32 outside the tensor cores
+# the bounds' operations are compares, selects, adds and multiplies, each
+# one instruction of a lane: 132 SMs x 128 f32 lanes x ~1.98 GHz. The data
+# sheet's float32 rate, 67e12, counts a fused multiply-add as two
+# operations, which none of these kernels does
+H100_F32_OPS_PER_S = 33.5e12
 # the positional sweep holds the kernels against their plain versions on
 # the first two batch tiles of rows: the plain positional leaf takes
 # seconds for all 256 rows over 2^20 docs, and the main path's own calls
@@ -2406,14 +2410,19 @@ def plain_run(fn):
     return out, cuda_ms(fn, 1, warmup=0)
 
 
-def dense_bound(tids, qt):
+def dense_bound(tids, qt, share):
+    """Least time of K1: the forward index and the query terms read
+    once, the scores written once, over the HBM rate; and the work this
+    run's data needs, over the instruction rate (_bound): a signature
+    test per (row, doc) pair (four ANDs, three ORs and a compare of the
+    128-bit signatures) and, for the `share` of pairs whose signatures
+    meet (`dense_candidates_ref`), a compare and an add per slot and
+    term and a multiply and an add per term. The other pairs are +0.0
+    without the compares (csrc/dense_score.cu)."""
     cap, L = tids.shape
     B, Q = qt.shape
     nbytes = cap * L * 8 + B * Q * 8 + B * cap * 4
-    ops = B * cap * Q * (2 * L + 2)      # per slot compare+add; per term mul+add
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return _bound(nbytes, B * cap * (8 + share * Q * (2 * L + 2)))
 
 
 def scatter_bound(docs, cap):
@@ -2437,13 +2446,12 @@ def measure_dense(args, reps, old=None):
     if not _same_bits(got, want):
         raise AssertionError(f"dense_score != plain at {args[2].shape}")
     err = float((got - want).abs().nan_to_num().max())
-    bound_ms, bound_by = dense_bound(args[0], args[2])
+    share = float(cs.dense_candidates_ref(*args).float().mean())
+    bound_ms, bound_by = dense_bound(args[0], args[2], share)
     m = {"ms": cuda_ms(lambda: cs.dense_score(*args), reps),
          "plain_ms": plain_ms,
          "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-         "max_abs_err": err,
-         "candidate_share": float(cs.dense_candidates_ref(*args)
-                                  .float().mean())}
+         "max_abs_err": err, "candidate_share": share}
     if old is not None:
         if not _same_bits(old.dense_score(*args), got):
             raise AssertionError("dense_score != the previous dense_score")
@@ -2911,6 +2919,10 @@ def _pos_ops(kind, field, inp, text_cols) -> int:
 
 
 def _bound(nbytes: float, ops: float):
+    """(ms, "bytes" or "operations"): the larger of nbytes over the HBM
+    rate and ops, each a compare, select, add or multiply, over one
+    instruction a lane a clock (H100_F32_OPS_PER_S, 33.5e12; the data
+    sheet's 67e12 counts an FMA as two operations)."""
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -2922,13 +2934,15 @@ def bundle_bound(args, kw):
     some row can match (each read once), the per-row inputs (a knn_vec
     clause's B x cap f32 similarity column among them), and the
     outputs, over the HBM rate,
-    and (b) its work, a compare and an add per slot and term plus a
-    multiply and add per term of each dense clause, 3 ops per range
-    clause, an add per knn_vec clause, a positional clause's decode
-    (_pos_ops), 2 for the combine
+    and (b) its work, per dense clause a compare and an add per slot
+    and term plus a multiply and add per term (a field wider than
+    BUNDLE_SLOTS: a table lookup per slot, shared by a batch tile's
+    BUNDLE_BT rows, and an add, a multiply and an add per term), 3 ops
+    per range clause, an add per knn_vec clause, a positional clause's
+    decode (_pos_ops), 2 for the combine
     and 1 for the selection, for every doc of every (row, tile) that can
-    match, over the f32 rate (integer ops counted at the same rate: the
-    data sheet lists no int32 rate)."""
+    match, over the instruction rate (_bound)."""
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     from elasticsearch_tpu_torch.ops.scoring import (
         DENSE_CLAUSE_KINDS, RANGE_CLAUSE_KINDS, positional_prefix)
     text_cols, num_cols, clauses, cl_inputs, msm, boost, live, can, ub = args
@@ -2948,7 +2962,9 @@ def bundle_bound(args, kw):
     n_vec = sum(kd == "knn_vec" for _r, kd, _f, _w in clauses)
     nbytes = (int(can.any(dim=0).sum()) * tile * doc_bytes + in_row
               + B * J * 5 + B * J * (8 + 8 * ck) + (B * cap if emit else 0))
-    per_doc = (sum(q * (2 * L + 2) for q, L in dense) + 3 * n_range + 2
+    per_doc = (sum(q * (2 * L + 2) if L <= cs.BUNDLE_SLOTS
+                   else L / cs.BUNDLE_BT + 3 * q for q, L in dense)
+               + 3 * n_range + 2
                + n_vec
                + (1 if ck else 0)
                + sum(_pos_ops(kd, f, inp, text_cols)
@@ -3061,8 +3077,8 @@ def measure_bundle(args, kw, reps, rows=None):
     n = sub[4].shape[0]
     nt = n_tiles if step is None else step[0]
     chunk = cs.bundle_chunk_tiles(B, nt, cs.bundle_positional(clauses))
-    design = k3_design(clauses, cl_inputs, B, nt, live.shape[0] // n_tiles,
-                       chunk)
+    design = k3_design(text, clauses, cl_inputs, B, nt,
+                       live.shape[0] // n_tiles, chunk)
     want, plain_ms = plain_run(lambda: run(
         cs.bundle_walk_ref, sub, None if thr is None else thr[:n],
         chunk_tiles=chunk))
@@ -3084,6 +3100,7 @@ def measure_bundle(args, kw, reps, rows=None):
     return {"hits": int(got[2].sum()), "launches_per_walk": launches,
             "design": design,
             "thresholded_tiles": float(cs.normalize_prune(got[3])[1]),
+            "prune": [float(x) for x in cs.normalize_prune(got[3])],
             "ms": cuda_ms(lambda: run(cs.bundle_walk, args, thr), reps),
             "plain_ms": plain_ms, "plain_rows": n,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3091,40 +3108,45 @@ def measure_bundle(args, kw, reps, rows=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _k3_occupancy(tile: int, pw: int, chunk: int, n_pos: int):
+def _k3_occupancy(tile: int, pw: int, chunk: int, n_pos: int, n_wide: int):
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
-    return cs.bundle_occupancy(tile, pw, chunk, n_pos)
+    return cs.bundle_occupancy(tile, pw, chunk, n_pos, n_wide)
 
 
-def k3_design(clauses, cl_inputs, B: int, nt: int, tile: int, chunk: int
-              ) -> dict:
+def k3_design(text_cols, clauses, cl_inputs, B: int, nt: int, tile: int,
+              chunk: int) -> dict:
     """A K3 launch over nt tiles as its entry sizes it: sub-chunk tiles,
     work items (batch tiles x sub-chunks, one CTA each), candidate
-    buffers, dynamic shared memory and the CTAs an SM holds."""
+    buffers, wide clauses' term tables, dynamic shared memory and the
+    CTAs an SM holds."""
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     pp, offsets = cs._pos_param_rows(clauses, cl_inputs, B)
     pw = 0 if pp is None else pp.shape[1]
     n_pos = sum(o is not None for o in offsets)
-    smem, per_sm = _k3_occupancy(tile, pw, chunk, n_pos)
+    n_wide = cs.bundle_wide_tables(text_cols, clauses, cl_inputs)
+    smem, per_sm = _k3_occupancy(tile, pw, chunk, n_pos, n_wide)
     return {"chunk_tiles": chunk,
             "items": -(-B // cs.BUNDLE_BT) * -(-nt // chunk),
-            "cand_buffers": 1 if n_pos else 2, "smem": smem,
-            "ctas_per_sm": per_sm}
+            "cand_buffers": 1 if n_pos else 2, "wide_tables": n_wide,
+            "smem": smem, "ctas_per_sm": per_sm}
 
 
 def k3_ptxas() -> dict:
     """ptxas' report of K3's walk from the verbose build, per build of
-    bundle_topk_kernel (dense: no positional clause; positional):
-    registers, stack frame and spill bytes."""
+    bundle_topk_kernel (dense: no positional clause; positional; each
+    "+ wide" with step 7's tables): registers, stack frame and spill
+    bytes."""
     import re
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     lines = cs.BUILD_LOG.get("bundle_topk", "").splitlines()
     out = {}
     for i, ln in enumerate(lines):
-        if "Function properties for" not in ln or \
-                "bundle_topk_kernel" not in ln:
+        m = re.search(r"bundle_topk_kernelILb([01])ELb([01])E", ln)
+        if "Function properties for" not in ln or m is None:
             continue
-        rep = out.setdefault("positional" if "ILb1E" in ln else "dense", {})
+        name = ("positional" if m.group(1) == "1" else "dense") \
+            + (" + wide" if m.group(2) == "1" else "")
+        rep = out.setdefault(name, {})
         rep.update({k.replace(" ", "_"): int(v) for v, k in re.findall(
             r"(\d+) bytes (stack frame|spill stores|spill loads)",
             " ".join(lines[i + 1:i + 2]))})
@@ -3161,28 +3183,29 @@ def _walk_kw(kw):
                                           "emit_match")}
 
 
-def k3_ab(args, kw, old, reps: int = 10, same_counts: bool = True
-          ) -> dict:
-    """The previous K3 (`old`, its own schedule) against this one on one
-    walk in any launch form, timed in turns (new, old, old, new) on the
-    same inputs: both count every tile's matches alike (the counts, the
-    mask and the thresholded tiles are reported; candidates of
-    thresholded tiles depend on each one's schedule). With same_counts
-    False (a probe that reads other data) the hits of each are reported
-    instead."""
+def k3_ab(args, kw, old, reps: int = 10, same_counts: bool = True,
+          new=None) -> dict:
+    """The previous K3 (`old`, its own schedule) against this one (or
+    `new`'s, another loaded copy of the ops) on one walk in any launch
+    form, timed in turns (new, old, old, new) on the same inputs: both
+    count every tile's matches alike (the counts, the mask and the
+    thresholded tiles are reported; candidates of thresholded tiles
+    depend on each one's schedule). With same_counts False (a probe that
+    reads other data) the hits of each are reported instead."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     step, thr, kw = _walk_kw(kw)
+    new = cs if new is None else new
 
     def run(mod):
         return mod.bundle_walk_steps(mod.bundle_walk, *args, step=step,
                                      thr_init=thr, **kw)
 
-    got, want = run(cs), run(old)
+    got, want = run(new), run(old)
     if same_counts and (not torch.equal(got[2], want[2]) or (
             got[4] is not None and not torch.equal(got[4], want[4]))):
         raise AssertionError("K3 and the previous K3 count differently")
-    return {**ab_turns(lambda: run(cs), lambda: run(old), reps),
+    return {**ab_turns(lambda: run(new), lambda: run(old), reps),
             "hits": {"new": int(got[2].sum()), "previous": int(want[2].sum())},
             "thresholded_tiles": {
                 "new": float(cs.normalize_prune(got[3])[1]),
@@ -3556,7 +3579,11 @@ def kernel_sweep(dev, rng, old=None) -> tuple[list[dict], float]:
     torch.cuda.empty_cache()
     b_rows, b_worst, inputs = bundle_sweep(dev, rng, old=old)
     f_rows, f_worst = form_sweep(dev, rng, inputs, old=old)
-    return rows + b_rows + f_rows, max(worst, b_worst, f_worst)
+    del inputs
+    torch.cuda.empty_cache()
+    h_rows, h_worst = hybrid_sweep(dev, rng, old=old)
+    return (rows + b_rows + f_rows + h_rows,
+            max(worst, b_worst, f_worst, h_worst))
 
 
 def capture_first_calls():
@@ -4022,25 +4049,157 @@ def measure_column(readers, queries, dev, B: int = 128) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def measure_vec_forms(seen) -> dict:
+def measure_vec_forms(seen, old=None) -> dict:
     """K3 with the hybrid path's knn_vec walk, held against its plain
     version in its three launch forms: single, stepped (8 launches, the
     threshold carried) and seeded (opened at the single walk's final
-    threshold)."""
+    threshold). The single form also reports the same walk at ck 0
+    (`ck0_ms`: the count alone, no selection). With the previous
+    commit's ops (`old`), each form is timed in turns with its K3."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     args, kw = seen["walk"]
     base = {k: kw[k] for k in ("ck", "update_thr", "emit_match")}
-    out = {"single": measure_bundle(args, base, reps=10)}
     n_tiles = args[7].shape[1]
-    out["stepped"] = measure_bundle(
-        args, {**base, "step": (-(-n_tiles // FORM_CHUNKS), None,
-                                _never_late)}, reps=5)
     thr = cs.bundle_walk(*args, **base)[5]
     torch.cuda.synchronize()
-    seed = thr if thr is not None else None
-    out["seeded"] = measure_bundle(args, {**base, "thr_init": seed}, reps=10)
+    forms = {"single": (base, 10),
+             "stepped": ({**base, "step": (-(-n_tiles // FORM_CHUNKS), None,
+                                           _never_late)}, 5),
+             "seeded": ({**base, "thr_init": thr}, 10)}
+    out = {}
+    for form, (fkw, reps) in forms.items():
+        out[form] = measure_bundle(args, fkw, reps=reps)
+        if old is not None:
+            out[form]["ab"] = k3_ab(args, fkw, old)
+    out["single"]["ck0_ms"] = cuda_ms(lambda: cs.bundle_walk(
+        *args, ck=0, update_thr=False, emit_match=base["emit_match"]), 10)
+    out["single"]["signature_shares"] = signature_shares(args)
     return out
+
+
+def signature_shares(args) -> list:
+    """What K1's term signatures (`dense_candidates_ref`) would leave
+    K3's dense clauses on wide fields to do in this walk: per clause, the
+    share of (row, doc) pairs whose signatures meet, of (item, doc) pairs
+    where some row of the item's BUNDLE_BT does (the doc's forward row
+    must be read), and of (item, 32-doc chunk) pairs where some pair
+    does (the warp walks the chunk)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import cuda_scoring as cs
+    from elasticsearch_tpu_torch.ops.scoring import DENSE_CLAUSE_KINDS
+    text, clauses, cl_inputs = args[0], args[2], args[3]
+    out = []
+    for (_r, kd, f, _w), inp in zip(clauses, cl_inputs):
+        if kd not in DENSE_CLAUSE_KINDS or \
+                text[f]["fwd_tids"].shape[1] <= cs.BUNDLE_SLOTS:
+            continue
+        tids, imps = text[f]["fwd_tids"], text[f]["fwd_imps"]
+        hit = cs.dense_candidates_ref(tids, imps, inp[0], inp[1])
+        B, cap = hit.shape
+        pad = -B % cs.BUNDLE_BT
+        item = torch.cat([hit, hit.new_zeros((pad, cap))]).view(
+            -1, cs.BUNDLE_BT, cap).any(1)
+        chunk = item[:, :cap - cap % 32].reshape(item.shape[0], -1, 32)
+        out.append({"field": f, "L": tids.shape[1],
+                    "pair": float(hit.float().mean()),
+                    "item_doc": float(item.float().mean()),
+                    "item_chunk": float(chunk.any(2).float().mean())})
+    return out
+
+
+def hybrid_walk(dev, rng, B: int = 128, cap: int = VEC_DOCS) -> tuple:
+    """A stand-in for path (t)'s hybrid walk, made in seconds: B rows of
+    should[`match` on a passage field, knn_vec] over cap docs, k 10.
+    Each doc holds 20-60 tokens drawn from corpus.vocab() by
+    corpus.zipf_weights, its distinct terms ascending in 64 slots (-1
+    past them) with BM25 impacts (k1 1.2, b 0.75); each row 1-3 distinct
+    head terms (the vocabulary's first eighth, Zipf) padded to 4, idf
+    weights; the similarity column N(0, 0.06) but for 512 docs a row
+    near the query (0.85-0.99), every doc with a vector. Returns the
+    walk's (args, kw) as `capture_vec_walk` records them."""
+    import torch
+    from elasticsearch_tpu_torch import corpus
+    from elasticsearch_tpu_torch.ops.scoring import (bundle_tile_bounds,
+                                                     slack_bound)
+    n_terms, L, most = len(corpus.vocab()), 64, 60
+    lens = rng.integers(20, most + 1, size=cap)
+    toks = rng.choice(n_terms, size=(cap, most),
+                      p=corpus.zipf_weights(n_terms)).astype(np.int32)
+    toks[np.arange(most)[None, :] >= lens[:, None]] = n_terms
+    toks.sort(axis=1)
+    first = np.ones_like(toks, dtype=bool)
+    first[:, 1:] = toks[:, 1:] != toks[:, :-1]
+    col = np.broadcast_to(np.arange(most), toks.shape)
+    nxt = np.where(first, col, most)
+    nxt = np.minimum.accumulate(nxt[:, ::-1], axis=1)[:, ::-1]
+    nxt = np.concatenate([nxt[:, 1:], np.full((cap, 1), most)], axis=1)
+    tf = (np.minimum(nxt, lens[:, None]) - col).astype(np.float32)
+    keep = first & (toks < n_terms)
+    order = np.argsort(~keep, axis=1, kind="stable")
+    kept = np.take_along_axis(keep, order, axis=1)
+    tids = np.full((cap, L), -1, np.int32)
+    tids[:, :most] = np.where(kept, np.take_along_axis(toks, order, axis=1),
+                              -1)
+    tf = np.where(kept, np.take_along_axis(tf, order, axis=1), 0.0)
+    norm = np.float32(1.2) * (np.float32(0.25) + np.float32(0.75) * (
+        lens / lens.mean()).astype(np.float32))[:, None]
+    imps = np.zeros((cap, L), np.float32)
+    imps[:, :most] = np.where(kept, tf * np.float32(2.2) / (tf + norm), 0.0)
+    df = np.bincount(tids[tids >= 0], minlength=n_terms)
+    n_head = max(n_terms // 8, 30)
+    qt = np.full((B, 4), -1, np.int32)
+    for b in range(B):
+        n = int(rng.integers(1, 4))
+        qt[b, :n] = rng.choice(n_head, size=n, replace=False,
+                               p=corpus.zipf_weights(n_head))
+    idf = np.log1p((cap - df + 0.5) / (df + 0.5)).astype(np.float32)
+    wq = np.where(qt >= 0, idf[np.maximum(qt, 0)], 0.0).astype(np.float32)
+    sim = (rng.standard_normal((B, cap)) * 0.06).astype(np.float32)
+    for b in range(B):
+        sim[b, rng.choice(cap, size=512, replace=False)] = rng.uniform(
+            0.85, 0.99, size=512).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    # build_tile_max's per-(term, tile) max, on the card
+    tile = 1024
+    t_tids, t_imps = t(tids), t(imps)
+    ok = t_tids >= 0
+    at = (t_tids.to(torch.int64) * (cap // tile)
+          + (torch.arange(cap, device=dev) // tile)[:, None])[ok]
+    tile_max = torch.zeros(n_terms * (cap // tile), device=dev)
+    tile_max.scatter_reduce_(0, at, t_imps[ok], reduce="amax")
+    text = {"passage": {"fwd_tids": t_tids, "fwd_imps": t_imps,
+                        "tile_max": tile_max.reshape(n_terms, -1)}}
+    exists = torch.ones(cap, dtype=torch.bool, device=dev)
+    col_t = t(sim)
+    ub = slack_bound(col_t.reshape(B, cap // tile, tile).amax(dim=2))
+    clauses = (("should", "terms_dense", "passage", False),
+               ("should", "knn_vec", "embedding", False))
+    cl = ((t(qt), t(wq), t(np.ones(B, np.int32)),
+           t(np.ones(B, np.float32))), (col_t, exists, ub))
+    msm = t(np.ones(B, np.int32))
+    boost = t(np.ones(B, np.float32))
+    can, bound = bundle_tile_bounds(clauses, cl, text, {}, msm, boost)
+    args = (text, {}, clauses, cl, msm, boost, exists, can, bound)
+    return args, {"ck": 10, "update_thr": True, "emit_match": False}
+
+
+def hybrid_sweep(dev, rng, old=None) -> tuple[list[dict], float]:
+    """K3's three launch forms on `hybrid_walk`'s synthetic hybrid walk
+    (B 128 over 2^19 docs, a passage field of 64 slots), each held
+    against its plain version, with the previous K3 in turns where
+    `old` is given."""
+    args, kw = hybrid_walk(dev, rng)
+    forms = measure_vec_forms({"walk": (args, kw)}, old=old)
+    rows, worst = [], 0.0
+    for form, m in forms.items():
+        worst = max(worst, m["max_abs_err"])
+        rows.append({"kernel": f"bundle_topk {form}",
+                     "bundle": "hybrid (synthetic): match L 64 + knn_vec",
+                     "B": args[4].shape[0], "cap": args[6].shape[0],
+                     "k": kw["ck"], "ptxas": k3_ptxas(), **m})
+        log("kernel_forms " + json.dumps(rows[-1]))
+    return rows, worst
 
 
 def small_vector_check(n_docs: int, dev, sync) -> dict:
@@ -4168,12 +4327,13 @@ def vector_small_checks(args, dev, sync, on_card=True,
 
 def vector_phase(args, dev, sync, out_dir=None, on_card=True,
                  build=None, n: int = VEC_DOCS, nd: int = VEC_DELTA_DOCS,
-                 D: int = VEC_DIMS, small=None) -> tuple:
+                 D: int = VEC_DIMS, small=None, old=None) -> tuple:
     """Path (t): dense vectors, hybrid bundles and rescore over 2 shards
     of n passages (D dims) with a delta of nd each. `build` is
     `start_passage_build`'s handle (None: build here); `small` is
     `vector_small_checks`' result where they ran before (None: they run
-    first here, while the passages build). Returns (the report, the
+    first here, while the passages build); `old` the previous commit's
+    ops (--ab-parent), whose K3 the knn_vec forms are timed against. Returns (the report, the
     kernels line's knn_vec entry or None off the card)."""
     from elasticsearch_tpu_torch import corpus
     from elasticsearch_tpu_torch.index import ann
@@ -4277,7 +4437,7 @@ def vector_phase(args, dev, sync, out_dir=None, on_card=True,
         report["column"] = measure_column(readers, queries, dev)
         log("similarity column: " + json.dumps(
             {**report["column"], "gpu": gpu_line()}))
-        forms = measure_vec_forms(seen)
+        forms = measure_vec_forms(seen, old=old)
         report["knn_vec_forms"] = forms
         args_w, kw_w = seen["walk"]
         call = {"mix": "hybrid", "B": args_w[4].shape[0], "ck": kw_w["ck"],
@@ -4383,7 +4543,7 @@ def run_dsl_path(readers, mixes, sync, on_card: bool) -> tuple:
             stats[name]["device_busy_ms"] = busy
             stats[name]["device_idle_share"] = max(
                 0.0, 1.0 - busy / stats[name]["p50_ms"])
-    launches = dict(cs.LAUNCHES)
+    launches = _read_counts()
     if on_card:
         torch.cuda.synchronize()
     return stats, last, launches
@@ -4864,21 +5024,23 @@ def fold_layout_stats(layout) -> dict:
     return {"hottest": int(n.max()), "parents_with_rows": int((n > 1).sum())}
 
 
-def parent_fold_bound(score, ok, mode):
-    """Least time of to_parent_fold: the scores and flags read once, the
-    index lists once, the counts (and the mode's values) written once,
-    over the memory's rate."""
+def parent_fold_bound(score, ok, layout, mode):
+    """Least time of to_parent_fold: the flags read once, the scores
+    once where the mode has a value, the lists' starts once, the counts
+    (and the mode's values) written once, over the memory's rate."""
     B, cap = ok.shape
-    nbytes = B * cap * (4 + 1 + 4 + (4 if mode != "none" else 0)) \
-        + cap * 8
+    value = mode != "none"
+    nbytes = B * cap * (1 + 4 + (8 if value else 0)) + cap * 4
     return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
 
 
-def measure_parent_fold(score, ok, layout, mode, reps):
+def measure_parent_fold(score, ok, layout, mode, reps, old=None):
     """The to-parent fold kernel vs its plain version, bit for bit (the
     count and the mode's value); library: index_add_ of the flags and of
     the masked scores and two scatter_reduce_ (amax, amin) on the same
-    inputs (atomics: the same function, in no fixed order)."""
+    inputs (atomics: the same function, in no fixed order). With the
+    previous commit's ops (`old`), its fold in turns with this one
+    (outputs equal)."""
     import torch
     from elasticsearch_tpu_torch.ops import cuda_scoring as cs
     got = cs.to_parent_fold(score, ok, layout, mode)
@@ -4905,8 +5067,20 @@ def measure_parent_fold(score, ok, layout, mode, reps):
                                          reduce=how, include_self=True))
         return out
 
-    bound_ms, bound_by = parent_fold_bound(score, ok, mode)
-    return {"mode": mode, "B": B, "cap": cap,
+    bound_ms, bound_by = parent_fold_bound(score, ok, layout, mode)
+    ab = {}
+    if old is not None:
+        # the previous commit's fold on its own layout of the same target
+        old_layout = old.block_join_layout(layout["target"])
+        prev = old.to_parent_fold(score, ok, old_layout, mode)
+        if not all((g is None and p is None) or _same_bits(g, p)
+                   for g, p in zip(got, prev)):
+            raise AssertionError(f"to_parent_fold ({mode}) != the previous "
+                                 f"fold at {tuple(ok.shape)}")
+        ab["ab"] = ab_turns(
+            lambda: cs.to_parent_fold(score, ok, layout, mode),
+            lambda: old.to_parent_fold(score, ok, old_layout, mode), reps)
+    return {"mode": mode, "B": B, "cap": cap, **ab,
             "ms": cuda_ms(lambda: cs.to_parent_fold(score, ok, layout, mode),
                           reps),
             "plain_ms": plain_ms,
@@ -5170,18 +5344,21 @@ def join_phase(args, dev, sync, side: dict, waits: dict,
     return report, launches, (seen, segs[0])
 
 
-def join_kernels(report: dict, launches: dict, kern_in, dev) -> dict:
+def join_kernels(report: dict, launches: dict, kern_in, dev,
+                 old=None) -> dict:
     """The to-parent fold on path (w)'s own first call of each score mode
     (`join_phase`'s captures), then a sweep row: JOIN_SWEEP_B rows over
     the nested shard's layout (its hottest parent over 4,096 rows), random
     scores of both signs, 70% of the nested rows matched; each
     `torch.equal` to its plain version, timed beside its bound and the
-    library's scatters. Adds `folds` and `sweep` to the path's report;
+    library's scatters; with the previous commit's ops (`old`), each in
+    turns with its fold. Adds `folds` and `sweep` to the path's report;
     returns the kernels line's entry."""
     import torch
     from elasticsearch_tpu_torch.search import executor
     seen, seg = kern_in
-    folds = {mode: measure_parent_fold(score, ok, layout, mode, reps=20)
+    folds = {mode: measure_parent_fold(score, ok, layout, mode, reps=20,
+                                       old=old)
              for mode, (score, ok, layout, _m) in sorted(seen.items())}
     seen.clear()
     nest = executor.device_arrays(seg, dev)["nested"]
@@ -5190,8 +5367,8 @@ def join_kernels(report: dict, launches: dict, kern_in, dev) -> dict:
                         generator=g)
     ok = (torch.rand((JOIN_SWEEP_B, seg.capacity), device=dev, generator=g)
           < 0.7) & nest["is_child"][None, :]
-    sweep = {m: measure_parent_fold(score, ok, nest, m, reps=10)
-             for m in ("sum", "max")}
+    sweep = {m: measure_parent_fold(score, ok, nest, m, reps=10, old=old)
+             for m in ("none", "sum", "max", "min")}
     if sweep["sum"]["hottest"] <= 4096:
         raise AssertionError(f"join sweep: hottest list "
                              f"{sweep['sum']['hottest']} <= 4096")
@@ -5273,7 +5450,7 @@ def on_card(args) -> int:
     if args.vectors_only:
         vectors, vec_entry = vector_phase(
             args, dev, torch.cuda.synchronize, args.out_dir,
-            build=start_passage_build())
+            build=start_passage_build(), old=old)
         log("vectors: " + json.dumps({k: vectors[k] for k in (
             "setup", "recall", "small", "node", "laps", "seconds",
             "gpu")}))
@@ -5301,7 +5478,7 @@ def on_card(args) -> int:
         joins, launches, kern_in = join_phase(args, dev,
                                               torch.cuda.synchronize, side,
                                               {})
-        entry = join_kernels(joins, launches, kern_in, dev)
+        entry = join_kernels(joins, launches, kern_in, dev, old=old)
         side["pool"].terminate()
         side["pool"].join()
         log("to_parent_fold kernel: " + json.dumps(entry))
@@ -5728,12 +5905,14 @@ def on_card(args) -> int:
     lap("window_workers")
     # the to-parent fold timed on the card alone, once the workers that
     # shared it have ended; it has an entry of its own in the kernels line
-    kernels.append(join_kernels(joins, join_launches, join_in, dev))
+    kernels.append(join_kernels(joins, join_launches, join_in, dev,
+                                old=old))
     lap("join_kernels")
     torch.set_num_threads(main_threads)
     # path (t): vectors, hybrid bundles and rescore
     vectors, vec_entry = vector_phase(args, dev, sync, out_dir,
-                                      build=vec_build, small=vec_small)
+                                      build=vec_build, small=vec_small,
+                                      old=old)
     kernels.append(vec_entry)
     lap("vectors")
     log("vectors: " + json.dumps({k: vectors[k] for k in (

@@ -114,8 +114,9 @@
 //      faster, so those loads are not what it waits on; served so, the
 //      positional leaf gains some (tools/k3_variants.py; PERF.md,
 //      Findings).
-//   4. Registers and shared memory. The kernel is built twice: without a
-//      positional clause (the leaf compiled out) and with one; both fit
+//   4. Registers and shared memory. The kernel is built without a
+//      positional clause (the leaf compiled out) and with one, each
+//      without and with step 7's wide tables; all fit
 //      __launch_bounds__(256, 2), at most 128 registers, with no spill
 //      (the leaf runs first for the doc with little else live, its
 //      cursors take three registers, its divisions are a correctly
@@ -142,8 +143,33 @@
 //      bounds may be negative (dot_product): thresholds start at -inf
 //      and candidates are ordered by the order-preserving key, so
 //      nothing here assumes a sign.
+//   7. Wide fields (L > kSlots: the passages' 64 slots of the hybrid
+//      bundle). Step 3's compares cost qm x L x kBT predicated adds per
+//      doc, and the row was re-read once per query term; at L 64 that
+//      was most of the hybrid walk. Now the item builds, once, a table
+//      per kWideQ query terms of its kBT rows (kPairs (row, term) pairs;
+//      warp 1, a lane a pair): each distinct term gets an entry of its
+//      own among kTab (the first multiplier under which the terms'
+//      entries differ, found with __match_any_sync), holding the term
+//      and its key index. A doc reads its row once per table: each
+//      slot's term is looked up with one load and, where it is a key,
+//      its impact added, in slot order, to that key's hit in shared
+//      memory [kPairs][kThreads]; then s_leaf += hit(the pair's key) *
+//      wq in term order. Each pair's hit is so the plain walk's fold
+//      over the slots holding its term, bit for bit (a slot of another
+//      term adds +0.0 there, leaving a hit that is never -0.0
+//      unchanged), whatever the weights, ids or impacts: nothing is
+//      filtered. A first build with open addressing (a probe loop and a
+//      bit per pair, added pair by pair) ran 1.4x faster than the
+//      compares: its loops diverged across a warp's 32 docs (PERF.md). The padded slots (id -1, a passage's
+//      tail) would hit the padded query terms of every row; their
+//      impacts are +-0.0, whose adds change no hit, so they are looked
+//      up only in a second pass, for a doc with a padded slot of another
+//      impact. The table mirror in plain torch is
+//      cuda_scoring.dense_table_hits_ref.
 // tools/k3_variants.py times steps 2, 3 and 5 undone, each in a patched
-// copy of the port's ops.
+// copy of the port's ops, and the hybrid walk without its dense terms or
+// its column read.
 
 #include <algorithm>
 
@@ -189,8 +215,10 @@ struct BundleArgs {
   float* thr_out;       // [B, n_sub] final threshold per sub-chunk, or null
   int t0, nt;           // the launch walks tiles [t0, t0 + nt)
   // set by the entry on its copy of the arguments: positional clauses,
-  // sub-chunks of the span
-  int n_pos, n_sub;
+  // sub-chunks of the span, the wide dense clauses' term tables and, by
+  // dense slot, a wide clause's first table
+  int n_pos, n_sub, n_wide;
+  int wide_tab[8];
   // vector clauses, by the clause's slot: the similarity column [B, cap]
   // (boost folded in) and the field's exists mask [cap]
   const float* vcol[8];
@@ -226,9 +254,24 @@ constexpr int kMust = 0, kFilter = 1, kMustNot = 2;  // else should (3)
 constexpr int kDense = 0, kRangeInt = 1;
 constexpr int kVec = 8;           // cuda_scoring._VEC_KIND
 constexpr int kStealCk = 32;      // ck above which warps steal doc chunks
+// a wide dense clause (L > kSlots): its terms in tables of kWideQ terms of
+// every row of the item, kPairs (row, term) pairs; a table maps each of
+// its distinct terms to an entry of its own among kTab (a perfect hash:
+// the multiplier found when the table is built), the entry holding the
+// term and its key index (the first pair holding it; -1: empty)
+constexpr int kWideQ = 4;
+constexpr int kPairs = kBT * kWideQ;
+constexpr int kTabBits = 8;
+constexpr int kTab = 1 << kTabBits;
+constexpr int kMeta = kPairs + 2;   // per table: each pair's key, mult, keys
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float sel(bool m, float v) { return m ? v : 0.0f; }
+
+// a term's entry in a wide clause's table
+__device__ __forceinline__ unsigned tab_entry(int t, unsigned mult) {
+  return (static_cast<unsigned>(t) * mult) >> (32 - kTabBits);
+}
 
 // a positional clause kind (the leaf's kinds, posleaf::kPhraseExact ..
 // kBm25f)
@@ -403,15 +446,45 @@ __device__ __forceinline__ void load_slots(const int* tp, const float* vp,
   }
 }
 
+// The wide tables' part of the walk's dynamic shared memory (bundle_smem):
+// the hits [kPairs][kThreads] f32, the tables [n_wide][kTab] int2 and
+// their keys [n_wide][kMeta] i32, after the candidate buffers, the
+// positional parameter rows and the leaf slots.
+struct WideSmem {
+  float* hit;
+  int2* tab;
+  int* meta;
+};
+
+__host__ __device__ __forceinline__ int wide_ints(int n_wide) {
+  return n_wide > 0 ? kPairs * kThreads + n_wide * (2 * kTab + kMeta) : 0;
+}
+
+__device__ __forceinline__ WideSmem wide_smem(unsigned char* dyn,
+                                              const BundleArgs& a, int n_pos,
+                                              int bufs) {
+  float* hit = reinterpret_cast<float*>(
+      dyn + bufs * kBT * (sizeof(float) * a.tile + sizeof(unsigned) * 32) +
+      sizeof(int) * kBT * a.pw +
+      n_pos * (sizeof(float) * kBT + sizeof(int)) * kThreads);
+  int2* tab = reinterpret_cast<int2*>(hit + kPairs * kThreads);
+  return {hit, tab, reinterpret_cast<int*>(tab + a.n_wide * kTab)};
+}
+
 // kPos: the bundle has positional clauses (pw > 0). Without them the
-// leaf is compiled out and the dense walk keeps its registers.
-template <bool kPos>
+// leaf is compiled out and the dense walk keeps its registers. kWide: it
+// has a dense clause on a wide field (n_wide > 0); without one, step 7's
+// tables are compiled out and the walk is step 3's alone.
+template <bool kPos, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
 bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
   // dynamic (bundle_smem): cand [kBufs][kBT][tile] f32, pp [kBT][pw] i32,
   // per positional clause its leaf scores [kBT][kThreads] f32 and match
-  // bits [kThreads] i32, then per tile of the sub-chunk the active list
-  // i32, the rows' bounds [kBT] f32 and the rows that can match u8
+  // bits [kThreads] i32, with wide dense clauses the hits [kPairs]
+  // [kThreads] f32, the term tables [n_wide][kTab] int2 and their keys
+  // [n_wide][kMeta] i32, then per tile
+  // of the sub-chunk the active list i32, the rows' bounds [kBT] f32 and
+  // the rows that can match u8
   extern __shared__ __align__(16) unsigned char s_dyn[];
   // per-row parameters in pairs (f32 as bits), one 8-byte load a pair:
   // (query term, its weight), (msm_c, boost_c), (lo, hi), (msm, boost)
@@ -440,7 +513,10 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
   int* s_pp = reinterpret_cast<int*>(s_mask + kBufs * kBT * 32);
   float* s_ps = reinterpret_cast<float*>(s_pp + kBT * a.pw);
   int* s_pm = reinterpret_cast<int*>(s_ps + n_pos * kBT * kThreads);
-  int* s_act = s_pm + n_pos * kThreads;
+  // the wide tables (located again where used: wide_smem, not held in
+  // registers across the walk), then the sub-chunk's lists
+  int* s_act = reinterpret_cast<int*>(s_pm + n_pos * kThreads) +
+               wide_ints(a.n_wide);
   float* s_ub = reinterpret_cast<float*>(s_act + a.chunk_tiles);
   unsigned char* s_bits =
       reinterpret_cast<unsigned char*>(s_ub + kBT * a.chunk_tiles);
@@ -516,6 +592,10 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
     s_thr[1][tid] = a.thr_in != nullptr ? a.thr_in[b] : -INFINITY;
   }
   if (tid < 2) s_next[tid] = 0;
+  if (kWide) {
+    for (int i = tid; i < a.n_wide * kTab; i += kThreads)
+      wide_smem(s_dyn, a, n_pos, kBufs).tab[i] = make_int2(0, -1);
+  }
   // per tile of the sub-chunk: the rows that can match, their bounds
   for (int i = tid; i < len; i += kThreads) {
     unsigned bits = 0u;
@@ -544,6 +624,38 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
       n += __popc(act);
     }
     if (lane == 0) s_nact = n;
+  } else if (kWide && warp == 1) {
+    // warp 1 builds the wide tables, lane j for pair j = r * kWideQ + qq
+    // (term h * kWideQ + qq of row r; rows past B: the last row's copies)
+    const WideSmem ws = wide_smem(s_dyn, a, n_pos, kBufs);
+    int slot = 0;   // the wide clause whose tables hold w (ascending)
+    for (int w = 0; w < a.n_wide; ++w) {
+      for (int s2 = 0; s2 < a.n_dense; ++s2)
+        if (a.wide_tab[s2] >= 0 && a.wide_tab[s2] <= w) slot = s2;
+      const int h = w - a.wide_tab[slot];
+      const int r = lane / kWideQ, q = h * kWideQ + lane % kWideQ;
+      const bool valid = q < qm;
+      const int key = valid ? s_qw[r][slot * qm + q].x : 0;
+      // a key's index: the first pair holding it
+      const unsigned same = __match_any_sync(
+          kFull, (static_cast<unsigned long long>(valid) << 32) |
+                     static_cast<unsigned>(key));
+      const bool first = valid && __ffs(same) - 1 == lane;
+      // the first multiplier that gives every key an entry of its own
+      unsigned mult = 0x9E3779B1u;
+      for (;; mult += 0x6A09E666u) {
+        const unsigned e = first ? tab_entry(key, mult) : kTab + lane;
+        const unsigned clash = __match_any_sync(kFull, e);
+        if (!__any_sync(kFull, first && __popc(clash) > 1)) break;
+      }
+      if (first) ws.tab[w * kTab + tab_entry(key, mult)] = make_int2(key, lane);
+      ws.meta[w * kMeta + lane] = valid ? __ffs(same) - 1 : 0;
+      const unsigned keys = __ballot_sync(kFull, first);
+      if (lane == 0) {
+        ws.meta[w * kMeta + kPairs] = static_cast<int>(mult);
+        ws.meta[w * kMeta + kPairs + 1] = static_cast<int>(keys);
+      }
+    }
   }
   // every thread: the hard skips (no row can match: nothing to score
   // or count, mask rows 0)
@@ -649,7 +761,7 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
                 (L & 3) == 0 &&
                 ((reinterpret_cast<uintptr_t>(a.tids[f]) |
                   reinterpret_cast<uintptr_t>(a.imps[f])) & 15u) == 0;
-            const bool held = L <= kSlots;
+            const bool held = !kWide || L <= kSlots;
             // slots past L: id -1, impact 0 (a padded slot)
             int t[kSlots];
             float v[kSlots];
@@ -662,46 +774,70 @@ bundle_topk_kernel(const __grid_constant__ BundleArgs a) {
             float s_leaf[kBT];
 #pragma unroll
             for (int r = 0; r < kBT; ++r) s_leaf[r] = 0.0f;
-            for (int q = 0; q < qm; ++q) {
-              if (held) {
-                // a row at a time: one query term and its sum live. The
-                // slots past L hold id -1 and impact 0: at most they add
-                // +0.0 for a padded query term, as a padded slot does
-#pragma unroll
-                for (int r = 0; r < kBT; ++r) {
-                  const int2 qw = s_qw[r][slot * qm + q];
-                  float hit = 0.0f;
-#pragma unroll
-                  for (int u = 0; u < kSlots; ++u)
-                    hit = add_hit(hit, t[u], qw.x, v[u]);
-                  s_leaf[r] = __fadd_rn(
-                      s_leaf[r], __fmul_rn(hit, __int_as_float(qw.y)));
-                }
-                continue;
-              }
-              int tq[kBT];
-              float hit[kBT];
+            for (int q = 0; held && q < qm; ++q) {
+              // a row at a time: one query term and its sum live. The
+              // slots past L hold id -1 and impact 0: at most they add
+              // +0.0 for a padded query term, as a padded slot does
 #pragma unroll
               for (int r = 0; r < kBT; ++r) {
-                tq[r] = s_qw[r][slot * qm + q].x;
-                hit[r] = 0.0f;
+                const int2 qw = s_qw[r][slot * qm + q];
+                float hit = 0.0f;
+#pragma unroll
+                for (int u = 0; u < kSlots; ++u)
+                  hit = add_hit(hit, t[u], qw.x, v[u]);
+                s_leaf[r] = __fadd_rn(
+                    s_leaf[r], __fmul_rn(hit, __int_as_float(qw.y)));
               }
-              for (int l0 = 0; l0 < L; l0 += kSlots) {
-                const int n = min(kSlots, L - l0);
-                load_slots(tp + l0, vp + l0, n, vec4, t, v);
+            }
+            // a wide field (step 7): the row read once per table of the
+            // item's terms, each slot's term looked up in the table and
+            // its impact added to the hit of each (row, term) pair that
+            // holds it, in slot order; then the hits in term order
+            for (int h = 0; !held && h * kWideQ < qm; ++h) {
+              const int w = a.wide_tab[slot] + h;
+              const WideSmem ws = wide_smem(s_dyn, a, n_pos, kBufs);
+              const int2* tab = ws.tab + w * kTab;
+              const int* meta = ws.meta + w * kMeta;
+              const unsigned mult = static_cast<unsigned>(meta[kPairs]);
+              // a hit per key, in the row of the key's index
+              float* hits = ws.hit + tid;
+              for (unsigned km = static_cast<unsigned>(meta[kPairs + 1]);
+                   km != 0u; km &= km - 1u)
+                hits[(__ffs(km) - 1) * kThreads] = 0.0f;
+              // a padded slot (id -1) of impact +-0.0 adds +0.0: it is
+              // looked up only where some padded slot's impact is not
+              bool pad = false;
+              for (int pass = 0; pass < 1 + pad; ++pass) {
+                for (int l0 = 0; l0 < L; l0 += kSlots) {
+                  const int n = min(kSlots, L - l0);
+                  load_slots(tp + l0, vp + l0, n, vec4, t, v);
 #pragma unroll
-                for (int u = 0; u < kSlots; ++u) {
-                  if (u < n) {
-#pragma unroll
-                    for (int r = 0; r < kBT; ++r)
-                      hit[r] = add_hit(hit[r], t[u], tq[r], v[u]);
+                  for (int u = 0; u < kSlots; ++u) {
+                    if (u >= n) continue;
+                    const bool padded = t[u] == -1;
+                    if (pass == 0 && padded) {
+                      pad |= v[u] != 0.0f;
+                      continue;
+                    }
+                    if (pass == 1 && !padded) continue;
+                    const int2 ent = tab[tab_entry(t[u], mult)];
+                    if (ent.x == t[u] && ent.y >= 0) {
+                      float* hp = hits + ent.y * kThreads;
+                      *hp = __fadd_rn(*hp, v[u]);
+                    }
                   }
                 }
               }
+              const int nq = min(kWideQ, qm - h * kWideQ);
 #pragma unroll
               for (int r = 0; r < kBT; ++r) {
-                const float wq = __int_as_float(s_qw[r][slot * qm + q].y);
-                s_leaf[r] = __fadd_rn(s_leaf[r], __fmul_rn(hit[r], wq));
+                for (int qq = 0; qq < nq; ++qq) {
+                  const float wq = __int_as_float(
+                      s_qw[r][slot * qm + h * kWideQ + qq].y);
+                  s_leaf[r] = __fadd_rn(
+                      s_leaf[r],
+                      __fmul_rn(hits[meta[r * kWideQ + qq] * kThreads], wq));
+                }
               }
             }
 #pragma unroll
@@ -1166,7 +1302,8 @@ cudaError_t leaf_launch_plan(const PosLeafArgs& a, int* rg, bool* cols,
 }
 
 // bytes of the walk's dynamic shared memory
-size_t bundle_smem(int tile, int pw, int chunk_tiles, int n_pos) {
+size_t bundle_smem(int tile, int pw, int chunk_tiles, int n_pos,
+                   int n_wide) {
   // candidate scores and match bits
   const size_t bufs = n_pos > 0 ? 1 : 2;
   return bufs * kBT * (sizeof(float) * static_cast<size_t>(tile) +
@@ -1174,6 +1311,7 @@ size_t bundle_smem(int tile, int pw, int chunk_tiles, int n_pos) {
          sizeof(int) * kBT * static_cast<size_t>(pw) +
          static_cast<size_t>(n_pos) * (sizeof(float) * kBT + sizeof(int)) *
              kThreads +
+         sizeof(int) * static_cast<size_t>(wide_ints(n_wide)) +
          (sizeof(int) + sizeof(float) * kBT + 1) *
              static_cast<size_t>(chunk_tiles);
 }
@@ -1181,9 +1319,13 @@ size_t bundle_smem(int tile, int pw, int chunk_tiles, int n_pos) {
 // The walk's kernel for a bundle with or without positional clauses, its
 // dynamic shared memory opted in (an oversize request fails here).
 cudaError_t bundle_kernel(int tile, int pw, int chunk_tiles, int n_pos,
-                          void (**kernel)(BundleArgs), size_t* smem) {
-  *kernel = n_pos > 0 ? bundle_topk_kernel<true> : bundle_topk_kernel<false>;
-  *smem = bundle_smem(tile, pw, chunk_tiles, n_pos);
+                          int n_wide, void (**kernel)(BundleArgs),
+                          size_t* smem) {
+  *kernel = n_pos > 0 ? (n_wide > 0 ? bundle_topk_kernel<true, true>
+                                    : bundle_topk_kernel<true, false>)
+                      : (n_wide > 0 ? bundle_topk_kernel<false, true>
+                                    : bundle_topk_kernel<false, false>);
+  *smem = bundle_smem(tile, pw, chunk_tiles, n_pos, n_wide);
   return cudaFuncSetAttribute(*kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
@@ -1239,13 +1381,24 @@ extern "C" int bundle_topk(const BundleArgs* args, void* stream) {
   if ((a.n_pos > 0) != (a.pw > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   a.n_sub = (a.nt + a.chunk_tiles - 1) / a.chunk_tiles;
+  // the wide dense clauses' term tables, by dense slot
+  a.n_wide = 0;
+  for (int c = 0; c < kMaxClauses; ++c) a.wide_tab[c] = -1;
+  for (int c = 0; c < a.n_clauses; ++c) {
+    if (a.clause[c][1] != kDense || a.L[a.clause[c][2]] <= kSlots) continue;
+    const int slot = a.clause[c][3];
+    if (slot < 0 || slot >= a.n_dense)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.wide_tab[slot] = a.n_wide;
+    a.n_wide += (a.qm + kWideQ - 1) / kWideQ;
+  }
   const long long n_items =
       static_cast<long long>(a.n_sub) * ((a.B + kBT - 1) / kBT);
   if (n_items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   void (*kernel)(BundleArgs);
   size_t smem;
-  const cudaError_t err =
-      bundle_kernel(a.tile, a.pw, a.chunk_tiles, a.n_pos, &kernel, &smem);
+  const cudaError_t err = bundle_kernel(a.tile, a.pw, a.chunk_tiles, a.n_pos,
+                                       a.n_wide, &kernel, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   kernel<<<static_cast<unsigned>(n_items), kThreads, smem, st>>>(a);
@@ -1255,11 +1408,12 @@ extern "C" int bundle_topk(const BundleArgs* args, void* stream) {
 // A launch's dynamic shared memory and the CTAs an SM holds at that size,
 // for reports (the walk itself does not ask).
 extern "C" int bundle_topk_occupancy(int tile, int pw, int chunk_tiles,
-                                     int n_pos, int* smem, int* ctas_per_sm) {
+                                     int n_pos, int n_wide, int* smem,
+                                     int* ctas_per_sm) {
   void (*kernel)(BundleArgs);
   size_t bytes;
-  cudaError_t err = bundle_kernel(tile, pw, chunk_tiles, n_pos, &kernel,
-                                  &bytes);
+  cudaError_t err = bundle_kernel(tile, pw, chunk_tiles, n_pos, n_wide,
+                                  &kernel, &bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   *smem = static_cast<int>(bytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -161,7 +161,7 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
         lib.bucket_add_chain.restype = ctypes.c_int
         return lib
     if name == "block_join":
-        lib.to_parent_fold.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        lib.to_parent_fold.argtypes = [P, P, I, I, P, P, P, P, I, I, I, P]
         lib.to_parent_fold.restype = ctypes.c_int
         return lib
     fn = getattr(lib, name)
@@ -177,7 +177,8 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
         leaf.argtypes = [ctypes.POINTER(_PosLeafArgs), P]
         leaf.restype = ctypes.c_int
         occ = lib.bundle_topk_occupancy
-        occ.argtypes = [I, I, I, I, ctypes.POINTER(I), ctypes.POINTER(I)]
+        occ.argtypes = [I, I, I, I, I, ctypes.POINTER(I),
+                        ctypes.POINTER(I)]
         occ.restype = ctypes.c_int
         plan = lib.positional_leaf_plan
         plan.argtypes = [ctypes.POINTER(_PosLeafArgs), ctypes.POINTER(I),
@@ -645,29 +646,51 @@ def ordered_bucket_stats(bucket_ids: torch.Tensor, mask: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# lists longer than this go to a warp of their own
+FOLD_LONG_LIST = 32
+
+
 def block_join_layout(target: torch.Tensor) -> dict:
-    """Each position's index list for `to_parent_fold`, as a CSR in
-    ascending order: {"target", "order" (the indices stably sorted by
-    target), "starts" ([cap + 1], each position's first slot)}, int32 on
-    target's device. Built once per segment at upload (the segment's
-    `device_arrays()["nested"]` holds it)."""
+    """Each position's list for `to_parent_fold`: {"target", "starts"
+    ([cap + 1]: position p's list is the rows [starts[p], starts[p +
+    1]), the run of rows that ends at p or empty), "long" (the positions
+    whose list is longer than "long_len", FOLD_LONG_LIST), "long_len"},
+    int32 on target's device. Built once per segment at upload (the
+    segment's `device_arrays()["nested"]` holds it). Raises ValueError
+    where a list is not such a run: the builder lays a parent's nested
+    rows out just before it and a primary row targets itself, so that
+    is a broken block order."""
     t = target.to(torch.int64)
-    order = torch.sort(t, stable=True).indices
-    starts = torch.searchsorted(
-        t[order], torch.arange(t.numel() + 1, device=t.device))
+    cap = t.numel()
+    ar = torch.arange(cap + 1, device=t.device)
+    starts = torch.searchsorted(torch.sort(t).values, ar)
+    n = starts[1:] - starts[:-1]
+    # each index targets itself or a later position, and each non-empty
+    # list ends at its own position: then the lists are those runs
+    if not (bool(((t >= ar[:cap]) & (t < cap)).all())
+            and bool(((n == 0) | (starts[1:] == ar[1:])).all())):
+        raise ValueError("block join target is not in block order: some "
+                         "position's rows are not the run that ends at it")
     return {"target": target.to(torch.int32),
-            "order": order.to(torch.int32),
-            "starts": starts.to(torch.int32)}
+            "starts": starts.to(torch.int32),
+            "long_len": FOLD_LONG_LIST,
+            "long": torch.nonzero(n > FOLD_LONG_LIST).flatten()
+            .to(torch.int32)}
 
 
 def to_parent_fold_ref(score: torch.Tensor, ok: torch.Tensor,
                        layout: dict, mode: str) -> tuple:
-    """Plain version of `to_parent_fold` (`ordered.parent_fold`); the
-    fold's passes are worked out once per layout and kept on it."""
+    """Plain version of `to_parent_fold` (`ordered.parent_fold`), from
+    the target alone; the fold's passes are worked out once per layout
+    and kept on it."""
     ranks = layout.get("_ranks")
     if ranks is None:
+        t = layout["target"].to(torch.int64)
+        order = torch.sort(t, stable=True).indices
+        starts = torch.searchsorted(
+            t[order], torch.arange(t.numel() + 1, device=t.device))
         ranks = layout["_ranks"] = ordered.parent_fold_ranks(
-            layout["target"], layout["order"], layout["starts"])
+            layout["target"], order, starts)
     return ordered.parent_fold(score, ok, layout["target"], ranks, mode)
 
 
@@ -685,23 +708,22 @@ def to_parent_fold(score: torch.Tensor, ok: torch.Tensor, layout: dict,
     dev = ok.device
     _check(score, "score", torch.float32, 2, dev)
     _check(ok, "ok", torch.bool, 2, dev)
-    order, starts = layout["order"], layout["starts"]
-    _check(order, "order", torch.int32, 1, dev)
+    starts, longs = layout["starts"], layout["long"]
     _check(starts, "starts", torch.int32, 1, dev)
+    _check(longs, "long", torch.int32, 1, dev)
     B, cap = ok.shape
-    if score.shape != ok.shape or order.shape[0] != cap \
-            or starts.shape[0] != cap + 1:
+    if score.shape != ok.shape or starts.shape[0] != cap + 1:
         raise ValueError(f"score {tuple(score.shape)} / ok "
-                         f"{tuple(ok.shape)} / order {tuple(order.shape)} / "
-                         f"starts {tuple(starts.shape)} disagree")
+                         f"{tuple(ok.shape)} / starts "
+                         f"{tuple(starts.shape)} disagree")
     count = torch.empty((B, cap), dtype=torch.float32, device=dev)
     value = (torch.empty((B, cap), dtype=torch.float32, device=dev)
              if code else None)
-    err = _fn("to_parent_fold")(order.data_ptr(), starts.data_ptr(),
-                                score.data_ptr(), ok.data_ptr(),
-                                count.data_ptr(),
-                                value.data_ptr() if code else None,
-                                B, cap, code, _stream(dev))
+    err = _fn("to_parent_fold")(
+        starts.data_ptr(), longs.data_ptr() if longs.numel() else None,
+        longs.numel(), layout["long_len"], score.data_ptr(), ok.data_ptr(),
+        count.data_ptr(), value.data_ptr() if code else None, B, cap, code,
+        _stream(dev))
     _raise_on(err, "to_parent_fold")
     LAUNCHES["to_parent_fold"] += 1
     return count, value
@@ -714,6 +736,11 @@ def to_parent_fold(score: torch.Tensor, ok: torch.Tensor, layout: dict,
 BUNDLE_BT = 8            # query rows per block (one warp each in selection)
 BUNDLE_MAX_CLAUSES = 8   # the executor's _FUSED_MAX_CLAUSES
 BUNDLE_MAX_QM = 8        # widest dense clause (_DENSE_GROUP_MAX terms)
+# forward slots K3 holds in registers (kSlots); a dense clause on a wider
+# field reads its rows through term tables of BUNDLE_WIDE_Q query terms of
+# every row of a batch tile (kWideQ)
+BUNDLE_SLOTS = 8
+BUNDLE_WIDE_Q = 4
 # the positional clause caps (terms of a phrase / span, fields and terms
 # of a BM25F clause): the executor admits no wider clause; mirrored by
 # kMaxTerms / kMaxFields in csrc/positional_leaf.cuh
@@ -774,16 +801,121 @@ def bundle_positional(clauses: tuple) -> bool:
     return any(positional_prefix(kind) for _r, kind, _f, _w in clauses)
 
 
-def bundle_occupancy(tile: int, pw: int, chunk_tiles: int, n_pos: int
-                     ) -> tuple[int, int]:
+def bundle_occupancy(tile: int, pw: int, chunk_tiles: int, n_pos: int,
+                     n_wide: int = 0) -> tuple[int, int]:
     """A K3 launch's dynamic shared memory in bytes, as the entry sizes
-    it, and the CTAs an SM holds at that size. On the card; for reports
-    (the walk does not ask)."""
+    it (n_wide: its wide clauses' term tables, `bundle_wide_tables`), and
+    the CTAs an SM holds at that size. On the card; for reports (the walk
+    does not ask)."""
     smem, per_sm = ctypes.c_int(0), ctypes.c_int(0)
     _raise_on(_fn("bundle_topk_occupancy")(
-        tile, pw, chunk_tiles, n_pos, ctypes.byref(smem),
+        tile, pw, chunk_tiles, n_pos, n_wide, ctypes.byref(smem),
         ctypes.byref(per_sm)), "bundle_topk_occupancy")
     return smem.value, per_sm.value
+
+
+WIDE_TABLE = 256         # entries of a wide clause's term table (kTab)
+_MULT0, _MULT_STEP = 0x9E3779B1, 0x6A09E666
+
+
+def _tab_entry(t: torch.Tensor, mult: int) -> torch.Tensor:
+    """K3's table entry of a term (csrc/bundle_topk.cu `tab_entry`): the
+    top 8 bits of the 32-bit product of the term id and `mult`."""
+    return (((t.to(torch.int64) & 0xFFFFFFFF) * mult) & 0xFFFFFFFF) >> 24
+
+
+def wide_tables_ref(qt: torch.Tensor, bt: int = BUNDLE_BT) -> list:
+    """The term tables K3 builds for a wide dense clause, as its warp 1
+    does: per batch tile of `bt` rows (rows past B as copies of the last)
+    and per BUNDLE_WIDE_Q terms h, pair j = r * BUNDLE_WIDE_Q + qq (term
+    h * BUNDLE_WIDE_Q + qq of row r) keyed by the first pair holding its
+    term; the first multiplier (from 0x9E3779B1, steps of 0x6A09E666)
+    under which the keys' entries (`_tab_entry`) all differ. Returns, per
+    batch tile, per h: (mult, keys int64 [WIDE_TABLE] (term id of the
+    entry), key index int64 [WIDE_TABLE] (-1: empty), each pair's key
+    index [kPairs] (-1 past qm))."""
+    B, qm = qt.shape
+    n_pairs = bt * BUNDLE_WIDE_Q
+    rows = qt.to(torch.int64).tolist()
+    out = []
+    for b0 in range(0, B, bt):
+        tile = [rows[min(b0 + r, B - 1)] for r in range(bt)]
+        tabs = []
+        for h in range(-(-qm // BUNDLE_WIDE_Q)):
+            key_of, first = [], {}
+            for j in range(n_pairs):
+                q = h * BUNDLE_WIDE_Q + j % BUNDLE_WIDE_Q
+                if q >= qm:
+                    key_of.append(-1)
+                    continue
+                key_of.append(first.setdefault(tile[j // BUNDLE_WIDE_Q][q],
+                                               j))
+            terms = torch.tensor(list(first), dtype=torch.int64)
+            mult = _MULT0
+            while True:
+                e = _tab_entry(terms, mult)
+                if e.unique().numel() == e.numel():
+                    break
+                mult = (mult + _MULT_STEP) & 0xFFFFFFFF
+            keys = torch.zeros(WIDE_TABLE, dtype=torch.int64)
+            index = torch.full((WIDE_TABLE,), -1, dtype=torch.int64)
+            keys[e] = terms
+            index[e] = torch.tensor(list(first.values()), dtype=torch.int64)
+            tabs.append((mult, keys, index, torch.tensor(key_of)))
+        out.append(tabs)
+    return out
+
+
+def dense_table_hits_ref(fwd_tids: torch.Tensor, fwd_imps: torch.Tensor,
+                         qt: torch.Tensor, bt: int = BUNDLE_BT
+                         ) -> torch.Tensor:
+    """K3's wide dense clause as plain torch: each doc's slots, in order,
+    looked up in the batch tile's term tables (`wide_tables_ref`: one
+    entry a term), a slot whose term is a key adding its impact to the
+    key's hit; the padded slots (id -1) in a second pass, and only for a
+    doc with a padded slot whose impact is not +-0.0 (else their adds are
+    of +0.0); each pair's hit its key's. f32 [B, qm, cap]; equal, bit for
+    bit, to the slot-by-slot compare of the plain walk (hit + where(t ==
+    tq, imp, 0) over the slots)."""
+    B, qm = qt.shape
+    cap, L = fwd_tids.shape
+    t_all = fwd_tids.to(torch.int64)
+    padded = t_all == -1
+    pad = (padded & (fwd_imps != 0)).any(dim=1)
+    order = [(l, ~padded[:, l]) for l in range(L)] \
+        + [(l, padded[:, l] & pad) for l in range(L)]
+    hits = torch.zeros((B, qm, cap), dtype=torch.float32)
+    for i, tabs in enumerate(wide_tables_ref(qt, bt)):
+        b0 = i * bt
+        for h, (mult, keys, index, key_of) in enumerate(tabs):
+            per_key = torch.zeros((bt * BUNDLE_WIDE_Q, cap),
+                                  dtype=torch.float32)
+            for l, looked in order:
+                t = t_all[:, l]
+                e = _tab_entry(t, mult)
+                k = torch.where((keys[e] == t) & (index[e] >= 0) & looked,
+                                index[e], -1)
+                for j in index[index >= 0].tolist():
+                    on = k == j
+                    per_key[j] = torch.where(on, per_key[j] + fwd_imps[:, l],
+                                             per_key[j])
+            for r in range(min(bt, B - b0)):
+                for qq in range(min(BUNDLE_WIDE_Q, qm - h * BUNDLE_WIDE_Q)):
+                    hits[b0 + r, h * BUNDLE_WIDE_Q + qq] = \
+                        per_key[int(key_of[r * BUNDLE_WIDE_Q + qq])]
+    return hits
+
+
+def bundle_wide_tables(text_cols: dict, clauses: tuple,
+                       cl_inputs: tuple) -> int:
+    """The term tables K3's entry builds for a bundle: a dense clause on a
+    field wider than BUNDLE_SLOTS slots takes ceil(qm / BUNDLE_WIDE_Q)
+    (qm: the bundle's widest dense clause)."""
+    qm = _stack_bundle_inputs(clauses, cl_inputs)[0]
+    wide = sum(_kind_code(kd) == 0
+               and text_cols[f]["fwd_tids"].shape[1] > BUNDLE_SLOTS
+               for _r, kd, f, _w in clauses)
+    return wide * -(-qm // BUNDLE_WIDE_Q)
 
 
 def _stack_bundle_inputs(clauses: tuple, cl_inputs: tuple):
@@ -1056,6 +1188,7 @@ class _BundleArgs(ctypes.Structure):
                 ("update_thr", _I), ("chunk_tiles", _I),
                 ("emit_match", _I), ("thr_in", _P), ("thr_out", _P),
                 ("t0", _I), ("nt", _I), ("n_pos", _I), ("n_sub", _I),
+                ("n_wide", _I), ("wide_tab", _I * 8),
                 ("vcol", _P * 8), ("vexists", _P * 8)]
 
 

@@ -193,8 +193,8 @@ def device_arrays(segment: Segment, device: torch.device) -> dict:
     }
     if segment.has_nested:
         # block join: nested row -> its parent's row (a primary row
-        # targets itself, as in the reference) and each position's index
-        # list for the to-parent fold
+        # targets itself, as in the reference) and each position's list
+        # for the to-parent fold, the run of rows that ends at it
         target = np.where(segment.parent_of >= 0, segment.parent_of,
                           np.arange(segment.capacity, dtype=np.int32))
         dev["nested"] = {

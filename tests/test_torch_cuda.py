@@ -657,24 +657,32 @@ def _pos_case(bundle, cap, tile, B, dev, seed=0, P=4, L_f=8):
             t(live))
 
 
-_POS_CASES = [("phrase_e2", 4096, 256, 12, 10, False),
-              ("phrase_e3", 4096, 1024, 9, 1, True),
-              ("phrase_s3", 4096, 256, 16, 10, True),
-              ("span_o3", 4096, 256, 12, 5, False),
-              ("span_u2", 4096, 256, 12, 0, True),
-              ("bm25f", 4096, 256, 10, 10, False),
-              ("mixed", 4096, 256, 17, 10, True),
-              ("mixed", 4096, 256, 17, 0, False),
-              ("phrase_s3", 1 << 20, 1024, 64, 10, False),
-              ("span_o3", 1 << 20, 1024, 64, 10, True),
-              ("bm25f", 1 << 20, 1024, 64, 100, False)]
+# bundle, cap, tile, B, k, emit, and the L of field f: "mixed" at L 16
+# and 64 holds a positional clause beside a dense clause on a wide field
+# (K3's build with both the positional leaf and step 7's tables)
+_POS_CASES = [("phrase_e2", 4096, 256, 12, 10, False, 8),
+              ("phrase_e3", 4096, 1024, 9, 1, True, 8),
+              ("phrase_s3", 4096, 256, 16, 10, True, 8),
+              ("span_o3", 4096, 256, 12, 5, False, 8),
+              ("span_u2", 4096, 256, 12, 0, True, 8),
+              ("bm25f", 4096, 256, 10, 10, False, 8),
+              ("mixed", 4096, 256, 17, 10, True, 8),
+              ("mixed", 4096, 256, 17, 0, False, 8),
+              ("mixed", 4096, 256, 17, 10, True, 16),
+              ("mixed", 4096, 256, 17, 0, False, 64),
+              ("mixed", 1 << 16, 1024, 40, 10, True, 64),
+              ("phrase_s3", 1 << 20, 1024, 64, 10, False, 8),
+              ("span_o3", 1 << 20, 1024, 64, 10, True, 8),
+              ("bm25f", 1 << 20, 1024, 64, 100, False, 8)]
 
 
-@pytest.mark.parametrize("bundle,cap,tile,B,k,emit", _POS_CASES)
-def test_positional_walk_equals_plain(cuda, bundle, cap, tile, B, k, emit):
+@pytest.mark.parametrize("bundle,cap,tile,B,k,emit,L_f", _POS_CASES)
+def test_positional_walk_equals_plain(cuda, bundle, cap, tile, B, k, emit,
+                                      L_f):
     from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
-    args = _pos_case(bundle, cap, tile, B, cuda, seed=B + k)
+    args = _pos_case(bundle, cap, tile, B, cuda, seed=B + k, L_f=L_f)
     text, num, clauses, cl, msm, boost, live = args
+    assert (cs.bundle_wide_tables(text, clauses, cl) > 0) == (L_f > 8)
     can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
     ck = min(k, tile)
     before = cs.LAUNCHES["bundle_topk"]
@@ -687,6 +695,52 @@ def test_positional_walk_equals_plain(cuda, bundle, cap, tile, B, k, emit):
     for name, g, w in zip(("cs", "ci", "cnt", "flags", "match"), got, want):
         assert (g is None and w is None) or torch.equal(g, w), name
     assert int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("L_f", [16, 64])
+def test_positional_wide_stepped_and_seeded_equal_plain(cuda, L_f):
+    """The "mixed" bundle (a positional clause beside a dense clause on a
+    field of L_f slots: K3's build with the positional leaf and step 7's
+    tables) in the stepped form (chunks of 3 tiles, the threshold
+    carried) and the seeded form (a delta opened at its base's k-th
+    best, and the chained top-k): each equal to its plain version."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    base = _pos_case("mixed", 1 << 14, 1024, 24, cuda, seed=L_f, L_f=L_f)
+    text, num, clauses, cl, msm, boost, live = base
+    assert cs.bundle_wide_tables(text, clauses, cl) > 0
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    step = (3, None, _never)
+    before = cs.LAUNCHES["bundle_topk"]
+    got = cs.bundle_walk_steps(cs.bundle_walk, *base, can, ub, ck=10,
+                               update_thr=True, emit_match=True, step=step)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["bundle_topk"] == before + 6
+    want = cs.bundle_walk_steps(cs.bundle_walk_ref, *base, can, ub, ck=10,
+                                update_thr=True, emit_match=True, step=step)
+    for what, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert (g is None and w is None) or torch.equal(g, w), what
+    assert int(got[2].sum()) > 0
+    delta = _pos_case("mixed", 1 << 12, 1024, 24, cuda, seed=L_f + 1,
+                      L_f=L_f)
+    # the delta's rows are the base's queries
+    delta = delta[:3] + (base[3], base[4], base[5], delta[6])
+    init = cs.fused_topk_bundle(*base, 10)[:2]
+    text, num, clauses, cl_d, msm, boost, live = delta
+    can, ub = bundle_tile_bounds(clauses, cl_d, text, num, msm, boost)
+    got = cs.bundle_walk(*delta, can, ub, ck=10, update_thr=True,
+                         emit_match=True, thr_init=init[0][:, -1])
+    want = cs.bundle_walk_ref(*delta, can, ub, ck=10, update_thr=True,
+                              emit_match=True, thr_init=init[0][:, -1])
+    for what, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert torch.equal(g, w), what
+    chained = cs.fused_topk_bundle(*delta, 10, init_topk=init,
+                                   idx_offset=1 << 14)
+    want_c = cs.fused_topk_bundle_ref(*delta, 10, init_topk=init,
+                                      idx_offset=1 << 14)
+    for i in range(4):
+        assert torch.equal(chained[i], want_c[i]), i
 
 
 # bundle, cap, B, and the L and P of field f's pack: the widest packs the
@@ -724,8 +778,10 @@ def test_positional_leaf_equals_plain(cuda, bundle, cap, B, L, P):
 def test_register_and_spill_report(cuda, tmp_path):
     """ptxas' report of every kernel of the CUDA sources (printed with
     -s): each kernel builds and reports its registers, and K1, K3's walk
-    (bundle_topk_kernel), the unfused leaf, K2, the scan and tree kernels
-    and the bucket stats' two kernels spill nothing."""
+    (bundle_topk_kernel, all four builds: with or without a positional
+    clause, with or without wide tables), the unfused leaf, K2, the scan
+    and tree kernels, the bucket stats' two kernels and the fold's two
+    spill nothing."""
     no_spill = {"bundle_topk": ("bundle_topk_kernel",
                                 "positional_leaf_kernel"),
                 "scatter_add": ("bucket_counts_kernel", "bucket_scan_kernel",
@@ -799,6 +855,25 @@ def test_shared_memory_fits_every_admitted_bundle(cuda, n_pos):
     assert 0 < smem <= getattr(props, "shared_memory_per_block_optin",
                                232_448)
     assert per_sm >= 1
+
+
+@pytest.mark.parametrize("n_pos", range(cs.BUNDLE_MAX_CLAUSES))
+def test_shared_memory_fits_wide_bundles(cuda, n_pos):
+    """With its other clauses dense on wide fields at the widest qm (two
+    term tables each), every bundle still fits in a CTA; the hybrid
+    bundle (one wide clause of up to 4 terms, no positional clause) keeps
+    two CTAs an SM."""
+    pw = cs.POS_MAX_PARAMS if n_pos else 0
+    n_wide = 2 * (cs.BUNDLE_MAX_CLAUSES - n_pos)
+    smem, per_sm = cs.bundle_occupancy(1024, pw, cs._BUNDLE_CHUNK_TILES,
+                                       n_pos, n_wide)
+    props = torch.cuda.get_device_properties(0)
+    assert 0 < smem <= getattr(props, "shared_memory_per_block_optin",
+                               232_448)
+    assert per_sm >= 1
+    if n_pos == 0:
+        assert cs.bundle_occupancy(1024, 0, cs._BUNDLE_CHUNK_TILES, 0,
+                                   1)[1] >= 2
 
 
 _DIV_SRC = r"""
@@ -1129,6 +1204,138 @@ def test_knn_vec_seeded_equals_plain(cuda, sim, k):
         assert torch.equal(chained[i], want_c[i]), i
 
 
+# -- K3 on a wide text field (passages, L 64) beside a knn_vec clause ------
+
+def _passage_case(cap, tile, B, dev, seed=0, sim="cosine", qm=4,
+                  wild=False, D=32):
+    """A hybrid bundle, should[dense on a passage field of 64 slots,
+    knn_vec]: each doc 20-60 Zipf tokens of 600 terms, its distinct terms
+    ascending then -1 (every 16th doc holds one term in two slots, every
+    32nd a padded slot of nonzero impact); each row 1-3 terms of ranks
+    20-80 (which most docs lack; qm 8: 5-8 terms), -1 / 0 past them; with
+    `wild`, row 0 weighs a term +inf and row 1 one NaN. The column is a
+    similarity of Gaussian vectors (dot_product: scores of both signs)."""
+    from elasticsearch_tpu_torch.index.segment import build_tile_max
+    from elasticsearch_tpu_torch.ops.knn import knn_score_column
+    from elasticsearch_tpu_torch.ops.scoring import slack_bound
+    rng = np.random.default_rng(seed)
+    n_terms, L = 600, 64
+    w = 1.0 / (np.arange(n_terms) + 3.0) ** 0.9
+    tids = np.full((cap, L), -1, np.int32)
+    for d in range(cap):
+        row = np.unique(rng.choice(n_terms, size=int(rng.integers(20, 61)),
+                                   p=w / w.sum()))
+        tids[d, :row.size] = row
+        if d % 16 == 5:
+            tids[d, row.size] = row[0]
+    imps = (rng.integers(1, 64, size=(cap, L)) / 16).astype(np.float32)
+    imps[tids < 0] = 0.0
+    imps[::32, -1] = 0.75
+    n = rng.integers(5 if qm > 4 else 1, (qm if qm > 4 else min(3, qm)) + 1,
+                     size=B)
+    qt = np.full((B, qm), -1, np.int32)
+    for b in range(B):
+        qt[b, :n[b]] = rng.choice(np.arange(20, 80), size=n[b],
+                                  replace=False)
+    wq = (rng.integers(1, 16, size=(B, qm)) / 4).astype(np.float32)
+    wq[qt < 0] = 0.0
+    if wild:
+        wq[0, 0], wq[1, 0] = np.inf, np.nan
+    v = rng.standard_normal((cap, D)).astype(np.float32)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    ex = rng.random(cap) > 0.05
+    v[~ex] = 0.0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    col = knn_score_column(t(v).to(torch.bfloat16),
+                           t(np.linalg.norm(v, axis=1).astype(np.float32)),
+                           t(ex), t(q), similarity=sim).contiguous()
+    ub = slack_bound(col.reshape(B, cap // tile, tile).amax(dim=2))
+    text = {"p": {"fwd_tids": t(tids), "fwd_imps": t(imps),
+                  "tile_max": t(build_tile_max(tids, imps, n_terms, cap,
+                                               tile=tile))}}
+    clauses = (("should", "terms_dense", "p", False),
+               ("should", "knn_vec", "e", False))
+    cl = ((t(qt), t(wq), t(np.ones(B, np.int32)),
+           t(np.ones(B, np.float32))), (col, t(ex), ub))
+    boost = t((rng.integers(1, 5, size=B) / 2).astype(np.float32))
+    live = t(rng.random(cap) > 0.05)
+    return text, {}, clauses, cl, t(np.ones(B, np.int32)), boost, live
+
+
+@pytest.mark.parametrize("sim,qm,wild,B,k", [
+    ("cosine", 4, False, 20, 10), ("dot_product", 4, False, 16, 10),
+    ("dot_product", 8, True, 13, 33), ("cosine", 1, True, 8, 1),
+    ("dot_product", 4, False, 9, 0)])
+def test_wide_knn_walk_equals_plain(cuda, sim, qm, wild, B, k):
+    """K3's wide-field term tables in the hybrid bundle, the single form:
+    every output equal to the plain walk's, with rows whose terms most
+    docs lack, duplicate and padded slots, 1 or 2 tables (qm 8), a row
+    weighing a term +inf and one NaN (each pair scored all the same),
+    and dot_product scores of both signs."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    args = _passage_case(1 << 14, 1024, B, cuda, seed=B + qm, sim=sim,
+                         qm=qm, wild=wild)
+    text, num, clauses, cl, msm, boost, live = args
+    assert cs.bundle_wide_tables(text, clauses, cl) == -(-qm // 4)
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    before = dict(cs.BUNDLE_VEC_FORMS)
+    got = cs.bundle_walk(*args, can, ub, ck=k, update_thr=True,
+                         emit_match=True)
+    torch.cuda.synchronize()
+    assert cs.BUNDLE_VEC_FORMS["single"] == before["single"] + 1
+    want = cs.bundle_walk_ref(*args, can, ub, ck=k, update_thr=True,
+                              emit_match=True)
+    for what, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert (g is None and w is None) or torch.equal(g, w), what
+    if sim == "dot_product":
+        col = cl[1][0]
+        assert bool((col < 0).any()) and bool((col > 0).any())
+
+
+@pytest.mark.parametrize("sim,qm", [("cosine", 4), ("dot_product", 8)])
+def test_wide_knn_stepped_and_seeded_equal_plain(cuda, sim, qm):
+    """The hybrid bundle on a wide field in the stepped form (chunks of
+    5 tiles, the threshold carried) and the seeded form (a delta opened
+    at its base's k-th best, and the chained top-k): each equal to its
+    plain version."""
+    from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
+    base = _passage_case(1 << 14, 1024, 16, cuda, seed=qm, sim=sim, qm=qm,
+                         wild=True)
+    text, num, clauses, cl, msm, boost, live = base
+    can, ub = bundle_tile_bounds(clauses, cl, text, num, msm, boost)
+    step = (5, None, _never)
+    got = cs.bundle_walk_steps(cs.bundle_walk, *base, can, ub, ck=10,
+                               update_thr=True, emit_match=True, step=step)
+    want = cs.bundle_walk_steps(cs.bundle_walk_ref, *base, can, ub, ck=10,
+                                update_thr=True, emit_match=True, step=step)
+    for what, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert (g is None and w is None) or torch.equal(g, w), what
+    delta = _passage_case(1 << 12, 1024, 16, cuda, seed=qm + 1, sim=sim,
+                          qm=qm)
+    delta = delta[:3] + (((cl[0]),) + delta[3][1:],) + delta[4:]
+    init = cs.fused_topk_bundle(*base, 10)[:2]
+    text, num, clauses, cl_d, msm, boost, live = delta
+    can, ub = bundle_tile_bounds(clauses, cl_d, text, num, msm, boost)
+    before = dict(cs.BUNDLE_VEC_FORMS)
+    got = cs.bundle_walk(*delta, can, ub, ck=10, update_thr=True,
+                         emit_match=True, thr_init=init[0][:, -1])
+    torch.cuda.synchronize()
+    assert cs.BUNDLE_VEC_FORMS["seeded"] == before["seeded"] + 1
+    want = cs.bundle_walk_ref(*delta, can, ub, ck=10, update_thr=True,
+                              emit_match=True, thr_init=init[0][:, -1])
+    for what, g, w in zip(("cs", "ci", "cnt", "flags", "match", "thr"), got,
+                          want):
+        assert torch.equal(g, w), what
+    chained = cs.fused_topk_bundle(*delta, 10, init_topk=init,
+                                   idx_offset=1 << 14)
+    want_c = cs.fused_topk_bundle_ref(*delta, 10, init_topk=init,
+                                      idx_offset=1 << 14)
+    for i in range(4):
+        assert torch.equal(chained[i], want_c[i]), i
+
+
 def test_similarity_column_f32_accumulation(cuda):
     """The card's bf16 product returns f32 sums of exact bf16 products:
     on vectors whose every partial sum is exact it equals the CPU's
@@ -1288,6 +1495,94 @@ def test_to_parent_fold_equals_plain(cuda, mode, B, cap, hot, special):
         if mode == "sum":
             a, b = torch.where(both_nan, 0.0, a), torch.where(both_nan, 0.0, b)
         assert _bits_equal(a, b), mode
+
+
+def _span_layout(cap, lists):
+    """(target, parent_of) for runs of nested rows [p - k, p) before
+    each parent p (lists: disjoint (p, k)), the other rows primary."""
+    parent_of = np.full(cap, -1, np.int32)
+    for p, k in lists:
+        assert (parent_of[p - k:p + 1] == -1).all()
+        parent_of[p - k:p] = p
+    return np.where(parent_of >= 0, parent_of,
+                    np.arange(cap, dtype=np.int32)), parent_of
+
+
+# (cap, lists): a list longer than the kernel's span of 2,048 positions
+# (its first spans hold nested rows only), runs that cross span
+# boundaries, lists at and just past the long-list cut (32 rows), a
+# long list crossing the capacity's end, a capacity off a multiple of 16
+_SPAN_CASES = {
+    "long_and_crossing": (8192, [(1030, 10), (2050, 3), (5000, 2900),
+                                 (5100, 31), (5200, 32), (6150, 40),
+                                 (7200, 20), (8191, 40)]),
+    "all_child_spans": (1 << 14, [(5000, 4999), (9000, 3990), (16383, 7300)]),
+    "odd_cap": (70_003, [(1030, 8), (20_000, 5000), (70_002, 33),
+                         (30_000, 31)]),
+}
+
+
+@pytest.mark.parametrize("mode", ["none", "sum", "max", "min"])
+@pytest.mark.parametrize("case", sorted(_SPAN_CASES))
+@pytest.mark.parametrize("special", [0.0, 0.05])
+def test_to_parent_fold_ranges_spans(cuda, mode, case, special):
+    """The fold on lists longer than a span, crossing span boundaries
+    and around the long-list cut, every mode, with NaN payloads,
+    infinities, signed zeros and subnormals: bit for bit the plain
+    version's."""
+    cap, lists = _SPAN_CASES[case]
+    rng = np.random.default_rng(cap + len(lists) + int(special * 100))
+    target, parent_of = _span_layout(cap, lists)
+    B = 6
+    score = (rng.standard_normal((B, cap))
+             * 10.0 ** rng.integers(-3, 4, (B, cap))).astype(np.float32)
+    if special:
+        at = rng.random((B, cap)) < special
+        score[at] = rng.choice(np.concatenate([_SPECIAL, _SUBNORMALS]),
+                               size=int(at.sum()))
+    ok = (rng.random((B, cap)) < 0.7) & (parent_of >= 0)[None]
+    ok[1] = (parent_of >= 0)                  # every nested row matched
+    ok[2] = False                             # none
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    layout = cs.block_join_layout(t(target))
+    assert layout["long"].numel() == sum(k + 1 > cs.FOLD_LONG_LIST
+                                         for _p, k in lists)
+    before = cs.LAUNCHES["to_parent_fold"]
+    cnt, val = cs.to_parent_fold(t(score), t(ok), layout, mode)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["to_parent_fold"] == before + 1
+    want_cnt, want_val = cs.to_parent_fold_ref(t(score), t(ok), layout, mode)
+    assert _bits_equal(cnt, want_cnt)
+    if mode != "none":
+        assert _bits_equal(val, want_val), mode
+
+
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_to_parent_fold_unaligned_and_general_lists(cuda, mode):
+    """Scores and flags off a 16-byte boundary (the kernel stages them a
+    value at a time) bit for bit the plain version's; a target that is
+    not in block order is refused before any launch."""
+    rng = np.random.default_rng(11)
+    B, cap = 5, 4096
+    target, parent_of = _span_layout(cap, [(100, 8), (3000, 900),
+                                           (1025, 3)])
+    score = rng.standard_normal((B, cap)).astype(np.float32)
+    ok = (rng.random((B, cap)) < 0.6) & (parent_of >= 0)[None]
+    flat = torch.empty(B * cap + 1, dtype=torch.float32, device=cuda)
+    s_off = flat[1:].view(B, cap)
+    s_off.copy_(torch.from_numpy(score))
+    flags = torch.empty(B * cap + 3, dtype=torch.bool, device=cuda)
+    o_off = flags[3:].view(B, cap)
+    o_off.copy_(torch.from_numpy(ok))
+    layout = cs.block_join_layout(torch.from_numpy(target).to(cuda))
+    got = cs.to_parent_fold(s_off, o_off, layout, mode)
+    want = cs.to_parent_fold_ref(s_off, o_off, layout, mode)
+    assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])
+    # rows after their parent: a broken block order
+    general = np.array(target)
+    general[3001:3101] = 3000
+    with pytest.raises(ValueError, match="block order"):
+        cs.block_join_layout(torch.from_numpy(general).to(cuda))
 
 
 def test_nested_query_on_the_card_equals_cpu(cuda):

@@ -8,7 +8,9 @@ timed in turns with it (port, variant, variant, port: `chip_smoke.k3_ab`)
 on the kernel sweep's inputs (B 256 over 2^20 docs, two text fields of 8
 slots): the dense one-clause walk at k 10 and k 100, its stepped form (8
 launches of 128 tiles, k 10, the match mask on) and the `phrase_pos:2:e`
-walk at k 10.
+walk at k 10; and on a synthetic hybrid walk (`chip_smoke.hybrid_walk`:
+B 128 over 2^19 docs, a `match` on a passage field of 64 slots and a
+knn_vec clause) at k 10 and k 0.
 
 A variant that undoes a design step (the steps are listed in the header
 of `csrc/bundle_topk.cu`) must count every tile's matches as the port
@@ -18,7 +20,9 @@ a change of those reads could save:
   hot rows  a dense clause reads the forward row of doc (d mod 1,024), not
             of doc d: 64 KB of rows a field, which stay on chip, stand in
             for rows staged in shared memory;
-  hot leaf  the positional leaf evaluates doc (d mod 1,024), not doc d.
+  hot leaf  the positional leaf evaluates doc (d mod 1,024), not doc d;
+  no dense terms  a dense clause compares no query term (it matches no
+            doc), which leaves the hybrid walk its vector clause alone.
 
 The sweep's docs are drawn independently, so the window's docs are like
 any others, but a probe's matches need not number the port's: both hit
@@ -53,9 +57,13 @@ VARIANTS = {
     "fixed doc chunks": (True, [(
         _KERNEL, "const bool steal = kPos || ck > kStealCk;",
         "const bool steal = false;")]),
-    "rows reloaded per term": (True, [(
-        _KERNEL, "const bool held = L <= kSlots;",
-        "const bool held = false;")]),
+    # step 3 undone for the sweep's fields of 8 slots: their rows read
+    # through step 7's term tables
+    "narrow rows through tables": (True, [
+        (_KERNEL, "const bool held = L <= kSlots;",
+         "const bool held = false;"),
+        (_KERNEL, "a.L[a.clause[c][2]] <= kSlots) continue;",
+         "false) continue;")]),
     "sub-chunks of 4 tiles": (True, [(
         _WRAPPER, "_BUNDLE_CHUNK_TILES = 8", "_BUNDLE_CHUNK_TILES = 4")]),
     "sub-chunks of 16 tiles": (True, [(
@@ -68,18 +76,29 @@ VARIANTS = {
     "hot leaf": (False, [(
         _KERNEL, "a.pfields, doc, sl, ml);",
         "a.pfields, doc & 1023u, sl, ml);")]),
+    # the hybrid walk's two clauses, each left out in turn: a dense
+    # clause that compares no term (no doc matches it), a vector clause
+    # that reads no column (its matches unchanged)
+    "no dense terms": (False, [(
+        _KERNEL, "const int qm = a.qm;", "const int qm = 0;")]),
+    "no column read": (True, [(
+        _KERNEL, "sel(ex, __ldg(col + b * a.cap + doc))",
+        "sel(ex, 0.5f)")]),
 }
+# the variants timed on each walk (default: every variant on the sweep's
+# walks, the hybrid ones on the hybrid walk)
+HYBRID_VARIANTS = ("no dense terms", "no column read")
 
 
-def make_variant(name: str, edits, dest: Path) -> Path:
-    """A copy of the port's ops under dest/<name>/ with the edits made
-    (each text must occur exactly once; a text of None: the replacement
-    is the whole file)."""
+def make_variant(name: str, edits, dest: Path, src: Path = ROOT) -> Path:
+    """A copy of the ops of the checkout at `src` (default: this one)
+    under dest/<name>/ with the edits made (each text must occur exactly
+    once; a text of None: the replacement is the whole file)."""
     root = dest / name.replace(" ", "_")
     ops = root / "elasticsearch_tpu_torch" / "ops"
     if root.exists():
         shutil.rmtree(root)
-    shutil.copytree(ROOT / "elasticsearch_tpu_torch" / "ops", ops,
+    shutil.copytree(src / "elasticsearch_tpu_torch" / "ops", ops,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     for rel, old, new in edits:
         path = ops / rel
@@ -95,7 +114,8 @@ def make_variant(name: str, edits, dest: Path) -> Path:
 
 
 def walks(sw) -> list[tuple[str, tuple, dict]]:
-    """(label, walk arguments, walk keywords) of the timed walks."""
+    """(label, walk arguments, walk keywords) of the timed walks on the
+    sweep's inputs."""
     from elasticsearch_tpu_torch.ops.scoring import bundle_tile_bounds
     B = sw.B
     msm = sw.t(np.ones(B, np.int32))
@@ -128,6 +148,16 @@ def main(argv=None) -> int:
     p.add_argument("--variants", nargs="*", default=list(VARIANTS),
                    choices=list(VARIANTS))
     p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--ops", default=None,
+                   help="a checkout (an earlier commit's, under "
+                        "smoke_checkout/) whose K3 and its variants are "
+                        "timed instead of this one's")
+    p.add_argument("--walks", choices=("sweep", "hybrid", "all"),
+                   default="all",
+                   help="the sweep's walks (every variant but the hybrid "
+                        "ones), the synthetic hybrid walk "
+                        "(chip_smoke.hybrid_walk: HYBRID_VARIANTS, its "
+                        "ck 0 form too), or both")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -140,20 +170,38 @@ def main(argv=None) -> int:
     print(gpu, flush=True)
     cs.build()
     dest = ROOT / "smoke_checkout" / "variants"
-    roots = {n: make_variant(n, VARIANTS[n][1], dest) for n in args.variants}
+    src = Path(args.ops).resolve() if args.ops else ROOT
+    roots = {n: make_variant(n, VARIANTS[n][1], dest, src)
+             for n in args.variants}
+    if args.ops:
+        roots["base"] = src
     # one nvcc per variant, all started together
     with ThreadPoolExecutor(max_workers=len(roots)) as pool:
         mods = dict(zip(roots, pool.map(
             lambda r: chip_smoke.load_parent_k3(str(r)), roots.values())))
-    sw = chip_smoke.SweepInputs(torch.device("cuda"),
-                                np.random.default_rng(42), 256, 1 << 20)
+    # the K3 the variants are timed against: this checkout's, or --ops'
+    port = mods.pop("base", cs)
+    dev = torch.device("cuda")
+    plan = []
+    if args.walks in ("sweep", "all"):
+        sw = chip_smoke.SweepInputs(dev, np.random.default_rng(42), 256,
+                                    1 << 20)
+        plan += [(w, [n for n in mods if n not in HYBRID_VARIANTS])
+                 for w in walks(sw)]
+    if args.walks in ("hybrid", "all"):
+        hargs, hkw = chip_smoke.hybrid_walk(dev, np.random.default_rng(42))
+        names = [n for n in mods if n in HYBRID_VARIANTS]
+        plan += [(("hybrid (synthetic), k 10", hargs, hkw), names),
+                 (("hybrid (synthetic), k 0", hargs,
+                   {**hkw, "ck": 0, "update_thr": False}), names)]
     rows = []
     with open(out_dir / "k3_variants.jsonl", "w") as fh:
-        for label, wargs, kw in walks(sw):
-            for name, mod in mods.items():
+        for (label, wargs, kw), names in plan:
+            for name in names:
+                mod = mods[name]
                 exact = VARIANTS[name][0]
                 ab = chip_smoke.k3_ab(wargs, kw, mod, reps=args.reps,
-                                      same_counts=exact)
+                                      same_counts=exact, new=port)
                 rows.append({"walk": label, "variant": name,
                              "counts_as_port": exact,
                              "port_ms": ab["new_ms"],
